@@ -1,0 +1,103 @@
+"""ArchConfig for the port: the reference dataclass with ``dtype`` as a
+``torch.dtype``.
+
+Only the configs the port can run are registered (dense decoder LMs).
+`get(name)` returns the full config, `get_smoke(name)` the reduced
+variant the CPU tests use.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    # identity
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    source: str = ""
+    # transformer backbone
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    # attention flavour
+    attn_kind: str = "full"  # full | swa | chunked_local
+    window: int = 0  # sliding-window size (swa)
+    chunk_window: int = 0  # chunked-local chunk (llama4)
+    global_layers: tuple[int, ...] = ()  # layer indices with full attention
+    global_every: int = 0  # every k-th layer full attention (llama4 iRoPE)
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    pos_kind: str = "rope"  # rope | sinusoidal | none
+    norm_kind: str = "rms"  # rms | ln
+    mlp_kind: str = "swiglu"  # swiglu | gelu
+    mlp_bias: bool = False
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    # MoE / SSM / hybrid / enc-dec / frontends (not ported: model_zoo raises)
+    n_experts: int = 0
+    experts_per_token: int = 0
+    ssm_state: int = 0
+    hybrid: bool = False
+    encoder_layers: int = 0
+    frontend: str = ""
+    n_frontend_tokens: int = 0
+    # numerics
+    dtype: torch.dtype = torch.bfloat16
+    supports_long_context: bool = False
+    supports_decode: bool = True
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def d_q(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    @property
+    def d_kv(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
+    def layer_windows(self) -> list[int]:
+        """Per-layer attention window (0 = full causal)."""
+        out = []
+        for i in range(self.n_layers):
+            full = (
+                self.attn_kind == "full"
+                or i in self.global_layers
+                or (self.global_every and (i + 1) % self.global_every == 0)
+            )
+            if full:
+                out.append(0)
+            elif self.attn_kind == "swa":
+                out.append(self.window)
+            elif self.attn_kind == "chunked_local":
+                out.append(self.chunk_window)
+            else:
+                out.append(0)
+        return out
+
+
+REGISTRY: dict[str, str] = {
+    "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+}
+
+
+def get(name: str) -> ArchConfig:
+    return importlib.import_module(REGISTRY[name]).CONFIG
+
+
+def get_smoke(name: str) -> ArchConfig:
+    return importlib.import_module(REGISTRY[name]).SMOKE

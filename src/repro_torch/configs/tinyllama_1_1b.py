@@ -1,0 +1,30 @@
+"""tinyllama-1.1b — llama2-arch small dense LM [arXiv:2401.02385; hf].
+
+22L d_model=2048 32H (GQA kv=4) d_ff=5632 vocab=32000.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="tinyllama-1.1b",
+    family="dense",
+    source="arXiv:2401.02385; hf",
+    n_layers=22,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=5632,
+    vocab_size=32000,
+    rope_theta=10000.0,
+    supports_long_context=False,
+)
+
+SMOKE = ArchConfig(
+    name="tinyllama-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=128,
+    n_heads=8,
+    n_kv_heads=2,
+    d_ff=256,
+    vocab_size=512,
+)

@@ -1,0 +1,2 @@
+"""Hand-written Hopper kernels of the port, each beside its plain
+PyTorch version. Sources live in ``csrc/``; `runtime` builds them."""

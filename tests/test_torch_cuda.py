@@ -1,0 +1,171 @@
+"""PyTorch port on the card: each hand-written CUDA kernel against its
+plain PyTorch version, and the continuous-batching engine on the GPU
+against the same engine on the CPU. Every test here needs a CUDA device
+and skips without one; the file imports no JAX, so it runs on a machine
+that has only the port:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Tolerances, with their reasons:
+  * paged decode, f32 pools: 2e-5 (the kernel streams the softmax in
+    f32, the plain version takes it whole);
+  * paged decode, bf16 and int8 pools: 2e-2 (bf16 outputs; the plain
+    version rounds its probabilities to q's dtype, the kernel does not);
+  * argmax: exact, ties included;
+  * engine: identical token streams and admissions in f32, logits 1e-4.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke
+from repro_torch.core.operators import kv_quantize
+from repro_torch.kernels.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_kernel,
+)
+from repro_torch.kernels.sample import argmax_last_kernel, sample_last
+from repro_torch.models.model_zoo import build
+from repro_torch.serve import EngineConfig, KVSpec, Request, make_engine
+
+pytestmark = pytest.mark.gpu
+
+B, MB, BS, N_KV, REP, HD = 4, 4, 8, 2, 4, 16
+D_KV = N_KV * HD
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _paged_case(seed, pool):
+    """Slot 0 mid-block, slot 1 at the inactive cursor mb*bs, slot 2 one
+    token, slot 3 empty (pos 0); unused table entries are -1."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, 1, N_KV * REP, HD)).astype(np.float32)
+    kn, vn = (rng.normal(size=(B, D_KV)).astype(np.float32) for _ in range(2))
+    kb, vb = (rng.normal(size=(B * MB, BS, D_KV)).astype(np.float32) for _ in range(2))
+    table = np.arange(B * MB, dtype=np.int32).reshape(B, MB)
+    table[0, 2:] = -1
+    table[2, 1:] = -1
+    table[3, :] = -1
+    pos = np.array([11, MB * BS, 1, 0], np.int32)
+    t = [torch.from_numpy(a) for a in (q, kn, vn, kb, vb, table, pos)]
+    scales = {}
+    if pool == "int8":
+        t[3], scales["k_scale"] = kv_quantize(t[3])
+        t[4], scales["v_scale"] = kv_quantize(t[4])
+    elif pool == "bf16":
+        t = [x.to(torch.bfloat16) if x.is_floating_point() else x for x in t]
+    return t, scales
+
+
+@pytest.mark.parametrize("window", [0, 1, 7])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_paged_kernel_matches_plain(cuda, window, pool):
+    t, scales = _paged_case(20 + window, pool)
+    t = [x.to(cuda) for x in t]
+    kw = dict(n_kv=N_KV, window=window, scale=HD ** -0.5,
+              **{k: v.to(cuda) for k, v in scales.items()})
+    before = paged_decode_attention_kernel.launches
+    got = paged_decode_attention(*t, **kw)
+    assert paged_decode_attention_kernel.launches == before + 1
+    want = paged_decode_attention(*t, **kw, impl="ref", dequant_dtype=t[0].dtype)
+    torch.cuda.synchronize()
+    tol = 2e-5 if pool == "f32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_paged_kernel_rejects_what_it_cannot_take(cuda):
+    t, _ = _paged_case(0, "f32")
+    t = [x.to(cuda) for x in t]
+    kw = dict(n_kv=N_KV, window=0, scale=HD ** -0.5)
+    with pytest.raises(TypeError, match="int32"):
+        paged_decode_attention(*t[:5], t[5].long(), t[6], **kw)
+    with pytest.raises(ValueError, match="k_scale"):
+        q8, _ = kv_quantize(t[3])
+        paged_decode_attention(*t[:3], q8, q8, *t[5:], **kw)
+    with pytest.raises(ValueError, match="one device"):
+        paged_decode_attention(t[0], *[x.cpu() for x in t[1:]], **kw)
+
+
+def _tied_logits():
+    x = np.full((3, 2, 1024), -1.0, np.float32)
+    x[0, -1, [3, 699]] = 7.0
+    x[1, -1, :] = 0.0
+    x[2, -1, [1023, 5]] = 2.0
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_argmax_kernel_matches_plain(cuda, dtype):
+    rows = np.random.default_rng(0).normal(size=(5, 2, 1024)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([_tied_logits(), rows])).to(cuda, dtype)
+    before = argmax_last_kernel.launches
+    got = sample_last(x)
+    assert argmax_last_kernel.launches == before + 1
+    assert torch.equal(got, sample_last(x, impl="ref"))
+    assert got[:3].tolist() == [3, 0, 5]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _run_engine(model, params, kv):
+    e = make_engine(model, params, EngineConfig(mode="continuous", max_batch=3, max_len=64,
+                                                kv=KVSpec(**kv)))
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, model.cfg.vocab_size, 16)
+    for i in range(7):
+        prompt = rng.integers(0, model.cfg.vocab_size, int(rng.integers(3, 25)))
+        if i % 2:
+            prompt = np.concatenate([prefix, prompt])
+        e.submit(Request(uid=i, prompt=prompt.astype(np.int32),
+                         max_new_tokens=int(rng.integers(2, 9))))
+    ticks = []
+    while not e.idle():
+        e.step()
+        ticks.append((e.last_tick["decode_batch"], e.last_tick["prefill_lens"],
+                      e.last_tick["kv"]))
+    return e, ticks
+
+
+@pytest.mark.parametrize("kv_dtype", ["cache", "int8"])
+def test_engine_on_gpu_matches_cpu(cuda, kv_dtype):
+    """The same f32 weights serve the same requests on both devices: the
+    GPU run goes through both kernels on every decode tick, the CPU run
+    through their plain versions. With the bf16 cache pool the runs agree
+    tick for tick and token for token. With int8 pools the kernel
+    dequantizes in f32 and the plain version to the bf16 cache dtype, so
+    the logits differ by bf16 rounding and a near-tie may flip a token:
+    there every request must finish with its full token count."""
+    cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.float32)
+    cpu_model, gpu_model = build(cfg, device="cpu"), build(cfg, device="cuda")
+    params = cpu_model.init(0)
+    gpu_params = _to(params, cuda)
+    kv = dict(kind="paged", block_size=8, prefix_cache=kv_dtype == "cache", kv_dtype=kv_dtype)
+    paged0, argmax0 = paged_decode_attention_kernel.launches, argmax_last_kernel.launches
+    ge, gticks = _run_engine(gpu_model, gpu_params, kv)
+    decode_ticks = sum(1 for t in gticks if t[0])
+    assert paged_decode_attention_kernel.launches - paged0 == cfg.n_layers * decode_ticks
+    assert argmax_last_kernel.launches - argmax0 >= decode_ticks
+    ce, cticks = _run_engine(cpu_model, params, kv)
+    if kv_dtype == "int8":
+        assert {r.uid: len(r.out_tokens) for r in ge.finished} == \
+               {r.uid: r.max_new_tokens for r in ce.finished}
+        return
+    assert gticks == cticks
+    assert {r.uid: r.out_tokens for r in ge.finished} == \
+           {r.uid: r.out_tokens for r in ce.finished}
