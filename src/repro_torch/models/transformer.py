@@ -18,6 +18,7 @@ import math
 import torch
 
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers
 
 Params = dict
@@ -35,7 +36,9 @@ def init_lm(cfg, gen: torch.Generator, device=None) -> Params:
     zero biases). Matmul weights and tables are stored in ``cfg.dtype``,
     norms in f32. The draws differ from the reference's `jax.random`
     ones; parity tests carry the reference weights over with
-    `utils.convert.params_from_numpy` instead."""
+    `utils.convert.params_from_numpy` instead. ``device``: cuda unless
+    the caller names another (`resolve_device`); ``gen`` must live there."""
+    device = resolve_device(device)
     kw = dict(dtype=cfg.dtype, device=device)
     d = cfg.d_model
     out_layers = []
@@ -123,6 +126,9 @@ def lm_logits(cfg, params: Params, hidden: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+    """A zeroed dense cache on ``device`` (cuda unless the caller names
+    another; `resolve_device`)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.d_kv)
     return {
         "pos": torch.zeros((), dtype=torch.int32, device=device),

@@ -43,13 +43,15 @@ class KVSpec:
 
 @dataclasses.dataclass
 class ServeConfig:
-    """Fields shared by every serving engine. ``mode``: ``aligned`` (the
-    phase-aligned tick with a shared cursor) or ``continuous`` (slot-level
-    continuous batching with ragged cursors). Paged KV needs continuous."""
+    """Fields shared by every serving engine. ``mode``: ``continuous``
+    (slot-level continuous batching with ragged cursors) or ``aligned``
+    (the phase-aligned tick with a shared cursor). Paged KV needs
+    continuous. The default is continuous, the one mode the port's engine
+    runs so far (the reference defaults to aligned, which is not ported)."""
 
     max_len: int = 512
     eos_id: int = -1  # -1: never stop early
-    mode: str = "aligned"  # aligned | continuous
+    mode: str = "continuous"  # continuous | aligned
     kv: KVSpec = dataclasses.field(default_factory=KVSpec)
 
     def __post_init__(self):

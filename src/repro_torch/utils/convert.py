@@ -5,17 +5,21 @@ turned every leaf into a numpy array (``jax.tree.map(np.asarray, p)``;
 bf16 leaves arrive as ``ml_dtypes.bfloat16``). It unstacks the scanned
 ``(L, ...)`` layer leaves into the port's per-layer dicts and stores the
 tensors as the port keeps them: matmul weights, biases and embedding
-tables in ``cfg.dtype``, norm scales and biases in f32. This module
-imports no JAX.
+tables in ``cfg.dtype``, norm scales and biases in f32, on the device
+the caller names (`resolve_device`: no device is an error without a
+GPU, never a quiet CPU fallback). This module imports no JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.runtime import resolve_device
 
-def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
-    """numpy -> torch, bf16 (ml_dtypes) included, bit for bit."""
+
+def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """numpy -> torch on ``device``, bf16 (ml_dtypes) included, bit for bit."""
+    device = resolve_device(device)
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
@@ -29,9 +33,10 @@ def _convert(tree, dtype, device, is_norm: bool = False):
     return t.to(torch.float32 if is_norm else dtype)
 
 
-def params_from_numpy(tree: dict, cfg, device=None) -> dict:
+def params_from_numpy(tree: dict, cfg, device) -> dict:
     """The reference's dense-LM parameter tree (numpy leaves, layers
     stacked on a leading L axis) -> the port's parameters on ``device``."""
+    device = resolve_device(device)
     stacked = tree["layers"]
     per_layer = [_index(stacked, i) for i in range(cfg.n_layers)]
     out = {k: _convert(v, cfg.dtype, device, "norm" in k)

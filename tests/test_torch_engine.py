@@ -210,10 +210,10 @@ def test_page_admission_budget_matches_reference(models):
 
 def test_make_engine_dispatch(models):
     _, (tm, tp) = models
-    e = make_engine(tm, tp, ServeConfig(mode="continuous", max_len=32))
-    assert e.cfg.max_batch == 8 and e.kv.kind == "dense"
+    e = make_engine(tm, tp, ServeConfig(max_len=32))
+    assert e.cfg.max_batch == 8 and e.kv.kind == "dense" and e.cfg.mode == "continuous"
     with pytest.raises(NotImplementedError, match="aligned"):
-        make_engine(tm, tp, EngineConfig(max_len=32))
+        make_engine(tm, tp, EngineConfig(mode="aligned", max_len=32))
 
     @dataclasses.dataclass
     class SpecConfig(ServeConfig):
@@ -222,7 +222,7 @@ def test_make_engine_dispatch(models):
     with pytest.raises(NotImplementedError, match="A6"):
         make_engine(tm, tp, SpecConfig(mode="continuous"))
     with pytest.raises(ValueError, match="continuous"):
-        EngineConfig(kv=KVSpec(kind="paged"))
+        EngineConfig(mode="aligned", kv=KVSpec(kind="paged"))
 
 
 @pytest.mark.parametrize("n,max_len,want", [(1, None, 8), (8, None, 8), (9, None, 16),

@@ -68,7 +68,7 @@ def test_migrate_cache_into_blocks_in_place_matches_reference(quantized):
     pool = _bf16(rng, 2, 7, 4, 8)
     cache1 = {"k": _bf16(rng, 2, 1, 10, 8), "v": _bf16(rng, 2, 1, 10, 8)}
     ids = np.array([5, 2, 6], np.int32)
-    tk = tensor_from_numpy(pool).to(torch.bfloat16)
+    tk = tensor_from_numpy(pool, "cpu").to(torch.bfloat16)
     tv = tk.clone()
     tc = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in cache1.items()}
     jk = jnp.asarray(pool, jnp.bfloat16)

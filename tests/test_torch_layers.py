@@ -154,7 +154,7 @@ def test_tensor_from_numpy_bf16_bits():
     import ml_dtypes
 
     a = np.random.default_rng(8).normal(size=(4, 5)).astype(ml_dtypes.bfloat16)
-    t = tensor_from_numpy(a)
+    t = tensor_from_numpy(a, "cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
 

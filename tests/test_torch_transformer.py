@@ -98,7 +98,8 @@ def test_prefill_matches_reference(lm, length):
     jl, jcache, _ = jt.prefill_lm(jc, jp, jnp.asarray(toks),
                                   jt.init_cache(jc, b, s + 4, jnp.float32), length=jlen)
     tl, tcache = tt.prefill_lm(tc, tp, torch.from_numpy(toks).long(),
-                               tt.init_cache(tc, b, s + 4, torch.float32), length=tlen)
+                               tt.init_cache(tc, b, s + 4, torch.float32, "cpu"),
+                               length=tlen)
     assert tl.shape == (b, 1, tc.vocab_size)
     _close(tl, jl)
     for key in ("k", "v"):
@@ -160,13 +161,14 @@ def test_paged_decode_continues_prefill(lm):
     token (the decode path and the prefill path agree in the port)."""
     _, _, _, tc, tp = lm
     toks = torch.from_numpy(_tokens(tc, 1, 7, seed=4)).long()
-    _, cache = tt.prefill_lm(tc, tp, toks[:, :6], tt.init_cache(tc, 1, 8, torch.float32))
+    _, cache = tt.prefill_lm(tc, tp, toks[:, :6],
+                             tt.init_cache(tc, 1, 8, torch.float32, "cpu"))
     pview = {"k_pool": cache["k"][:, :, :8].reshape(tc.n_layers, 2, 4, tc.d_kv).clone(),
              "v_pool": cache["v"][:, :, :8].reshape(tc.n_layers, 2, 4, tc.d_kv).clone(),
              "tables": torch.tensor([[0, 1]], dtype=torch.int32),
              "pos": torch.tensor([6], dtype=torch.int32)}
     logits, _, _ = tt.decode_step_paged_lm(tc, tp, pview, toks[:, 6:7])
-    want, _ = tt.prefill_lm(tc, tp, toks, tt.init_cache(tc, 1, 8, torch.float32))
+    want, _ = tt.prefill_lm(tc, tp, toks, tt.init_cache(tc, 1, 8, torch.float32, "cpu"))
     torch.testing.assert_close(logits, want, **TOL)
 
 
@@ -175,7 +177,7 @@ def test_prefill_past_blockwise_threshold_raises():
     tokens = torch.zeros((1, tt.BLOCKWISE_THRESHOLD + 1), dtype=torch.long)
     params = tt.init_lm(tc, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="blockwise"):
-        tt.prefill_lm(tc, params, tokens, tt.init_cache(tc, 1, tokens.shape[1]))
+        tt.prefill_lm(tc, params, tokens, tt.init_cache(tc, 1, tokens.shape[1], device="cpu"))
 
 
 def test_model_zoo_device_and_families():
@@ -186,3 +188,24 @@ def test_model_zoo_device_and_families():
             build(tc)  # the default device is cuda: no quiet CPU fallback
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         build(dataclasses.replace(tc, family="moe", n_experts=4), device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["init_lm", "init_cache", "params_from_numpy"])
+def test_entry_points_default_to_cuda(entry):
+    """Every entry point that makes tensors runs on cuda unless the caller
+    names another device: without a GPU, no device is an error, never a
+    quiet CPU fallback; device="cpu" works."""
+    tc = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.float32, n_layers=1)
+    tree = {"embed": {"table": np.zeros((tc.vocab_size, tc.d_model), np.float32)},
+            "final_norm": {"scale": np.ones((tc.d_model,), np.float32)},
+            "layers": {"norm1": {"scale": np.ones((1, tc.d_model), np.float32)}}}
+    make = {
+        "init_lm": lambda **kw: tt.init_lm(tc, torch.Generator().manual_seed(0), **kw),
+        "init_cache": lambda **kw: tt.init_cache(tc, 1, 4, **kw),
+        "params_from_numpy": lambda **kw: params_from_numpy(tree, tc, **kw),
+    }[entry]
+    flat = jax.tree_util.tree_leaves(make(device="cpu"))
+    assert flat and all(t.device.type == "cpu" for t in flat)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(device=None)
