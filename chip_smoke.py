@@ -11,21 +11,30 @@ prints no result:
                ``src/repro_torch/kernels/csrc`` into ``build/repro_torch``.
 3. kernels  — each kernel against its plain PyTorch version on the card,
                at the main path's full-width shapes (paged decode also
-               with f32 q and pools, at f32 precision), with CUDA-event times
+               with f32 q and pools, at f32 precision, and at
+               starcoder2-15b's group of 12 heads of 128; flash attention
+               in f32 at S=1000 and in bf16 at the prefill shapes of both
+               serve arms and of starcoder2-15b), with CUDA-event times
                of the kernel, the plain version, the bound and (where one
                exists) the one PyTorch call computing the same function,
                and the profiler's device time of each (``*_device_ms``).
 4. serve    — tinyllama-1.1b at full width, random weights from --seed,
                through `make_engine` with continuous batching over the
                paged KV store and prefix cache: 16 requests drained, launch
-               counts checked against the decode ticks, the first decode
-               tick's logits held against the plain path; then a short
-               int8-pool arm.
+               counts checked against the prefill calls and decode ticks,
+               the first prefill call's and the first decode tick's logits
+               held against the plain path; then a short int8-pool arm.
 5. profile  — 16 decode-only ticks of a fresh engine on the host clock,
                16 more under `torch.profiler`: wall and device time per
                tick, the device's idle share, device time by kernel class
                (not part of the counts).
-6. summary  — a ``{"kernels": [...]}`` line, then the last line
+6. long     — qwen2.5-3b at full width and depth, random bf16 weights
+               from --seed, the same engine with 2 slots and max_len
+               16384: four prompts of 9,500-15,000 tokens (two share a
+               12,000-token document), prefill through the flash kernel,
+               the same checks, prefill time per call, prefill tokens/s
+               and time to first token.
+7. summary  — a ``{"kernels": [...]}`` line, then the last line
                ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, the script
@@ -47,6 +56,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # outside the tensor cores
 # tolerances, stated before the run
 # paged decode, bf16 and int8 pools: per slot, max |kernel - plain| over the
 # rms of the plain output. The kernel keeps scores, probabilities and
@@ -60,12 +70,41 @@ PAGED_REL = 2.0 ** -3
 # hold it. Dropping or adding one live position moves a slot's output by
 # ~1/len(slot) (>= 5e-4 here), so this pins the masks and the table walk.
 PAGED_F32_ATOL = 2e-5
-LOGIT_BUDGET = 0.125   # first decode tick, kernel path vs plain path, bf16 logits
+# first decode tick, kernel path vs plain path, bf16 logits (~4-5 at most,
+# one bf16 ulp 0.03): the plain path rounds its probabilities to bf16, the
+# kernel does not; more layers drift further
+LOGIT_BUDGET = {"tinyllama-1.1b": 0.125, "qwen2.5-3b": 0.25}
+# flash attention, f32 cases: absolute, the reference's own f32 kernel
+# budget (tests/test_kernels.py). At S=1000 dropping or adding one live
+# key moves a late row by ~1e-3, so this pins the masks and the tile range.
+FLASH_F32_ATOL = 2e-5
+# flash attention, bf16 cases: per output row (one query position and
+# head), max |kernel - plain| over the rms of the plain row. Both take
+# f32 scores from the same bf16 inputs and round the output once; the
+# kernel also rounds P to bf16 before P.V on the tensor cores (2^-9 of
+# each probability, ~0.002 of a row's rms), the plain version does not.
+# One output ulp is 2^-8 to 2^-7 of an element and a row's largest
+# elements reach ~4x its rms: up to ~0.03 with the P rounding. A wrong
+# head or tile moves a row by about its rms; the f32 cases pin the masks
+# exactly.
+FLASH_REL = 2.0 ** -4
+# first prefill call, kernel path vs the plain route (`impl="ref"`), bf16
+# last-position logits. Logits reach ~4-5, where one bf16 ulp is 0.03. The
+# plain route rounds scores and probabilities to bf16 while the kernel
+# keeps f32, so a few ulps of drift are expected over 22 layers
+# (tinyllama, plain attention) and more over 36 (qwen2.5-3b, blockwise
+# attention past 8192 tokens, which also rounds each block's P to bf16).
+PREFILL_BUDGET = {"tinyllama-1.1b": 0.125, "qwen2.5-3b": 0.25}
+# greedy check on those rows: the plain route must score the kernel
+# path's greedy token within 2 x budget of its own best, so the tokens
+# agree on every row whose plain top-2 margin exceeds that
 
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 PAGED_TPU = "src/repro/kernels/paged_attention/paged_attention.py:135"
 ARGMAX_SRC = "src/repro_torch/kernels/csrc/argmax_last.cu"
 ARGMAX_TPU = "src/repro/kernels/sample/sample.py:50"
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:80"
 
 
 def emit(obj) -> None:
@@ -113,24 +152,26 @@ def device_ms(torch, fns, iters: int = 20) -> float | None:
     return us / 1e3 / iters if us else None
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # -- phase 3: kernels against their plain versions ----------------------------
 
 
-def paged_case(torch, np, *, quantized: bool, window: int, seed: int, dtype):
+def paged_case(torch, np, *, quantized: bool, window: int, seed: int, dtype,
+               h: int = 32, n_kv: int = 4, hd: int = 64):
     """Full-width decode shapes: 8 slots, 32 query heads over 4 KV heads of
-    64, 16-token blocks, 128 blocks per table. Slot 0 has pos 0, slot 1
-    is an inactive slot (pos = mb*bs, all -1 table), the rest hold
-    256..1900 tokens in randomly placed blocks, unmapped tail -1. q, the
-    new rows and a float pool are in ``dtype``."""
+    64 (tinyllama-1.1b) unless given, 16-token blocks, 128 blocks per
+    table. Slot 0 has pos 0, slot 1 is an inactive slot (pos = mb*bs,
+    all -1 table), the rest hold 256..1900 tokens in randomly placed
+    blocks, unmapped tail -1. q, the new rows and a float pool are in
+    ``dtype``."""
     from repro_torch.core.operators import kv_quantize
 
-    b, h, n_kv, hd, bs, mb = 8, 32, 4, 64, 16, 128
+    b, bs, mb = 8, 16, 128
     d_kv = n_kv * hd
     nb = b * mb + 1
     rng = np.random.default_rng(seed)
@@ -211,10 +252,36 @@ def check_paged_f32(torch, np, seed: int) -> None:
                 raise AssertionError(f"paged decode kernel disagrees with its plain version: {case}")
 
 
+def check_paged_group12(torch, np, seed: int) -> None:
+    """starcoder2-15b's KV group, 48 query heads over 4 KV heads of 128
+    (12 x 128 outputs per block): f32 at PAGED_F32_ATOL, bf16 at
+    PAGED_REL."""
+    from repro_torch.kernels.paged_attention import ops
+
+    for dtype in (torch.float32, torch.bfloat16):
+        args, kw, _, _ = paged_case(torch, np, quantized=False, window=0, seed=seed,
+                                    dtype=dtype, h=48, n_kv=4, hd=128)
+        out = ops.paged_decode_attention(**args, **kw)
+        ref = ops.paged_decode_attention(**args, **kw, impl="ref", dequant_dtype=dtype)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = slot_rel_err(out, ref)
+        f32 = dtype == torch.float32
+        case = {"phase": "kernels", "kernel": "paged_decode_attention", "heads": [48, 4, 128],
+                "q": "f32" if f32 else "bf16", "pool": "f32" if f32 else "bf16", "window": 0,
+                "max_abs_err": err, "max_slot_rel_err": rel,
+                "atol" if f32 else "rel_budget": PAGED_F32_ATOL if f32 else PAGED_REL,
+                "finite": bool(torch.isfinite(out).all().item())}
+        emit(case)
+        if not case["finite"] or not (err <= PAGED_F32_ATOL if f32 else rel <= PAGED_REL):
+            raise AssertionError(f"paged decode kernel disagrees at a 12 x 128 group: {case}")
+
+
 def check_paged(torch, np, seed: int) -> dict:
     from repro_torch.kernels.paged_attention import ops
 
     check_paged_f32(torch, np, seed)
+    check_paged_group12(torch, np, seed)
     cases = []
     for quantized in (False, True):
         for window in (0, 256):
@@ -293,20 +360,204 @@ def check_argmax(torch, np, seed: int) -> dict:
             "library_ms": case["library_ms"], "library_device_ms": case["library_device_ms"]}
 
 
+# flash attention at the prefill shapes of the serve arms: name, batch,
+# length, query heads, KV heads, head dim, window, whether the plain
+# version runs one KV group at a time (all heads' S x S f32 scores and
+# probabilities would take 2 x 17 GB at S=16384), timing iterations
+FLASH_CASES = [
+    ("tinyllama-1.1b packed prefill", 4, 1024, 32, 4, 64, 0, False, 20),
+    ("qwen2.5-3b", 1, 16384, 16, 2, 128, 0, True, 3),
+    ("qwen2.5-3b window 4096", 1, 16384, 16, 2, 128, 4096, True, 3),
+    ("starcoder2-15b group", 1, 4096, 48, 4, 128, 0, False, 10),
+]
+
+
+def flash_inputs(torch, *, b, s, h, n_kv, hd, dtype, seed):
+    """Model-layout (B, S, H, d) q and (B, S, Kv, d) k, v, N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return randn(b, s, h, hd), randn(b, s, n_kv, hd), randn(b, s, n_kv, hd)
+
+
+def flash_plain(torch, ops, q, k, v, window: int, by_group: bool):
+    """The plain version (`impl="ref"`), whole or one KV group at a time."""
+    if not by_group:
+        return ops.mha(q, k, v, window=window, impl="ref")
+    n_kv = k.shape[2]
+    rep = q.shape[2] // n_kv
+    return torch.cat([ops.mha(q[:, :, g * rep:(g + 1) * rep], k[:, :, g:g + 1],
+                              v[:, :, g:g + 1], window=window, impl="ref")
+                      for g in range(n_kv)], dim=2)
+
+
+def live_pairs(np, sq: int, sk: int, window: int) -> int:
+    """Causal (and windowed) live (query, key) pairs, start-aligned."""
+    qp = np.arange(sq)
+    hi = np.minimum(qp, sk - 1)
+    lo = np.maximum(0, qp - window + 1) if window > 0 else np.zeros_like(qp)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def row_rel_err(out, ref) -> float:
+    """Max over output rows (one query position and head) of
+    max |out - ref| / rms(ref)."""
+    d = (out.float() - ref.float()).abs().amax(-1)
+    rms = ref.float().square().mean(-1).sqrt().clamp_min(1e-6)
+    return (d / rms).max().item()
+
+
+def check_flash_f32(torch, np, seed: int) -> None:
+    """The kernel's logic at f32 precision: S=1000 (not a multiple of the
+    64-row and 64-key tiles), windows 0 and 256, groups of 8 (hd 64) and
+    12 (hd 128)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    for h, n_kv, hd in ((32, 4, 64), (48, 4, 128)):
+        for window in (0, 256):
+            q, k, v = flash_inputs(torch, b=2, s=1000, h=h, n_kv=n_kv, hd=hd,
+                                   dtype=torch.float32, seed=seed)
+            out = ops.mha(q, k, v, window=window)
+            ref = ops.mha(q, k, v, window=window, impl="ref")
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            case = {"phase": "kernels", "kernel": "flash_attention", "dtype": "f32",
+                    "shape": [2, 1000, h, n_kv, hd], "window": window, "max_abs_err": err,
+                    "atol": FLASH_F32_ATOL, "finite": bool(torch.isfinite(out).all().item())}
+            emit(case)
+            if not case["finite"] or not err <= FLASH_F32_ATOL:
+                raise AssertionError(f"flash kernel disagrees with its plain version: {case}")
+
+
+def check_flash(torch, np, seed: int) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+
+    check_flash_f32(torch, np, seed)
+    cases = []
+    for name, b, s, h, n_kv, hd, window, by_group, iters in FLASH_CASES:
+        q, k, v = flash_inputs(torch, b=b, s=s, h=h, n_kv=n_kv, hd=hd, dtype=torch.bfloat16,
+                               seed=seed)
+        out = ops.mha(q, k, v, window=window)
+        ref = flash_plain(torch, ops, q, k, v, window, by_group)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = row_rel_err(out, ref)
+        finite = bool(torch.isfinite(out).all().item())
+        del out, ref
+        torch.cuda.empty_cache()
+        pairs = live_pairs(np, s, s, window)
+        flops = 4.0 * b * h * hd * pairs
+        b_ms, b_by = bound_ms((2 * b * s * h * hd + 2 * b * s * n_kv * hd) * 2, flops)
+        kern = [lambda: ops.mha(q, k, v, window=window)]
+        case = {"phase": "kernels", "kernel": "flash_attention", "case": name, "dtype": "bf16",
+                "shape": [b, s, h, n_kv, hd], "window": window, "live_pairs": pairs,
+                "max_abs_err": err, "max_row_rel_err": rel, "rel_budget": FLASH_REL,
+                "finite": finite, "kernel_ms": cuda_ms(torch, kern, iters, warmup=1),
+                "kernel_device_ms": device_ms(torch, kern, iters),
+                "bound_ms": b_ms, "bound_by": b_by}
+        case["kernel_tflops"] = flops / case["kernel_ms"] / 1e9
+        if by_group:
+            case.update(plain_ms=None, plain_device_ms=None,
+                        plain_null_reason="all heads' S x S f32 scores do not fit one call; "
+                                          "the check ran it one KV group at a time")
+        else:
+            plain = [lambda: ops.mha(q, k, v, window=window, impl="ref")]
+            case.update(plain_ms=cuda_ms(torch, plain, iters, warmup=1),
+                        plain_device_ms=device_ms(torch, plain, iters))
+        if window == 0:
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib = [lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True)]
+            case.update(library_ms=cuda_ms(torch, lib, iters, warmup=1),
+                        library_device_ms=device_ms(torch, lib, iters))
+        else:
+            case.update(library_ms=None, library_device_ms=None,
+                        library_null_reason="no single library call takes a sliding window "
+                                            "without an S x S mask")
+        emit(case)
+        if not finite or not rel <= FLASH_REL:
+            raise AssertionError(f"flash kernel disagrees with its plain version: {case}")
+        cases.append(case)
+        del q, k, v, kern
+        torch.cuda.empty_cache()
+    main = cases[0]  # the tinyllama serve arm's packed prefill: the launches' shape
+    return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+            "replaces": FLASH_TPU, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "device_ms": main["kernel_device_ms"], "plain_device_ms": main["plain_device_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "library_device_ms": main["library_device_ms"]}
+
+
 # -- phase 4: full-width serve -------------------------------------------------
 
 
-def serve_arm(torch, np, model, params, *, kv, n_req: int, seed: int, arm: str) -> dict:
+def short_requests(np, cfg, *, n_req: int, seed: int) -> list:
+    """The tinyllama arm's traffic: prompts of 64..1024 tokens, half behind
+    a shared 256-token prefix, 64 new tokens each."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, 256)
+    reqs = []
+    for i in range(n_req):
+        n = int(rng.integers(64, 1025))
+        if i % 2 == 0:  # half share a 256-token prefix
+            n = max(n, 256 + 16)
+            prompt = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n - 256)])
+        else:
+            prompt = rng.integers(0, cfg.vocab_size, n)
+        reqs.append(Request(uid=i, prompt=prompt.astype(np.int32), max_new_tokens=64))
+    return reqs
+
+
+def long_requests(np, cfg, *, seed: int) -> list:
+    """The long-prompt arm's traffic, in submission order: question 1 over
+    a 12,000-token document (+300-token tail), an unrelated 15,000-token
+    prompt, question 2 over the same document (+700), an unrelated
+    9,500-token prompt; 16 new tokens each. Every prompt is past 8192
+    tokens and buckets to 16,384."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    doc = rng.integers(0, cfg.vocab_size, 12_000)
+    prompts = [np.concatenate([doc, rng.integers(0, cfg.vocab_size, 300)]),
+               rng.integers(0, cfg.vocab_size, 15_000),
+               np.concatenate([doc, rng.integers(0, cfg.vocab_size, 700)]),
+               rng.integers(0, cfg.vocab_size, 9_500)]
+    return [Request(uid=i, prompt=p.astype(np.int32), max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+
+
+def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: int = 8,
+              max_len: int = 2048) -> dict:
+    """Drain ``reqs`` through `make_engine` (continuous batching over
+    ``kv``) with every kernel count set to 0 just before and read just
+    after. Times each prefill call and each tick on the host clock, ended
+    by `torch.cuda.synchronize()`, and each request's first token. Holds
+    the first decode tick's logits against the plain path (inside the
+    run; its time is taken out of the run's times) and, after the run,
+    the first prefill call's last-position logits against the plain
+    route."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel as fk
     from repro_torch.kernels.paged_attention import paged_decode_attention_kernel as pk
     from repro_torch.kernels.sample import argmax_last_kernel as ak
-    from repro_torch.serve import EngineConfig, Request, make_engine
+    from repro_torch.serve import EngineConfig, make_engine
 
     cfg = model.cfg
-    first = {}
+    first, first_prefill, prefill_ms, prefill_rows = {}, {}, [], []
+    check_s = 0.0  # host time of the check inside the run, left out of its times
 
     def decode_and_check(params_, pview, token, *, impl=None):
+        nonlocal check_s
         out = model.decode_step_paged(params_, pview, token, impl=impl)
         if not first:  # hold the first decode tick against the plain path
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
             launches = pk.launches
             ref = model.decode_step_paged(params_, pview, token, impl="ref")
             if pk.launches != launches:
@@ -320,25 +571,28 @@ def serve_arm(torch, np, model, params, *, kv, n_req: int, seed: int, arm: str) 
                 greedy_agree=int((got.argmax(-1) == want.argmax(-1)).sum().item()),
                 live_rows=int(live.sum().item()),
             )
+            torch.cuda.synchronize()
+            check_s += time.perf_counter() - ts
         return out
 
-    engine = make_engine(dataclasses.replace(model, decode_step_paged=decode_and_check),
-                         params, EngineConfig(mode="continuous", max_batch=8, max_len=2048,
-                                              kv=kv))
-    rng = np.random.default_rng(seed)
-    prefix = rng.integers(0, cfg.vocab_size, 256)
-    reqs = []
-    for i in range(n_req):
-        n = int(rng.integers(64, 1025))
-        if i % 2 == 0:  # half share a 256-token prefix
-            n = max(n, 256 + 16)
-            prompt = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n - 256)])
-        else:
-            prompt = rng.integers(0, cfg.vocab_size, n)
-        reqs.append(Request(uid=i, prompt=prompt.astype(np.int32), max_new_tokens=64))
+    def timed_prefill(params_, tokens, cache=None, length=None, *, impl=None):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = model.prefill(params_, tokens, cache, length, impl=impl)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - ts) * 1e3)
+        prefill_rows.append(list(tokens.shape))
+        if not first_prefill:  # kept for the check after the run
+            first_prefill.update(tokens=tokens, length=length, logits=out[0][:, -1].clone())
+        return out
+
+    engine = make_engine(dataclasses.replace(model, decode_step_paged=decode_and_check,
+                                             prefill=timed_prefill),
+                         params, EngineConfig(mode="continuous", max_batch=max_batch,
+                                              max_len=max_len, kv=kv))
 
     # time every tick: drain() steps until idle, through this wrapper
-    decode_ticks, decode_only_ms = 0, []
+    decode_ticks, decode_only_ms, ttft_s = 0, [], {}
     step = engine.step
 
     def timed_step():
@@ -346,50 +600,93 @@ def serve_arm(torch, np, model, params, *, kv, n_req: int, seed: int, arm: str) 
         ts = time.perf_counter()
         step()
         torch.cuda.synchronize()
+        now = time.perf_counter() - check_s
         lt = engine.last_tick
         if lt["decode_batch"]:
             decode_ticks += 1
             if not lt["prefill_lens"] and not lt["prefix_hit_tokens"]:
-                decode_only_ms.append((time.perf_counter() - ts) * 1e3)
+                decode_only_ms.append((now + check_s - ts) * 1e3)
+        for r in reqs:
+            if r.out_tokens and r.uid not in ttft_s:
+                ttft_s[r.uid] = now - t0
 
     engine.step = timed_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pk.launches = 0
-    ak.launches = 0
+    pk.launches = ak.launches = fk.launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
     engine.drain()
-    wall = time.perf_counter() - t0
-    paged_n, argmax_n = pk.launches, ak.launches
+    wall = time.perf_counter() - t0 - check_s
+    paged_n, argmax_n, flash_n = pk.launches, ak.launches, fk.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # the first prefill call against the plain route, outside the timed run
+    budget = PREFILL_BUDGET[cfg.name]
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    ref, _ = model.prefill(params, first_prefill["tokens"], None, first_prefill["length"],
+                           impl="ref")
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - ts) * 1e3
+    if fk.launches != flash_n:
+        raise AssertionError("the plain prefill route launched the flash kernel")
+    got, want = first_prefill["logits"].float(), ref[:, -1].float()
+    best = want.max(-1).values
+    picked = want.gather(-1, got.argmax(-1, keepdim=True))[:, 0]
+    prefill_check = {
+        "prefill_logit_max_abs_err": (got - want).abs().max().item(),
+        "prefill_logit_ref_max_abs": want.abs().max().item(),
+        "prefill_logit_budget": budget,
+        "first_prefill_plain_route_ms": ref_ms,
+        "prefill_greedy_agree": int((got.argmax(-1) == want.argmax(-1)).sum().item()),
+        "prefill_greedy_rows": int(got.shape[0]),
+        "prefill_greedy_worst_gap": (best - picked).max().item(),
+        "prefill_ref_top2_margin_min": (lambda t: (t[:, 0] - t[:, 1]).min().item())(
+            want.topk(2, dim=-1).values),
+    }
+    del ref, first_prefill["tokens"]
 
     done = {r.uid: len(r.out_tokens) for r in engine.finished}
+    prompt_tokens = int(sum(r.prompt.shape[0] for r in reqs))
     out = {"phase": "serve", "arm": arm, "model": cfg.name, "kv_dtype": kv.kv_dtype,
-           "requests": n_req, "prompt_tokens": int(sum(r.prompt.shape[0] for r in reqs)),
+           "requests": len(reqs), "prompt_tokens": prompt_tokens,
            "tokens_out": engine.stats["tokens_out"], "ticks": engine.tick,
            "decode_ticks": decode_ticks, "cold_admissions": engine.stats["prefills"],
            "prefill_skips": engine.stats["prefill_skips"],
            "prefix_hit_tokens": engine.stats["prefix_hit_tokens"],
-           "paged_launches": paged_n, "argmax_launches": argmax_n,
-           "wall_s": wall, "tokens_per_s": engine.stats["tokens_out"] / wall,
+           "prefill_calls": len(prefill_ms), "prefill_shapes": prefill_rows,
+           "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": prompt_tokens / (sum(prefill_ms) / 1e3),
+           "ttft_s": [ttft_s.get(r.uid) for r in reqs],
+           "flash_launches": flash_n, "paged_launches": paged_n, "argmax_launches": argmax_n,
+           "wall_s": wall, "decode_check_s": check_s,
+           "tokens_per_s": engine.stats["tokens_out"] / wall,
            "median_decode_tick_ms": float(np.median(decode_only_ms)) if decode_only_ms
            else None, "decode_only_ticks": len(decode_only_ms),
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "logit_budget": LOGIT_BUDGET, **first,
+           "peak_mem_gib": peak_gib, "logit_budget": LOGIT_BUDGET[cfg.name], **first,
+           **prefill_check,
            "peak_blocks": engine.kv.stats["peak_blocks"]}
     emit(out)
-    if len(done) != n_req or any(v != 64 for v in done.values()):
-        raise AssertionError(f"{arm}: not every request finished with 64 tokens: {done}")
+    if len(done) != len(reqs) or any(done[r.uid] != r.max_new_tokens for r in reqs):
+        raise AssertionError(f"{arm}: not every request finished with its tokens: {done}")
+    if flash_n != cfg.n_layers * len(prefill_ms) or not prefill_ms:
+        raise AssertionError(f"{arm}: flash kernel ran {flash_n} times, want "
+                             f"{cfg.n_layers} x {len(prefill_ms)} prefill calls")
     if paged_n != cfg.n_layers * decode_ticks:
         raise AssertionError(f"{arm}: paged kernel ran {paged_n} times, want "
                              f"{cfg.n_layers} x {decode_ticks} decode ticks")
     if argmax_n < decode_ticks + engine.stats["prefills"]:
         raise AssertionError(f"{arm}: argmax kernel ran {argmax_n} times, want >= "
                              f"{decode_ticks} ticks + {engine.stats['prefills']} admissions")
-    if not first.get("logit_max_abs_err", math.inf) <= LOGIT_BUDGET:
+    if not first.get("logit_max_abs_err", math.inf) <= LOGIT_BUDGET[cfg.name]:
         raise AssertionError(f"{arm}: first decode tick off the plain path: {first}")
-    if engine.last_logits is None or not bool(torch.isfinite(engine.last_logits).all()):
+    if not prefill_check["prefill_logit_max_abs_err"] <= budget \
+            or not prefill_check["prefill_greedy_worst_gap"] <= 2 * budget:
+        raise AssertionError(f"{arm}: first prefill call off the plain route: {prefill_check}")
+    if engine.last_logits is None or not bool(torch.isfinite(engine.last_logits).all()) \
+            or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{arm}: non-finite logits")
     return out
 
@@ -503,29 +800,51 @@ def main(argv=None) -> int:
           "libs": {n: str(p.relative_to(HERE)) for n, p in libs.items()}, "ptxas": ptxas})
 
     # phase 3: kernels against their plain versions, full-width shapes
-    kernels = [check_paged(torch, np, args.seed), check_argmax(torch, np, args.seed)]
+    kernels = [check_paged(torch, np, args.seed), check_argmax(torch, np, args.seed),
+               check_flash(torch, np, args.seed)]
 
     # phase 4: full-width serve of tinyllama-1.1b
     cfg = get("tinyllama-1.1b")
     model = build(cfg)
     params = model.init(args.seed)
-    bf16 = serve_arm(torch, np, model, params, n_req=16, seed=args.seed, arm="bf16",
+    bf16 = serve_arm(torch, np, model, params, arm="bf16",
+                     reqs=short_requests(np, cfg, n_req=16, seed=args.seed),
                      kv=KVSpec(kind="paged", block_size=16, prefix_cache=True))
     if bf16["prefix_hit_tokens"] <= 0:
         raise AssertionError("the shared prefix never hit the prefix cache")
-    serve_arm(torch, np, model, params, n_req=4, seed=args.seed + 1, arm="int8",
+    serve_arm(torch, np, model, params, arm="int8",
+              reqs=short_requests(np, cfg, n_req=4, seed=args.seed + 1),
               kv=KVSpec(kind="paged", block_size=16, kv_dtype="int8"))
     profile_decode(torch, np, model, params, seed=args.seed + 2)
+    del model, params
+    torch.cuda.empty_cache()
 
-    # phase 5: summary; launches are the bf16 main-path run's counts. "ms",
-    # "plain_ms" and "library_ms" are CUDA-event times of back-to-back calls
-    # (host launch gaps included); the "*device_ms" keys are the profiler's
-    # kernel time alone.
-    kernels[0]["launches"] = bf16["paged_launches"]
-    kernels[1]["launches"] = bf16["argmax_launches"]
+    # phase 6: long prompts, qwen2.5-3b at full width and depth
+    qcfg = get("qwen2.5-3b")
+    qmodel = build(qcfg)
+    # the prefix cache keeps one entry per 16-token block boundary of a
+    # prompt; its default 256 entries hold 4,096 tokens of prefixes, so
+    # the arm sizes it to both slots' prompts (a 12,000-token document
+    # alone takes 750)
+    long = serve_arm(torch, np, qmodel, qmodel.init(args.seed), arm="long",
+                     reqs=long_requests(np, qcfg, seed=args.seed + 3), max_batch=2,
+                     max_len=16384, kv=KVSpec(kind="paged", block_size=16, prefix_cache=True,
+                                              prefix_capacity=2 * (16384 // 16 + 1)))
+    if long["prefix_hit_tokens"] <= 0:
+        raise AssertionError("the shared document never hit the prefix cache")
+    if any(shape[1] != 16384 for shape in long["prefill_shapes"]):
+        raise AssertionError(f"a long prompt missed the 16384 bucket: {long['prefill_shapes']}")
+
+    # phase 7: summary; launches are the bf16 tinyllama run's counts (the
+    # long arm's beside them). "ms", "plain_ms" and "library_ms" are
+    # CUDA-event times of back-to-back calls (host launch gaps included);
+    # the "*device_ms" keys are the profiler's kernel time alone.
+    for kern, key in zip(kernels, ("paged_launches", "argmax_launches", "flash_launches")):
+        kern["launches"] = bf16[key]
+        kern["launches_long_arm"] = long[key]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
-            "plain_device_ms", "library_device_ms")
+            "plain_device_ms", "library_device_ms", "launches_long_arm")
     emit({"kernels": [{k: kern[k] for k in keys} for kern in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -43,7 +43,10 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;      // pool positions per iteration (one per lane)
-constexpr int kMaxAcc = 8;     // accumulators per thread: rep*hd <= 1024
+// accumulators per thread: a (rep, hd) group of up to kThreads * kAcc
+// outputs. Instances of 8 (rep*hd <= 1024) and 16 (<= 2048, e.g. 12 query
+// heads of 128 per KV head) are built; the launch takes the smaller that fits.
+constexpr int kMaxAccLarge = 16;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -63,7 +66,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, int kAcc>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const TQ* __restrict__ q,           // (B, H, hd)
     const TQ* __restrict__ k_new,       // (B, d_kv)
@@ -113,9 +116,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     m_s[r] = -INFINITY;
     l_s[r] = 0.f;
   }
-  float acc[kMaxAcc];
+  float acc[kAcc];
 #pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) acc[j] = 0.f;
+  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
   __syncthreads();
 
   const int* tbl = table + static_cast<size_t>(b) * mb;
@@ -174,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     __syncthreads();
     // acc[r, d] = acc * alpha[r] + sum_tt p[r, tt] * v[tt, d]
 #pragma unroll
-    for (int j = 0; j < kMaxAcc; ++j) {
+    for (int j = 0; j < kAcc; ++j) {
       const int i = tid + j * kThreads;
       if (i < rows) {
         const int r = i / hd;
@@ -211,7 +214,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kMaxAcc; ++j) {
+    for (int j = 0; j < kAcc; ++j) {
       const int i = tid + j * kThreads;
       if (i < rows) {
         const int r = i / hd;
@@ -223,7 +226,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 
 #pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) {
+  for (int j = 0; j < kAcc; ++j) {
     const int i = tid + j * kThreads;
     if (i < rows) store(out + head0 + i, acc[j] / fmaxf(l_s[i / hd], 1e-30f));
   }
@@ -236,9 +239,11 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new, const vo
                    int hd, int bs, int mb, int window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(rep) * hd + kTile * (hd + 1) + kTile * hd + rep * kTile + 3 * rep);
-  if (rep * hd > kThreads * kMaxAcc || smem > 48 * 1024) return cudaErrorInvalidValue;
+  if (rep * hd > kThreads * kMaxAccLarge || smem > 48 * 1024) return cudaErrorInvalidValue;
   dim3 grid(B, n_kv);
-  paged_decode_kernel<TQ, TKV><<<grid, kThreads, smem, stream>>>(
+  auto kernel = rep * hd <= kThreads * 8 ? paged_decode_kernel<TQ, TKV, 8>
+                                         : paged_decode_kernel<TQ, TKV, kMaxAccLarge>;
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TQ*>(k_new), static_cast<const TQ*>(v_new),
       static_cast<const TKV*>(k_pool), static_cast<const TKV*>(v_pool),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),

@@ -17,6 +17,16 @@ from repro_torch.kernels import runtime
 
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the kernel's limits: a block of 128 threads holds the (rep, hd) group's
+# accumulators, at most 16 each, and stages q, one 32-position K/V tile
+# and the group's scores in at most 48 KB of shared memory
+MAX_GROUP_WIDTH = 128 * 16
+SMEM_BYTES = 48 * 1024
+
+
+def smem_bytes(rep: int, hd: int) -> int:
+    """Shared memory the kernel asks for at a (rep, hd) group."""
+    return 4 * (rep * hd + 32 * (hd + 1) + 32 * hd + rep * 32 + 3 * rep)
 
 
 def _entry():
@@ -68,6 +78,14 @@ def paged_decode_attention_kernel(
     if table.shape[0] != b or pos.shape != (b,) or k_new.shape != (b, d_kv) \
             or v_new.shape != (b, d_kv):
         raise ValueError("table (B, mb), pos (B,) and k_new/v_new (B, d_kv) must match q")
+    rep = h // n_kv
+    if rep * hd > MAX_GROUP_WIDTH:
+        raise ValueError(f"paged_decode_attention_kernel: a KV group of {rep} query heads of "
+                         f"{hd} ({rep * hd} outputs) exceeds the kernel's {MAX_GROUP_WIDTH}")
+    if smem_bytes(rep, hd) > SMEM_BYTES:
+        raise ValueError(f"paged_decode_attention_kernel: a KV group of {rep} query heads of "
+                         f"{hd} needs {smem_bytes(rep, hd)} bytes of shared memory, over the "
+                         f"kernel's {SMEM_BYTES}")
     quantized = k_blocks.dtype == torch.int8
     if quantized:
         if k_scale is None or v_scale is None:
@@ -90,7 +108,7 @@ def paged_decode_attention_kernel(
     rc = _entry()(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_blocks.data_ptr(),
         v_blocks.data_ptr(), _ptr(k_scale), _ptr(v_scale), table.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, n_kv, h // n_kv, hd, bs, mb, int(window),
+        pos.data_ptr(), out.data_ptr(), b, n_kv, rep, hd, bs, mb, int(window),
         float(scale), _Q_CODE[q.dtype], _KV_CODE[k_blocks.dtype], runtime.stream_handle(q),
     )
     runtime.check(rc, "paged_decode_attention_kernel")

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 SOURCES = {
     "paged_attention": "paged_attention.cu",
     "argmax_last": "argmax_last.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 

@@ -153,6 +153,53 @@ def attention_plain(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def attention_blockwise(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, Kv, hd)
+    v: torch.Tensor,  # (B, Sk, Kv, hd)
+    q_positions: torch.Tensor,  # (Sq,)
+    k_positions: torch.Tensor,  # (Sk,)
+    window: int,
+    softmax_scale: float,
+    kv_block: int = 1024,
+) -> torch.Tensor:
+    """Streaming softmax over KV blocks of ``kv_block``: O(Sq * kv_block)
+    scores at a time instead of O(Sq * Sk). The reference's op sequence:
+    K/V padded to whole blocks with K positions at -1e9, f32 (m, l, acc)
+    state, probabilities cast to q's dtype before the P·V einsum. As in
+    the reference, padded positions pass the mask when ``window <= 0``
+    (zero K, zero V: they add to the softmax denominator only), so the
+    result matches `attention_plain` only when ``kv_block`` divides Sk or
+    a window masks the padding."""
+    b, sq, h, hd = q.shape
+    sk, n_kv = k.shape[1], k.shape[2]
+    k = _expand_kv(k, h, n_kv)
+    v = _expand_kv(v, h, n_kv)
+    nblk = -(-sk // kv_block)
+    pad = nblk * kv_block - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_positions = torch.cat([k_positions, k_positions.new_full((pad,), -(10**9))])
+    m = torch.full((b, h, sq), -math.inf, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=q.device)
+    for i in range(nblk):
+        blk = slice(i * kv_block, (i + 1) * kv_block)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k[:, blk]).float()
+        logits = logits * softmax_scale + causal_window_mask(
+            q_positions, k_positions[blk], window)[None, None]
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype), v[:, blk]).float()
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)  # (B, Sq, H, hd)
+
+
 def attention_decode(
     q: torch.Tensor,  # (B, 1, H, hd)
     k_cache: torch.Tensor,  # (B, S, Kv*hd) flattened layout

@@ -2,7 +2,7 @@
 
     model = build(cfg)                        # device: cuda unless device="cpu"
     params = model.init(seed)                 # or a torch.Generator
-    logits, cache = model.prefill(params, tokens, length=...)
+    logits, cache = model.prefill(params, tokens, length=...)   # impl="ref": plain attention
     logits, rows_k, rows_v = model.decode_step_paged(params, kernel_view, token)
 
 Only the dense decoder family is ported. Other families raise
@@ -34,6 +34,7 @@ class Model:
     cfg: Any
     device: torch.device
     init: Callable[..., Params]
+    # (params, tokens, cache=None, length=None, *, impl=None) -> (logits, cache)
     prefill: Callable[..., tuple]
     init_cache: Callable[..., dict]
     # (params, kernel_view, token, *, impl=None) -> (logits, rows_k, rows_v)
@@ -58,10 +59,10 @@ def build(cfg, device=None) -> Model:
     def init_cache(batch_size: int, max_len: int) -> dict:
         return transformer.init_cache(cfg, batch_size, max_len, device=dev)
 
-    def prefill(params, tokens, cache=None, length=None):
+    def prefill(params, tokens, cache=None, length=None, *, impl=None):
         if cache is None:
             cache = init_cache(tokens.shape[0], tokens.shape[1])
-        return transformer.prefill_lm(cfg, params, tokens, cache, length=length)
+        return transformer.prefill_lm(cfg, params, tokens, cache, length=length, impl=impl)
 
     def decode_step_paged(params, pview, token, *, impl=None):
         return transformer.decode_step_paged_lm(cfg, params, pview, token, impl=impl)

@@ -6,10 +6,14 @@ of per-layer parameter dicts and runs a Python loop (eager PyTorch, no
 ``(L, B, S, n_kv * head_dim)`` and ``pos`` is a scalar or ``(B,)``
 int32 tensor.
 
-Prefill attention is plain PyTorch (`layers.attention_plain`), as the
-reference's prefill is jnp and not Pallas. Prompts longer than
-`BLOCKWISE_THRESHOLD` need `attention_blockwise` and the flash kernel,
-which are not in this slice: they raise.
+Prefill attention (`_attention_full`) on a CUDA tensor launches the
+hand-written flash kernel (`kernels.flash_attention.mha`) at every prompt
+length. On a CPU tensor, or with ``impl="ref"``, it takes the reference
+model's own jnp route: `layers.attention_plain` up to
+`BLOCKWISE_THRESHOLD` tokens and `layers.attention_blockwise` (blocks of
+`KV_BLOCK`) above it, so CPU parity with the reference keeps its bf16
+rounding of scores and probabilities, and ``impl="ref"`` gives the card
+a plain path to hold the kernel path against.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers
@@ -24,6 +29,7 @@ from repro_torch.models import layers
 Params = dict
 
 BLOCKWISE_THRESHOLD = 8192  # the reference streams softmax above this
+KV_BLOCK = 1024  # its block there (the reference's REPRO_KV_BLOCK default)
 
 
 # ---------------------------------------------------------------------------
@@ -68,8 +74,12 @@ def init_lm(cfg, gen: torch.Generator, device=None) -> Params:
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _attention_full(cfg, p, h, positions, window, dtype):
-    """Returns (attn_out, k_flat, v_flat)."""
+def _attention_full(cfg, p, h, positions, window, dtype, impl=None):
+    """Returns (attn_out, k_flat, v_flat). ``impl``: None launches the
+    flash kernel on a CUDA tensor; "ref" (or a CPU tensor) takes the
+    reference's plain/blockwise route."""
+    if impl not in (None, "ref"):
+        raise ValueError(f"unknown impl {impl!r} (use 'ref' or None)")
     b, s, _ = h.shape
     hd = cfg.resolved_head_dim
     q = layers.linear(p["wq"], h, dtype).reshape(b, s, cfg.n_heads, hd)
@@ -78,32 +88,36 @@ def _attention_full(cfg, p, h, positions, window, dtype):
     if cfg.pos_kind == "rope":
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    mask = layers.causal_window_mask(positions, positions, window)
-    out = layers.attention_plain(q, k, v, mask, 1.0 / math.sqrt(hd))
+    scale = 1.0 / math.sqrt(hd)
+    if impl is None and q.is_cuda:
+        out = flash_ops.mha(q, k, v, causal=True, window=window, scale=scale)
+    elif s > BLOCKWISE_THRESHOLD:
+        out = layers.attention_blockwise(q, k, v, positions, positions, window, scale,
+                                         kv_block=KV_BLOCK)
+    else:
+        mask = layers.causal_window_mask(positions, positions, window)
+        out = layers.attention_plain(q, k, v, mask, scale)
     out = layers.linear(p["wo"], out.reshape(b, s, cfg.d_q), dtype)
     return out, k.reshape(b, s, cfg.d_kv), v.reshape(b, s, cfg.d_kv)
 
 
-def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, want_kv: bool = False):
+def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, want_kv: bool = False,
+               impl: str | None = None):
     """Returns (hidden (B,S,d) post-final-norm, per-layer [(k, v)] or None),
-    k/v in the flattened (B, S, d_kv) layout."""
+    k/v in the flattened (B, S, d_kv) layout. ``impl`` as in
+    `_attention_full`."""
     if cfg.family != "dense":
         raise NotImplementedError(f"forward_lm ports the dense family, not {cfg.family!r}")
     dtype = cfg.dtype
     x = layers.embed(params["embed"], tokens, dtype)
     s = x.shape[1]
-    if s > BLOCKWISE_THRESHOLD:
-        raise NotImplementedError(
-            f"prompt of {s} tokens needs blockwise attention (> {BLOCKWISE_THRESHOLD}); "
-            "not ported yet (ROADMAP B3)"
-        )
     positions = torch.arange(s, device=x.device)
     if cfg.pos_kind == "sinusoidal":
         x = x + layers.sinusoidal_positions(s, cfg.d_model, x.device).to(dtype)[None]
     kv = [] if want_kv else None
     for p, window in zip(params["layers"], cfg.layer_windows()):
         h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
-        attn_out, kf, vf = _attention_full(cfg, p["attn"], h, positions, window, dtype)
+        attn_out, kf, vf = _attention_full(cfg, p["attn"], h, positions, window, dtype, impl)
         x = x + attn_out
         h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
         x = x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
@@ -137,7 +151,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None)
     }
 
 
-def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length=None):
+def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length=None,
+               impl: str | None = None):
     """Run the full-sequence forward, fill the cache, return the
     last-token logits (B, 1, V) and the cache.
 
@@ -147,9 +162,9 @@ def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length
     packs independently ragged prompts (continuous-batching admission),
     each masked at and read from its own length, with ``cache["pos"]``
     left as the (B,) vector. The cache is written in place (the
-    reference rebinds it).
+    reference rebinds it). ``impl`` as in `_attention_full`.
     """
-    hidden, kv = forward_lm(cfg, params, tokens, want_kv=True)
+    hidden, kv = forward_lm(cfg, params, tokens, want_kv=True, impl=impl)
     b, s = tokens.shape
     ragged = torch.is_tensor(length) and length.ndim == 1
     ar = torch.arange(s, device=hidden.device)

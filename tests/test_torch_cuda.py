@@ -11,6 +11,11 @@ Tolerances, with their reasons:
     f32, the plain version takes it whole);
   * paged decode, bf16 and int8 pools: 2e-2 (bf16 outputs; the plain
     version rounds its probabilities to q's dtype, the kernel does not);
+  * flash attention, f32: 2e-5 (the reference's own f32 kernel budget;
+    streamed vs whole softmax, other summation order); bf16: 2e-2, the
+    reference's bf16 kernel budget (both take f32 scores from the same
+    bf16 inputs and round the output once; the kernel also rounds P to
+    bf16 for the tensor cores, which moves an output by ~2^-9 of it);
   * argmax: exact, ties included;
   * engine: identical token streams and admissions in f32, logits 1e-4.
 """
@@ -22,6 +27,7 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.core.operators import kv_quantize
+from repro_torch.kernels.flash_attention import flash_attention_kernel, mha
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_kernel,
@@ -96,6 +102,115 @@ def test_paged_kernel_rejects_what_it_cannot_take(cuda):
         paged_decode_attention(t[0], *[x.cpu() for x in t[1:]], **kw)
 
 
+def test_paged_kernel_takes_a_group_of_12_heads_of_128(cuda):
+    """starcoder2-15b's KV group (48 query heads over 4 KV heads of 128):
+    12 x 128 = 1536 outputs per block, past the 1024 that one
+    accumulator set holds."""
+    rng = np.random.default_rng(3)
+    b, n_kv, rep, hd, bs, mb = 3, 4, 12, 128, 16, 8
+    d_kv = n_kv * hd
+    q = rng.normal(size=(b, 1, n_kv * rep, hd)).astype(np.float32)
+    kn, vn = (rng.normal(size=(b, d_kv)).astype(np.float32) for _ in range(2))
+    kb, vb = (rng.normal(size=(b * mb, bs, d_kv)).astype(np.float32) for _ in range(2))
+    table = np.arange(b * mb, dtype=np.int32).reshape(b, mb)
+    pos = np.array([100, 5, mb * bs], np.int32)
+    t = [torch.from_numpy(a).to(cuda) for a in (q, kn, vn, kb, vb, table, pos)]
+    for window in (0, 37):
+        kw = dict(n_kv=n_kv, window=window, scale=hd ** -0.5)
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            tt = [x.to(dtype) if x.is_floating_point() else x for x in t]
+            got = paged_decode_attention(*tt, **kw)
+            want = paged_decode_attention(*tt, **kw, impl="ref", dequant_dtype=dtype)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_paged_kernel_names_its_group_limit(cuda):
+    t, _ = _paged_case(0, "f32")
+    t = [x.to(cuda) for x in t]
+    q = torch.zeros((B, 1, 2 * 17, 128), device=cuda)
+    kv = torch.zeros((B * MB, BS, 2 * 128), device=cuda)
+    new = torch.zeros((B, 2 * 128), device=cuda)
+    with pytest.raises(ValueError, match="17 query heads of 128"):
+        paged_decode_attention(q, new, new, kv, kv, *t[5:], n_kv=2, window=0, scale=1.0)
+
+
+# flash attention: (head dim, KV heads, group) covering every head dim the
+# shipped configs use and groups 1, 8 and 12; lengths are not multiples of
+# the kernel's 64-row and 64-key tiles
+FLASH_GEOMETRIES = [(16, 2, 1), (16, 2, 4), (32, 1, 8), (64, 4, 8), (128, 2, 8), (128, 4, 12)]
+
+
+def _flash_inputs(seed, b, sq, sk, n_kv, rep, hd, dtype, device):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, sq, n_kv * rep, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(b, sk, n_kv, hd)).astype(np.float32) for _ in range(2))
+    return [torch.from_numpy(a).to(device, dtype) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 1, 50])
+@pytest.mark.parametrize("hd,n_kv,rep", FLASH_GEOMETRIES)
+def test_flash_kernel_matches_plain(cuda, hd, n_kv, rep, window, dtype):
+    q, k, v = _flash_inputs(hd + rep + window, 2, 157, 157, n_kv, rep, hd, dtype, cuda)
+    before = flash_attention_kernel.launches
+    got = mha(q, k, v, window=window)
+    assert flash_attention_kernel.launches == before + 1
+    want = mha(q, k, v, window=window, impl="ref")
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (70, 200, True, 0), (200, 70, True, 0), (200, 70, True, 150),
+    (129, 129, False, 0), (129, 100, False, 33), (1, 1, True, 0),
+])
+def test_flash_kernel_shapes_and_masks(cuda, sq, sk, causal, window):
+    """Sq != Sk (start-aligned positions), non-causal, a single token."""
+    q, k, v = _flash_inputs(sq + sk, 3, sq, sk, 2, 4, 64, torch.float32, cuda)
+    got = mha(q, k, v, causal=causal, window=window, scale=0.3)
+    want = mha(q, k, v, causal=causal, window=window, scale=0.3, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """Kernel-layout views of a model-layout buffer go in with no copy: a
+    q sliced out of a wider buffer (16-byte aligned rows), and q, k, v
+    whose rows are 129 elements apart (not 16-byte aligned: the bf16
+    body's scalar loads)."""
+    q, k, v = _flash_inputs(5, 2, 90, 90, 2, 8, 128, torch.bfloat16, cuda)
+    want = mha(q, k, v, impl="ref").transpose(1, 2)
+    wide = torch.cat([q, q], dim=-1)[..., 128:]  # head dim contiguous, rows strided
+    odd = [torch.zeros(x.shape[:-1] + (129,), dtype=x.dtype, device=cuda)[..., :128]
+           for x in (q, k, v)]
+    for x, src in zip(odd, (q, k, v)):
+        x.copy_(src)
+    for qq, kk, vv in ((wide, k, v), odd):
+        got = flash_attention_kernel(qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(cuda):
+    q, k, v = _flash_inputs(0, 1, 16, 16, 2, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        mha(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(TypeError, match="f32 or all bf16"):
+        mha(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="one device"):
+        mha(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="no live key"):
+        mha(q, k[:, :4], v[:, :4], window=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_kernel(q.transpose(1, 2)[..., ::2], k.transpose(1, 2)[..., ::2],
+                               v.transpose(1, 2)[..., ::2])
+    with pytest.raises(ValueError, match="unknown impl"):
+        mha(q, k, v, impl="kernel")
+
+
 def _tied_logits():
     x = np.full((3, 2, 1024), -1.0, np.float32)
     x[0, -1, [3, 699]] = 7.0
@@ -145,8 +260,9 @@ def _run_engine(model, params, kv):
 @pytest.mark.parametrize("kv_dtype", ["cache", "int8"])
 def test_engine_on_gpu_matches_cpu(cuda, kv_dtype):
     """The same f32 weights serve the same requests on both devices: the
-    GPU run goes through both kernels on every decode tick, the CPU run
-    through their plain versions. With the bf16 cache pool the runs agree
+    GPU run goes through the flash kernel in every layer of every
+    prefill and through the paged and argmax kernels on every decode
+    tick, the CPU run through their plain versions. With the bf16 cache pool the runs agree
     tick for tick and token for token. With int8 pools the kernel
     dequantizes in f32 and the plain version to the bf16 cache dtype, so
     the logits differ by bf16 rounding and a near-tie may flip a token:
@@ -156,11 +272,20 @@ def test_engine_on_gpu_matches_cpu(cuda, kv_dtype):
     params = cpu_model.init(0)
     gpu_params = _to(params, cuda)
     kv = dict(kind="paged", block_size=8, prefix_cache=kv_dtype == "cache", kv_dtype=kv_dtype)
+    prefill_calls = []
+
+    def prefill(*a, **kw):
+        prefill_calls.append(1)
+        return gpu_model.prefill(*a, **kw)
+
     paged0, argmax0 = paged_decode_attention_kernel.launches, argmax_last_kernel.launches
-    ge, gticks = _run_engine(gpu_model, gpu_params, kv)
+    flash0 = flash_attention_kernel.launches
+    ge, gticks = _run_engine(dataclasses.replace(gpu_model, prefill=prefill), gpu_params, kv)
     decode_ticks = sum(1 for t in gticks if t[0])
     assert paged_decode_attention_kernel.launches - paged0 == cfg.n_layers * decode_ticks
     assert argmax_last_kernel.launches - argmax0 >= decode_ticks
+    assert prefill_calls and \
+        flash_attention_kernel.launches - flash0 == cfg.n_layers * len(prefill_calls)
     ce, cticks = _run_engine(cpu_model, params, kv)
     if kv_dtype == "int8":
         assert {r.uid: len(r.out_tokens) for r in ge.finished} == \

@@ -116,6 +116,33 @@ def test_engine_matches_reference(models, kv):
         assert te.kv.stats["peak_blocks"] == je.kv.stats["peak_blocks"]
 
 
+def test_engine_past_blockwise_threshold_matches_reference(models, monkeypatch):
+    """Long prompts: with both packages' `BLOCKWISE_THRESHOLD` lowered to
+    16 (blocks of 8), the 32- and 64-token prefill buckets take
+    `attention_blockwise` on both sides, and the engines stay in
+    lockstep: the same admissions, logits within 1e-4, the same token
+    streams."""
+    from repro.models import transformer as jt
+    from repro_torch.models import transformer as tt
+
+    monkeypatch.setattr(jt, "BLOCKWISE_THRESHOLD", 16)
+    monkeypatch.setattr(tt, "BLOCKWISE_THRESHOLD", 16)
+    monkeypatch.setattr(tt, "KV_BLOCK", 8)
+    monkeypatch.setenv("REPRO_KV_BLOCK", "8")
+    calls = []
+    blockwise = tt.layers.attention_blockwise
+
+    def counted(q, *a, **kw):
+        calls.append(q.shape[1])
+        return blockwise(q, *a, **kw)
+
+    monkeypatch.setattr(tt.layers, "attention_blockwise", counted)
+    je, te = _lockstep(models, dict(kind="paged", block_size=8, prefix_cache=True))
+    assert _by_uid(te) == _by_uid(je)
+    assert len(te.finished) == 10
+    assert calls and all(n > 16 for n in calls)
+
+
 def test_int8_engine_matches_reference(models):
     """int8 pools: the reference quantizes under `jax.jit`, whose scales
     can sit one f32 ulp off the port's (tests/test_torch_kvstore.py), so

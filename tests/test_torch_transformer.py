@@ -172,12 +172,51 @@ def test_paged_decode_continues_prefill(lm):
     torch.testing.assert_close(logits, want, **TOL)
 
 
-def test_prefill_past_blockwise_threshold_raises():
-    tc = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.float32, n_layers=1)
-    tokens = torch.zeros((1, tt.BLOCKWISE_THRESHOLD + 1), dtype=torch.long)
-    params = tt.init_lm(tc, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        tt.prefill_lm(tc, params, tokens, tt.init_cache(tc, 1, tokens.shape[1], device="cpu"))
+@pytest.mark.parametrize("s,window", [(40, 0), (36, 6), (36, 0)],
+                         ids=["whole-blocks", "window", "padded-block"])
+def test_prefill_past_blockwise_threshold_matches_reference(lm, monkeypatch, s, window):
+    """Past `BLOCKWISE_THRESHOLD` both packages take `attention_blockwise`
+    (thresholds lowered to 16, blocks of 8): logits and the f32 cache of
+    a packed ragged prompt buffer, with full causal and sliding-window
+    layers, and a length that leaves a padded last block."""
+    _, jc, jp, tc, tp = lm
+    monkeypatch.setattr(jt, "BLOCKWISE_THRESHOLD", 16)
+    monkeypatch.setattr(tt, "BLOCKWISE_THRESHOLD", 16)
+    monkeypatch.setattr(tt, "KV_BLOCK", 8)
+    monkeypatch.setenv("REPRO_KV_BLOCK", "8")
+
+    def plain(*a, **kw):
+        raise AssertionError("a prompt past the threshold took attention_plain")
+
+    monkeypatch.setattr(tt.layers, "attention_plain", plain)
+    if window:
+        jc = dataclasses.replace(jc, attn_kind="swa", window=window)
+        tc = dataclasses.replace(tc, attn_kind="swa", window=window)
+    b = 2
+    toks = _tokens(tc, b, s, seed=5)
+    lens = np.array([s, s - 11], np.int32)
+    jl, jcache, _ = jt.prefill_lm(jc, jp, jnp.asarray(toks),
+                                  jt.init_cache(jc, b, s, jnp.float32), length=jnp.asarray(lens))
+    tl, tcache = tt.prefill_lm(tc, tp, torch.from_numpy(toks).long(),
+                               tt.init_cache(tc, b, s, torch.float32, "cpu"),
+                               length=torch.from_numpy(lens))
+    _close(tl, jl)
+    for key in ("k", "v"):
+        _close(tcache[key], jcache[key])
+
+
+def test_prefill_impl_ref_on_cpu_is_the_default_route(lm):
+    """On a CPU tensor ``impl="ref"`` and the default take the same
+    route, bit for bit; an unknown impl raises."""
+    _, _, _, tc, tp = lm
+    toks = torch.from_numpy(_tokens(tc, 2, 12, seed=6)).long()
+    a, _ = tt.prefill_lm(tc, tp, toks, tt.init_cache(tc, 2, 12, torch.float32, "cpu"))
+    b, _ = tt.prefill_lm(tc, tp, toks, tt.init_cache(tc, 2, 12, torch.float32, "cpu"),
+                         impl="ref")
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unknown impl"):
+        tt.prefill_lm(tc, tp, toks, tt.init_cache(tc, 2, 12, torch.float32, "cpu"),
+                      impl="flash")
 
 
 def test_model_zoo_device_and_families():
