@@ -56,7 +56,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-F32_FLOPS = 67e12  # outside the tensor cores
 # tolerances, stated before the run
 # paged decode, bf16 and int8 pools: per slot, max |kernel - plain| over the
 # rms of the plain output. The kernel keeps scores, probabilities and
@@ -95,9 +94,10 @@ FLASH_REL = 2.0 ** -4
 # (tinyllama, plain attention) and more over 36 (qwen2.5-3b, blockwise
 # attention past 8192 tokens, which also rounds each block's P to bf16).
 PREFILL_BUDGET = {"tinyllama-1.1b": 0.125, "qwen2.5-3b": 0.25}
-# greedy check on those rows: the plain route must score the kernel
-# path's greedy token within 2 x budget of its own best, so the tokens
-# agree on every row whose plain top-2 margin exceeds that
+# The greedy tokens of those rows are reported, not checked. With random
+# weights a row's top-2 margin can be under one bf16 ulp, where rounding
+# alone may flip the token; and any check limited to rows with a wider
+# margin follows from the logit budget already checked.
 
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 PAGED_TPU = "src/repro/kernels/paged_attention/paged_attention.py:135"
@@ -152,9 +152,9 @@ def device_ms(torch, fns, iters: int = 20) -> float | None:
     return us / 1e3 / iters if us else None
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / peak
+    t_ops = flops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -360,14 +360,15 @@ def check_argmax(torch, np, seed: int) -> dict:
             "library_ms": case["library_ms"], "library_device_ms": case["library_device_ms"]}
 
 
-# flash attention at the prefill shapes of the serve arms: name, batch,
+# flash attention at the prefill shapes the serve arms launch: name, batch,
 # length, query heads, KV heads, head dim, window, whether the plain
-# version runs one KV group at a time (all heads' S x S f32 scores and
-# probabilities would take 2 x 17 GB at S=16384), timing iterations
+# version runs one batch row and KV group at a time (all heads' S x S f32
+# scores and probabilities would take 2 x 34 GB at B=2, S=16384), timing
+# iterations
 FLASH_CASES = [
-    ("tinyllama-1.1b packed prefill", 4, 1024, 32, 4, 64, 0, False, 20),
-    ("qwen2.5-3b", 1, 16384, 16, 2, 128, 0, True, 3),
-    ("qwen2.5-3b window 4096", 1, 16384, 16, 2, 128, 4096, True, 3),
+    ("tinyllama-1.1b packed prefill", 8, 1024, 32, 4, 64, 0, False, 20),
+    ("qwen2.5-3b", 2, 16384, 16, 2, 128, 0, True, 3),
+    ("qwen2.5-3b window 4096", 2, 16384, 16, 2, 128, 4096, True, 3),
     ("starcoder2-15b group", 1, 4096, 48, 4, 128, 0, False, 10),
 ]
 
@@ -383,14 +384,17 @@ def flash_inputs(torch, *, b, s, h, n_kv, hd, dtype, seed):
 
 
 def flash_plain(torch, ops, q, k, v, window: int, by_group: bool):
-    """The plain version (`impl="ref"`), whole or one KV group at a time."""
+    """The plain version (`impl="ref"`), whole or one batch row and KV
+    group at a time."""
     if not by_group:
         return ops.mha(q, k, v, window=window, impl="ref")
     n_kv = k.shape[2]
     rep = q.shape[2] // n_kv
-    return torch.cat([ops.mha(q[:, :, g * rep:(g + 1) * rep], k[:, :, g:g + 1],
-                              v[:, :, g:g + 1], window=window, impl="ref")
-                      for g in range(n_kv)], dim=2)
+    return torch.cat([torch.cat([ops.mha(q[i:i + 1, :, g * rep:(g + 1) * rep],
+                                         k[i:i + 1, :, g:g + 1], v[i:i + 1, :, g:g + 1],
+                                         window=window, impl="ref")
+                                 for g in range(n_kv)], dim=2)
+                      for i in range(q.shape[0])])
 
 
 def live_pairs(np, sq: int, sk: int, window: int) -> int:
@@ -463,7 +467,8 @@ def check_flash(torch, np, seed: int) -> dict:
         if by_group:
             case.update(plain_ms=None, plain_device_ms=None,
                         plain_null_reason="all heads' S x S f32 scores do not fit one call; "
-                                          "the check ran it one KV group at a time")
+                                          "the check ran it one batch row and KV group "
+                                          "at a time")
         else:
             plain = [lambda: ops.mha(q, k, v, window=window, impl="ref")]
             case.update(plain_ms=cuda_ms(torch, plain, iters, warmup=1),
@@ -682,8 +687,7 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
                              f"{decode_ticks} ticks + {engine.stats['prefills']} admissions")
     if not first.get("logit_max_abs_err", math.inf) <= LOGIT_BUDGET[cfg.name]:
         raise AssertionError(f"{arm}: first decode tick off the plain path: {first}")
-    if not prefill_check["prefill_logit_max_abs_err"] <= budget \
-            or not prefill_check["prefill_greedy_worst_gap"] <= 2 * budget:
+    if not prefill_check["prefill_logit_max_abs_err"] <= budget:
         raise AssertionError(f"{arm}: first prefill call off the plain route: {prefill_check}")
     if engine.last_logits is None or not bool(torch.isfinite(engine.last_logits).all()) \
             or not bool(torch.isfinite(got).all()):

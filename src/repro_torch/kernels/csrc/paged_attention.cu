@@ -46,6 +46,8 @@ constexpr int kTile = 32;      // pool positions per iteration (one per lane)
 // accumulators per thread: a (rep, hd) group of up to kThreads * kAcc
 // outputs. Instances of 8 (rep*hd <= 1024) and 16 (<= 2048, e.g. 12 query
 // heads of 128 per KV head) are built; the launch takes the smaller that fits.
+// The 16-accumulator instance alone ran 1-10 % slower at tinyllama-1.1b's
+// 8 x 64 group on an H100 (PERF.md), so the smaller one stays.
 constexpr int kMaxAccLarge = 16;
 constexpr float kNegInf = -1e30f;
 
