@@ -14,7 +14,8 @@ prints no result:
                with f32 q and pools, at f32 precision, and at
                starcoder2-15b's group of 12 heads of 128; flash attention
                in f32 at S=1000 and in bf16 at the prefill shapes of both
-               serve arms and of starcoder2-15b), with CUDA-event times
+               serve arms and of starcoder2-15b; the SSD scan in f32
+               at S=1000, in bf16 at S=8192 and 16,000), with CUDA-event times
                of the kernel, the plain version, the bound and (where one
                exists) the one PyTorch call computing the same function,
                and the profiler's device time of each (``*_device_ms``).
@@ -34,7 +35,17 @@ prints no result:
                12,000-token document), prefill through the flash kernel,
                the same checks, prefill time per call, prefill tokens/s
                and time to first token.
-7. summary  — a ``{"kernels": [...]}`` line, then the last line
+7. mamba    — mamba2-130m at full width and depth, random bf16 weights
+               from --seed, through `make_engine` in aligned mode over
+               the dense store (8 slots, max_len 16384): 16 prompts of
+               1,000-16,000 tokens, 64 new tokens each, every prefill
+               through the SSD-scan kernel; launch counts, the first
+               prefill call's and the first decode tick's logits against
+               the plain route, the same times; then one 8192-token
+               prefill call under `torch.profiler` (device time by
+               kernel class: the SSD kernel's share of a call) and the
+               profile phase's decode window on an aligned mamba engine.
+8. summary  — a ``{"kernels": [...]}`` line, then the last line
                ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, the script
@@ -44,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -98,6 +110,28 @@ PREFILL_BUDGET = {"tinyllama-1.1b": 0.125, "qwen2.5-3b": 0.25}
 # weights a row's top-2 margin can be under one bf16 ulp, where rounding
 # alone may flip the token; and any check limited to rows with a wider
 # margin follows from the logit budget already checked.
+# SSD scan, f32 cases: absolute, for y and the final state. Inputs are the
+# model's A (-linspace(1, 16)) and dt (softplus of N(0, 1)), or the
+# reference test's dt (U(0.01, 0.2), tests/test_kernels.py), or A = -16
+# with dt ~ 1; B and C at unit-variance C.B, so y is O(1). Both sides'
+# f32 error (the prefix sums of dt * A) is ~3e-5 against f64 at the
+# model's inputs. A wrong chunk, head or mask moves y by O(1); padded
+# tail positions that shift the last chunk's prefix sums by an ulp of
+# |cum| move the final state by ~3e-4 at A = -16.
+SSD_F32_ATOL = 1e-4
+# SSD scan, bf16 cases: per output row (one position and head), max
+# |kernel - plain| over the rms of the plain row. Both compute in f32 from
+# the same bf16 inputs and round y once: at most one bf16 ulp of an
+# element apart (2^-7 of it, and an element reaches ~4x its row's rms).
+# The f32 final state keeps SSD_F32_ATOL.
+SSD_REL = 2.0 ** -4
+# mamba arm: the first prefill call's last-position logits and the first
+# decode tick's logits (slot 0), kernel path vs the plain route, bf16.
+# The two routes differ only in the scan's f32 summation order, so the
+# logits should agree to a few bf16 ulps (logits of random weights reach
+# ~2-4, where an ulp is 0.0156-0.031); a wrong chunk or head moves them
+# by O(1).
+MAMBA_LOGIT_BUDGET = 0.125
 
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 PAGED_TPU = "src/repro/kernels/paged_attention/paged_attention.py:135"
@@ -105,6 +139,8 @@ ARGMAX_SRC = "src/repro_torch/kernels/csrc/argmax_last.cu"
 ARGMAX_TPU = "src/repro/kernels/sample/sample.py:50"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:80"
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:83"
 
 
 def emit(obj) -> None:
@@ -498,7 +534,126 @@ def check_flash(torch, np, seed: int) -> dict:
             "library_ms": main["library_ms"], "library_device_ms": main["library_device_ms"]}
 
 
+def ssd_inputs(torch, *, b, s, h, p, n, dtype, seed, a=None, dt_range=None):
+    """The scan's inputs in the model's layout: x, Bm and Cm are column
+    slices of one (B, S, H*P + 2N) conv-output buffer; dt (B, S, H) and
+    A (H,) f32. The model's A (-linspace(1, 16)) unless ``a`` gives -a;
+    dt uniform in ``dt_range``, or the model's softplus(N(0, 1)) when it
+    is None; B and C at unit-variance C.B."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    conv_out = torch.cat([randn(b, s, h * p), randn(b, s, 2 * n) / n ** 0.5], dim=-1).to(dtype)
+    x, bm, cm = torch.split(conv_out, [h * p, n, n], dim=-1)
+    if dt_range is None:
+        dt = F.softplus(randn(b, s, h))
+    else:
+        dt = torch.empty((b, s, h), device="cuda").uniform_(*dt_range, generator=gen)
+    A = (-torch.linspace(1.0, 16.0, h, device="cuda") if a is None
+         else torch.full((h,), -float(a), device="cuda"))
+    return x.reshape(b, s, h, p), dt, A, bm, cm
+
+
+def ssd_work(*, b, s, h, p, n, q, elem) -> tuple[float, float]:
+    """(bytes, flops) of one scan: x, B, C, dt and A read once, y and the
+    final state written once; the chunked form's operations, C B^T once
+    per (batch row, chunk) and 2 Q^2 P + 4 Q P N per head and chunk."""
+    nc = -(-s // q)
+    nbytes = (2 * b * s * h * p + 2 * b * s * n) * elem + (b * s * h + h + b * h * p * n) * 4
+    flops = b * nc * (2.0 * q * q * n + h * (2.0 * q * q * p + 4.0 * q * p * n))
+    return nbytes, flops
+
+
+# the scan at mamba2-130m's widths: (case, sequence length, timing iterations)
+SSD_CASES = [("mamba2-130m prefill, 8192 tokens", 8192, 20),
+             ("the mamba arm's largest prompt", 16000, 10)]
+
+
+def check_ssd(torch, np, seed: int) -> dict:
+    from repro_torch.kernels.ssd_scan import ops
+
+    h, p, n, q = 24, 64, 128, 256
+    # f32: the kernel's logic at S=1000 (three whole chunks and a ragged
+    # tail): the reference test's dt, the model's dt, and A = -16, dt ~ 1,
+    # where the masked exponent differences reach +4,000 (exp overflows)
+    s_f32 = 1000
+    for name, kw in (("model's dt", {}), ("reference test's dt", dict(dt_range=(0.01, 0.2))),
+                     ("A=-16, dt~1", dict(a=16.0, dt_range=(0.9, 1.1)))):
+        args = ssd_inputs(torch, b=1, s=s_f32, h=h, p=p, n=n, dtype=torch.float32, seed=seed,
+                          **kw)
+        y, fin = ops.ssd(*args, chunk=q)
+        ry, rfin = ops.ssd(*args, chunk=q, impl="ref")
+        torch.cuda.synchronize()
+        err, state_err = (y - ry).abs().max().item(), (fin - rfin).abs().max().item()
+        y_max, state_max = ry.abs().max().item(), rfin.abs().max().item()
+        case = {"phase": "kernels", "kernel": "ssd_scan", "dtype": "f32", "inputs": name,
+                "shape": [1, s_f32, h, p, n, q], "max_abs_err": err,
+                "state_max_abs_err": state_err, "y_max_abs": y_max, "state_max_abs": state_max,
+                "atol": SSD_F32_ATOL,
+                "finite": bool(torch.isfinite(y).all() and torch.isfinite(fin).all())}
+        emit(case)
+        if not case["finite"] or not max(err, state_err) <= SSD_F32_ATOL:
+            raise AssertionError(f"SSD kernel disagrees with its plain version: {case}")
+    cases = []
+    for name, s_len, iters in SSD_CASES:
+        args = ssd_inputs(torch, b=1, s=s_len, h=h, p=p, n=n, dtype=torch.bfloat16, seed=seed)
+        y, fin = ops.ssd(*args, chunk=q)
+        ry, rfin = ops.ssd(*args, chunk=q, impl="ref")
+        torch.cuda.synchronize()
+        err = (y.float() - ry.float()).abs().max().item()
+        rel = row_rel_err(y, ry)
+        state_err = (fin - rfin).abs().max().item()
+        state_max = rfin.abs().max().item()
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(fin).all())
+        del y, fin, ry, rfin
+        nbytes, flops = ssd_work(b=1, s=s_len, h=h, p=p, n=n, q=q, elem=2)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        kern = [lambda: ops.ssd(*args, chunk=q)]
+        plain = [lambda: ops.ssd(*args, chunk=q, impl="ref")]
+        case = {"phase": "kernels", "kernel": "ssd_scan", "case": name, "dtype": "bf16",
+                "shape": [1, s_len, h, p, n, q], "max_abs_err": err, "max_row_rel_err": rel,
+                "rel_budget": SSD_REL, "state_max_abs_err": state_err,
+                "state_max_abs": state_max, "state_atol": SSD_F32_ATOL, "finite": finite,
+                "kernel_ms": cuda_ms(torch, kern, iters, warmup=2),
+                "kernel_device_ms": device_ms(torch, kern, iters),
+                "plain_ms": cuda_ms(torch, plain, 3, warmup=1),
+                "plain_device_ms": device_ms(torch, plain, 3),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+                "library_ms": None, "library_device_ms": None,
+                "library_null_reason": "no PyTorch call computes the SSD scan"}
+        case["kernel_tflops"] = flops / case["kernel_ms"] / 1e9
+        emit(case)
+        if not finite or not rel <= SSD_REL or not state_err <= SSD_F32_ATOL:
+            raise AssertionError(f"SSD kernel disagrees with its plain version: {case}")
+        cases.append(case)
+        del args, kern, plain
+        torch.cuda.empty_cache()
+    main = cases[0]
+    return {"name": "ssd_scan", "route": "cuda", "source": SSD_SRC, "replaces": SSD_TPU,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "device_ms": main["kernel_device_ms"], "plain_device_ms": main["plain_device_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "library_device_ms": None}
+
+
 # -- phase 4: full-width serve -------------------------------------------------
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by the summary line's names."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_decode_attention_kernel
+    from repro_torch.kernels.sample import argmax_last_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+
+    return {"paged_decode_attention": paged_decode_attention_kernel,
+            "argmax_last": argmax_last_kernel, "flash_attention": flash_attention_kernel,
+            "ssd_scan": ssd_scan_kernel}
 
 
 def short_requests(np, cfg, *, n_req: int, seed: int) -> list:
@@ -550,7 +705,6 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
     route."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel as fk
     from repro_torch.kernels.paged_attention import paged_decode_attention_kernel as pk
-    from repro_torch.kernels.sample import argmax_last_kernel as ak
     from repro_torch.serve import EngineConfig, make_engine
 
     cfg = model.cfg
@@ -618,13 +772,17 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
     engine.step = timed_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pk.launches = ak.launches = fk.launches = 0
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
     engine.drain()
     wall = time.perf_counter() - t0 - check_s
-    paged_n, argmax_n, flash_n = pk.launches, ak.launches, fk.launches
+    launches = {name: k.launches for name, k in counters.items()}
+    paged_n, argmax_n, flash_n = (launches[k] for k in (
+        "paged_decode_attention", "argmax_last", "flash_attention"))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     # the first prefill call against the plain route, outside the timed run
@@ -666,7 +824,7 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
            "prefill_tokens_per_s": prompt_tokens / (sum(prefill_ms) / 1e3),
            "ttft_s": [ttft_s.get(r.uid) for r in reqs],
            "flash_launches": flash_n, "paged_launches": paged_n, "argmax_launches": argmax_n,
-           "wall_s": wall, "decode_check_s": check_s,
+           "launches": launches, "wall_s": wall, "decode_check_s": check_s,
            "tokens_per_s": engine.stats["tokens_out"] / wall,
            "median_decode_tick_ms": float(np.median(decode_only_ms)) if decode_only_ms
            else None, "decode_only_ticks": len(decode_only_ms),
@@ -695,9 +853,11 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
     return out
 
 
-def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16) -> dict:
+def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16,
+                   mode: str = "continuous") -> dict:
     """Where a decode tick's time goes, on a fresh engine (8 slots of
-    512-token prompts) after its admission tick: ``ticks`` decode-only
+    512-token prompts; continuous mode over the paged store, or aligned
+    mode over the dense store) after its admission tick: ``ticks`` decode-only
     ticks timed on the host clock, then ``ticks`` more under
     `torch.profiler`. Reports the wall time per tick without and with the
     profiler, the device time per tick, the device's idle share of the
@@ -709,8 +869,9 @@ def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16) -> d
 
     from repro_torch.serve import EngineConfig, KVSpec, Request, make_engine
 
-    engine = make_engine(model, params, EngineConfig(
-        mode="continuous", max_batch=8, max_len=2048, kv=KVSpec(kind="paged", block_size=16)))
+    kv = KVSpec(kind="paged", block_size=16) if mode == "continuous" else KVSpec()
+    engine = make_engine(model, params, EngineConfig(mode=mode, max_batch=8, max_len=2048,
+                                                     kv=kv))
     rng = np.random.default_rng(seed)
     for i in range(8):
         prompt = rng.integers(0, model.cfg.vocab_size, 512).astype(np.int32)
@@ -747,13 +908,211 @@ def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16) -> d
         kernels.append((ms, ev.count // ticks, name[:90]))
     dev_ms = sum(classes.values()) if kernels else None
     kernels.sort(reverse=True)
-    out = {"phase": "profile", "ticks": ticks, "batch": 8, "context_tokens": 512,
+    out = {"phase": "profile", "model": model.cfg.name, "mode": mode, "ticks": ticks,
+           "batch": 8, "context_tokens": 512,
            "wall_ms_per_tick": wall_ms, "profiled_wall_ms_per_tick": profiled_wall_ms,
            "device_ms_per_tick": dev_ms,
            "idle_share": None if dev_ms is None else 1.0 - dev_ms / wall_ms,
            "device_launches_per_tick": sum(n for _, n, _ in kernels),
            "device_ms_per_tick_by_class": classes if kernels else None,
            "top_kernels": [{"ms_per_tick": ms, "launches_per_tick": n, "name": name}
+                           for ms, n, name in kernels[:10]]}
+    emit(out)
+    return out
+
+
+# -- phase 7: mamba2-130m in aligned mode ------------------------------------
+
+
+def mamba_requests(np, cfg, *, n_req: int, seed: int) -> list:
+    """The mamba arm's traffic: prompts of 1,000-16,000 tokens (uniform,
+    from the seed), 64 new tokens each."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(1000, 16001))).astype(np.int32),
+                    max_new_tokens=64) for i in range(n_req)]
+
+
+def mamba_arm(torch, np, model, params, *, reqs: list, max_batch: int = 8,
+              max_len: int = 16384) -> dict:
+    """Drain ``reqs`` through `make_engine` in aligned mode over the dense
+    store, with every kernel count set to 0 just before and read just
+    after. Times each prefill call and each tick on the host clock, ended
+    by `torch.cuda.synchronize()`, and each request's first token. After
+    the run, holds the first prefill call's last-position logits, and the
+    first decode tick's logits of slot 0 (whose cache that prefill made),
+    against the plain route: request 0 prefilled with ``impl="ref"``,
+    then one decode step on that cache with the run's token."""
+    from repro_torch.serve import EngineConfig, make_engine
+
+    cfg = model.cfg
+    first_prefill, first_decode, prefill_ms, prefill_rows = {}, {}, [], []
+
+    def timed_prefill(params_, tokens, cache=None, length=None, *, impl=None):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = model.prefill(params_, tokens, cache, length, impl=impl)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - ts) * 1e3)
+        prefill_rows.append(list(tokens.shape))
+        if not first_prefill:  # kept for the check after the run
+            first_prefill.update(tokens=tokens, logits=out[0][:, -1].clone())
+        return out
+
+    def decode(params_, cache, token):
+        out = model.decode_step(params_, cache, token)
+        if not first_decode:
+            first_decode.update(token=token[:1].clone(), logits=out[0][:1, -1].clone())
+        return out
+
+    engine = make_engine(dataclasses.replace(model, prefill=timed_prefill, decode_step=decode),
+                         params, EngineConfig(mode="aligned", max_batch=max_batch,
+                                              max_len=max_len))
+    decode_ticks, decode_only_ms, ttft_s = 0, [], {}
+    step = engine.step
+
+    def timed_step():
+        nonlocal decode_ticks
+        ts = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        lt = engine.last_tick
+        if lt["decode_batch"]:
+            decode_ticks += 1
+            if not lt["prefill_lens"]:
+                decode_only_ms.append((now - ts) * 1e3)
+        for r in reqs:
+            if r.out_tokens and r.uid not in ttft_s:
+                ttft_s[r.uid] = now - t0
+
+    engine.step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_gib = torch.cuda.memory_allocated() / 2**30  # weights and the slot cache
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.drain()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # the plain route for request 0: prefill, then slot 0's first decode step
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    ref_logits, ref_cache = model.prefill(params, first_prefill["tokens"], impl="ref")
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - ts) * 1e3
+    ref_dec, _ = model.decode_step(params, ref_cache, first_decode["token"])
+    torch.cuda.synchronize()
+    if counters["ssd_scan"].launches != launches["ssd_scan"]:
+        raise AssertionError("the plain prefill route launched the SSD kernel")
+    got_p, want_p = first_prefill["logits"].float(), ref_logits[:, -1].float()
+    got_d, want_d = first_decode["logits"].float(), ref_dec[:, -1].float()
+    check = {
+        "prefill_logit_max_abs_err": (got_p - want_p).abs().max().item(),
+        "prefill_logit_ref_max_abs": want_p.abs().max().item(),
+        "decode_logit_max_abs_err": (got_d - want_d).abs().max().item(),
+        "decode_logit_ref_max_abs": want_d.abs().max().item(),
+        "logit_budget": MAMBA_LOGIT_BUDGET,
+        "first_prefill_plain_route_ms": ref_ms,
+        "greedy_agree": [bool(got_p.argmax(-1).eq(want_p.argmax(-1)).all()),
+                         bool(got_d.argmax(-1).eq(want_d.argmax(-1)).all())],
+    }
+    del ref_cache, first_prefill["tokens"]
+
+    done = {r.uid: len(r.out_tokens) for r in engine.finished}
+    prompt_tokens = int(sum(r.prompt.shape[0] for r in reqs))
+    out = {"phase": "serve", "arm": "mamba", "model": cfg.name, "mode": "aligned",
+           "requests": len(reqs), "prompt_tokens": prompt_tokens,
+           "prompt_lens": [int(r.prompt.shape[0]) for r in reqs],
+           "prompts_multiple_of_chunk": sum(int(r.prompt.shape[0]) % cfg.ssm_chunk == 0
+                                            for r in reqs),
+           "tokens_out": engine.stats["tokens_out"], "ticks": engine.tick,
+           "decode_ticks": decode_ticks, "admissions": engine.stats["prefills"],
+           "prefill_calls": len(prefill_ms), "prefill_shapes": prefill_rows,
+           "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": prompt_tokens / (sum(prefill_ms) / 1e3),
+           "ttft_s": [ttft_s.get(r.uid) for r in reqs],
+           "ssd_launches": launches["ssd_scan"], "argmax_launches": launches["argmax_last"],
+           "launches": launches, "wall_s": wall,
+           "tokens_per_s": engine.stats["tokens_out"] / wall,
+           "median_decode_tick_ms": float(np.median(decode_only_ms)) if decode_only_ms
+           else None, "decode_only_ticks": len(decode_only_ms),
+           "peak_mem_gib": peak_gib, "mem_at_start_gib": start_gib, **check}
+    emit(out)
+    if len(done) != len(reqs) or any(done[r.uid] != r.max_new_tokens for r in reqs):
+        raise AssertionError(f"mamba: not every request finished with its tokens: {done}")
+    if launches["ssd_scan"] != cfg.n_layers * len(prefill_ms) or not prefill_ms:
+        raise AssertionError(f"mamba: SSD kernel ran {launches['ssd_scan']} times, want "
+                             f"{cfg.n_layers} x {len(prefill_ms)} prefill calls")
+    if launches["argmax_last"] < decode_ticks + engine.stats["prefills"]:
+        raise AssertionError(f"mamba: argmax kernel ran {launches['argmax_last']} times, want "
+                             f">= {decode_ticks} ticks + {engine.stats['prefills']} admissions")
+    if launches["paged_decode_attention"] or launches["flash_attention"]:
+        raise AssertionError(f"mamba: an attention kernel ran in an SSM model: {launches}")
+    if not max(check["prefill_logit_max_abs_err"],
+               check["decode_logit_max_abs_err"]) <= MAMBA_LOGIT_BUDGET:
+        raise AssertionError(f"mamba: logits off the plain route: {check}")
+    if engine.last_logits is None or not bool(torch.isfinite(engine.last_logits).all()):
+        raise AssertionError("mamba: non-finite logits")
+    return out
+
+
+def profile_prefill(torch, np, model, params, *, seed: int, s: int = 8192) -> dict:
+    """One mamba2-130m prefill call of ``s`` tokens: its wall time (after a
+    warm-up call), then the same call under `torch.profiler`: device time
+    by kernel class, the SSD kernel's share of the call, and the top
+    kernels. Not part of the counted run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, (1, s)), device="cuda")
+
+    def call() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, tokens)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    call()
+    wall_ms = call()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms = call()
+    classes = {"ssd_scan": 0.0, "gemm": 0.0, "other": 0.0}
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = device_us(ev) / 1e3
+        name = ev.key
+        if any(w in name for w in ("chunk_state_kernel", "state_pass_kernel",
+                                   "chunk_out_kernel")):
+            cls = "ssd_scan"
+        elif any(w in name.lower() for w in ("gemm", "gemv", "nvjet", "sm90")):
+            cls = "gemm"
+        else:
+            cls = "other"
+        classes[cls] += ms
+        kernels.append((ms, ev.count, name[:90]))
+    dev_ms = sum(classes.values()) if kernels else None
+    kernels.sort(reverse=True)
+    out = {"phase": "profile_prefill", "model": model.cfg.name, "tokens": s,
+           "wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms, "device_ms": dev_ms,
+           "idle_share": None if dev_ms is None else 1.0 - dev_ms / wall_ms,
+           "device_ms_by_class": classes if kernels else None,
+           "ssd_share_of_device": None if not dev_ms else classes["ssd_scan"] / dev_ms,
+           "ssd_share_of_wall": None if not dev_ms else classes["ssd_scan"] / wall_ms,
+           "device_launches": sum(n for _, n, _ in kernels),
+           "top_kernels": [{"ms": ms, "launches": n, "name": name}
                            for ms, n, name in kernels[:10]]}
     emit(out)
     return out
@@ -805,7 +1164,7 @@ def main(argv=None) -> int:
 
     # phase 3: kernels against their plain versions, full-width shapes
     kernels = [check_paged(torch, np, args.seed), check_argmax(torch, np, args.seed),
-               check_flash(torch, np, args.seed)]
+               check_flash(torch, np, args.seed), check_ssd(torch, np, args.seed)]
 
     # phase 4: full-width serve of tinyllama-1.1b
     cfg = get("tinyllama-1.1b")
@@ -838,17 +1197,36 @@ def main(argv=None) -> int:
         raise AssertionError("the shared document never hit the prefix cache")
     if any(shape[1] != 16384 for shape in long["prefill_shapes"]):
         raise AssertionError(f"a long prompt missed the 16384 bucket: {long['prefill_shapes']}")
+    # the arms' engines hold their params in reference cycles (the timed
+    # step closures): collect them, so the mamba arm's peak is its own
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # phase 7: summary; launches are the bf16 tinyllama run's counts (the
-    # long arm's beside them). "ms", "plain_ms" and "library_ms" are
-    # CUDA-event times of back-to-back calls (host launch gaps included);
-    # the "*device_ms" keys are the profiler's kernel time alone.
-    for kern, key in zip(kernels, ("paged_launches", "argmax_launches", "flash_launches")):
-        kern["launches"] = bf16[key]
-        kern["launches_long_arm"] = long[key]
+    # phase 7: mamba2-130m at full width and depth, aligned mode
+    mcfg = get("mamba2-130m")
+    mmodel = build(mcfg)
+    mparams = mmodel.init(args.seed)
+    mamba = mamba_arm(torch, np, mmodel, mparams,
+                      reqs=mamba_requests(np, mcfg, n_req=16, seed=args.seed + 4))
+    profile_prefill(torch, np, mmodel, mparams, seed=args.seed + 5)
+    profile_decode(torch, np, mmodel, mparams, seed=args.seed + 6, mode="aligned")
+
+    # phase 8: summary; "launches" is the count from the run of the path
+    # each kernel belongs to (the bf16 tinyllama arm for paged decode,
+    # argmax and flash; the mamba arm for the SSD scan), each arm's counts
+    # beside it. "ms", "plain_ms" and "library_ms" are CUDA-event times of
+    # back-to-back calls (host launch gaps included); the "*device_ms"
+    # keys are the profiler's kernel time alone.
+    for kern in kernels:
+        main_arm = mamba if kern["name"] == "ssd_scan" else bf16
+        kern["launches"] = main_arm["launches"][kern["name"]]
+        kern["launches_long_arm"] = long["launches"][kern["name"]]
+        kern["launches_mamba_arm"] = mamba["launches"][kern["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
-            "plain_device_ms", "library_device_ms", "launches_long_arm")
+            "plain_device_ms", "library_device_ms", "launches_long_arm",
+            "launches_mamba_arm")
     emit({"kernels": [{k: kern[k] for k in keys} for kern in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

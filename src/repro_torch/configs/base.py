@@ -1,8 +1,8 @@
 """ArchConfig for the port: the reference dataclass with ``dtype`` as a
 ``torch.dtype``.
 
-Only the configs the port can run are registered (dense decoder LMs).
-`get(name)` returns the full config, `get_smoke(name)` the reduced
+Only the configs the port can run are registered (dense decoder LMs and
+the Mamba-2 SSM). `get(name)` returns the full config, `get_smoke(name)` the reduced
 variant the CPU tests use.
 """
 from __future__ import annotations
@@ -41,10 +41,15 @@ class ArchConfig:
     mlp_bias: bool = False
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
-    # MoE / SSM / hybrid / enc-dec / frontends (not ported: model_zoo raises)
+    # MoE / hybrid / enc-dec / frontends (not ported: model_zoo raises)
     n_experts: int = 0
     experts_per_token: int = 0
+    # SSM (mamba2)
     ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
     hybrid: bool = False
     encoder_layers: int = 0
     frontend: str = ""
@@ -67,6 +72,14 @@ class ArchConfig:
     @property
     def d_kv(self) -> int:
         return self.n_kv_heads * self.resolved_head_dim
+
+    @property
+    def ssm_heads(self) -> int:
+        return (self.ssm_expand * self.d_model) // self.ssm_head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     def layer_windows(self) -> list[int]:
         """Per-layer attention window (0 = full causal)."""
@@ -92,6 +105,7 @@ REGISTRY: dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 

@@ -38,6 +38,7 @@ SOURCES = {
     "paged_attention": "paged_attention.cu",
     "argmax_last": "argmax_last.cu",
     "flash_attention": "flash_attention.cu",
+    "ssd_scan": "ssd_scan.cu",
 }
 
 

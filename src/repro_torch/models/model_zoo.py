@@ -2,11 +2,14 @@
 
     model = build(cfg)                        # device: cuda unless device="cpu"
     params = model.init(seed)                 # or a torch.Generator
-    logits, cache = model.prefill(params, tokens, length=...)   # impl="ref": plain attention
+    logits, cache = model.prefill(params, tokens, length=...)   # impl="ref": plain route
+    logits, cache = model.decode_step(params, cache, token)      # aligned mode
     logits, rows_k, rows_v = model.decode_step_paged(params, kernel_view, token)
 
-Only the dense decoder family is ported. Other families raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+The dense decoder family and the Mamba-2 SSM family are ported. An SSM
+model has no paged decode (``decode_step_paged`` is None): it serves in
+aligned mode only. Other families raise `NotImplementedError` naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -22,7 +25,6 @@ Params = dict
 
 _NOT_PORTED = {
     "moe": "ROADMAP A12 (models/moe.py)",
-    "ssm": "ROADMAP A12 (models/ssm.py)",
     "hybrid": "ROADMAP A12 (models/ssm.py hybrid layers)",
     "encdec": "ROADMAP A12 (models/encdec.py)",
     "vlm": "ROADMAP A12 (frontend-extended sequences)",
@@ -37,13 +39,16 @@ class Model:
     # (params, tokens, cache=None, length=None, *, impl=None) -> (logits, cache)
     prefill: Callable[..., tuple]
     init_cache: Callable[..., dict]
-    # (params, kernel_view, token, *, impl=None) -> (logits, rows_k, rows_v)
-    decode_step_paged: Callable[..., tuple]
+    # (params, cache, token) -> (logits, cache): the shared-cursor decode
+    decode_step: Callable[..., tuple]
+    # (params, kernel_view, token, *, impl=None) -> (logits, rows_k, rows_v);
+    # None for the ssm family
+    decode_step_paged: Callable[..., tuple] | None
 
 
 def build(cfg, device=None) -> Model:
-    if cfg.family != "dense" or cfg.n_experts or cfg.ssm_state or cfg.hybrid \
-            or cfg.encoder_layers or cfg.frontend:
+    if cfg.family not in ("dense", "ssm") or (cfg.family == "ssm") != bool(cfg.ssm_state) \
+            or cfg.n_experts or cfg.hybrid or cfg.encoder_layers or cfg.frontend:
         where = _NOT_PORTED.get(cfg.family, "ROADMAP A12")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; see {where}"
@@ -64,7 +69,12 @@ def build(cfg, device=None) -> Model:
             cache = init_cache(tokens.shape[0], tokens.shape[1])
         return transformer.prefill_lm(cfg, params, tokens, cache, length=length, impl=impl)
 
-    def decode_step_paged(params, pview, token, *, impl=None):
-        return transformer.decode_step_paged_lm(cfg, params, pview, token, impl=impl)
+    def decode_step(params, cache, token):
+        return transformer.decode_step_lm(cfg, params, cache, token)
 
-    return Model(cfg, dev, init, prefill, init_cache, decode_step_paged)
+    decode_step_paged = None
+    if cfg.family == "dense":
+        def decode_step_paged(params, pview, token, *, impl=None):
+            return transformer.decode_step_paged_lm(cfg, params, pview, token, impl=impl)
+
+    return Model(cfg, dev, init, prefill, init_cache, decode_step, decode_step_paged)

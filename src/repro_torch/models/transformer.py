@@ -1,10 +1,11 @@
-"""Decoder-only LM backbone, the dense family.
+"""Decoder-only LM backbone: the dense family and the Mamba-2 SSM family.
 
 The reference scans over stacked layer parameters; the port keeps a list
 of per-layer parameter dicts and runs a Python loop (eager PyTorch, no
 ``jit`` counterpart). Caches keep the reference's layout: ``k``/``v`` are
-``(L, B, S, n_kv * head_dim)`` and ``pos`` is a scalar or ``(B,)``
-int32 tensor.
+``(L, B, S, n_kv * head_dim)``, an SSM cache holds ``ssm_state``
+``(L, B, H, P, N)`` f32 and ``ssm_conv`` ``(L, B, conv - 1, d_inner +
+2N)``, and ``pos`` is a scalar or ``(B,)`` int32 tensor.
 
 Prefill attention (`_attention_full`) on a CUDA tensor launches the
 hand-written flash kernel (`kernels.flash_attention.mha`) at every prompt
@@ -13,7 +14,9 @@ model's own jnp route: `layers.attention_plain` up to
 `BLOCKWISE_THRESHOLD` tokens and `layers.attention_blockwise` (blocks of
 `KV_BLOCK`) above it, so CPU parity with the reference keeps its bf16
 rounding of scores and probabilities, and ``impl="ref"`` gives the card
-a plain path to hold the kernel path against.
+a plain path to hold the kernel path against. An SSM layer's prefill
+scan takes the same ``impl`` (`ssm.mamba_block`): the hand-written SSD
+kernel on a CUDA tensor, the reference's `ssd_chunked` otherwise.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 
 Params = dict
 
@@ -36,30 +39,38 @@ KV_BLOCK = 1024  # its block there (the reference's REPRO_KV_BLOCK default)
 # init
 # ---------------------------------------------------------------------------
 
+def _init_layer(cfg, gen: torch.Generator, device) -> Params:
+    kw = dict(dtype=cfg.dtype, device=device)
+    d = cfg.d_model
+    p: Params = {"norm1": layers.init_norm(d, cfg.norm_kind, device=device)}
+    if cfg.family == "ssm":
+        p["mamba"] = ssm.init_mamba_block(gen, cfg, **kw)
+        return p
+    p["attn"] = {
+        "wq": layers.init_linear(gen, d, cfg.d_q, cfg.qkv_bias, **kw),
+        "wk": layers.init_linear(gen, d, cfg.d_kv, cfg.qkv_bias, **kw),
+        "wv": layers.init_linear(gen, d, cfg.d_kv, cfg.qkv_bias, **kw),
+        "wo": layers.init_linear(gen, cfg.d_q, d, cfg.mlp_bias, **kw),
+    }
+    p["norm2"] = layers.init_norm(d, cfg.norm_kind, device=device)
+    p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, cfg.mlp_bias, **kw)
+    return p
+
+
 def init_lm(cfg, gen: torch.Generator, device=None) -> Params:
-    """Random dense-LM parameters from ``gen``: the reference's shapes and
+    """Random LM parameters from ``gen``: the reference's shapes and
     scales (N(0,1)/sqrt(fan_in) weights, 0.02 embeddings, unit norms,
-    zero biases). Matmul weights and tables are stored in ``cfg.dtype``,
-    norms in f32. The draws differ from the reference's `jax.random`
-    ones; parity tests carry the reference weights over with
-    `utils.convert.params_from_numpy` instead. ``device``: cuda unless
-    the caller names another (`resolve_device`); ``gen`` must live there."""
+    zero biases; an SSM layer's own parameters as `ssm.init_mamba_block`
+    makes them). Matmul weights and tables are stored in ``cfg.dtype``,
+    norms and the SSM's own parameters in f32. The draws differ from the
+    reference's `jax.random` ones; parity tests carry the reference
+    weights over with `utils.convert.params_from_numpy` instead.
+    ``device``: cuda unless the caller names another (`resolve_device`);
+    ``gen`` must live there."""
     device = resolve_device(device)
     kw = dict(dtype=cfg.dtype, device=device)
     d = cfg.d_model
-    out_layers = []
-    for _ in range(cfg.n_layers):
-        out_layers.append({
-            "norm1": layers.init_norm(d, cfg.norm_kind, device=device),
-            "attn": {
-                "wq": layers.init_linear(gen, d, cfg.d_q, cfg.qkv_bias, **kw),
-                "wk": layers.init_linear(gen, d, cfg.d_kv, cfg.qkv_bias, **kw),
-                "wv": layers.init_linear(gen, d, cfg.d_kv, cfg.qkv_bias, **kw),
-                "wo": layers.init_linear(gen, cfg.d_q, d, cfg.mlp_bias, **kw),
-            },
-            "norm2": layers.init_norm(d, cfg.norm_kind, device=device),
-            "mlp": layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, cfg.mlp_bias, **kw),
-        })
+    out_layers = [_init_layer(cfg, gen, device) for _ in range(cfg.n_layers)]
     p = {
         "embed": layers.init_embedding(gen, cfg.vocab_size, d, **kw),
         "layers": out_layers,
@@ -78,8 +89,6 @@ def _attention_full(cfg, p, h, positions, window, dtype, impl=None):
     """Returns (attn_out, k_flat, v_flat). ``impl``: None launches the
     flash kernel on a CUDA tensor; "ref" (or a CPU tensor) takes the
     reference's plain/blockwise route."""
-    if impl not in (None, "ref"):
-        raise ValueError(f"unknown impl {impl!r} (use 'ref' or None)")
     b, s, _ = h.shape
     hd = cfg.resolved_head_dim
     q = layers.linear(p["wq"], h, dtype).reshape(b, s, cfg.n_heads, hd)
@@ -101,30 +110,48 @@ def _attention_full(cfg, p, h, positions, window, dtype, impl=None):
     return out, k.reshape(b, s, cfg.d_kv), v.reshape(b, s, cfg.d_kv)
 
 
+def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl):
+    """One layer -> (x, (k, v) or None, SSM decode state or None)."""
+    h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+    if cfg.family == "ssm":
+        if want_kv:
+            y, sstate = ssm.mamba_block(p["mamba"], h, cfg, dtype, want_state=True, impl=impl)
+            return x + y, None, sstate
+        return x + ssm.mamba_block(p["mamba"], h, cfg, dtype, impl=impl), None, None
+    attn_out, kf, vf = _attention_full(cfg, p["attn"], h, positions, window, dtype, impl)
+    x = x + attn_out
+    h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+    x = x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
+    return x, ((kf, vf) if want_kv else None), None
+
+
 def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, want_kv: bool = False,
                impl: str | None = None):
-    """Returns (hidden (B,S,d) post-final-norm, per-layer [(k, v)] or None),
-    k/v in the flattened (B, S, d_kv) layout. ``impl`` as in
-    `_attention_full`."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"forward_lm ports the dense family, not {cfg.family!r}")
+    """Returns (hidden (B,S,d) post-final-norm, per-layer [(k, v)] or
+    None, per-layer [{state, conv}] or None): k/v in the flattened
+    (B, S, d_kv) layout for the dense family, the SSM decode state after
+    the sequence for the ssm family (both only with ``want_kv``).
+    ``impl`` as in `_attention_full`, and for the SSD scan."""
+    if cfg.family not in ("dense", "ssm"):
+        raise NotImplementedError(f"forward_lm ports the dense and ssm families, "
+                                  f"not {cfg.family!r}")
+    if impl not in (None, "ref"):
+        raise ValueError(f"unknown impl {impl!r} (use 'ref' or None)")
     dtype = cfg.dtype
     x = layers.embed(params["embed"], tokens, dtype)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     if cfg.pos_kind == "sinusoidal":
         x = x + layers.sinusoidal_positions(s, cfg.d_model, x.device).to(dtype)[None]
-    kv = [] if want_kv else None
+    kv, states = [], []
     for p, window in zip(params["layers"], cfg.layer_windows()):
-        h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
-        attn_out, kf, vf = _attention_full(cfg, p["attn"], h, positions, window, dtype, impl)
-        x = x + attn_out
-        h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
-        if want_kv:
-            kv.append((kf, vf))
+        x, kvl, sstate = _layer_forward(cfg, p, x, positions, window, dtype, want_kv, impl)
+        if kvl is not None:
+            kv.append(kvl)
+        if sstate is not None:
+            states.append(sstate)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    return x, kv
+    return x, (kv or None), (states or None)
 
 
 def unembed_table(cfg, params: Params) -> torch.Tensor:
@@ -140,15 +167,25 @@ def lm_logits(cfg, params: Params, hidden: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
-    """A zeroed dense cache on ``device`` (cuda unless the caller names
-    another; `resolve_device`)."""
+    """A zeroed cache on ``device`` (cuda unless the caller names
+    another; `resolve_device`): k/v in ``dtype`` for the dense family;
+    for the ssm family the f32 recurrent state and the conv window in
+    ``dtype``."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.d_kv)
-    return {
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    ln = cfg.n_layers
+    if cfg.family != "ssm":
+        shape = (ln, batch, max_len, cfg.d_kv)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    else:
+        h, hd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        conv_ch = cfg.d_inner + 2 * n
+        cache["ssm_state"] = torch.zeros((ln, batch, h, hd, n), dtype=torch.float32,
+                                         device=device)
+        cache["ssm_conv"] = torch.zeros((ln, batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
+                                        device=device)
+    return cache
 
 
 def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length=None,
@@ -161,10 +198,15 @@ def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length
     and KV at or past ``length`` is zeroed. A ``(B,)`` tensor ``length``
     packs independently ragged prompts (continuous-batching admission),
     each masked at and read from its own length, with ``cache["pos"]``
-    left as the (B,) vector. The cache is written in place (the
-    reference rebinds it). ``impl`` as in `_attention_full`.
+    left as the (B,) vector. An SSM cache takes no ``length`` (its
+    recurrent state would have consumed the padding): the SSM state
+    after the sequence comes from the chunked scan's final state. The
+    cache is written in place (the reference rebinds it). ``impl`` as in
+    `_attention_full`.
     """
-    hidden, kv = forward_lm(cfg, params, tokens, want_kv=True, impl=impl)
+    if length is not None and cfg.family == "ssm":
+        raise ValueError("length-masked prefill needs an attention-only cache")
+    hidden, kv, states = forward_lm(cfg, params, tokens, want_kv=True, impl=impl)
     b, s = tokens.shape
     ragged = torch.is_tensor(length) and length.ndim == 1
     ar = torch.arange(s, device=hidden.device)
@@ -172,12 +214,15 @@ def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length
         keep = (ar[None, :] < length.to(hidden.device)[:, None])[:, :, None]
     elif length is not None:
         keep = (ar < int(length))[None, :, None]
-    for li, (kf, vf) in enumerate(kv):
+    for li, (kf, vf) in enumerate(kv or ()):
         if length is not None:
             kf = torch.where(keep, kf, 0)
             vf = torch.where(keep, vf, 0)
         cache["k"][li, :, :s] = kf.to(cache["k"].dtype)
         cache["v"][li, :, :s] = vf.to(cache["v"].dtype)
+    for li, st in enumerate(states or ()):
+        cache["ssm_state"][li] = st["state"].to(cache["ssm_state"].dtype)
+        cache["ssm_conv"][li] = st["conv"].to(cache["ssm_conv"].dtype)
     if length is None:
         cache["pos"] = torch.full((), s, dtype=torch.int32, device=hidden.device)
         last = hidden[:, -1:]
@@ -191,6 +236,71 @@ def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length
         cache["pos"] = torch.full((), n, dtype=torch.int32, device=hidden.device)
         last = hidden[:, n - 1 : n]
     return lm_logits(cfg, params, last), cache
+
+
+def decode_step_lm(cfg, params: Params, cache: dict, token: torch.Tensor):
+    """token: (B, 1) int. Returns (logits (B,1,V), cache), the cache
+    updated in place.
+
+    ``cache["pos"]`` is a scalar (the aligned engine's shared cursor:
+    every slot writes and attends at the same position; a write past the
+    cache's end lands on its last row, as the reference's clamped
+    `dynamic_update_slice` does) or, for the dense family only, a (B,)
+    vector of per-slot cursors (each slot writes its token at its own
+    length, and a cursor at or past the cache length writes nothing). An
+    SSM layer advances its recurrent state and conv window
+    (`ssm.mamba_decode`).
+    """
+    dtype = cfg.dtype
+    x = layers.embed(params["embed"], token, dtype)  # (B,1,d)
+    pos = cache["pos"]
+    ragged = pos.ndim == 1
+    if ragged and cfg.family == "ssm":
+        raise ValueError("ragged decode needs an attention-only cache")
+    if cfg.pos_kind == "sinusoidal":
+        emb = layers.sinusoidal_at(pos, cfg.d_model).to(dtype)
+        x = x + (emb[:, None] if ragged else emb[None, None])
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    scale = 1.0 / math.sqrt(hd) if hd else 1.0
+    for li, (p, window) in enumerate(zip(params["layers"], cfg.layer_windows())):
+        h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+        if cfg.family == "ssm":
+            y, mc = ssm.mamba_decode(
+                p["mamba"], h, {"state": cache["ssm_state"][li], "conv": cache["ssm_conv"][li]},
+                cfg, dtype)
+            x = x + y
+            cache["ssm_state"][li] = mc["state"]
+            cache["ssm_conv"][li] = mc["conv"]
+            continue
+        q = layers.linear(p["attn"]["wq"], h, dtype).reshape(b, 1, cfg.n_heads, hd)
+        kn = layers.linear(p["attn"]["wk"], h, dtype).reshape(b, 1, cfg.n_kv_heads, hd)
+        vn = layers.linear(p["attn"]["wv"], h, dtype)
+        if cfg.pos_kind == "rope":
+            pos_arr = pos[:, None] if ragged else pos.reshape(1)
+            q = layers.apply_rope(q, pos_arr, cfg.rope_theta)
+            kn = layers.apply_rope(kn, pos_arr, cfg.rope_theta)
+        kc, vc = cache["k"][li], cache["v"][li]
+        kn = kn.reshape(b, cfg.d_kv).to(kc.dtype)
+        vn = vn.reshape(b, cfg.d_kv).to(vc.dtype)
+        s_max = kc.shape[1]
+        if ragged:
+            live = torch.nonzero(pos < s_max)[:, 0]
+            at = pos[live].long()
+            kc[live, at] = kn[live]
+            vc[live, at] = vn[live]
+        else:
+            at = min(int(pos), s_max - 1)
+            kc[:, at] = kn
+            vc[:, at] = vn
+        attn = layers.attention_decode(q, kc, vc, cfg.n_kv_heads, pos + 1, window, scale)
+        attn = layers.linear(p["attn"]["wo"], attn.reshape(b, 1, cfg.d_q), dtype)
+        x = x + attn
+        h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+        x = x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
+    cache["pos"] = pos + 1
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return lm_logits(cfg, params, x), cache
 
 
 def decode_step_paged_lm(cfg, params: Params, pview: dict, token: torch.Tensor,

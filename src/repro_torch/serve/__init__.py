@@ -1,5 +1,6 @@
-"""Serving layer of the port: the continuous-batching `Engine` over the
-dense and paged KV stores, behind `make_engine`."""
+"""Serving layer of the port: the colocated `Engine` (aligned and
+continuous batching) over the dense and paged KV stores, behind
+`make_engine`."""
 from repro_torch.serve.api import KVSpec, ServeConfig, make_engine
 from repro_torch.serve.engine import Engine, EngineConfig, Request
 from repro_torch.serve.kvstore import DenseKVStore, PagedKVStore, make_kvstore

@@ -1,7 +1,7 @@
 """The serving-engine API of the port: `KVSpec`, `ServeConfig` and the
 `make_engine` front door.
 
-This slice ports the colocated continuous-batching `Engine`. The
+The port has the colocated `Engine` in aligned and continuous mode. The
 disaggregated, fleet and speculative engines are later slices:
 `make_engine` raises for their configs, naming the ROADMAP item.
 """
@@ -43,15 +43,14 @@ class KVSpec:
 
 @dataclasses.dataclass
 class ServeConfig:
-    """Fields shared by every serving engine. ``mode``: ``continuous``
-    (slot-level continuous batching with ragged cursors) or ``aligned``
-    (the phase-aligned tick with a shared cursor). Paged KV needs
-    continuous. The default is continuous, the one mode the port's engine
-    runs so far (the reference defaults to aligned, which is not ported)."""
+    """Fields shared by every serving engine. ``mode``: ``aligned`` (the
+    phase-aligned tick with a shared cursor; the default, as in the
+    reference) or ``continuous`` (slot-level continuous batching with
+    ragged cursors). Paged KV needs continuous."""
 
     max_len: int = 512
     eos_id: int = -1  # -1: never stop early
-    mode: str = "continuous"  # continuous | aligned
+    mode: str = "aligned"  # aligned | continuous
     kv: KVSpec = dataclasses.field(default_factory=KVSpec)
 
     def __post_init__(self):

@@ -1,19 +1,28 @@
-"""Colocated serving engine of the port: slot-level continuous batching
-over a KV store.
+"""Colocated serving engine of the port, in the reference's two
+disciplines.
 
-A finished prefill takes a decode slot the same tick the slot frees
-(admission runs again after retirement), admitted prompts prefill as one
-packed multi-prompt call (`PrefillRunner.run_batch`), each slot decodes
-on its own cursor, and KV lives in a `KVStore` (dense, or paged with the
-prefix cache). Page-aware admission reserves every in-flight request's
+``mode="aligned"`` (the default): admission only at the tick head, each
+admitted prompt prefilled alone (`PrefillRunner.__call__`: the exact
+prompt for families that cannot mask padding, such as the SSM, the
+power-of-two bucket with the length-masked prefill otherwise) and
+migrated into its slot of the dense store; one shared decode cursor, and
+`model.decode_step` over every slot's cache each tick. It is the only
+mode an SSM model serves in.
+
+``mode="continuous"``: slot-level continuous batching. A finished
+prefill takes a decode slot the same tick the slot frees (admission runs
+again after retirement), admitted prompts prefill as one packed
+multi-prompt call (`PrefillRunner.run_batch`), each slot decodes on its
+own cursor, and KV lives in a `KVStore` (dense, or paged with the prefix
+cache). Page-aware admission reserves every in-flight request's
 remaining block growth before taking new work, so a decode append can
-always allocate its tail block.
+always allocate its tail block. Each tick the decode step attends
+straight into the pool through the block tables (the paged decode kernel
+on the GPU) and returns its new K/V rows for the store to scatter.
 
-Each tick the decode step attends straight into the pool through the
-block tables (the paged decode kernel on the GPU), returns its new K/V
-rows for the store to scatter, and the argmax kernel picks the next
-tokens. The reference's aligned mode and its tracing spans are not in
-this slice (ROADMAP).
+In both, the argmax kernel picks every admission's first token and
+every tick's next tokens. The reference's tracing spans are not ported
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -48,20 +57,33 @@ def supports_length_masked_prefill(cfg) -> bool:
 
 
 class PrefillRunner:
-    """Packed prefill through the power-of-two padded bucket with the
-    length-masked prefill."""
+    """Prefill shared by both modes. Attention-only LMs go through the
+    power-of-two padded bucket with the length-masked prefill; other
+    families (the SSM) prefill the exact prompt."""
 
     def __init__(self, model, params, max_len: int | None = None):
-        if not supports_length_masked_prefill(model.cfg):
-            raise ValueError("the prefill runner needs a length-maskable model")
         self.model = model
         self.params = params
         self.max_len = max_len  # bucket cap: migrated KV must fit the slot cache
+        self._bucketed = supports_length_masked_prefill(model.cfg)
+
+    def __call__(self, prompt: np.ndarray) -> tuple:
+        """prompt (n,) int -> (last-token logits (1, 1, V), batch-1 cache)."""
+        dev = self.model.device
+        if not self._bucketed:
+            return self.model.prefill(self.params, torch.as_tensor(prompt[None, :], device=dev))
+        n = int(prompt.shape[0])
+        padded = np.zeros((1, prefill_bucket(n, max_len=self.max_len)), np.int64)
+        padded[0, :n] = prompt
+        return self.model.prefill(self.params, torch.as_tensor(padded, device=dev), length=n)
 
     def run_batch(self, prompts: list) -> tuple:
         """Packed multi-prompt prefill: prompts right-padded to one shared
         bucket with per-row true lengths -> (per-row last-position logits
-        (n, 1, V), batched cache with per-row ``pos``)."""
+        (n, 1, V), batched cache with per-row ``pos``). Needs the
+        length-masked prefill."""
+        if not self._bucketed:
+            raise ValueError("packed prefill needs a length-maskable model")
         lens = [int(p.shape[0]) for p in prompts]
         padded = np.zeros((len(prompts), prefill_bucket(max(lens), max_len=self.max_len)),
                           np.int64)
@@ -121,13 +143,11 @@ class EngineConfig(ServeConfig):
 
 class Engine:
     def __init__(self, model, params, cfg: EngineConfig, sched: FleetScheduler | None = None):
-        if cfg.mode != "continuous":
-            raise NotImplementedError(
-                "aligned mode (shared decode cursor, decode_step_lm) is not ported yet "
-                "(ROADMAP); use mode='continuous'"
+        if cfg.mode == "continuous" and not supports_length_masked_prefill(model.cfg):
+            raise ValueError(
+                "continuous batching needs an attention-only LM "
+                "(ragged per-slot decode cursors)"
             )
-        if not supports_length_masked_prefill(model.cfg):
-            raise ValueError("continuous batching needs an attention-only LM")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -136,7 +156,8 @@ class Engine:
         self.slots: list[Request | None] = [None] * cfg.max_batch
         self.finished: list[Request] = []
         self._prefill = PrefillRunner(model, params, max_len=cfg.max_len)
-        self.kv = make_kvstore(model, cfg.max_batch, cfg.max_len, cfg.kv)
+        self.kv = make_kvstore(model, cfg.max_batch, cfg.max_len, cfg.kv,
+                               ragged=cfg.mode == "continuous")
         self.tokens = torch.zeros((cfg.max_batch, 1), dtype=torch.int32, device=model.device)
         self.last_logits = None  # (B, 1, V) of the latest decode step
         self.tick = 0
@@ -158,6 +179,20 @@ class Engine:
             # max_len price: the same set as a bare max_n gate
             return self.kv.free_tokens(), lambda req: self.cfg.max_len
         return budget, cost_fn
+
+    def _admit(self) -> None:
+        """Aligned admission at the tick head: batch-1 prefill of each
+        taken request, migrated into its free slot."""
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        for req in self.sched.take(self.tick, max_n=len(free)):
+            slot = free.pop(0)
+            self.slots[slot] = req
+            logits, cache1 = self._prefill(req.prompt)
+            self.kv.admit(slot, cache1, int(req.prompt.shape[0]))
+            first = sample_last(logits)[0]
+            self.tokens[slot, 0] = first
+            self.stats["prefills"] += 1
+            self.last_tick["prefill_lens"].append(int(req.prompt.shape[0]))
 
     def _admit_continuous(self) -> None:
         """Admit into whatever slots are free right now. Admitted prompts
@@ -203,8 +238,26 @@ class Engine:
                 (prefill_bucket(max(call_nets), max_len=self.cfg.max_len), len(cold)))
 
     def step(self) -> None:
-        """One engine tick: admit, decode one token for every active slot,
-        retire, and admit again into the slots just freed."""
+        """One engine tick: admit, decode one token for every slot, retire
+        (continuous mode admits again into the slots just freed)."""
+        if self.cfg.mode == "continuous":
+            return self._step_continuous()
+        self.last_tick = {"prefill_lens": [], "decode_batch": 0}
+        self._admit()
+        self.tick += 1
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return
+        logits, cache = self.model.decode_step(self.params, self.kv.view(), self.tokens)
+        self.kv.absorb(cache, active)
+        self.last_logits = logits
+        next_tok = sample_last(logits)
+        self.last_tick["decode_batch"] = len(active)
+        self._retire(next_tok.cpu().numpy())
+        self.tokens = next_tok[:, None]
+        self.stats["steps"] += 1
+
+    def _step_continuous(self) -> None:
         self.last_tick = {"prefill_lens": [], "prefill_calls": [],
                           "decode_batch": 0, "prefix_hit_tokens": 0}
         self._admit_continuous()

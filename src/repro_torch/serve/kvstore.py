@@ -7,9 +7,12 @@ order and ``peak_blocks`` come out identical (tests/test_torch_kvstore.py
 holds them against the JAX stores). The device halves update the pools
 IN PLACE where the reference rebinds `.at[].set` results.
 
-  * `DenseKVStore` — one ``(L, slots, max_len, d)`` reservation, ragged
-    (continuous) mode only; its `kernel_view` feeds the same decode
-    kernel as a one-block-per-slot pool through an identity table.
+  * `DenseKVStore` — one ``(L, slots, max_len, d)`` reservation per
+    cache leaf (an SSM cache's ``ssm_state``/``ssm_conv`` per slot). In
+    aligned mode (``ragged=False``) its cache is the decode step's whole
+    cache with the shared cursor; in ragged (continuous) mode its
+    `kernel_view` feeds the paged decode kernel as a one-block-per-slot
+    pool through an identity table.
   * `PagedKVStore` — pools ``(L, n_blocks, block_size, d)`` in the cache
     dtype or int8 (+ f32 per-row scales); block 0 is the permanent zero
     block and ``-1`` table entries read it.
@@ -38,11 +41,12 @@ from repro_torch.core.operators import (
 from repro_torch.serve.api import KVSpec
 
 
-def make_kvstore(model, slots: int, max_len: int, spec: KVSpec):
-    """Build the KV store a `KVSpec` describes."""
+def make_kvstore(model, slots: int, max_len: int, spec: KVSpec, *, ragged: bool):
+    """Build the KV store a `KVSpec` describes. ``ragged``: per-slot
+    cursors (continuous mode); the paged store is always ragged."""
     if spec.kind == "paged":
         return PagedKVStore(model, slots, max_len, spec)
-    return DenseKVStore(model, slots, max_len)
+    return DenseKVStore(model, slots, max_len, ragged=ragged)
 
 
 def _ids(xs, device) -> torch.Tensor:
@@ -64,27 +68,48 @@ def _cursors(slots: int, max_len: int, lens, active) -> np.ndarray:
 
 
 class DenseKVStore:
-    """One contiguous ``max_len`` reservation per slot, ragged cursors.
-    The reference's aligned (shared-cursor) mode is not ported."""
+    """One contiguous ``max_len`` reservation per slot.
+
+    ``ragged=False`` (aligned mode): the store's cache is the decode
+    step's whole cache, with the shared scalar cursor that admission
+    advances to the longest prompt (`migrate_cache_into_slot`).
+    ``ragged=True`` (continuous mode): per-slot lengths on the host,
+    handed to the decode step as a ``(B,)`` cursor vector."""
 
     kind = "dense"
     block_size: int | None = None  # not page-limited
 
-    def __init__(self, model, slots: int, max_len: int):
+    def __init__(self, model, slots: int, max_len: int, *, ragged: bool = False):
         self.device = model.device
         self.slots = slots
         self.max_len = max_len
+        self.ragged = ragged
         self.cache = model.init_cache(slots, max_len)
         self.lens = np.zeros(slots, np.int64)
 
     def view(self, active: Sequence[int] | None = None) -> dict:
+        if not self.ragged:
+            return self.cache
         pos = _cursors(self.slots, self.max_len, self.lens, active)
         return {"k": self.cache["k"], "v": self.cache["v"],
                 "pos": torch.as_tensor(pos, device=self.device)}
 
+    def absorb(self, cache: dict, active: Sequence[int]) -> None:
+        """Take back the aligned decode step's cache (the step updated it
+        in place) and advance the active slots' lengths."""
+        if self.ragged:
+            raise RuntimeError("absorb takes an aligned decode step's cache; continuous mode "
+                               "scatters rows with absorb_rows")
+        self.cache = cache
+        for i in active:
+            self.lens[i] = min(self.lens[i] + 1, self.max_len)
+
     def kernel_view(self, active: Sequence[int] | None = None) -> dict:
         """The dense cache as a trivially paged pool: one block of
-        ``max_len`` tokens per slot, identity block table."""
+        ``max_len`` tokens per slot, identity block table (continuous
+        mode only)."""
+        if not self.ragged:
+            raise RuntimeError("kernel_view needs ragged mode (per-slot cursors)")
         pos = _cursors(self.slots, self.max_len, self.lens, active)
         return {
             "k_pool": self.cache["k"],
@@ -120,8 +145,9 @@ class DenseKVStore:
 
     def admit(self, slot: int, cache1: dict, length: int, *,
               tokens=None, logits=None, first=None) -> dict:
-        kv = {"k": self.cache["k"], "v": self.cache["v"]}
-        migrate_cache_into_slot(kv, {"k": cache1["k"], "v": cache1["v"]}, slot)
+        """Migrate a batch-1 prefill cache into ``slot`` (every leaf; a
+        ``pos`` in ``cache1`` advances the shared cursor)."""
+        migrate_cache_into_slot(self.cache, cache1, slot)
         self.lens[slot] = length
         return {"prefix_tokens": 0}
 
@@ -143,6 +169,14 @@ class DenseKVStore:
     def stats(self) -> dict:
         return {"kind": "dense", "live_tokens": int(self.lens.sum()),
                 "reserved_tokens": self.slots * self.max_len}
+
+    def slot_cache(self, slot: int) -> dict:
+        """Slot ``slot`` as a batch-1 cache (views of every leaf), with
+        the shared cursor in aligned mode and the slot's length in ragged
+        mode: what `admit` takes back."""
+        pos = (self.cache["pos"] if not self.ragged
+               else torch.tensor(int(self.lens[slot]), dtype=torch.int32, device=self.device))
+        return {k: (pos if k == "pos" else v[:, slot : slot + 1]) for k, v in self.cache.items()}
 
 
 # ---------------------------------------------------------------------------

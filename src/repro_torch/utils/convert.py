@@ -5,7 +5,9 @@ turned every leaf into a numpy array (``jax.tree.map(np.asarray, p)``;
 bf16 leaves arrive as ``ml_dtypes.bfloat16``). It unstacks the scanned
 ``(L, ...)`` layer leaves into the port's per-layer dicts and stores the
 tensors as the port keeps them: matmul weights, biases and embedding
-tables in ``cfg.dtype``, norm scales and biases in f32, on the device
+tables in ``cfg.dtype``; norm scales and biases, and the SSM's own
+parameters (`F32_LEAVES`), in f32 as the reference stores and uses
+them; all bit for bit from the reference's f32 leaves, on the device
 the caller names (`resolve_device`: no device is an error without a
 GPU, never a quiet CPU fallback). This module imports no JAX.
 """
@@ -26,16 +28,23 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def _convert(tree, dtype, device, is_norm: bool = False):
+# Mamba-2 leaves the reference keeps and computes in f32 (`models/ssm.py`):
+# rounding A_log to bf16 moves A = -exp(A_log) by up to ~0.5 %, and the
+# decay compounds that over every position
+F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "conv_w", "conv_b"})
+
+
+def _convert(tree, dtype, device, keep_f32: bool = False):
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device, is_norm or "norm" in k) for k, v in tree.items()}
+        return {k: _convert(v, dtype, device, keep_f32 or "norm" in k or k in F32_LEAVES)
+                for k, v in tree.items()}
     t = tensor_from_numpy(np.asarray(tree), device)
-    return t.to(torch.float32 if is_norm else dtype)
+    return t.to(torch.float32 if keep_f32 else dtype)
 
 
 def params_from_numpy(tree: dict, cfg, device) -> dict:
-    """The reference's dense-LM parameter tree (numpy leaves, layers
-    stacked on a leading L axis) -> the port's parameters on ``device``."""
+    """The reference's LM parameter tree (numpy leaves, layers stacked
+    on a leading L axis) -> the port's parameters on ``device``."""
     device = resolve_device(device)
     stacked = tree["layers"]
     per_layer = [_index(stacked, i) for i in range(cfg.n_layers)]

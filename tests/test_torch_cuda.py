@@ -17,6 +17,16 @@ Tolerances, with their reasons:
     bf16 inputs and round the output once; the kernel also rounds P to
     bf16 for the tensor cores, which moves an output by ~2^-9 of it);
   * argmax: exact, ties included;
+  * SSD scan, f32: 1e-4 for y and the final state. Inputs are the
+    model's A (-linspace(1, 16)) and dt (softplus of N(0, 1)), or the
+    reference test's dt (U(0.01, 0.2), tests/test_kernels.py), with B and
+    C scaled so that C.B has unit variance: y is O(1), and both sides'
+    f32 error, set by the prefix sums of dt * A, is ~3e-5 against an f64
+    evaluation there. bf16: per output row (one position and head), max
+    |kernel - plain| / rms(plain row) <= 1/16: both compute in f32 from
+    the same bf16 inputs and round y once, so they differ by at most one
+    bf16 ulp of an element (2^-7 of it, up to ~4x the row's rms); the f32
+    final state keeps 1e-4;
   * engine: identical token streams and admissions in f32, logits 1e-4.
 """
 import dataclasses
@@ -33,6 +43,7 @@ from repro_torch.kernels.paged_attention import (
     paged_decode_attention_kernel,
 )
 from repro_torch.kernels.sample import argmax_last_kernel, sample_last
+from repro_torch.kernels.ssd_scan import ssd, ssd_scan_kernel
 from repro_torch.models.model_zoo import build
 from repro_torch.serve import EngineConfig, KVSpec, Request, make_engine
 
@@ -211,6 +222,120 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
         mha(q, k, v, impl="kernel")
 
 
+def _ssd_inputs(seed, b, s, h, p, n, dtype, device, a=None, dt_range=None):
+    """x (B,S,H,P), dt (B,S,H), A (H,), Bm, Cm (B,S,N): the model's A (or
+    -a), dt uniform in ``dt_range`` (None: the model's softplus(N(0, 1))),
+    B and C at unit-variance C.B."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32))
+    if dt_range is None:
+        dt = torch.nn.functional.softplus(torch.from_numpy(
+            rng.normal(size=(b, s, h)).astype(np.float32)))
+    else:
+        dt = torch.from_numpy(rng.uniform(*dt_range, size=(b, s, h)).astype(np.float32))
+    A = -torch.linspace(1.0, 16.0, h) if a is None else torch.full((h,), -float(a))
+    bc = [torch.from_numpy(rng.normal(size=(b, s, n)).astype(np.float32)) / n ** 0.5
+          for _ in range(2)]
+    return (x.to(device, dtype), dt.to(device), A.to(device),
+            bc[0].to(device, dtype), bc[1].to(device, dtype))
+
+
+def _row_rel_err(got, want):
+    d = (got.float() - want.float()).abs().amax(-1)
+    rms = want.float().square().mean(-1).sqrt().clamp_min(1e-6)
+    return (d / rms).max().item()
+
+
+# (B, S, H, P, N, chunk): mamba2-130m's head and state (P 64, N 128, chunk
+# 256) at a ragged S with 5 heads (a head group of 1 after 4) and at
+# S < chunk; the smoke config's (P 32, N 16, chunk 32); a chunk of 16
+SSD_GEOMETRIES = [(2, 300, 5, 64, 128, 256), (1, 1000, 24, 64, 128, 256),
+                  (2, 20, 4, 64, 128, 256), (2, 96, 3, 32, 16, 32), (1, 50, 2, 32, 16, 16),
+                  (1, 7, 6, 32, 8, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_GEOMETRIES)
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
+    args = _ssd_inputs(s + h, b, s, h, p, n, dtype, cuda)
+    before = ssd_scan_kernel.launches
+    y, fin = ssd(*args, chunk=chunk)
+    assert ssd_scan_kernel.launches == before + 1
+    want_y, want_fin = ssd(*args, chunk=chunk, impl="ref")
+    torch.cuda.synchronize()
+    assert y.shape == (b, s, h, p) and y.dtype == dtype and fin.dtype == torch.float32
+    torch.testing.assert_close(fin, want_fin, atol=1e-4, rtol=1e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    else:
+        assert _row_rel_err(y, want_y) <= 1 / 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_kernel_at_the_reference_tests_dt(cuda, dtype):
+    """mamba2-130m's widths at the reference test's small dt, where the
+    state carries across many chunks (the tests above take the model's
+    dt)."""
+    args = _ssd_inputs(11, 1, 1000, 24, 64, 128, dtype, cuda, dt_range=(0.01, 0.2))
+    y, fin = ssd(*args, chunk=256)
+    want_y, want_fin = ssd(*args, chunk=256, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fin, want_fin, atol=1e-4, rtol=1e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    else:
+        assert _row_rel_err(y, want_y) <= 1 / 16
+
+
+def test_ssd_kernel_masks_before_exp(cuda):
+    """A = -16 and dt near 1: the masked exponent differences reach +4,000
+    within a chunk. The kernel never exponentiates them: every output is
+    finite and matches the plain version. The final state is then almost
+    only the last real position's term, exp(0) = 1, so padded positions
+    that shifted the ragged last chunk's prefix sums by an ulp of |cum|
+    (~5e-4 here) would show as a ~3e-4 error."""
+    args = _ssd_inputs(7, 1, 1000, 24, 64, 128, torch.float32, cuda, a=16.0,
+                       dt_range=(0.9, 1.1))
+    y, fin = ssd(*args, chunk=256)
+    want_y, want_fin = ssd(*args, chunk=256, impl="ref")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=0)
+    torch.testing.assert_close(fin, want_fin, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_kernel_reads_conv_output_slices(cuda, dtype):
+    """The model hands the kernel column slices of the conv output
+    (B, S, d_inner + 2N) with no copy: x as a (B, S, H, P) view, B and C
+    as (B, S, N) views of the same rows. The result equals the kernel's
+    on contiguous copies, bit for bit."""
+    x, dt, A, Bm, Cm = _ssd_inputs(9, 2, 333, 4, 64, 128, dtype, cuda)
+    conv_out = torch.cat([x.reshape(2, 333, 256), Bm, Cm], dim=-1)
+    xs, bs, cs = torch.split(conv_out, [256, 128, 128], dim=-1)
+    got = ssd(xs.reshape(2, 333, 4, 64), dt, A, bs, cs, chunk=256)
+    want = ssd(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    assert not xs.is_contiguous()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(0, 1, 40, 2, 64, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        ssd(x[..., :48], dt, A, Bm, Cm, chunk=16)
+    with pytest.raises(ValueError, match="N <= 128"):
+        ssd(x, dt, A, *(torch.zeros((1, 40, 129), device=cuda),) * 2, chunk=16)
+    with pytest.raises(ValueError, match="chunk <= 256"):
+        ssd(x, dt, A, Bm, Cm, chunk=512)
+    with pytest.raises(TypeError, match="f32"):
+        ssd(x, dt.bfloat16(), A, Bm, Cm, chunk=16)
+    with pytest.raises(TypeError, match="f32 or all bf16"):
+        ssd(x, dt, A, Bm.bfloat16(), Cm, chunk=16)
+    with pytest.raises(ValueError, match="one device"):
+        ssd(x, dt.cpu(), A, Bm, Cm, chunk=16)
+
+
 def _tied_logits():
     x = np.full((3, 2, 1024), -1.0, np.float32)
     x[0, -1, [3, 699]] = 7.0
@@ -291,6 +416,37 @@ def test_engine_on_gpu_matches_cpu(cuda, kv_dtype):
         assert {r.uid: len(r.out_tokens) for r in ge.finished} == \
                {r.uid: r.max_new_tokens for r in ce.finished}
         return
+    assert gticks == cticks
+    assert {r.uid: r.out_tokens for r in ge.finished} == \
+           {r.uid: r.out_tokens for r in ce.finished}
+
+
+def test_aligned_mamba_engine_on_gpu_matches_cpu(cuda):
+    """The f32 mamba2 smoke config served in aligned mode on both devices:
+    on the GPU every prefill runs the SSD kernel in every layer and every
+    admission and tick the argmax kernel; the runs agree tick for tick
+    and token for token."""
+    cfg = dataclasses.replace(get_smoke("mamba2-130m"), dtype=torch.float32)
+    cpu_model, gpu_model = build(cfg, device="cpu"), build(cfg, device="cuda")
+    params = cpu_model.init(0)
+    runs = []
+    for model, p in ((gpu_model, _to(params, cuda)), (cpu_model, params)):
+        e = make_engine(model, p, EngineConfig(max_batch=3, max_len=128))
+        rng = np.random.default_rng(1)
+        for i, n in enumerate((5, 70, 33, 12, 48)):
+            e.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                             max_new_tokens=6))
+        ssd0, argmax0 = ssd_scan_kernel.launches, argmax_last_kernel.launches
+        ticks = []
+        while not e.idle():
+            e.step()
+            ticks.append((e.last_tick["decode_batch"], e.last_tick["prefill_lens"]))
+        runs.append((e, ticks, ssd_scan_kernel.launches - ssd0,
+                     argmax_last_kernel.launches - argmax0))
+    (ge, gticks, g_ssd, g_argmax), (ce, cticks, c_ssd, c_argmax) = runs
+    decode_ticks = sum(1 for t in gticks if t[0])
+    assert g_ssd == cfg.n_layers * ge.stats["prefills"] and c_ssd == c_argmax == 0
+    assert g_argmax == decode_ticks + ge.stats["prefills"]
     assert gticks == cticks
     assert {r.uid: r.out_tokens for r in ge.finished} == \
            {r.uid: r.out_tokens for r in ce.finished}

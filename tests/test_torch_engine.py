@@ -236,11 +236,12 @@ def test_page_admission_budget_matches_reference(models):
 
 
 def test_make_engine_dispatch(models):
+    """A bare `ServeConfig` builds the colocated engine in the reference's
+    default mode, aligned, over the dense store."""
     _, (tm, tp) = models
     e = make_engine(tm, tp, ServeConfig(max_len=32))
-    assert e.cfg.max_batch == 8 and e.kv.kind == "dense" and e.cfg.mode == "continuous"
-    with pytest.raises(NotImplementedError, match="aligned"):
-        make_engine(tm, tp, EngineConfig(mode="aligned", max_len=32))
+    assert e.cfg.max_batch == 8 and e.kv.kind == "dense" and e.cfg.mode == "aligned"
+    assert ServeConfig().mode == JEngineConfig().mode == "aligned" and not e.kv.ragged
 
     @dataclasses.dataclass
     class SpecConfig(ServeConfig):
@@ -250,6 +251,44 @@ def test_make_engine_dispatch(models):
         make_engine(tm, tp, SpecConfig(mode="continuous"))
     with pytest.raises(ValueError, match="continuous"):
         EngineConfig(mode="aligned", kv=KVSpec(kind="paged"))
+
+
+@pytest.mark.parametrize("lens,max_new,slots", [
+    ([3, 5, 4, 2, 6], 3, 2),  # tests/test_kvstore.py's aligned workload
+    ([30, 17, 8, 25, 40, 5, 12], 6, 3),
+], ids=["short", "mixed"])
+def test_aligned_engine_matches_reference(models, lens, max_new, slots):
+    """Aligned mode on the dense store: batch-1 bucketed prefills migrated
+    into their slots, one shared cursor, `decode_step_lm` each tick. The
+    two packages tick in lockstep: the same slots, prefill lengths and
+    decode batches, the shared cursor, identical token streams and ticks.
+    Logits get 1e-3: the slot cache is bf16 (`init_cache`'s dtype), and a
+    K/V row the two packages compute 1e-7 apart in f32 can round to bf16
+    values one ulp (2^-8 of the value) apart, which moves later logits by
+    up to 5e-4 here (seen from the seventh tick of the short workload)."""
+    (jm, jp), (tm, tp) = models
+    je = j_make_engine(jm, jp, JEngineConfig(max_batch=slots, max_len=64))
+    te = make_engine(tm, tp, EngineConfig(max_batch=slots, max_len=64))
+    rng = np.random.default_rng(4)
+    for uid, n in enumerate(lens):
+        prompt = rng.integers(0, tm.cfg.vocab_size, n).astype(np.int32)
+        je.submit(JRequest(uid=uid, prompt=prompt, max_new_tokens=max_new))
+        te.submit(Request(uid=uid, prompt=prompt.copy(), max_new_tokens=max_new))
+    while not (je.idle() and te.idle()):
+        je.step()
+        te.step()
+        assert [s.uid if s else None for s in te.slots] == \
+               [s.uid if s else None for s in je.slots], te.tick
+        for key in ("prefill_lens", "decode_batch"):
+            assert te.last_tick[key] == je.last_tick[key], (te.tick, key)
+        assert int(te.kv.cache["pos"]) == int(je.kv.cache["pos"]), te.tick
+        if te.last_tick["decode_batch"]:
+            np.testing.assert_allclose(te.last_logits.numpy(), np.asarray(je.last_logits),
+                                       atol=1e-3, rtol=1e-3)
+        assert te.tick < 200
+    assert te.tick == je.tick
+    assert _by_uid(te) == _by_uid(je) and len(te.finished) == len(lens)
+    assert te.stats == je.stats
 
 
 @pytest.mark.parametrize("n,max_len,want", [(1, None, 8), (8, None, 8), (9, None, 16),

@@ -120,6 +120,34 @@ def test_migrate_cache_into_slot_matches_reference():
         _same(tdst[key], want[key])
 
 
+def test_migrate_cache_into_slot_copies_ssm_leaves():
+    """An SSM cache's non-sequence leaves, the f32 recurrent state
+    (L, B, H, P, N) and the bf16 conv window (L, B, K-1, C), migrate whole
+    into the slot, and the shared cursor advances to the longer one."""
+    rng = np.random.default_rng(4)
+    dst = {"ssm_state": rng.normal(size=(2, 3, 4, 8, 6)).astype(np.float32),
+           "ssm_conv": _bf16(rng, 2, 3, 3, 10), "pos": np.int32(9)}
+    src = {"ssm_state": rng.normal(size=(2, 1, 4, 8, 6)).astype(np.float32),
+           "ssm_conv": _bf16(rng, 2, 1, 3, 10), "pos": np.int32(12)}
+    dtypes = {"ssm_state": (torch.float32, jnp.float32),
+              "ssm_conv": (torch.bfloat16, jnp.bfloat16), "pos": (torch.int32, jnp.int32)}
+
+    def tside(tree):
+        return {k: torch.as_tensor(v).to(dtypes[k][0]) for k, v in tree.items()}
+
+    def jside(tree):
+        return {k: jnp.asarray(v, dtypes[k][1]) for k, v in tree.items()}
+
+    tdst = tside(dst)
+    to.migrate_cache_into_slot(tdst, tside(src), 1)
+    want = jo.migrate_cache_into_slot(jside(dst), jside(src), 1)
+    for key in dst:
+        assert tdst[key].dtype == dtypes[key][0]
+        _same(tdst[key], want[key])
+    _same(tdst["ssm_state"][:, 1], src["ssm_state"][:, 0])
+    assert int(tdst["pos"]) == 12
+
+
 # -- stores ----------------------------------------------------------------------
 
 
@@ -185,7 +213,7 @@ class _Driver:
     def __init__(self, models, spec: dict, slots: int, max_len: int):
         jm, tm = models
         self.j = j_make_kvstore(jm, slots, max_len, JKVSpec(**spec), ragged=True)
-        self.t = make_kvstore(tm, slots, max_len, KVSpec(**spec))
+        self.t = make_kvstore(tm, slots, max_len, KVSpec(**spec), ragged=True)
         self.rng = np.random.default_rng(7)
         self.ln, self.d = tm.cfg.n_layers, tm.cfg.d_kv
 
@@ -299,14 +327,53 @@ def test_dense_store_matches_reference(models):
     assert drv.t.free_tokens() == drv.j.free_tokens() and drv.t.stats == drv.j.stats
 
 
+@pytest.mark.parametrize("name", [NAME, "mamba2-130m"])
+def test_aligned_dense_store_matches_reference(name):
+    """Aligned mode (``ragged=False``): `view` is the whole cache, `admit`
+    migrates every leaf of a batch-1 prefill cache with its ``pos`` (the
+    shared cursor advances to the longest), `absorb` takes a decode
+    step's cache back whole and advances the active lengths, and
+    `slot_cache` reads a slot back as a batch-1 cache. Dense k/v, or an
+    SSM's state and conv window; bit for bit against the JAX store."""
+    jm = j_build(dataclasses.replace(j_get_smoke(name), dtype=jnp.float32))
+    tm = build(dataclasses.replace(get_smoke(name), dtype=torch.float32), device="cpu")
+    j = j_make_kvstore(jm, 3, 16, JKVSpec(), ragged=False)
+    t = make_kvstore(tm, 3, 16, KVSpec(), ragged=False)
+    assert t.view() is t.cache and not t.ragged
+    rng = np.random.default_rng(8)
+    for slot, n in ((0, 7), (2, 11), (1, 4)):
+        jc = {k: v[:, :1, :n] if k in ("k", "v") else v[:, :1]
+              for k, v in j_make_kvstore(jm, 1, n, JKVSpec(), ragged=False).cache.items()
+              if k != "pos"}
+        jc = {k: jnp.asarray(_bf16(rng, *v.shape), v.dtype) for k, v in jc.items()}
+        tc = {k: tensor_from_numpy(np.asarray(v), "cpu") for k, v in jc.items()}
+        jc["pos"], tc["pos"] = jnp.int32(n), torch.tensor(n, dtype=torch.int32)
+        assert t.admit(slot, tc, n) == j.admit(slot, jc, n)
+        for key in j.cache:
+            _same(t.cache[key], j.cache[key])
+        np.testing.assert_array_equal(t.lens, j.lens)
+    stepped = {k: (v + 1 if k == "pos" else v) for k, v in j.cache.items()}
+    j.absorb(stepped, [0, 2])
+    t.absorb({k: (v + 1 if k == "pos" else v) for k, v in t.cache.items()}, [0, 2])
+    np.testing.assert_array_equal(t.lens, j.lens)
+    assert int(t.cache["pos"]) == int(j.cache["pos"]) == 12
+    ts, js = t.slot_cache(2), j.slot_cache(2)
+    assert set(ts) == set(js)
+    for key in js:
+        _same(ts[key], js[key])
+    with pytest.raises(RuntimeError, match="ragged"):
+        t.kernel_view([0])
+
+
 def test_store_validation():
     tm = build(get_smoke(NAME), device="cpu")
     with pytest.raises(ValueError, match="multiple of block_size"):
-        make_kvstore(tm, 2, 30, KVSpec(kind="paged", block_size=16))
+        make_kvstore(tm, 2, 30, KVSpec(kind="paged", block_size=16), ragged=True)
     with pytest.raises(ValueError, match="cannot hold one full request"):
-        make_kvstore(tm, 2, 32, KVSpec(kind="paged", block_size=16, n_blocks=2))
+        make_kvstore(tm, 2, 32, KVSpec(kind="paged", block_size=16, n_blocks=2), ragged=True)
     with pytest.raises(ValueError, match="requires kind='paged'"):
         KVSpec(kind="dense", kv_dtype="int8")
-    st = make_kvstore(tm, 2, 32, KVSpec(kind="paged", block_size=16, kv_dtype="int8"))
+    st = make_kvstore(tm, 2, 32, KVSpec(kind="paged", block_size=16, kv_dtype="int8"),
+                      ragged=True)
     assert st.n_blocks == 2 * 2 * 2 + 1  # int8 holds twice the bf16 pages
     assert st.k_pool.dtype == torch.int8 and st.k_scale.dtype == torch.float32

@@ -107,6 +107,35 @@ def test_prefill_matches_reference(lm, length):
     np.testing.assert_array_equal(tcache["pos"].numpy(), np.asarray(jcache["pos"]))
 
 
+@pytest.mark.parametrize("cursor", ["scalar", "ragged"])
+def test_decode_step_lm_matches_reference(lm, cursor):
+    """`decode_step_lm` after a prefill into a 12-token f32 cache, four
+    steps fed the reference's greedy tokens. Scalar: the shared cursor
+    starts at 10 and runs past the cache's end, where both packages write
+    its last row. Ragged: per-slot cursors from a packed prefill of
+    lengths 10, 7 and 3; the first slot reaches the end and then writes
+    nothing. Logits, K/V caches and cursors each step."""
+    _, jc, jp, tc, tp = lm
+    b, s, max_len = 3, 10, 12
+    toks = _tokens(tc, b, s, seed=3)
+    lens = np.array([10, 7, 3], np.int32) if cursor == "ragged" else None
+    jl, jcache, _ = jt.prefill_lm(jc, jp, jnp.asarray(toks),
+                                  jt.init_cache(jc, b, max_len, jnp.float32),
+                                  length=None if lens is None else jnp.asarray(lens))
+    tl, tcache = tt.prefill_lm(tc, tp, torch.from_numpy(toks).long(),
+                               tt.init_cache(tc, b, max_len, torch.float32, "cpu"),
+                               length=None if lens is None else torch.from_numpy(lens))
+    for _ in range(4):
+        nxt = np.array(jnp.argmax(jl[:, -1], axis=-1), np.int32)[:, None]
+        jl, jcache = jt.decode_step_lm(jc, jp, jcache, jnp.asarray(nxt))
+        tl, tcache = tt.decode_step_lm(tc, tp, tcache, torch.from_numpy(nxt).long())
+        _close(tl, jl)
+        for key in ("k", "v"):
+            _close(tcache[key], jcache[key])
+        np.testing.assert_array_equal(tcache["pos"].numpy(), np.asarray(jcache["pos"]))
+    assert tcache["pos"].ndim == (1 if cursor == "ragged" else 0)
+
+
 def test_model_prefill_keeps_bf16_cache(lm):
     """`Model.prefill` without a cache makes the reference's default
     bf16 cache (`init_cache`'s dtype), whatever the compute dtype."""
