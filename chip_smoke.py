@@ -45,7 +45,22 @@ prints no result:
                prefill call under `torch.profiler` (device time by
                kernel class: the SSD kernel's share of a call) and the
                profile phase's decode window on an aligned mamba engine.
-8. summary  — a ``{"kernels": [...]}`` line, then the last line
+   The kernels phase also holds chunk_accumulate against its plain
+   version (bit for bit at the train phase's (2, 465,567,744) f32 fold
+   and at a ragged S; 1e-6 at n = 7 and at 16 rows of bf16) and the
+   keyed histogram (2^26 Zipf keys into 151,936 bins, and 4,096 bins).
+8. train    — qwen1.5-0.5b at full width and depth, random f32 weights
+               from --seed, through `Trainer` in decoupled mode in a
+               four-row gloo world on this card (`launch.mesh.spawn`,
+               three compute rows and one reducer; the wire is host
+               loopback): 3 AdamW steps over 6 sequences of 2,048 tokens,
+               the reducer folding each wave of 16 MiB gradient chunks
+               with chunk_accumulate (launches checked: waves x steps);
+               per-step loss and wall time, per-rank phase times, wire
+               bytes and peak memory; then one SGD step (lr 1) of the
+               world held against the conventional step in one process
+               in f32 (1e-4 of the largest gradient), and reported in bf16.
+9. summary  — a ``{"kernels": [...]}`` line, then the last line
                ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, the script
@@ -68,6 +83,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # outside the tensor cores
 # tolerances, stated before the run
 # paged decode, bf16 and int8 pools: per slot, max |kernel - plain| over the
 # rms of the plain output. The kernel keeps scores, probabilities and
@@ -132,6 +148,26 @@ SSD_REL = 2.0 ** -4
 # ~2-4, where an ulp is 0.0156-0.031); a wrong chunk or head moves them
 # by O(1).
 MAMBA_LOGIT_BUDGET = 0.125
+# chunk_accumulate: at n = 2 (the stream channel's call: accumulator and
+# the wave's staging) one rounding of a + b on either side, so bit for bit,
+# ragged S included. At n > 2 and for bf16 input: |kernel - plain| <= 1e-6
+# x max_j sum_k |x[k, j]|; another summation order moves a column by at
+# most (n - 1) ulps of that sum (n = 16: ~1e-6), a missed or doubled row
+# by about one |x[k, j]|.
+ACC_REL = 1e-6
+# histogram: max |kernel - plain| over the largest bin of the plain
+# version. Atomics add in a varying order; with counts of 1 (word counts)
+# every bin is an exact integer while it stays under 2^24, which this run
+# checks, so any error is a dropped or misplaced key.
+HIST_REL = 1e-5
+# train phase, f32 parity step (SGD, lr 1: new params = params - gradient):
+# the decoupled world against the conventional step in one process on the
+# same global batch, max |difference| over the largest gradient element.
+# Both compute in f32 with TF32 off; the three compute rows' partial
+# gradients are summed in another order than one batch's backward, a few
+# f32 ulps of the largest gradient (the reference's own budget is 1e-5
+# absolute on the f32 smoke config, tests/test_multidevice.py).
+TRAIN_PARITY_REL = 1e-4
 
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 PAGED_TPU = "src/repro/kernels/paged_attention/paged_attention.py:135"
@@ -141,6 +177,9 @@ FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:80"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:83"
+REDUCE_SRC = "src/repro_torch/kernels/csrc/stream_reduce.cu"
+ACC_TPU = "src/repro/kernels/stream_reduce/stream_reduce.py:104"
+HIST_TPU = "src/repro/kernels/stream_reduce/stream_reduce.py:51"
 
 
 def emit(obj) -> None:
@@ -188,9 +227,9 @@ def device_ms(torch, fns, iters: int = 20) -> float | None:
     return us / 1e3 / iters if us else None
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -641,6 +680,123 @@ def check_ssd(torch, np, seed: int) -> dict:
             "library_device_ms": None}
 
 
+# the stream channel's call at the train phase's widths: the reducer folds
+# qwen1.5-0.5b's 463,987,712 f32 gradients, packed into 111 wire chunks of
+# 16 MiB (465,567,744 values), stacked on its accumulator; then a ragged S,
+# and n > 2 in f32 and bf16. (case, n, S, dtype, timing iterations)
+ACC_CASES = [("train fold: accumulator + one wave", 2, 465_567_744, "f32", 10),
+             ("ragged S", 2, 1_000_003, "f32", 20),
+             ("7 rows", 7, 2_500_000, "f32", 20),
+             ("16 rows, bf16 input", 16, 4_194_304, "bf16", 20)]
+
+
+def check_accumulate(torch, np, seed: int) -> dict:
+    from repro_torch.kernels.stream_reduce import ops
+
+    cases = []
+    for name, n, s, dt, iters in ACC_CASES:
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        gen = torch.Generator(device="cuda").manual_seed(seed + n)
+        x = torch.randn((n, s), generator=gen, device="cuda").to(dtype)
+        out = ops.accumulate(x)
+        ref = ops.accumulate(x, impl="ref")
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        scale = x.float().abs().sum(0).max().item()
+        exact = bool(torch.equal(out, ref))
+        if n == 2 and dt == "f32":
+            exact = exact and bool(torch.equal(out, x[0] + x[1]))
+        nbytes = n * s * x.element_size() + s * 4
+        b_ms, b_by = bound_ms(nbytes, float((n - 1) * s), F32_FLOPS)
+        kern, plain = [lambda: ops.accumulate(x)], [lambda: ops.accumulate(x, impl="ref")]
+        lib = [lambda: torch.sum(x, 0, dtype=torch.float32)]
+        case = {"phase": "kernels", "kernel": "chunk_accumulate", "case": name,
+                "shape": [n, s], "dtype": dt, "max_abs_err": err, "bit_identical": exact,
+                "col_abs_sum_max": scale, "rel_budget": ACC_REL,
+                "finite": bool(torch.isfinite(out).all()),
+                "kernel_ms": cuda_ms(torch, kern, iters, warmup=2),
+                "kernel_device_ms": device_ms(torch, kern, iters),
+                "plain_ms": cuda_ms(torch, plain, iters, warmup=2),
+                "plain_device_ms": device_ms(torch, plain, iters),
+                "library_ms": cuda_ms(torch, lib, iters, warmup=2),
+                "library_device_ms": device_ms(torch, lib, iters),
+                "library_call": "torch.sum(x, 0, dtype=torch.float32)",
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+        case["kernel_gb_per_s"] = nbytes / case["kernel_ms"] / 1e6
+        emit(case)
+        ok = exact if n == 2 else err <= ACC_REL * scale
+        if not ok or not case["finite"]:
+            raise AssertionError(f"chunk_accumulate disagrees with its plain version: {case}")
+        cases.append(case)
+        del x, out, ref, kern, plain, lib
+        torch.cuda.empty_cache()
+    main = cases[0]
+    return {"name": "chunk_accumulate", "route": "cuda", "source": REDUCE_SRC,
+            "replaces": ACC_TPU, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "device_ms": main["kernel_device_ms"], "plain_device_ms": main["plain_device_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "library_device_ms": main["library_device_ms"]}
+
+
+def check_histogram(torch, np, seed: int) -> dict:
+    """2^26 Zipf keys (word ids, 5 % padding) into qwen's 151,936 bins,
+    counts of 1; then the shared-memory path at 4,096 bins with random
+    counts (1e-5 of the largest bin: an f32 sum's reordering)."""
+    from repro_torch.kernels.stream_reduce import ops
+
+    n, bins = 1 << 26, 151_936
+    rng = np.random.default_rng(seed + 7)
+    keys_np = (rng.zipf(1.3, n) % bins).astype(np.int32)
+    keys_np[rng.random(n) < 0.05] = -1
+    keys = torch.from_numpy(keys_np).to("cuda")
+    counts = torch.ones(n, device="cuda")
+    valid = keys >= 0
+    lib_keys, lib_w = keys[valid].long(), counts[valid]
+    out = ops.keyed_histogram(keys, counts, bins)
+    ref = ops.keyed_histogram(keys, counts, bins, impl="ref")
+    torch.cuda.synchronize()
+    top = ref.max().item()
+    if top >= 2 ** 24:
+        raise AssertionError(f"the hottest bin ({top}) is past f32's exact integers")
+    err = (out - ref).abs().max().item()
+    nbytes = n * 8 + bins * 4
+    b_ms, b_by = bound_ms(nbytes, float(n), F32_FLOPS)
+    kern = [lambda: ops.keyed_histogram(keys, counts, bins)]
+    plain = [lambda: ops.keyed_histogram(keys, counts, bins, impl="ref")]
+    lib = [lambda: torch.bincount(lib_keys, lib_w, minlength=bins)]
+    case = {"phase": "kernels", "kernel": "histogram", "case": "2^26 zipf keys",
+            "n": n, "bins": bins, "padding": float((~valid).float().mean()),
+            "hottest_bin": top, "max_abs_err": err, "rel_err": err / top,
+            "rel_budget": HIST_REL,
+            "kernel_ms": cuda_ms(torch, kern, 10, warmup=2),
+            "kernel_device_ms": device_ms(torch, kern, 10),
+            "plain_ms": cuda_ms(torch, plain, 10, warmup=2),
+            "plain_device_ms": device_ms(torch, plain, 10),
+            "library_ms": cuda_ms(torch, lib, 10, warmup=2),
+            "library_device_ms": device_ms(torch, lib, 10),
+            "library_call": "torch.bincount(keys[keys >= 0], weights, minlength)",
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    emit(case)
+    if not err / top <= HIST_REL:
+        raise AssertionError(f"histogram kernel disagrees with its plain version: {case}")
+    small_keys = torch.randint(-1, 4096, (1 << 20,), device="cuda", dtype=torch.int32)
+    small_counts = torch.rand(1 << 20, device="cuda")
+    s_out = ops.keyed_histogram(small_keys, small_counts, 4096)
+    s_ref = ops.keyed_histogram(small_keys, small_counts, 4096, impl="ref")
+    torch.cuda.synchronize()
+    s_rel = (s_out - s_ref).abs().max().item() / s_ref.max().item()
+    emit({"phase": "kernels", "kernel": "histogram", "case": "shared memory, 4096 bins",
+          "n": 1 << 20, "bins": 4096, "rel_err": s_rel, "rel_budget": HIST_REL})
+    if not s_rel <= HIST_REL:
+        raise AssertionError(f"histogram kernel (shared path) off by {s_rel}")
+    return {"name": "histogram", "route": "cuda", "source": REDUCE_SRC, "replaces": HIST_TPU,
+            "max_abs_err": err, "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
+            "device_ms": case["kernel_device_ms"], "plain_device_ms": case["plain_device_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": case["library_ms"],
+            "library_device_ms": case["library_device_ms"]}
+
+
 # -- phase 4: full-width serve -------------------------------------------------
 
 
@@ -650,10 +806,12 @@ def kernel_counters() -> dict:
     from repro_torch.kernels.paged_attention import paged_decode_attention_kernel
     from repro_torch.kernels.sample import argmax_last_kernel
     from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    from repro_torch.kernels.stream_reduce import chunk_accumulate_kernel, histogram_kernel
 
     return {"paged_decode_attention": paged_decode_attention_kernel,
             "argmax_last": argmax_last_kernel, "flash_attention": flash_attention_kernel,
-            "ssd_scan": ssd_scan_kernel}
+            "ssd_scan": ssd_scan_kernel, "chunk_accumulate": chunk_accumulate_kernel,
+            "histogram": histogram_kernel}
 
 
 def short_requests(np, cfg, *, n_req: int, seed: int) -> list:
@@ -1118,6 +1276,170 @@ def profile_prefill(torch, np, model, params, *, seed: int, s: int = 8192) -> di
     return out
 
 
+# -- phase 8: the decoupled training step ---------------------------------------
+
+TRAIN_ROWS = 4
+TRAIN_STEPS = 3
+TRAIN_CHUNK_BYTES = 16 << 20
+
+
+def train_rank(mesh, seed: int) -> dict:
+    """One rank of the train phase's four-row world (run by `spawn`):
+    3 AdamW steps of qwen1.5-0.5b at full width through `Trainer` in
+    decoupled mode, with this rank's kernel counts set to 0 just before
+    and read just after; then the parity step in f32 and in bf16."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import DataConfig, Pipeline, row_shard
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import (
+        TrainStepConfig,
+        build_conventional_step,
+        make_step,
+    )
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.utils.treeutil import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mem = []  # (where, GiB allocated, GiB reserved) on this rank
+
+    def snap(where: str) -> None:
+        mem.append((where, torch.cuda.memory_allocated() / 2 ** 30,
+                    torch.cuda.memory_reserved() / 2 ** 30))
+
+    cfg = get("qwen1.5-0.5b")
+    ts_cfg = TrainStepConfig(mode="decoupled", reduce_alpha=0.25,
+                             wire_chunk_bytes=TRAIN_CHUNK_BYTES)
+    model = build(cfg)
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=2048, global_batch=6,
+                               seed=seed, kind="zipf", skew=0.4))
+    trainer = Trainer(model, mesh, pipe, OptConfig(lr=1e-3, warmup_steps=10,
+                                                   total_steps=TRAIN_STEPS),
+                      ts_cfg, TrainerConfig(total_steps=TRAIN_STEPS, log_every=1))
+    state = trainer.init_state(seed)
+    snap("adamw state")
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer.run(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"row": mesh.row, "params": n_params, "wall_s": wall,
+           "launches": {k: fn.launches for k, fn in counters.items()},
+           "log": trainer.metrics_log, "timings": trainer.step_fn.timings,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "finite": all(bool(torch.isfinite(p).all()) for p in tree_leaves(state["params"])),
+           "mem": mem}
+    snap("after 3 steps")
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    snap("freed")
+
+    # parity: one SGD step (lr 1: new params = params - gradient) of the
+    # decoupled world against the conventional step on the same batch
+    sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
+                    weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
+    compute_rows = TRAIN_ROWS - 1
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        pmodel = build(dataclasses.replace(cfg, dtype=dtype))
+        params = pmodel.init(seed, param_dtype=torch.float32)
+        step = make_step(pmodel, mesh, sgd, ts_cfg)
+        batch = row_shard(pipe.padded_for_groups(0, compute_rows, TRAIN_ROWS), mesh.row,
+                          TRAIN_ROWS, pmodel.device)
+        snap(f"parity {name} state")
+        new, _, metrics = step(params, init_opt_state(sgd, params), batch)
+        snap(f"parity {name} stepped")
+        del batch, step
+        if mesh.row != 0:  # only row 0 compares: leave the card to its conventional step
+            params = new = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.barrier()
+        if mesh.row == 0:
+            conv, _, cmetrics = build_conventional_step(pmodel, sgd)(
+                params, init_opt_state(sgd, params),
+                {k: v.to(pmodel.device) for k, v in pipe.global_batch(0).items()})
+            diff = max((a - b).abs().max().item()
+                       for a, b in zip(tree_leaves(new), tree_leaves(conv)))
+            gmax = max((a - b).abs().max().item()
+                       for a, b in zip(tree_leaves(params), tree_leaves(conv)))
+            out[f"parity_{name}"] = {"max_abs_diff": diff, "max_abs_grad": gmax,
+                                     "rel": diff / gmax, "loss": metrics["loss"],
+                                     "conventional_loss": float(cmetrics["loss"])}
+            del conv
+        del params, new, pmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    out["peak_gib_parity"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def train_phase(torch, np, seed: int, smi: str) -> dict:
+    """The four-row world on the card (every kernel already built by the
+    parent), its train line, and the checks."""
+    from repro_torch.launch.mesh import spawn
+
+    # the ranks' allocators map memory in growable segments, so the large,
+    # differently sized buffers of the fold and the parity step reuse it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    parent_gib = torch.cuda.memory_reserved() / 2 ** 30
+    t0 = time.perf_counter()
+    ranks = spawn(train_rank, TRAIN_ROWS, device="cuda", args=(seed,), timeout_s=900)
+    world_s = time.perf_counter() - t0
+    reducer = ranks[-1]
+    losses = [row["loss"] for row in ranks[0]["log"]]
+    waves, f32_groups = TRAIN_ROWS - 1, 1
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    steps = []
+    for i in range(TRAIN_STEPS):
+        steps.append({"step": i + 1, "loss": losses[i],
+                      "wall_s": max(sum(v for k, v in r["timings"][i].items()
+                                        if k.endswith("_s") and not k.startswith("wire_"))
+                                    for r in ranks)})
+    phase_keys = ("fwd_bwd_s", "stream_s", "broadcast_s", "update_s", "wire_wait_s",
+                  "wire_fold_s", "wire_d2h_s", "wire_h2d_s", "wire_collective_s",
+                  "wire_sent_bytes", "wire_recv_bytes", "wire_d2h_bytes", "wire_h2d_bytes")
+    per_rank = [{"row": r["row"], "role": "reduce" if r is reducer else "compute",
+                 "peak_gib": r["peak_gib"], "peak_gib_parity": r["peak_gib_parity"],
+                 "mem_gib": r["mem"], "wall_s": r["wall_s"],
+                 "per_step": [{k: t[k] for k in phase_keys} for t in r["timings"]]}
+                for r in ranks]
+    line = {"phase": "train", "model": "qwen1.5-0.5b", "params": reducer["params"],
+            "rows": TRAIN_ROWS, "compute_rows": TRAIN_ROWS - 1, "reduce_rows": 1,
+            "seq_len": 2048, "global_batch": 6, "steps": steps,
+            "wire_chunk_bytes": TRAIN_CHUNK_BYTES, "waves": waves,
+            "wire": "gloo over host loopback (device -> pinned host -> gloo -> host -> device)",
+            "launches": launches,
+            "chunk_accumulate_expected": waves * f32_groups * TRAIN_STEPS,
+            "per_rank": per_rank, "world_s": world_s, "parent_reserved_gib": parent_gib,
+            "parity_f32": ranks[0]["parity_f32"], "parity_f32_budget": TRAIN_PARITY_REL,
+            "parity_bf16": ranks[0]["parity_bf16"], "nvidia_smi": smi}
+    emit(line)
+    if launches["chunk_accumulate"] != waves * f32_groups * TRAIN_STEPS:
+        raise AssertionError(f"train: chunk_accumulate launched {launches['chunk_accumulate']} "
+                             f"times, want {waves * f32_groups * TRAIN_STEPS}")
+    if reducer["launches"]["chunk_accumulate"] != launches["chunk_accumulate"]:
+        raise AssertionError("train: a compute row folded a wave")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) \
+            or not all(r["finite"] for r in ranks):
+        raise AssertionError(f"train: non-finite losses or parameters: {losses}")
+    if any([x["loss"] for x in r["log"]] != losses for r in ranks):
+        raise AssertionError("train: the rows disagree on the loss")
+    if not ranks[0]["parity_f32"]["rel"] <= TRAIN_PARITY_REL:
+        raise AssertionError(f"train: decoupled step off the conventional step: "
+                             f"{ranks[0]['parity_f32']}")
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1164,7 +1486,10 @@ def main(argv=None) -> int:
 
     # phase 3: kernels against their plain versions, full-width shapes
     kernels = [check_paged(torch, np, args.seed), check_argmax(torch, np, args.seed),
-               check_flash(torch, np, args.seed), check_ssd(torch, np, args.seed)]
+               check_flash(torch, np, args.seed), check_ssd(torch, np, args.seed),
+               check_accumulate(torch, np, args.seed), check_histogram(torch, np, args.seed)]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # phase 4: full-width serve of tinyllama-1.1b
     cfg = get("tinyllama-1.1b")
@@ -1211,22 +1536,34 @@ def main(argv=None) -> int:
                       reqs=mamba_requests(np, mcfg, n_req=16, seed=args.seed + 4))
     profile_prefill(torch, np, mmodel, mparams, seed=args.seed + 5)
     profile_decode(torch, np, mmodel, mparams, seed=args.seed + 6, mode="aligned")
+    del mmodel, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # phase 8: summary; "launches" is the count from the run of the path
+    # phase 8: the decoupled training step, qwen1.5-0.5b at full width in a
+    # four-row world on this card
+    train = train_phase(torch, np, args.seed + 8, smi)
+
+    # phase 9: summary; "launches" is the count from the run of the path
     # each kernel belongs to (the bf16 tinyllama arm for paged decode,
-    # argmax and flash; the mamba arm for the SSD scan), each arm's counts
-    # beside it. "ms", "plain_ms" and "library_ms" are CUDA-event times of
+    # argmax and flash; the mamba arm for the SSD scan; the train phase,
+    # summed over its four ranks, for chunk_accumulate; histogram has no
+    # caller on any path, in either package), each arm's counts beside it.
+    # "ms", "plain_ms" and "library_ms" are CUDA-event times of
     # back-to-back calls (host launch gaps included); the "*device_ms"
     # keys are the profiler's kernel time alone.
     for kern in kernels:
-        main_arm = mamba if kern["name"] == "ssd_scan" else bf16
-        kern["launches"] = main_arm["launches"][kern["name"]]
-        kern["launches_long_arm"] = long["launches"][kern["name"]]
-        kern["launches_mamba_arm"] = mamba["launches"][kern["name"]]
+        name = kern["name"]
+        main_arm = {"ssd_scan": mamba["launches"],
+                    "chunk_accumulate": train["launches"]}.get(name, bf16["launches"])
+        kern["launches"] = main_arm[name]
+        kern["launches_long_arm"] = long["launches"][name]
+        kern["launches_mamba_arm"] = mamba["launches"][name]
+        kern["launches_train"] = train["launches"][name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "plain_device_ms", "library_device_ms", "launches_long_arm",
-            "launches_mamba_arm")
+            "launches_mamba_arm", "launches_train")
     emit({"kernels": [{k: kern[k] for k in keys} for kern in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -104,6 +104,7 @@ class ArchConfig:
 REGISTRY: dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }

@@ -39,6 +39,7 @@ SOURCES = {
     "argmax_last": "argmax_last.cu",
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
+    "stream_reduce": "stream_reduce.cu",
 }
 
 

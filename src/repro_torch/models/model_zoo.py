@@ -2,6 +2,8 @@
 
     model = build(cfg)                        # device: cuda unless device="cpu"
     params = model.init(seed)                 # or a torch.Generator
+    loss, metrics = model.loss(params, batch)  # training (params from
+                                              # model.init(seed, param_dtype=torch.float32))
     logits, cache = model.prefill(params, tokens, length=...)   # impl="ref": plain route
     logits, cache = model.decode_step(params, cache, token)      # aligned mode
     logits, rows_k, rows_v = model.decode_step_paged(params, kernel_view, token)
@@ -44,6 +46,9 @@ class Model:
     # (params, kernel_view, token, *, impl=None) -> (logits, rows_k, rows_v);
     # None for the ssm family
     decode_step_paged: Callable[..., tuple] | None
+    # (params, batch) -> (mean masked cross-entropy, {"ce": ...}); batch
+    # holds tokens/labels (B, S) int and mask (B, S) f32
+    loss: Callable[..., tuple]
 
 
 def build(cfg, device=None) -> Model:
@@ -55,11 +60,19 @@ def build(cfg, device=None) -> Model:
         )
     dev = resolve_device(device)
 
-    def init(seed: int | torch.Generator = 0) -> Params:
+    def init(seed: int | torch.Generator = 0, *, param_dtype=None) -> Params:
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return transformer.init_lm(cfg, gen, dev)
+        return transformer.init_lm(cfg, gen, dev, param_dtype=param_dtype)
+
+    def loss(params, batch):
+        # the reference's own attention route: the flash kernel has no
+        # backward in either package
+        hidden, _, _ = transformer.forward_lm(cfg, params, batch["tokens"], impl="ref")
+        ce = transformer.chunked_softmax_xent(cfg, params, hidden, batch["labels"],
+                                              batch["mask"])
+        return ce, {"ce": ce}
 
     def init_cache(batch_size: int, max_len: int) -> dict:
         return transformer.init_cache(cfg, batch_size, max_len, device=dev)
@@ -77,4 +90,15 @@ def build(cfg, device=None) -> Model:
         def decode_step_paged(params, pview, token, *, impl=None):
             return transformer.decode_step_paged_lm(cfg, params, pview, token, impl=impl)
 
-    return Model(cfg, dev, init, prefill, init_cache, decode_step, decode_step_paged)
+    return Model(cfg, dev, init, prefill, init_cache, decode_step, decode_step_paged, loss)
+
+
+def synthetic_batch(cfg, batch: int, seq: int, seed: int = 0, device=None) -> dict:
+    """Random batch with the right structure (smoke tests, examples):
+    uniform token ids and labels, an all-ones mask. The draws differ from
+    the reference's `jax.random` ones."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (2, batch, seq), generator=gen, dtype=torch.int32)
+    return {"tokens": ids[0].to(dev), "labels": ids[1].to(dev),
+            "mask": torch.ones((batch, seq), dtype=torch.float32, device=dev)}

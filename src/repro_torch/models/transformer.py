@@ -23,24 +23,27 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers, ssm
+from repro_torch.utils.treeutil import tree_leaves
 
 Params = dict
 
 BLOCKWISE_THRESHOLD = 8192  # the reference streams softmax above this
 KV_BLOCK = 1024  # its block there (the reference's REPRO_KV_BLOCK default)
+XENT_CHUNK = 256  # positions per chunk of `chunked_softmax_xent`, as in the reference
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(cfg, gen: torch.Generator, device) -> Params:
-    kw = dict(dtype=cfg.dtype, device=device)
+def _init_layer(cfg, gen: torch.Generator, device, dtype) -> Params:
+    kw = dict(dtype=dtype, device=device)
     d = cfg.d_model
     p: Params = {"norm1": layers.init_norm(d, cfg.norm_kind, device=device)}
     if cfg.family == "ssm":
@@ -57,27 +60,30 @@ def _init_layer(cfg, gen: torch.Generator, device) -> Params:
     return p
 
 
-def init_lm(cfg, gen: torch.Generator, device=None) -> Params:
+def init_lm(cfg, gen: torch.Generator, device=None, *, param_dtype=None) -> Params:
     """Random LM parameters from ``gen``: the reference's shapes and
     scales (N(0,1)/sqrt(fan_in) weights, 0.02 embeddings, unit norms,
     zero biases; an SSM layer's own parameters as `ssm.init_mamba_block`
-    makes them). Matmul weights and tables are stored in ``cfg.dtype``,
-    norms and the SSM's own parameters in f32. The draws differ from the
-    reference's `jax.random` ones; parity tests carry the reference
-    weights over with `utils.convert.params_from_numpy` instead.
-    ``device``: cuda unless the caller names another (`resolve_device`);
-    ``gen`` must live there."""
+    makes them). Matmul weights and tables are stored in ``param_dtype``
+    (default ``cfg.dtype``, as serving keeps them; training passes
+    ``torch.float32``, the reference's master copies, and the forward
+    casts them at use), norms and the SSM's own parameters in f32. The
+    draws differ from the reference's `jax.random` ones; parity tests
+    carry the reference weights over with `utils.convert.params_from_numpy`
+    instead. ``device``: cuda unless the caller names another
+    (`resolve_device`); ``gen`` must live there."""
     device = resolve_device(device)
-    kw = dict(dtype=cfg.dtype, device=device)
+    dtype = cfg.dtype if param_dtype is None else param_dtype
     d = cfg.d_model
-    out_layers = [_init_layer(cfg, gen, device) for _ in range(cfg.n_layers)]
+    out_layers = [_init_layer(cfg, gen, device, dtype) for _ in range(cfg.n_layers)]
     p = {
-        "embed": layers.init_embedding(gen, cfg.vocab_size, d, **kw),
+        "embed": layers.init_embedding(gen, cfg.vocab_size, d, dtype=dtype, device=device),
         "layers": out_layers,
         "final_norm": layers.init_norm(d, cfg.norm_kind, device=device),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = layers.init_embedding(gen, cfg.vocab_size, d, **kw)
+        p["lm_head"] = layers.init_embedding(gen, cfg.vocab_size, d, dtype=dtype,
+                                             device=device)
     return p
 
 
@@ -131,7 +137,11 @@ def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, want_kv: bool = Fal
     None, per-layer [{state, conv}] or None): k/v in the flattened
     (B, S, d_kv) layout for the dense family, the SSM decode state after
     the sequence for the ssm family (both only with ``want_kv``).
-    ``impl`` as in `_attention_full`, and for the SSD scan."""
+    ``impl`` as in `_attention_full`, and for the SSD scan. While
+    autograd records a gradient of the params, each layer runs under one
+    `torch.utils.checkpoint` and is recomputed in the backward pass (the
+    reference's ``jax.checkpoint`` over the layer scan), so a layer's
+    activations live only while its gradient is taken."""
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"forward_lm ports the dense and ssm families, "
                                   f"not {cfg.family!r}")
@@ -144,8 +154,14 @@ def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, want_kv: bool = Fal
     if cfg.pos_kind == "sinusoidal":
         x = x + layers.sinusoidal_positions(s, cfg.d_model, x.device).to(dtype)[None]
     kv, states = [], []
+    recompute = torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
     for p, window in zip(params["layers"], cfg.layer_windows()):
-        x, kvl, sstate = _layer_forward(cfg, p, x, positions, window, dtype, want_kv, impl)
+        if recompute:
+            x, kvl, sstate = checkpoint(_layer_forward, cfg, p, x, positions, window, dtype,
+                                        want_kv, impl, use_reentrant=False)
+        else:
+            x, kvl, sstate = _layer_forward(cfg, p, x, positions, window, dtype, want_kv, impl)
         if kvl is not None:
             kv.append(kvl)
         if sstate is not None:
@@ -160,6 +176,40 @@ def unembed_table(cfg, params: Params) -> torch.Tensor:
 
 def lm_logits(cfg, params: Params, hidden: torch.Tensor) -> torch.Tensor:
     return layers.unembed({"table": unembed_table(cfg, params)}, hidden, cfg.dtype)
+
+
+def _xent_chunk(h, labels, mask, table):
+    """Summed NLL and token count of one chunk: f32 logits from the
+    ``cfg.dtype`` product, as the reference's scan body computes them."""
+    logits = torch.einsum("btd,vd->btv", h, table).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_softmax_xent(cfg, params: Params, hidden: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over ``mask`` without the whole (B, S, V)
+    logits: positions go in chunks of `XENT_CHUNK`, each under one
+    `torch.utils.checkpoint` while autograd records (the reference's
+    ``jax.checkpoint`` scan body), so only one chunk's logits are alive
+    at a time, in the backward pass too. The table is cast to
+    ``cfg.dtype`` once rather than once per chunk (the same values)."""
+    table = unembed_table(cfg, params).to(cfg.dtype)
+    b, s, _ = hidden.shape
+    h = hidden.to(cfg.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    recompute = torch.is_grad_enabled() and (h.requires_grad or table.requires_grad)
+    for start in range(0, s, XENT_CHUNK):
+        end = start + XENT_CHUNK
+        part = (h[:, start:end], labels[:, start:end], mask[:, start:end], table)
+        if recompute:
+            nll, m = checkpoint(_xent_chunk, *part, use_reentrant=False)
+        else:
+            nll, m = _xent_chunk(*part)
+        tot, cnt = tot + nll, cnt + m
+    return tot / torch.clamp_min(cnt, 1.0)
 
 
 # ---------------------------------------------------------------------------

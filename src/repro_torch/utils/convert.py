@@ -42,15 +42,19 @@ def _convert(tree, dtype, device, keep_f32: bool = False):
     return t.to(torch.float32 if keep_f32 else dtype)
 
 
-def params_from_numpy(tree: dict, cfg, device) -> dict:
+def params_from_numpy(tree: dict, cfg, device, *, param_dtype=None) -> dict:
     """The reference's LM parameter tree (numpy leaves, layers stacked
-    on a leading L axis) -> the port's parameters on ``device``."""
+    on a leading L axis) -> the port's parameters on ``device``. Matmul
+    leaves are stored in ``param_dtype``, by default ``cfg.dtype`` (the
+    serving path); training passes ``torch.float32`` to keep the
+    reference's f32 leaves as they are."""
     device = resolve_device(device)
+    dtype = cfg.dtype if param_dtype is None else param_dtype
     stacked = tree["layers"]
     per_layer = [_index(stacked, i) for i in range(cfg.n_layers)]
-    out = {k: _convert(v, cfg.dtype, device, "norm" in k)
+    out = {k: _convert(v, dtype, device, "norm" in k)
            for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_convert(p, cfg.dtype, device) for p in per_layer]
+    out["layers"] = [_convert(p, dtype, device) for p in per_layer]
     return out
 
 

@@ -27,7 +27,11 @@ Tolerances, with their reasons:
     the same bf16 inputs and round y once, so they differ by at most one
     bf16 ulp of an element (2^-7 of it, up to ~4x the row's rms); the f32
     final state keeps 1e-4;
-  * engine: identical token streams and admissions in f32, logits 1e-4.
+  * engine: identical token streams and admissions in f32, logits 1e-4;
+  * chunk_accumulate: bit for bit at n = 2 (one rounding, the stream
+    channel's call), ragged S included; 1e-6 relative at n > 2 and for
+    bf16 input (summation order);
+  * histogram: 1e-5 relative (atomics add in a varying order).
 """
 import dataclasses
 
@@ -44,8 +48,16 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.kernels.sample import argmax_last_kernel, sample_last
 from repro_torch.kernels.ssd_scan import ssd, ssd_scan_kernel
+from repro_torch.kernels.stream_reduce import (
+    accumulate,
+    chunk_accumulate_kernel,
+    histogram_kernel,
+    keyed_histogram,
+)
+from repro_torch.launch.mesh import spawn
 from repro_torch.models.model_zoo import build
 from repro_torch.serve import EngineConfig, KVSpec, Request, make_engine
+from torch_worlds import cuda_fold_case
 
 pytestmark = pytest.mark.gpu
 
@@ -450,3 +462,77 @@ def test_aligned_mamba_engine_on_gpu_matches_cpu(cuda):
     assert gticks == cticks
     assert {r.uid: r.out_tokens for r in ge.finished} == \
            {r.uid: r.out_tokens for r in ce.finished}
+
+
+@pytest.mark.parametrize("n,s,dtype", [(2, 1 << 20, torch.float32), (2, 1_000_003, torch.float32),
+                                       (7, 2500, torch.float32), (16, 4096, torch.bfloat16),
+                                       (3, 1001, torch.bfloat16), (1, 10, torch.float32)])
+def test_chunk_accumulate_kernel_matches_plain(cuda, n, s, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n * 31 + s)
+    x = torch.randn((n, s), generator=gen, device=cuda).to(dtype)
+    before = chunk_accumulate_kernel.launches
+    got = accumulate(x)
+    assert chunk_accumulate_kernel.launches == before + 1
+    want = accumulate(x, impl="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (s,)
+    if n <= 2 and dtype == torch.float32:
+        assert torch.equal(got, want)
+        if n == 2:
+            assert torch.equal(got, x[0] + x[1])
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_chunk_accumulate_kernel_takes_an_unaligned_view(cuda):
+    x = torch.randn((2, 4097), device=cuda)[:, 1:]  # rows not 16-byte aligned
+    got = accumulate(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, x[0] + x[1])
+
+
+@pytest.mark.parametrize("n,bins,dtype", [(3000, 700, torch.float32), (100, 16, torch.float32),
+                                          (1 << 20, 151_936, torch.float32),
+                                          (50_000, 12_288, torch.bfloat16)])
+def test_histogram_kernel_matches_plain(cuda, n, bins, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n + bins)
+    keys = torch.randint(-1, bins + bins // 8, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    counts = (torch.rand((n,), generator=gen, device=cuda) * 5).to(dtype)
+    before = histogram_kernel.launches
+    got = keyed_histogram(keys, counts, bins)
+    assert histogram_kernel.launches == before + 1
+    want = keyed_histogram(keys, counts, bins, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_histogram_kernel_drops_keys_past_the_last_bin(cuda):
+    keys = torch.tensor([0, 5, 7, 9, -1, 12], dtype=torch.int32, device=cuda)
+    got = keyed_histogram(keys, torch.full((6,), 2.0, device=cuda), 8)
+    assert got.cpu().tolist() == [2, 0, 0, 0, 0, 2, 0, 2]
+
+
+def test_stream_reduce_kernels_reject_what_they_cannot_take(cuda):
+    with pytest.raises(TypeError, match="f32/bf16"):
+        accumulate(torch.zeros((2, 8), dtype=torch.float16, device=cuda))
+    with pytest.raises(TypeError, match="int32"):
+        keyed_histogram(torch.zeros(4, dtype=torch.int64, device=cuda),
+                        torch.ones(4, device=cuda), 4)
+    with pytest.raises(ValueError, match="one device"):
+        keyed_histogram(torch.zeros(4, dtype=torch.int32, device=cuda), torch.ones(4), 4)
+
+
+def test_two_row_world_folds_a_wave_through_the_kernel(cuda):
+    """Row 0 streams 3 MiB in 1 MiB wire chunks to row 1 over gloo; the
+    reducer folds the one wave with one chunk_accumulate launch (the
+    default on a CUDA device), bit for bit the in-scan add and the sent
+    payload (0 + x)."""
+    sender, reducer = spawn(cuda_fold_case, 2, device="cuda", timeout_s=120)
+    assert reducer["launches"] == 1 and sender["launches"] == 0
+    for k, v in reducer["payload"].items():
+        np.testing.assert_array_equal(reducer["kernel"][k], v)
+        np.testing.assert_array_equal(reducer["scan"][k], v)
+        assert not sender["kernel"][k].any()
+    assert sender["stats"]["sent_bytes"] == reducer["stats"]["recv_bytes"] == 2 * 3 * (1 << 20)
+    assert reducer["stats"]["h2d_bytes"] >= reducer["stats"]["recv_bytes"]
