@@ -11,8 +11,10 @@ prints no result:
                ``src/repro_torch/kernels/csrc`` into ``build/repro_torch``.
 3. kernels  — each kernel against its plain PyTorch version on the card,
                at the main path's full-width shapes (paged decode also
-               with f32 q and pools, at f32 precision, and at
-               starcoder2-15b's group of 12 heads of 128; flash attention
+               with f32 q and pools, at f32 precision, at
+               starcoder2-15b's group of 12 heads of 128, and at the long
+               arm's decode shape, 2 slots of 15,000 and 9,500 positions
+               over qwen2.5-3b's 16/2 heads of 128); flash attention
                in f32 at S=1000 and in bf16 at the prefill shapes of both
                serve arms and of starcoder2-15b; the SSD scan in f32
                at S=1000, in bf16 at S=8192 and 16,000), with CUDA-event times
@@ -34,7 +36,8 @@ prints no result:
                16384: four prompts of 9,500-15,000 tokens (two share a
                12,000-token document), prefill through the flash kernel,
                the same checks, prefill time per call, prefill tokens/s
-               and time to first token.
+               and time to first token; then 8 decode ticks of 2 slots
+               at 15,000 and 9,500 tokens profiled as in phase 5.
 7. mamba    — mamba2-130m at full width and depth, random bf16 weights
                from --seed, through `make_engine` in aligned mode over
                the dense store (8 slots, max_len 16384): 16 prompts of
@@ -237,25 +240,29 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[flo
 
 
 def paged_case(torch, np, *, quantized: bool, window: int, seed: int, dtype,
-               h: int = 32, n_kv: int = 4, hd: int = 64):
+               h: int = 32, n_kv: int = 4, hd: int = 64, mb: int = 128, cursors=None):
     """Full-width decode shapes: 8 slots, 32 query heads over 4 KV heads of
     64 (tinyllama-1.1b) unless given, 16-token blocks, 128 blocks per
     table. Slot 0 has pos 0, slot 1 is an inactive slot (pos = mb*bs,
     all -1 table), the rest hold 256..1900 tokens in randomly placed
-    blocks, unmapped tail -1. q, the new rows and a float pool are in
-    ``dtype``."""
+    blocks, unmapped tail -1; or, given ``cursors``, one slot per cursor.
+    q, the new rows and a float pool are in ``dtype``."""
     from repro_torch.core.operators import kv_quantize
 
-    b, bs, mb = 8, 16, 128
+    bs = 16
+    rng = np.random.default_rng(seed)
+    if cursors is None:
+        pos = np.concatenate([[0, mb * bs], rng.integers(256, 1900, 6)]).astype(np.int32)
+    else:
+        pos = np.asarray(cursors, np.int32)
+    b = len(pos)
     d_kv = n_kv * hd
     nb = b * mb + 1
-    rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    pos = np.concatenate([[0, mb * bs], rng.integers(256, 1900, b - 2)]).astype(np.int32)
     table = np.full((b, mb), -1, np.int32)
     perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
     used = 0
@@ -352,6 +359,62 @@ def check_paged_group12(torch, np, seed: int) -> None:
             raise AssertionError(f"paged decode kernel disagrees at a 12 x 128 group: {case}")
 
 
+# the long arm's decode shape: qwen2.5-3b's 16 query heads over 2 KV heads
+# of 128, 16-token blocks, 1,024 blocks per table (max_len 16,384), two
+# slots at the cursors of the arm's 15,000- and 9,500-token prompts
+LONG_PAGED = dict(h=16, n_kv=2, hd=128, mb=1024, cursors=(15_000, 9_500))
+
+
+def check_paged_long(torch, np, seed: int) -> dict:
+    """The long decode shape: f32 at PAGED_F32_ATOL, then bf16 at
+    PAGED_REL with kernel, plain and bound times."""
+    from repro_torch.kernels.paged_attention import ops
+
+    args, kw, _, _ = paged_case(torch, np, quantized=False, window=0, seed=seed,
+                                dtype=torch.float32, **LONG_PAGED)
+    out = ops.paged_decode_attention(**args, **kw)
+    ref = ops.paged_decode_attention(**args, **kw, impl="ref", dequant_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    case = {"phase": "kernels", "kernel": "paged_decode_attention", "case": "long arm",
+            "heads": [16, 2, 128], "cursors": list(LONG_PAGED["cursors"]), "q": "f32",
+            "pool": "f32", "window": 0, "max_abs_err": err, "atol": PAGED_F32_ATOL,
+            "finite": bool(torch.isfinite(out).all().item())}
+    emit(case)
+    if not case["finite"] or not err <= PAGED_F32_ATOL:
+        raise AssertionError(f"paged decode kernel disagrees at the long shape: {case}")
+    del args, out, ref
+    args, kw, nbytes, flops = paged_case(torch, np, quantized=False, window=0, seed=seed,
+                                         dtype=torch.bfloat16, **LONG_PAGED)
+    out = ops.paged_decode_attention(**args, **kw)
+    ref = ops.paged_decode_attention(**args, **kw, impl="ref", dequant_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rel = slot_rel_err(out, ref)
+    finite = bool(torch.isfinite(out).all().item())
+    # cold L2: 4 pool copies (4 x 2 x 16.8 MB)
+    copies = [dict(args, k_blocks=args["k_blocks"].clone(), v_blocks=args["v_blocks"].clone())
+              for _ in range(4)]
+    kern = [lambda a=a: ops.paged_decode_attention(**a, **kw) for a in copies]
+    plain = [lambda a=a: ops.paged_decode_attention(
+        **a, **kw, impl="ref", dequant_dtype=torch.bfloat16) for a in copies]
+    b_ms, b_by = bound_ms(nbytes, flops)
+    case = {"phase": "kernels", "kernel": "paged_decode_attention", "case": "long arm",
+            "heads": [16, 2, 128], "cursors": list(LONG_PAGED["cursors"]), "q": "bf16",
+            "pool": "bf16", "window": 0,
+            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+            "max_slot_rel_err": rel, "rel_budget": PAGED_REL, "finite": finite,
+            "kernel_ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain, 20),
+            "kernel_device_ms": device_ms(torch, kern),
+            "plain_device_ms": device_ms(torch, plain),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    emit(case)
+    if not finite or not rel <= PAGED_REL:
+        raise AssertionError(f"paged decode kernel disagrees at the long shape: {case}")
+    del copies, kern, plain
+    torch.cuda.empty_cache()
+    return case
+
+
 def check_paged(torch, np, seed: int) -> dict:
     from repro_torch.kernels.paged_attention import ops
 
@@ -388,6 +451,7 @@ def check_paged(torch, np, seed: int) -> dict:
             if not finite or not rel <= PAGED_REL:
                 raise AssertionError(f"paged decode kernel disagrees with its plain version: {case}")
             cases.append(case)
+    cases.append(check_paged_long(torch, np, seed))
     main = cases[0]  # bf16 pool, full layers: the main path's case
     return {"name": "paged_decode_attention", "route": "cuda", "source": PAGED_SRC,
             "replaces": PAGED_TPU, "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -1012,10 +1076,12 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
 
 
 def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16,
-                   mode: str = "continuous") -> dict:
-    """Where a decode tick's time goes, on a fresh engine (8 slots of
-    512-token prompts; continuous mode over the paged store, or aligned
-    mode over the dense store) after its admission tick: ``ticks`` decode-only
+                   mode: str = "continuous", prompt_lens=(512,) * 8,
+                   max_len: int = 2048) -> dict:
+    """Where a decode tick's time goes, on a fresh engine (one slot per
+    prompt length, 8 slots of 512-token prompts unless given; continuous
+    mode over the paged store, or aligned mode over the dense store) after
+    its admission tick: ``ticks`` decode-only
     ticks timed on the host clock, then ``ticks`` more under
     `torch.profiler`. Reports the wall time per tick without and with the
     profiler, the device time per tick, the device's idle share of the
@@ -1028,11 +1094,11 @@ def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16,
     from repro_torch.serve import EngineConfig, KVSpec, Request, make_engine
 
     kv = KVSpec(kind="paged", block_size=16) if mode == "continuous" else KVSpec()
-    engine = make_engine(model, params, EngineConfig(mode=mode, max_batch=8, max_len=2048,
-                                                     kv=kv))
+    engine = make_engine(model, params, EngineConfig(mode=mode, max_batch=len(prompt_lens),
+                                                     max_len=max_len, kv=kv))
     rng = np.random.default_rng(seed)
-    for i in range(8):
-        prompt = rng.integers(0, model.cfg.vocab_size, 512).astype(np.int32)
+    for i, n in enumerate(prompt_lens):
+        prompt = rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
         engine.submit(Request(uid=i, prompt=prompt, max_new_tokens=2 * ticks + 2))
     engine.step()  # the packed prefill and the first decode tick stay outside
 
@@ -1054,7 +1120,7 @@ def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16,
             continue
         ms = device_us(ev) / 1e3 / ticks
         name = ev.key
-        if "paged_decode" in name:
+        if "paged_split_kernel" in name or "paged_combine_kernel" in name:
             cls = "paged_decode_attention"
         elif "argmax_last" in name:
             cls = "argmax_last"
@@ -1067,7 +1133,7 @@ def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16,
     dev_ms = sum(classes.values()) if kernels else None
     kernels.sort(reverse=True)
     out = {"phase": "profile", "model": model.cfg.name, "mode": mode, "ticks": ticks,
-           "batch": 8, "context_tokens": 512,
+           "batch": len(prompt_lens), "context_tokens": list(prompt_lens),
            "wall_ms_per_tick": wall_ms, "profiled_wall_ms_per_tick": profiled_wall_ms,
            "device_ms_per_tick": dev_ms,
            "idle_share": None if dev_ms is None else 1.0 - dev_ms / wall_ms,
@@ -1514,7 +1580,8 @@ def main(argv=None) -> int:
     # prompt; its default 256 entries hold 4,096 tokens of prefixes, so
     # the arm sizes it to both slots' prompts (a 12,000-token document
     # alone takes 750)
-    long = serve_arm(torch, np, qmodel, qmodel.init(args.seed), arm="long",
+    qparams = qmodel.init(args.seed)
+    long = serve_arm(torch, np, qmodel, qparams, arm="long",
                      reqs=long_requests(np, qcfg, seed=args.seed + 3), max_batch=2,
                      max_len=16384, kv=KVSpec(kind="paged", block_size=16, prefix_cache=True,
                                               prefix_capacity=2 * (16384 // 16 + 1)))
@@ -1522,6 +1589,11 @@ def main(argv=None) -> int:
         raise AssertionError("the shared document never hit the prefix cache")
     if any(shape[1] != 16384 for shape in long["prefill_shapes"]):
         raise AssertionError(f"a long prompt missed the 16384 bucket: {long['prefill_shapes']}")
+    # one profiled window of the long arm's decode ticks: 2 slots at the
+    # arm's 15,000- and 9,500-token prompts
+    profile_decode(torch, np, qmodel, qparams, seed=args.seed + 7, ticks=8,
+                   prompt_lens=(15_000, 9_500), max_len=16384)
+    del qparams
     # the arms' engines hold their params in reference cycles (the timed
     # step closures): collect them, so the mamba arm's peak is its own
     del qmodel

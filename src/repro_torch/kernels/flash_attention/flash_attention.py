@@ -7,6 +7,11 @@ v, read through their strides: only the head dimension must be
 contiguous, so the model layout ``(B, S, H, d)`` passes in as a
 transposed view with no copy. The output is allocated with q's strides,
 so a transposed-view q gives an output whose transpose is contiguous.
+In bf16 at head dims 64 and 128 the kernel reads K and V with the TMA
+unit, which needs a 16-byte-aligned base and 16-byte-aligned strides: a
+K or V view that has neither (rows 129 elements apart, say) is copied to
+a contiguous tensor first. Q is read by the kernel's own loads and is
+never copied.
 The wrapper checks devices, dtypes, shapes and strides, launches on
 PyTorch's current stream and counts the launch in
 ``flash_attention_kernel.launches``. The library is built and loaded on
@@ -23,6 +28,17 @@ from repro_torch.kernels import runtime
 
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+TMA_HEAD_DIMS = (64, 128)  # bf16 at these reads K and V through TMA
+
+
+def tma_readable(t: torch.Tensor) -> bool:
+    """Whether the TMA unit can read ``t`` (B, Kv, Sk, d) bf16 through its
+    strides: a 16-byte-aligned base, and every stride of a dimension
+    longer than 1 positive and a multiple of 16 bytes."""
+    if t.data_ptr() % 16:
+        return False
+    return all(st > 0 and (st * t.element_size()) % 16 == 0
+               for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
 
 
 def _entry():
@@ -75,6 +91,9 @@ def flash_attention_kernel(
     out = torch.empty_like(q)
     if b == 0 or sq == 0 or h == 0:
         return out
+    if q.dtype == torch.bfloat16 and d in TMA_HEAD_DIMS:
+        k = k if tma_readable(k) else k.contiguous()
+        v = v if tma_readable(v) else v.contiguous()
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     rc = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n_kv, sq, sk, d,

@@ -2,6 +2,7 @@
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.paged_attention.paged_attention import (
     paged_decode_attention_kernel,
+    split_span,
 )
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
 
@@ -9,4 +10,5 @@ __all__ = [
     "paged_decode_attention",
     "paged_decode_attention_kernel",
     "paged_decode_attention_ref",
+    "split_span",
 ]

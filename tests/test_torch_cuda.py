@@ -11,6 +11,8 @@ Tolerances, with their reasons:
     f32, the plain version takes it whole);
   * paged decode, bf16 and int8 pools: 2e-2 (bf16 outputs; the plain
     version rounds its probabilities to q's dtype, the kernel does not);
+    int8 pools with f32 q: 2e-5 where the plain version dequantises in
+    f32 as the kernel does (the split-K tests);
   * flash attention, f32: 2e-5 (the reference's own f32 kernel budget;
     streamed vs whole softmax, other summation order); bf16: 2e-2, the
     reference's bf16 kernel budget (both take f32 scores from the same
@@ -45,6 +47,7 @@ from repro_torch.kernels.flash_attention import flash_attention_kernel, mha
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_kernel,
+    split_span,
 )
 from repro_torch.kernels.sample import argmax_last_kernel, sample_last
 from repro_torch.kernels.ssd_scan import ssd, ssd_scan_kernel
@@ -158,6 +161,110 @@ def test_paged_kernel_names_its_group_limit(cuda):
         paged_decode_attention(q, new, new, kv, kv, *t[5:], n_kv=2, window=0, scale=1.0)
 
 
+def _split_case(seed, pool, mb=64, n_kv=N_KV, rep=REP, hd=HD, cursors=None):
+    """Six slots over 8-token blocks. By default the cursors sit at span - 1,
+    span and span + 1 of the wrapper's split (a split edge inside, at
+    and past the live range), then 0 (only the new row), a free slot
+    (pos = mb*bs, all -1 table: the zero block 0) and a full slot (pos =
+    mb*bs, real table: no new row; none_live at window 1)."""
+    rng = np.random.default_rng(seed)
+    b, bs = 6, 8
+    span = split_span(b, n_kv, mb * bs, bs)
+    d_kv = n_kv * hd
+    nb = b * mb + 1
+    q = rng.normal(size=(b, 1, n_kv * rep, hd)).astype(np.float32)
+    kn, vn = (rng.normal(size=(b, d_kv)).astype(np.float32) for _ in range(2))
+    kb, vb = (rng.normal(size=(nb, bs, d_kv)).astype(np.float32) for _ in range(2))
+    kb[0] = vb[0] = 0
+    table = (1 + rng.permutation(b * mb)).astype(np.int32).reshape(b, mb)
+    head = (span - 1, span, span + 1) if cursors is None else cursors
+    pos = np.array([*head, 0, mb * bs, mb * bs], np.int32)
+    for i, p in enumerate(pos[:4]):
+        table[i, -(-int(p + 1) // bs):] = -1
+    table[4] = -1
+    t = [torch.from_numpy(a) for a in (q, kn, vn, kb, vb, table, pos)]
+    scales = {}
+    if pool == "int8":
+        t[3], scales["k_scale"] = kv_quantize(t[3])
+        t[4], scales["v_scale"] = kv_quantize(t[4])
+    elif pool == "bf16":
+        t = [x.to(torch.bfloat16) if x.is_floating_point() else x for x in t]
+    return t, scales
+
+
+@pytest.mark.parametrize("window", [0, 1, 7, 20])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_paged_kernel_at_split_edges(cuda, window, pool):
+    """A 512-position view split in spans of 16: cursors at span - 1, span
+    and span + 1, pos 0, a free slot (exactly 0) and none_live (window 1);
+    windows 7 and 20 cross a split edge."""
+    assert split_span(6, N_KV, 64 * 8, 8) == 16
+    t, scales = _split_case(40 + window, pool)
+    t = [x.to(cuda) for x in t]
+    kw = dict(n_kv=N_KV, window=window, scale=HD ** -0.5,
+              **{k: v.to(cuda) for k, v in scales.items()})
+    got = paged_decode_attention(*t, **kw)
+    want = paged_decode_attention(*t, **kw, impl="ref", dequant_dtype=t[0].dtype)
+    torch.cuda.synchronize()
+    tol = 2e-2 if pool == "bf16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.count_nonzero(got[4]) == 0
+
+
+@pytest.mark.parametrize("mb", [2, 8, 24])
+def test_paged_kernel_split_at_other_views(cuda, mb):
+    """Views of 16, 64 and 192 positions: one split of 32, two of 32, and
+    24 of one 8-token block each."""
+    total = mb * 8
+    t, _ = _split_case(7, "f32", mb=mb, cursors=(total // 3, total // 2, total - 1))
+    t = [x.to(cuda) for x in t]
+    kw = dict(n_kv=N_KV, window=20, scale=HD ** -0.5)
+    got = paged_decode_attention(*t, **kw)
+    want = paged_decode_attention(*t, **kw, impl="ref", dequant_dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_paged_kernel_group_of_12_across_splits(cuda, pool):
+    """starcoder2-15b's group (12 query heads of 128 per KV head) with the
+    walk split in spans of 16 around the cursors."""
+    t, scales = _split_case(9, pool, n_kv=2, rep=12, hd=128)
+    t = [x.to(cuda) for x in t]
+    for window in (0, 7):
+        kw = dict(n_kv=2, window=window, scale=128 ** -0.5,
+                  **{k: v.to(cuda) for k, v in scales.items()})
+        got = paged_decode_attention(*t, **kw)
+        want = paged_decode_attention(*t, **kw, impl="ref", dequant_dtype=t[0].dtype)
+        torch.cuda.synchronize()
+        tol = 2e-2 if pool == "bf16" else 2e-5
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_paged_kernel_long_walk(cuda):
+    """The long arm's decode shape, narrowed: 2 slots of 15,000 and 9,500
+    positions in 16-token blocks at the default split (bf16 pool, f32
+    holds the walk exactly)."""
+    rng = np.random.default_rng(11)
+    b, n_kv, rep, hd, bs, mb = 2, 2, 8, 128, 16, 1024
+    d_kv = n_kv * hd
+    nb = b * mb + 1
+    pos = np.array([15_000, 9_500], np.int32)
+    table = (1 + rng.permutation(b * mb)).astype(np.int32).reshape(b, mb)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((b, 1, n_kv * rep, hd), generator=g, device=cuda)
+    kn, vn = (torch.randn((b, d_kv), generator=g, device=cuda) for _ in range(2))
+    kb, vb = (torch.randn((nb, bs, d_kv), generator=g, device=cuda) for _ in range(2))
+    tt = [torch.as_tensor(table, device=cuda), torch.as_tensor(pos, device=cuda)]
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        args = [x.to(dtype) for x in (q, kn, vn, kb, vb)] + tt
+        got = paged_decode_attention(*args, n_kv=n_kv, window=0, scale=hd ** -0.5)
+        want = paged_decode_attention(*args, n_kv=n_kv, window=0, scale=hd ** -0.5,
+                                      impl="ref", dequant_dtype=dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 # flash attention: (head dim, KV heads, group) covering every head dim the
 # shipped configs use and groups 1, 8 and 12; lengths are not multiples of
 # the kernel's 64-row and 64-key tiles
@@ -200,10 +307,11 @@ def test_flash_kernel_shapes_and_masks(cuda, sq, sk, causal, window):
 
 
 def test_flash_kernel_reads_strided_views(cuda):
-    """Kernel-layout views of a model-layout buffer go in with no copy: a
-    q sliced out of a wider buffer (16-byte aligned rows), and q, k, v
-    whose rows are 129 elements apart (not 16-byte aligned: the bf16
-    body's scalar loads)."""
+    """Kernel-layout views of a model-layout buffer: a q sliced out of a
+    wider buffer (16-byte aligned rows) goes in with no copy, and q, k, v
+    whose rows are 129 elements apart (not 16-byte aligned) go in too: q
+    through the kernel's scalar loads, k and v through the contiguous
+    copies the wrapper makes for the TMA unit."""
     q, k, v = _flash_inputs(5, 2, 90, 90, 2, 8, 128, torch.bfloat16, cuda)
     want = mha(q, k, v, impl="ref").transpose(1, 2)
     wide = torch.cat([q, q], dim=-1)[..., 128:]  # head dim contiguous, rows strided
@@ -215,6 +323,42 @@ def test_flash_kernel_reads_strided_views(cuda):
         got = flash_attention_kernel(qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2))
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+# the bf16 body at head dims 64 and 128 (TMA and wgmma): (head dim, KV
+# heads, group); lengths not multiples of its 128-row and 128-key tiles,
+# windows across tile edges, and starcoder2-15b's group of 12
+WGMMA_GEOMETRIES = [(64, 2, 8), (128, 2, 8), (128, 1, 12)]
+
+
+@pytest.mark.parametrize("window", [0, 129])
+@pytest.mark.parametrize("s", [130, 1000])
+@pytest.mark.parametrize("hd,n_kv,rep", WGMMA_GEOMETRIES)
+def test_flash_wgmma_body_matches_plain(cuda, hd, n_kv, rep, s, window):
+    q, k, v = _flash_inputs(hd + s + window, 2, s, s, n_kv, rep, hd, torch.bfloat16, cuda)
+    before = flash_attention_kernel.launches
+    got = mha(q, k, v, window=window)
+    assert flash_attention_kernel.launches == before + 1
+    want = mha(q, k, v, window=window, impl="ref")
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (70, 200, True, 0), (200, 70, True, 0), (200, 70, True, 150),
+    (129, 129, False, 0), (129, 100, False, 33), (1, 1, True, 0), (300, 300, True, 1),
+])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_wgmma_body_shapes_and_masks(cuda, hd, sq, sk, causal, window):
+    """Sq != Sk, non-causal, a single token and window 1 through the bf16
+    body of head dims 64 and 128, in the kernel layout (contiguous K/V)."""
+    q, k, v = _flash_inputs(sq + sk + hd, 3, sq, sk, 2, 4, hd, torch.bfloat16, cuda)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    got = flash_attention_kernel(qt, kt, vt, causal=causal, window=window, scale=0.3)
+    want = mha(q, k, v, causal=causal, window=window, scale=0.3, impl="ref").transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):
