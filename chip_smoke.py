@@ -17,10 +17,11 @@ prints no result:
                over qwen2.5-3b's 16/2 heads of 128); flash attention
                in f32 at S=1000 and in bf16 at the prefill shapes of both
                serve arms and of starcoder2-15b; the SSD scan in f32
-               at S=1000, in bf16 at S=8192 and 16,000), with CUDA-event times
-               of the kernel, the plain version, the bound and (where one
-               exists) the one PyTorch call computing the same function,
-               and the profiler's device time of each (``*_device_ms``).
+               at S=1000, in bf16 at S=2048, 8192 and 16,000), with CUDA-event
+               times of the kernel, the plain version, the bound and (where
+               one exists) the one PyTorch call computing the same function,
+               and the profiler's device time of each (``*_device_ms``; the
+               SSD scan's also split by launch).
 4. serve    — tinyllama-1.1b at full width, random weights from --seed,
                through `make_engine` with continuous batching over the
                paged KV store and prefix cache: 16 requests drained, launch
@@ -139,17 +140,18 @@ PREFILL_BUDGET = {"tinyllama-1.1b": 0.125, "qwen2.5-3b": 0.25}
 # |cum| move the final state by ~3e-4 at A = -16.
 SSD_F32_ATOL = 1e-4
 # SSD scan, bf16 cases: per output row (one position and head), max
-# |kernel - plain| over the rms of the plain row. Both compute in f32 from
-# the same bf16 inputs and round y once: at most one bf16 ulp of an
-# element apart (2^-7 of it, and an element reaches ~4x its row's rms).
-# The f32 final state keeps SSD_F32_ATOL.
+# |kernel - plain| over the rms of the plain row. Both take the same bf16
+# inputs and round y once: at most one bf16 ulp of an element apart (2^-7
+# of it, and an element reaches ~4x its row's rms): the kernel's
+# tensor-core body takes every f32 operand as two bf16 terms (2^-17 of
+# it). The f32 final state keeps SSD_F32_ATOL.
 SSD_REL = 2.0 ** -4
 # mamba arm: the first prefill call's last-position logits and the first
 # decode tick's logits (slot 0), kernel path vs the plain route, bf16.
-# The two routes differ only in the scan's f32 summation order, so the
-# logits should agree to a few bf16 ulps (logits of random weights reach
-# ~2-4, where an ulp is 0.0156-0.031); a wrong chunk or head moves them
-# by O(1).
+# The two routes differ only in the scan's summation order (the kernel's
+# f32 operands enter its tensor cores as two bf16 terms), so the logits
+# should agree to a few bf16 ulps (logits of random weights reach ~2-4,
+# where an ulp is 0.0156-0.031); a wrong chunk or head moves them by O(1).
 MAMBA_LOGIT_BUDGET = 0.125
 # chunk_accumulate: at n = 2 (the stream channel's call: accumulator and
 # the wave's staging) one rounding of a + b on either side, so bit for bit,
@@ -211,11 +213,11 @@ def device_us(ev) -> float:
     return ev.self_cuda_time_total if us is None else us
 
 
-def device_ms(torch, fns, iters: int = 20) -> float | None:
-    """Mean device time per call from `torch.profiler`: the kernels' own
-    time, without the gaps where the device waits for the host to issue
-    the next launch (which `cuda_ms` includes). None when the profiler
-    sees no device activity."""
+def device_ms_by_kernel(torch, fns, iters: int = 20) -> dict[str, float]:
+    """Mean device ms per call of each kernel (by name) from one
+    `torch.profiler` window: the kernels' own time, without the gaps where
+    the device waits for the host to issue the next launch (which
+    `cuda_ms` includes). Empty when the profiler sees no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -226,8 +228,15 @@ def device_ms(torch, fns, iters: int = 20) -> float | None:
         for i in range(iters):
             fns[i % len(fns)]()
         torch.cuda.synchronize()
-    us = sum(device_us(ev) for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters if us else None
+    return {ev.key: device_us(ev) / 1e3 / iters for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and device_us(ev)}
+
+
+def device_ms(torch, fns, iters: int = 20) -> float | None:
+    """Mean device time per call of all kernels in the window; None when
+    the profiler sees no device activity."""
+    by_kernel = device_ms_by_kernel(torch, fns, iters)
+    return sum(by_kernel.values()) if by_kernel else None
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
@@ -672,8 +681,24 @@ def ssd_work(*, b, s, h, p, n, q, elem) -> tuple[float, float]:
 
 
 # the scan at mamba2-130m's widths: (case, sequence length, timing iterations)
-SSD_CASES = [("mamba2-130m prefill, 8192 tokens", 8192, 20),
+SSD_CASES = [("the mamba arm's shortest prompts", 2048, 40),
+             ("mamba2-130m prefill, 8192 tokens", 8192, 20),
              ("the mamba arm's largest prompt", 16000, 10)]
+# the scan's CUDA launches, by the stage their kernel's name carries
+SSD_STAGES = ("chunk_state", "state_pass", "chunk_out")
+
+
+def ssd_stage(kernel_name: str) -> str | None:
+    return next((st for st in SSD_STAGES if st in kernel_name), None)
+
+
+def ssd_device_split(by_kernel: dict) -> dict:
+    """Device ms per call of each SSD stage (and of anything else the
+    wrapper launches, such as the zero fill of the final state)."""
+    split = dict.fromkeys((*SSD_STAGES, "other"), 0.0)
+    for name, ms in by_kernel.items():
+        split[ssd_stage(name) or "other"] += ms
+    return split
 
 
 def check_ssd(torch, np, seed: int) -> dict:
@@ -717,12 +742,14 @@ def check_ssd(torch, np, seed: int) -> dict:
         b_ms, b_by = bound_ms(nbytes, flops)
         kern = [lambda: ops.ssd(*args, chunk=q)]
         plain = [lambda: ops.ssd(*args, chunk=q, impl="ref")]
+        by_launch = ssd_device_split(device_ms_by_kernel(torch, kern, iters))
         case = {"phase": "kernels", "kernel": "ssd_scan", "case": name, "dtype": "bf16",
                 "shape": [1, s_len, h, p, n, q], "max_abs_err": err, "max_row_rel_err": rel,
                 "rel_budget": SSD_REL, "state_max_abs_err": state_err,
                 "state_max_abs": state_max, "state_atol": SSD_F32_ATOL, "finite": finite,
                 "kernel_ms": cuda_ms(torch, kern, iters, warmup=2),
-                "kernel_device_ms": device_ms(torch, kern, iters),
+                "kernel_device_ms": sum(by_launch.values()) or None,
+                "kernel_device_ms_by_launch": by_launch,
                 "plain_ms": cuda_ms(torch, plain, 3, warmup=1),
                 "plain_device_ms": device_ms(torch, plain, 3),
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
@@ -735,7 +762,7 @@ def check_ssd(torch, np, seed: int) -> dict:
         cases.append(case)
         del args, kern, plain
         torch.cuda.empty_cache()
-    main = cases[0]
+    main = next(c for c in cases if c["shape"][1] == 8192)
     return {"name": "ssd_scan", "route": "cuda", "source": SSD_SRC, "replaces": SSD_TPU,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
@@ -1312,15 +1339,16 @@ def profile_prefill(torch, np, model, params, *, seed: int, s: int = 8192) -> di
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_wall_ms = call()
     classes = {"ssd_scan": 0.0, "gemm": 0.0, "other": 0.0}
+    ssd_by_launch = dict.fromkeys(SSD_STAGES, 0.0)
     kernels = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         ms = device_us(ev) / 1e3
         name = ev.key
-        if any(w in name for w in ("chunk_state_kernel", "state_pass_kernel",
-                                   "chunk_out_kernel")):
+        if stage := ssd_stage(name):
             cls = "ssd_scan"
+            ssd_by_launch[stage] += ms
         elif any(w in name.lower() for w in ("gemm", "gemv", "nvjet", "sm90")):
             cls = "gemm"
         else:
@@ -1335,6 +1363,7 @@ def profile_prefill(torch, np, model, params, *, seed: int, s: int = 8192) -> di
            "device_ms_by_class": classes if kernels else None,
            "ssd_share_of_device": None if not dev_ms else classes["ssd_scan"] / dev_ms,
            "ssd_share_of_wall": None if not dev_ms else classes["ssd_scan"] / wall_ms,
+           "ssd_ms_by_launch": ssd_by_launch,
            "device_launches": sum(n for _, n, _ in kernels),
            "top_kernels": [{"ms": ms, "launches": n, "name": name}
                            for ms, n, name in kernels[:10]]}

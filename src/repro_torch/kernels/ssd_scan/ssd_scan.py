@@ -10,10 +10,13 @@ P of 32 or 64; state size N up to 128; chunk Q up to 256. It returns y
 ``(B, S, H, P)`` in x's dtype (contiguous) and the state after the last
 position, ``(B, H, P, N)`` f32. One call is three CUDA launches (chunk
 states, the pass over chunks, the outputs) and counts as one launch in
-``ssd_scan_kernel.launches``. The wrapper allocates the f32 scratch
-(``(B, ceil(S/Q), H, P, N)`` states and ``(B, ceil(S/Q), H)`` decays),
-launches on PyTorch's current stream and never synchronises. The
-library is built and loaded on the first call, never at import.
+``ssd_scan_kernel.launches``. bf16 inputs run the tensor-core body, f32
+inputs the exact CUDA-core body; there is no other route. The wrapper
+allocates the f32 scratch (``(B, ceil(S/Q), H, P, ns)`` states, ns = N
+for f32 and N rounded up to a multiple of 16 for bf16, and
+``(B, ceil(S/Q), H)`` decays), launches on PyTorch's current stream and
+never synchronises. The library is built and loaded on the first call,
+never at import.
 """
 from __future__ import annotations
 
@@ -75,7 +78,8 @@ def ssd_scan_kernel(
     if b == 0 or s == 0 or h == 0:
         return y, final
     nc = -(-s // chunk)
-    states = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)
+    ns = n if x.dtype == torch.float32 else -(-n // 16) * 16
+    states = torch.empty((b, nc, h, p, ns), dtype=torch.float32, device=x.device)
     decay = torch.empty((b, nc, h), dtype=torch.float32, device=x.device)
     rc = _entry()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),

@@ -27,8 +27,9 @@ Tolerances, with their reasons:
     evaluation there. bf16: per output row (one position and head), max
     |kernel - plain| / rms(plain row) <= 1/16: both compute in f32 from
     the same bf16 inputs and round y once, so they differ by at most one
-    bf16 ulp of an element (2^-7 of it, up to ~4x the row's rms); the f32
-    final state keeps 1e-4;
+    bf16 ulp of an element (2^-7 of it, up to ~4x the row's rms); the
+    kernel's tensor-core body takes each f32 operand as two bf16 terms
+    (2^-17 of it); the f32 final state keeps 1e-4;
   * engine: identical token streams and admissions in f32, logits 1e-4;
   * chunk_accumulate: bit for bit at n = 2 (one rounding, the stream
     channel's call), ragged S included; 1e-6 relative at n > 2 and for
@@ -473,6 +474,51 @@ def test_ssd_kernel_reads_conv_output_slices(cuda, dtype):
     want = ssd(x, dt, A, Bm, Cm, chunk=256)
     torch.cuda.synchronize()
     assert not xs.is_contiguous()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ssd_bf16_body_masks_before_exp_over_a_ragged_tail(cuda):
+    """The tensor-core body at A = -16 and dt near 1 over 4,100 positions
+    (16 chunks and a ragged 4-position tail): the masked exponent
+    differences reach +4,000, the decays underflow, and the final state is
+    almost only the last real position's term. y within 2^-4 of each
+    row's rms, the final state within 1e-4."""
+    args = _ssd_inputs(13, 1, 4100, 24, 64, 128, torch.bfloat16, cuda, a=16.0,
+                       dt_range=(0.9, 1.1))
+    y, fin = ssd(*args, chunk=256)
+    want_y, want_fin = ssd(*args, chunk=256, impl="ref")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
+    assert _row_rel_err(y, want_y) <= 1 / 16
+    torch.testing.assert_close(fin, want_fin, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("p,n", [(64, 128), (32, 40)])
+def test_ssd_bf16_body_with_a_short_last_head_group(cuda, p, n):
+    """13 heads: a prime, so whatever group of 2-8 heads a block of the
+    tensor-core body takes at this shape, the last group is shorter. N of
+    40 also pads the state to 48 columns."""
+    args = _ssd_inputs(17, 1, 3000, 13, p, n, torch.bfloat16, cuda)
+    y, fin = ssd(*args, chunk=256)
+    want_y, want_fin = ssd(*args, chunk=256, impl="ref")
+    torch.cuda.synchronize()
+    assert _row_rel_err(y, want_y) <= 1 / 16
+    torch.testing.assert_close(fin, want_fin, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_bf16_body_reads_unaligned_views(cuda):
+    """x, B and C as column slices of a conv output whose rows are 193
+    elements apart (not 16-byte aligned): the tensor-core body's tiles
+    arrive by plain loads instead of cp.async, and the result equals the
+    kernel's on contiguous copies bit for bit."""
+    x, dt, A, Bm, Cm = _ssd_inputs(19, 2, 333, 4, 32, 32, torch.bfloat16, cuda)
+    pad = torch.zeros((2, 333, 1), dtype=torch.bfloat16, device=cuda)
+    conv_out = torch.cat([x.reshape(2, 333, 128), Bm, Cm, pad], dim=-1)
+    xs, bs, cs, _ = torch.split(conv_out, [128, 32, 32, 1], dim=-1)
+    got = ssd(xs.reshape(2, 333, 4, 32), dt, A, bs, cs, chunk=64)
+    want = ssd(x, dt, A, Bm, Cm, chunk=64)
+    torch.cuda.synchronize()
+    assert xs.stride(1) == 193 and bs.stride(1) == 193
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

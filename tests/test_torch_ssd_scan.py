@@ -131,3 +131,88 @@ def test_ssd_kernel_wrapper_rejects_cpu_tensors():
     t = _torch(_inputs(1, 8, 1, 32, 8, np.float32))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_scan_kernel(*t, chunk=8)
+
+
+def _bf16_terms(v, terms):
+    """An f32 tensor as ``terms`` bf16 values whose f32 sum approximates
+    it: hi = bf16(v), and for two terms also lo = bf16(v - hi)."""
+    hi = v.to(torch.bfloat16).float()
+    return [hi] if terms == 1 else [hi, (v - hi).to(torch.bfloat16).float()]
+
+
+def _emulated_kernel(x, dt, A, Bm, Cm, chunk, terms):
+    """The CUDA kernel's bf16 body, its precision design in plain PyTorch:
+    every product has bf16 operands and f32 sums (a product of two bf16
+    values is exact in f32, so f32 einsums over bf16-valued tensors are
+    what the tensor cores compute). B, C and x are exact bf16 operands;
+    the f32 operands (the chunk-state product's w_t x_t, the entering
+    state of the read-out and the gate G) enter as ``terms`` bf16 terms
+    (the kernel takes two); the prefix sums, decays and the pass over
+    chunks stay f32."""
+    b, s, h, p = x.shape
+    pad = -s % chunk
+    xc, dtc, bc, cc = (torch.nn.functional.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+                       for t in (x, dt, Bm, Cm))
+    nc = xc.shape[1] // chunk
+    xc = xc.reshape(b, nc, chunk, h, p)
+    dtc = dtc.reshape(b, nc, chunk, h)
+    bc, cc = bc.reshape(b, nc, chunk, -1), cc.reshape(b, nc, chunk, -1)
+    cum = torch.cumsum(dtc * A.float(), dim=2)  # (b, nc, q, h)
+    wx = (dtc * torch.exp(cum[:, :, -1:] - cum))[..., None] * xc
+    contrib = sum(torch.einsum("bcthp,bctn->bchpn", t, bc) for t in _bf16_terms(wx, terms))
+    decay = torch.exp(cum[:, :, -1])  # (b, nc, h)
+    carry = torch.zeros_like(contrib[:, 0])
+    entering = []
+    for c in range(nc):
+        entering.append(carry)
+        carry = contrib[:, c] + decay[:, c, :, None, None] * carry
+    entering = torch.stack(entering, dim=1)
+    y_off = sum(torch.einsum("bcsn,bchpn->bcshp", cc, t)
+                for t in _bf16_terms(entering, terms)) * torch.exp(cum)[..., None]
+    scores = torch.einsum("bcsn,bctn->bcst", cc, bc)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b, nc, s, t, h)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))[..., None]
+    gate = torch.exp(torch.where(tri, diff, -torch.inf)) * scores[..., None] * dtc[:, :, None]
+    y_diag = sum(torch.einsum("bcsth,bcthp->bcshp", t, xc) for t in _bf16_terms(gate, terms))
+    y = (y_diag + y_off).reshape(b, nc * chunk, h, p)[:, :s]
+    return y.to(x.dtype), carry
+
+
+@pytest.mark.parametrize("inputs", ["model's dt", "reference test's dt", "A=-16, dt~1"])
+def test_kernel_precision_design_holds_the_smoke_checks(inputs):
+    """The bf16 body's precision design, emulated above, against the plain
+    version at mamba2-130m's P 64, N 128 and chunk 256 (3 heads, S = 600:
+    two whole chunks and a ragged one): the final state within the smoke's
+    1e-4 absolute, y within 2^-4 of each row's rms. The same emulation
+    with one bf16 term per f32 operand has a state error of 2.0e-3
+    (model's dt), 3.3e-4 (reference test's dt) and 2.1e-3 (A = -16,
+    dt ~ 1) on these inputs, all over the smoke's 1e-4, against 5.5e-7 to
+    4.1e-6 with two terms; the test checks that the second term cuts the
+    state error by at least 16x. y's row error is 0.010-0.013 with two
+    terms and 0.026-0.031 with one, where G's rounding flips 26-35 % of
+    y's bf16 elements (under 0.2 % with two)."""
+    b, s, h, p, n, chunk = 1, 600, 3, 64, 128, 256
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(b, s, h, p)).astype(ml_dtypes.bfloat16)
+    bm, cm = (rng.normal(size=(b, s, n)) / n ** 0.5 for _ in range(2))
+    if inputs == "model's dt":
+        dt = np.log1p(np.exp(rng.normal(size=(b, s, h))))
+        A = -np.linspace(1.0, 16.0, h)
+    elif inputs == "reference test's dt":
+        dt = rng.uniform(0.01, 0.2, size=(b, s, h))
+        A = -np.linspace(1.0, 16.0, h)
+    else:
+        dt = rng.uniform(0.9, 1.1, size=(b, s, h))
+        A = np.full((h,), -16.0)
+    args = _torch([x, dt.astype(np.float32), A.astype(np.float32),
+                   bm.astype(ml_dtypes.bfloat16), cm.astype(ml_dtypes.bfloat16)])
+    want_y, want_fin = ssd_ref(*args, chunk=chunk)
+    y, fin = _emulated_kernel(*args, chunk, terms=2)
+    _, fin_one = _emulated_kernel(*args, chunk, terms=1)
+    err = (fin - want_fin).abs().max().item()
+    err_one = (fin_one - want_fin).abs().max().item()
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    assert err <= 1e-4, err
+    rms = want_y.float().square().mean(-1).sqrt().clamp_min(1e-6)
+    assert ((y.float() - want_y.float()).abs().amax(-1) / rms).max().item() <= 2.0 ** -4
+    assert err_one >= 16 * err, (err_one, err)
