@@ -51,8 +51,15 @@ prints no result:
                profile phase's decode window on an aligned mamba engine.
    The kernels phase also holds chunk_accumulate against its plain
    version (bit for bit at the train phase's (2, 465,567,744) f32 fold
-   and at a ragged S; 1e-6 at n = 7 and at 16 rows of bf16) and the
-   keyed histogram (2^26 Zipf keys into 151,936 bins, and 4,096 bins).
+   and at a ragged S; 1e-6 at n = 7 and at 16 rows of bf16); the argmax
+   at each serve arm's decode shape ((8, 32,000), (2, 151,936), (8,
+   50,280)) and at two admission rows (the last position of (1, 1024, V),
+   V = 32,000 and 151,936), maxima planted at its split's edges, exact,
+   with host microseconds per call beside `torch.argmax`'s; and the keyed
+   histogram (2^26 Zipf keys into 151,936 bins, the same keys with the
+   bins permuted, 2^26 uniform keys with f32 and bf16 counts, 4,096 bins,
+   and 2^24 keys at 58,112 / 58,113 bins, the plan's path boundary),
+   exact at counts of 1.
 8. train    — qwen1.5-0.5b at full width and depth, random f32 weights
                from --seed, through `Trainer` in decoupled mode in a
                four-row gloo world on this card (`launch.mesh.spawn`,
@@ -160,10 +167,11 @@ MAMBA_LOGIT_BUDGET = 0.125
 # most (n - 1) ulps of that sum (n = 16: ~1e-6), a missed or doubled row
 # by about one |x[k, j]|.
 ACC_REL = 1e-6
-# histogram: max |kernel - plain| over the largest bin of the plain
-# version. Atomics add in a varying order; with counts of 1 (word counts)
-# every bin is an exact integer while it stays under 2^24, which this run
-# checks, so any error is a dropped or misplaced key.
+# histogram: with counts of 1 (word counts) every bin is an exact integer
+# while it stays under 2^24, which this run checks, so the kernel must
+# equal its plain version bit for bit: any error is a dropped or misplaced
+# key. Otherwise max |kernel - plain| over the largest bin of the plain
+# version: atomics add in a varying order.
 HIST_REL = 1e-5
 # train phase, f32 parity step (SGD, lr 1: new params = params - gradient):
 # the decoupled world against the conventional step in one process on the
@@ -470,42 +478,118 @@ def check_paged(torch, np, seed: int) -> dict:
             "library_device_ms": None}
 
 
+# argmax at the shapes the serve arms launch, on the last position of
+# (B, S, V) bf16 logits: each arm's decode tick (S = 1) and an admission's
+# prefill row (S = 1024, rows strided by S x V). (case, B, S, V)
+ARGMAX_CASES = [("tinyllama-1.1b decode", 8, 1, 32_000),
+                ("qwen2.5-3b long-arm decode", 2, 1, 151_936),
+                ("mamba2-130m decode", 8, 1, 50_280),
+                ("tinyllama-1.1b admission", 1, 1024, 32_000),
+                ("qwen2.5-3b admission", 1, 1024, 151_936)]
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Mean host microseconds per call over ``calls`` back-to-back calls,
+    no synchronisation between them (what a host-bound tick pays)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / calls * 1e6
+
+
+def plant_argmax_ties(torch, last, span: int, splits: int) -> dict:
+    """Plant maxima in the (B, V) rows ``last`` where the kernel's split
+    meets them; returns row -> the index that must win (the first maximal
+    one, NaN above all)."""
+    b, vocab = last.shape
+    starts = [span * j for j in range(1, splits)]
+    want = {}
+    # row 0: a tie at the first element of every span but the first
+    last[0, starts or [0]] = 30.0
+    want[0] = starts[0] if starts else 0
+    if b > 1:  # row 1: ties at the last element of every span and of the row
+        last[1, [s - 1 for s in starts] + [vocab - 1]] = 30.0
+        want[1] = starts[0] - 1 if starts else vocab - 1
+    if b > 2:  # row 2: all equal
+        last[2] = 0.0
+        want[2] = 0
+    if b > 3:  # row 3: a NaN in the last span beats a +inf in the first
+        last[3, 1] = float("inf")
+        last[3, vocab - 2] = float("nan")
+        want[3] = vocab - 2
+    if b > 4:  # row 4: the maximum at the row's last element
+        last[4, vocab - 1] = 30.0
+        want[4] = vocab - 1
+    return want
+
+
 def check_argmax(torch, np, seed: int) -> dict:
     from repro_torch.kernels.sample import ops
+    from repro_torch.kernels.sample.sample import argmax_split
 
-    b, vocab = 8, 32000
+    # planted ties at (8, 32,000), untimed: two far apart, two adjacent
+    # (one 16-byte vector), an all-equal row, three within one span, and
+    # the maximum at the row's end
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    logits = torch.randn((b, 1, vocab), generator=gen, device="cuda").to(torch.bfloat16)
-    # planted ties: the first maximal index must win
-    logits[0, 0, [5, 31000]] = 10.0
+    logits = torch.randn((8, 1, 32_000), generator=gen, device="cuda").to(torch.bfloat16)
+    logits[0, 0, [5, 31_000]] = 10.0
     logits[1, 0, [0, 1]] = 10.0
     logits[2, 0] = 0.0
-    logits[3, 0, [100, 612, 20000]] = 10.0  # 100 and 612 fall to one thread
-    logits[4, 0, [vocab - 1]] = 10.0
+    logits[3, 0, [100, 612, 20_000]] = 10.0
+    logits[4, 0, [31_999]] = 10.0
     out = ops.sample_last(logits)
     ref = ops.sample_last(logits, impl="ref")
-    torch.cuda.synchronize()
     err = (out.long() - ref.long()).abs().max().item()
-    want = [5, 0, 0, 100, vocab - 1]
-    if err != 0 or out[:5].tolist() != want:
-        raise AssertionError(f"argmax kernel {out.tolist()} != plain {ref.tolist()}")
-    last = logits[:, -1]
-    b_ms, b_by = bound_ms(b * vocab * 2 + b * 4, float(b * vocab))
-    case = {"phase": "kernels", "kernel": "argmax_last", "shape": [b, vocab],
-            "dtype": "bf16", "max_abs_err": err,
-            "kernel_ms": cuda_ms(torch, [lambda: ops.sample_last(logits)], 200),
-            "plain_ms": cuda_ms(torch, [lambda: ops.sample_last(logits, impl="ref")], 200),
-            "kernel_device_ms": device_ms(torch, [lambda: ops.sample_last(logits)]),
-            "plain_device_ms": device_ms(torch, [lambda: ops.sample_last(logits, impl="ref")]),
-            "library_device_ms": device_ms(torch, [lambda: torch.argmax(last, dim=-1)]),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(torch, [lambda: torch.argmax(last, dim=-1)], 200)}
-    emit(case)
+    emit({"phase": "kernels", "kernel": "argmax_last", "case": "planted ties",
+          "shape": [8, 1, 32_000], "dtype": "bf16", "max_abs_err": err})
+    if err != 0 or out[:5].tolist() != [5, 0, 0, 100, 31_999]:
+        raise AssertionError(f"argmax kernel {out.tolist()} != plain {ref.tolist()} "
+                             "(planted ties at (8, 32,000))")
+    cases = []
+    for i, (name, b, s, vocab) in enumerate(ARGMAX_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1 + i)
+        logits = torch.randn((b, s, vocab), generator=gen, device="cuda").to(torch.bfloat16)
+        span, splits = argmax_split(b, vocab, 2)
+        want = plant_argmax_ties(torch, logits[:, -1], span, splits)
+        out = ops.sample_last(logits)
+        ref = ops.sample_last(logits, impl="ref")
+        torch.cuda.synchronize()
+        err = (out.long() - ref.long()).abs().max().item()
+        got = {r: out[r].item() for r in want}
+        if err != 0 or got != want:
+            raise AssertionError(f"argmax kernel {out.tolist()} != plain {ref.tolist()} "
+                                 f"(planted {want}) at {name}")
+        last = logits[:, -1]
+        kern = [lambda: ops.sample_last(logits)]
+        plain = [lambda: ops.sample_last(logits, impl="ref")]
+        lib = [lambda: torch.argmax(last, dim=-1)]
+        b_ms, b_by = bound_ms(b * vocab * 2 + b * 4, float(b * vocab))
+        case = {"phase": "kernels", "kernel": "argmax_last", "case": name,
+                "shape": [b, s, vocab], "dtype": "bf16", "span": span, "splits": splits,
+                "max_abs_err": err, "planted": want,
+                "kernel_ms": cuda_ms(torch, kern, 200), "plain_ms": cuda_ms(torch, plain, 200),
+                "library_ms": cuda_ms(torch, lib, 200),
+                "kernel_device_ms": device_ms(torch, kern),
+                "plain_device_ms": device_ms(torch, plain),
+                "library_device_ms": device_ms(torch, lib),
+                "library_call": "torch.argmax(logits[:, -1], dim=-1)",
+                "kernel_host_us": host_us(torch, kern[0]),
+                "library_host_us": host_us(
+                    torch, lambda: torch.argmax(logits[:, -1], dim=-1).to(torch.int32)),
+                "bound_ms": b_ms, "bound_by": b_by}
+        emit(case)
+        cases.append(case)
+    main = cases[0]  # the tinyllama arm's decode tick: the main path's shape
     return {"name": "argmax_last", "route": "cuda", "source": ARGMAX_SRC,
-            "replaces": ARGMAX_TPU, "max_abs_err": err, "ms": case["kernel_ms"],
-            "plain_ms": case["plain_ms"], "device_ms": case["kernel_device_ms"],
-            "plain_device_ms": case["plain_device_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": case["library_ms"], "library_device_ms": case["library_device_ms"]}
+            "replaces": ARGMAX_TPU, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "device_ms": main["kernel_device_ms"], "plain_device_ms": main["plain_device_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "library_device_ms": main["library_device_ms"]}
 
 
 # flash attention at the prefill shapes the serve arms launch: name, batch,
@@ -830,62 +914,113 @@ def check_accumulate(torch, np, seed: int) -> dict:
             "library_ms": main["library_ms"], "library_device_ms": main["library_device_ms"]}
 
 
-def check_histogram(torch, np, seed: int) -> dict:
-    """2^26 Zipf keys (word ids, 5 % padding) into qwen's 151,936 bins,
-    counts of 1; then the shared-memory path at 4,096 bins with random
-    counts (1e-5 of the largest bin: an f32 sum's reordering)."""
-    from repro_torch.kernels.stream_reduce import ops
+def histogram_case(torch, ops, name: str, keys, counts, bins: int, *, exact: bool,
+                   iters: int = 10) -> dict:
+    """One histogram case: the kernel against its plain version (bit for
+    bit where ``exact``: counts of 1, every bin an integer under 2^24;
+    else HIST_REL of the largest bin), then CUDA-event and profiler times
+    of the kernel, the plain version and `torch.bincount`."""
+    from repro_torch.kernels.stream_reduce.stream_reduce import histogram_plan
 
-    n, bins = 1 << 26, 151_936
-    rng = np.random.default_rng(seed + 7)
-    keys_np = (rng.zipf(1.3, n) % bins).astype(np.int32)
-    keys_np[rng.random(n) < 0.05] = -1
-    keys = torch.from_numpy(keys_np).to("cuda")
-    counts = torch.ones(n, device="cuda")
-    valid = keys >= 0
-    lib_keys, lib_w = keys[valid].long(), counts[valid]
     out = ops.keyed_histogram(keys, counts, bins)
     ref = ops.keyed_histogram(keys, counts, bins, impl="ref")
     torch.cuda.synchronize()
     top = ref.max().item()
-    if top >= 2 ** 24:
+    if exact and top >= 2 ** 24:
         raise AssertionError(f"the hottest bin ({top}) is past f32's exact integers")
+
     err = (out - ref).abs().max().item()
-    nbytes = n * 8 + bins * 4
+    ok = bool(torch.equal(out, ref)) if exact else err / top <= HIST_REL
+    valid = (keys >= 0) & (keys < bins)
+    lib_keys, lib_w = keys[valid].long(), counts[valid].float()
+    n = keys.shape[0]
+    nbytes = n * (4 + counts.element_size()) + bins * 4
     b_ms, b_by = bound_ms(nbytes, float(n), F32_FLOPS)
     kern = [lambda: ops.keyed_histogram(keys, counts, bins)]
     plain = [lambda: ops.keyed_histogram(keys, counts, bins, impl="ref")]
     lib = [lambda: torch.bincount(lib_keys, lib_w, minlength=bins)]
-    case = {"phase": "kernels", "kernel": "histogram", "case": "2^26 zipf keys",
-            "n": n, "bins": bins, "padding": float((~valid).float().mean()),
-            "hottest_bin": top, "max_abs_err": err, "rel_err": err / top,
-            "rel_budget": HIST_REL,
-            "kernel_ms": cuda_ms(torch, kern, 10, warmup=2),
-            "kernel_device_ms": device_ms(torch, kern, 10),
-            "plain_ms": cuda_ms(torch, plain, 10, warmup=2),
-            "plain_device_ms": device_ms(torch, plain, 10),
-            "library_ms": cuda_ms(torch, lib, 10, warmup=2),
-            "library_device_ms": device_ms(torch, lib, 10),
-            "library_call": "torch.bincount(keys[keys >= 0], weights, minlength)",
+    plan = histogram_plan(bins)
+    case = {"phase": "kernels", "kernel": "histogram", "case": name, "n": n, "bins": bins,
+            "counts": str(counts.dtype).replace("torch.", ""),
+            "plan": {"path": plan[0], "block_bins": plan[1]},
+            "dropped": float((~valid).float().mean()), "hottest_bin": top,
+            "max_abs_err": err, "rel_err": err / top, "exact": exact,
+            "bit_identical": bool(torch.equal(out, ref)), "rel_budget": HIST_REL,
+            "kernel_ms": cuda_ms(torch, kern, iters, warmup=2),
+            "kernel_device_ms": device_ms(torch, kern, iters),
+            "plain_ms": cuda_ms(torch, plain, iters, warmup=2),
+            "plain_device_ms": device_ms(torch, plain, iters),
+            "library_ms": cuda_ms(torch, lib, iters, warmup=2),
+            "library_device_ms": device_ms(torch, lib, iters),
+            "library_call": "torch.bincount(keys[valid], weights.float(), minlength)",
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
     emit(case)
-    if not err / top <= HIST_REL:
+    if not ok:
         raise AssertionError(f"histogram kernel disagrees with its plain version: {case}")
-    small_keys = torch.randint(-1, 4096, (1 << 20,), device="cuda", dtype=torch.int32)
-    small_counts = torch.rand(1 << 20, device="cuda")
-    s_out = ops.keyed_histogram(small_keys, small_counts, 4096)
-    s_ref = ops.keyed_histogram(small_keys, small_counts, 4096, impl="ref")
-    torch.cuda.synchronize()
-    s_rel = (s_out - s_ref).abs().max().item() / s_ref.max().item()
-    emit({"phase": "kernels", "kernel": "histogram", "case": "shared memory, 4096 bins",
-          "n": 1 << 20, "bins": 4096, "rel_err": s_rel, "rel_budget": HIST_REL})
-    if not s_rel <= HIST_REL:
-        raise AssertionError(f"histogram kernel (shared path) off by {s_rel}")
+    return case
+
+
+def histogram_inputs(torch, np, seed: int, edges=None):
+    """The histogram cases, one at a time, as (name, keys, counts, bins,
+    exact, timing iterations) on the card: 2^26 keys into qwen's 151,936
+    bins, Zipf(1.3) word ids (5 % padding) with counts of 1, the same keys
+    through a seeded permutation of the bins (hot keys no longer small
+    ids), uniform keys with counts of 1 and with bf16 counts; 4,096 bins;
+    then 2^24 uniform keys (some past the last bin) at each of ``edges``
+    bins (default: one on each side of the plan's path boundary, what one
+    block's shared memory holds). Each case's tensors are freed once the
+    next is asked for."""
+    from repro_torch.kernels.stream_reduce.stream_reduce import CTA_BINS
+
+    n, bins = 1 << 26, 151_936
+    rng = np.random.default_rng(seed + 7)
+    zipf = (rng.zipf(1.3, n) % bins).astype(np.int32)
+    pad = rng.random(n) < 0.05
+    zipf[pad] = -1
+    perm = rng.permutation(bins).astype(np.int32)
+    permuted = np.where(pad, -1, perm[np.maximum(zipf, 0)]).astype(np.int32)
+    del pad
+    ones = torch.ones(n, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    uniform = torch.randint(-1, bins, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    yield "2^26 zipf keys", torch.from_numpy(zipf).to("cuda"), ones, bins, True, 10
+    del zipf
+    yield ("2^26 zipf keys, permuted bins", torch.from_numpy(permuted).to("cuda"), ones, bins,
+           True, 10)
+    del permuted
+    yield "2^26 uniform keys", uniform, ones, bins, True, 10
+    bf16 = torch.rand(n, generator=gen, device="cuda").to(torch.bfloat16)
+    yield "2^26 uniform keys, bf16 counts", uniform, bf16, bins, False, 10
+    del ones, uniform, bf16
+    torch.cuda.empty_cache()
+    small_keys = torch.randint(-1, 4096, (1 << 20,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+    yield ("4096 bins", small_keys, torch.rand(1 << 20, generator=gen, device="cuda"), 4096,
+           False, 50)
+    m = 1 << 24
+    for e in (CTA_BINS, CTA_BINS + 1) if edges is None else edges:
+        keys = torch.randint(-1, e + e // 64, (m,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        yield (f"2^24 uniform keys, {e} bins", keys,
+               torch.rand(m, generator=gen, device="cuda"), e, False, 20)
+
+
+def check_histogram(torch, np, seed: int) -> dict:
+    """Every case of `histogram_inputs` through `histogram_case`."""
+    from repro_torch.kernels.stream_reduce import ops
+    from repro_torch.kernels.stream_reduce.stream_reduce import CTA_BINS, histogram_plan
+
+    if histogram_plan(CTA_BINS)[0] == histogram_plan(CTA_BINS + 1)[0]:
+        raise AssertionError(f"the plan's path boundary moved from {CTA_BINS} bins")
+    cases = [histogram_case(torch, ops, name, keys, counts, bins, exact=exact, iters=iters)
+             for name, keys, counts, bins, exact, iters in histogram_inputs(torch, np, seed)]
+    main = cases[0]
     return {"name": "histogram", "route": "cuda", "source": REDUCE_SRC, "replaces": HIST_TPU,
-            "max_abs_err": err, "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
-            "device_ms": case["kernel_device_ms"], "plain_device_ms": case["plain_device_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": case["library_ms"],
-            "library_device_ms": case["library_device_ms"]}
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": main["kernel_ms"],
+            "plain_ms": main["plain_ms"], "device_ms": main["kernel_device_ms"],
+            "plain_device_ms": main["plain_device_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library_device_ms": main["library_device_ms"]}
 
 
 # -- phase 4: full-width serve -------------------------------------------------

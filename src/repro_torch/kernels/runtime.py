@@ -122,8 +122,10 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a C pointer."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a C pointer (read
+    without building a `torch.cuda.Stream`, which costs a host-bound
+    decode tick ~5 us per kernel call)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_cuda(what: str, *tensors) -> None:

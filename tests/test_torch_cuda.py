@@ -18,7 +18,6 @@ Tolerances, with their reasons:
     reference's bf16 kernel budget (both take f32 scores from the same
     bf16 inputs and round the output once; the kernel also rounds P to
     bf16 for the tensor cores, which moves an output by ~2^-9 of it);
-  * argmax: exact, ties included;
   * SSD scan, f32: 1e-4 for y and the final state. Inputs are the
     model's A (-linspace(1, 16)) and dt (softplus of N(0, 1)), or the
     reference test's dt (U(0.01, 0.2), tests/test_kernels.py), with B and
@@ -34,7 +33,9 @@ Tolerances, with their reasons:
   * chunk_accumulate: bit for bit at n = 2 (one rounding, the stream
     channel's call), ragged S included; 1e-6 relative at n > 2 and for
     bf16 input (summation order);
-  * histogram: 1e-5 relative (atomics add in a varying order).
+  * argmax: exact at every split edge, NaN and -inf rows included;
+  * histogram: 1e-5 relative (atomics add in a varying order); exact
+    where counts are small integers (every partial sum is exact).
 """
 import dataclasses
 
@@ -51,6 +52,7 @@ from repro_torch.kernels.paged_attention import (
     split_span,
 )
 from repro_torch.kernels.sample import argmax_last_kernel, sample_last
+from repro_torch.kernels.sample.sample import argmax_split
 from repro_torch.kernels.ssd_scan import ssd, ssd_scan_kernel
 from repro_torch.kernels.stream_reduce import (
     accumulate,
@@ -58,6 +60,7 @@ from repro_torch.kernels.stream_reduce import (
     histogram_kernel,
     keyed_histogram,
 )
+from repro_torch.kernels.stream_reduce.stream_reduce import CTA_BINS
 from repro_torch.launch.mesh import spawn
 from repro_torch.models.model_zoo import build
 from repro_torch.serve import EngineConfig, KVSpec, Request, make_engine
@@ -557,6 +560,66 @@ def test_argmax_kernel_matches_plain(cuda, dtype):
     assert got[:3].tolist() == [3, 0, 5]
 
 
+def _plant_argmax_rows(last, span, splits):
+    """Plant, row by row (cycling), maxima where the split meets them;
+    returns row -> the index that must win."""
+    b, vocab = last.shape
+    starts = [span * j for j in range(1, splits)]
+    ends = [s - 1 for s in starts]
+    want = {}
+    for r in range(b):
+        kind = r % 6
+        if kind == 0:  # a tie at the first element of every span, and at the row's end
+            last[r, starts + [vocab - 1]] = 30.0
+            want[r] = starts[0] if starts else vocab - 1
+        elif kind == 1:  # a tie at both ends of the row
+            last[r, [0, vocab - 1]] = 30.0
+            want[r] = 0
+        elif kind == 2:  # a tie at the last element of every span
+            last[r, ends + [vocab - 1]] = 30.0
+            want[r] = ends[0] if ends else vocab - 1
+        elif kind == 3:  # a NaN in a later split than a +inf
+            last[r, 1] = float("inf")
+            last[r, vocab - 2] = float("nan")
+            want[r] = vocab - 2
+        elif kind == 4:  # all -inf
+            last[r] = float("-inf")
+            want[r] = 0
+    return want
+
+
+# each arm's vocabulary and an odd one (rows not 16-byte aligned), at the
+# batch sizes of admission, the long arm, the 8-slot arms and a wide batch;
+# S > 1 reads the last position of (B, S, V), rows strided by S x V
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("b", [1, 2, 8, 64])
+@pytest.mark.parametrize("vocab", [32_000, 50_280, 151_936, 32_001])
+def test_argmax_kernel_at_split_edges(cuda, vocab, b, s, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(vocab + 7 * b + s)
+    x = torch.randn((b, s, vocab), generator=gen, device=cuda).to(dtype)
+    span, splits = argmax_split(b, vocab, x.element_size())
+    want = _plant_argmax_rows(x[:, -1], span, splits)
+    before = argmax_last_kernel.launches
+    got = sample_last(x)
+    assert argmax_last_kernel.launches == before + 1
+    assert torch.equal(got, sample_last(x, impl="ref"))
+    assert {r: got[r].item() for r in want} == want
+
+
+def test_argmax_kernel_scratch_stays_clean_across_shapes(cuda):
+    """Calls of many shapes back to back on one stream share the tickets:
+    each launch must leave them at zero for the next."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xs = [torch.randn((b, 1, v), generator=gen, device=cuda).to(torch.bfloat16)
+          for b, v in [(8, 32_000), (2, 151_936), (1, 151_936), (64, 50_280), (8, 32_000)] * 3]
+    before = argmax_last_kernel.launches
+    got = [sample_last(x) for x in xs]
+    assert argmax_last_kernel.launches == before + len(xs)
+    for x, g in zip(xs, got):
+        assert torch.equal(g, sample_last(x, impl="ref"))
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -695,6 +758,82 @@ def test_histogram_kernel_matches_plain(cuda, n, bins, dtype):
     want = keyed_histogram(keys, counts, bins, impl="ref")
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# one n_bins on each side of the plan's path boundary, qwen's vocabulary,
+# and the global path at eight blocks' worth of bins
+HIST_EDGES = [4096, CTA_BINS, CTA_BINS + 1, 151_936, 464_896, 464_897]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bins", HIST_EDGES)
+def test_histogram_kernel_at_plan_boundaries(cuda, bins, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(bins)
+    n = 1 << 21
+    keys = torch.randint(-1, bins + bins // 8, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    counts = (torch.rand((n,), generator=gen, device=cuda) * 5).to(dtype)
+    before = histogram_kernel.launches
+    got = keyed_histogram(keys, counts, bins)
+    assert histogram_kernel.launches == before + 1
+    torch.testing.assert_close(got, keyed_histogram(keys, counts, bins, impl="ref"),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("bins", HIST_EDGES)
+def test_histogram_kernel_one_bin_takes_every_key(cuda, bins, where):
+    """The worst contention: all 2^22 keys in one bin (the first, a
+    middle or the last), counts of 1: exact."""
+    key = {"first": 0, "middle": bins // 2, "last": bins - 1}[where]
+    n = 1 << 22
+    keys = torch.full((n,), key, dtype=torch.int32, device=cuda)
+    got = keyed_histogram(keys, torch.ones(n, device=cuda), bins)
+    want = torch.zeros(bins, device=cuda)
+    want[key] = n
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bins", [700, 151_936, 464_897])
+def test_histogram_kernel_padding_only(cuda, bins):
+    keys = torch.full((100_003,), -1, dtype=torch.int32, device=cuda)
+    keys[::7] = bins + 3  # past the last bin: dropped too
+    got = keyed_histogram(keys, torch.ones(keys.shape[0], device=cuda), bins)
+    assert torch.equal(got, torch.zeros(bins, device=cuda))
+
+
+# N not a multiple of the 8-key group, and views at offsets that leave
+# keys, counts or both off a 16-byte boundary (keys[1:] with counts[2:]
+# are never aligned together: all scalar)
+@pytest.mark.parametrize("key_off,count_off", [(0, 0), (1, 1), (1, 0), (0, 2), (1, 2), (3, 3)])
+@pytest.mark.parametrize("n", [1, 13, 100_003])
+@pytest.mark.parametrize("bins", [700, 151_936, 464_897])
+def test_histogram_kernel_reads_unaligned_views(cuda, bins, n, key_off, count_off):
+    gen = torch.Generator(device=cuda).manual_seed(n + key_off)
+    keys = torch.randint(-1, bins, (n + 3,), generator=gen, device=cuda,
+                         dtype=torch.int32)[key_off:key_off + n]
+    counts = torch.randint(0, 4, (n + 3,), generator=gen, device=cuda).float()
+    counts = counts[count_off:count_off + n]
+    got = keyed_histogram(keys, counts, bins)
+    assert torch.equal(got, keyed_histogram(keys, counts, bins, impl="ref"))
+
+
+@pytest.mark.parametrize("bins", [CTA_BINS + 1, 151_936, 464_896])
+def test_histogram_kernel_hot_key_among_spread_keys(cuda, bins):
+    """Every fourth key is the last bin (it claims cache slots and repeats
+    within warps), the rest spread over the bins and past them; integer
+    counts (exact), whole and through an unaligned view."""
+    gen = torch.Generator(device=cuda).manual_seed(bins)
+    n = 1 << 20
+    keys = torch.randint(-1, bins + bins // 8, (n + 1,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    keys[::4] = bins - 1
+    counts = torch.randint(0, 4, (n + 1,), generator=gen, device=cuda).float()
+    for k, c in [(keys[:n], counts[:n]), (keys[1:], counts[1:])]:
+        before = histogram_kernel.launches
+        got = keyed_histogram(k, c, bins)
+        assert histogram_kernel.launches == before + 1
+        assert torch.equal(got, keyed_histogram(k, c, bins, impl="ref"))
 
 
 def test_histogram_kernel_drops_keys_past_the_last_bin(cuda):

@@ -6,8 +6,9 @@ them), on the same numpy inputs on the CPU.
 Tolerances: the column sum is exact at n = 2 (one rounding either way,
 the stream channel's call) and 1e-6 relative otherwise (summation
 order); the histogram 1e-5 relative (the Pallas kernel sums by a one-hot
-product, another order). The CUDA kernels are tested on the card
-(tests/test_torch_cuda.py).
+product, another order). Then the CUDA histogram's plans against their
+rules, and a numpy emulation of its warp aggregation. The CUDA kernels
+are tested on the card (tests/test_torch_cuda.py).
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -26,6 +27,10 @@ from repro_torch.kernels.stream_reduce import (
     histogram_kernel,
     histogram_ref,
     keyed_histogram,
+)
+from repro_torch.kernels.stream_reduce.stream_reduce import (
+    CTA_BINS,
+    histogram_plan,
 )
 
 
@@ -94,3 +99,51 @@ def test_ops_dispatch_cpu_tensors_to_the_plain_version():
         accumulate(el, impl="pallas")
     with pytest.raises(ValueError, match="CUDA"):
         chunk_accumulate_kernel(el)
+
+
+# the CUDA kernel's plan: the path from n_bins alone; on the block path
+# one block holds every bin (each bin has that block as its one owner),
+# in whole float4 words and within its 227 KB of shared memory
+@pytest.mark.parametrize("n_bins", [1, 3, 4096, CTA_BINS - 1, CTA_BINS, CTA_BINS + 1, 151_936,
+                                    2 * CTA_BINS, 464_896, 464_897, 10 ** 6])
+def test_histogram_plan_gives_every_bin_one_owner(n_bins):
+    path, block_bins = histogram_plan(n_bins)
+    assert path == ("block" if n_bins <= CTA_BINS else "global")
+    if path == "global":
+        assert block_bins == 0
+    else:
+        assert block_bins % 4 == 0 and block_bins * 4 <= 232_448
+        assert n_bins <= block_bins < n_bins + 4
+
+
+def _warp_add(keys, counts):
+    """numpy emulation of the kernel's warp aggregation over one warp's 32
+    lanes: group equal keys (`__match_any_sync`), sum each group by
+    pointer jumping down its lanes, and let its lowest lane add the sum.
+    Returns the (key, sum) pairs the warp's atomics would add."""
+    lanes = np.arange(32)
+    peers = [np.flatnonzero(keys == k) for k in keys]
+    nxt = np.array([next((p for p in peers[i] if p > i), -1) for i in lanes])
+    v = counts.astype(np.float32).copy()
+    while (nxt >= 0).any():
+        src = np.where(nxt >= 0, nxt, lanes)
+        ov, on = v[src], nxt[src]
+        v = np.where(nxt >= 0, v + ov, v)
+        nxt = np.where(nxt >= 0, on, nxt)
+    return [(keys[i], v[i]) for i in lanes if keys[i] >= 0 and peers[i][0] == i]
+
+
+@pytest.mark.parametrize("distinct", [1, 2, 5, 32])
+def test_warp_aggregation_emulation_sums_each_key_once(distinct):
+    rng = np.random.default_rng(distinct)
+    for _ in range(50):
+        keys = rng.integers(-1, distinct, size=32)
+        counts = rng.integers(0, 5, size=32).astype(np.float32)
+        adds = _warp_add(keys, counts)
+        assert len(adds) == len({k for k in keys if k >= 0})
+        want = np.zeros(distinct, np.float32)
+        np.add.at(want, keys[keys >= 0], counts[keys >= 0])
+        got = np.zeros(distinct, np.float32)
+        for k, s in adds:
+            got[k] += s
+        np.testing.assert_array_equal(got, want)
