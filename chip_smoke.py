@@ -71,7 +71,30 @@ prints no result:
                bytes and peak memory; then one SGD step (lr 1) of the
                world held against the conventional step in one process
                in f32 (1e-4 of the largest gradient), and reported in bf16.
-9. summary  — a ``{"kernels": [...]}`` line, then the last line
+9. mapreduce — the paper's word-count MapReduce (Sec. IV-B) in an
+               eight-row gloo world on this card (`launch.mesh.spawn`;
+               the wire is host loopback): 16,384 documents of 4,096 word
+               slots (Zipf ids, skewed lengths, from --seed) over qwen's
+               151,936-word vocabulary, 8,192-word (64 KiB) elements, run
+               through `apps.mapreduce.run_wordcount` in the reference
+               (8 map rows and one sum), decoupled (6 map rows, 2 reduce
+               rows, 3 waves) and pipelined (5 map, 2 reduce, 1 io) modes,
+               and decoupled again at 32,000 words (the histogram's block
+               path); every reduce-side fold and every local map is the
+               keyed-histogram kernel. Each run's histogram equals
+               `np.bincount` of the valid words bit for bit on every row,
+               the modes agree, and the kernel's launches, summed over
+               ranks, equal the schedule's (`histogram_launches`); per run
+               the slowest rank's wall time, per-rank phases (map/pack,
+               stream+fold, group sum, broadcast), wire bytes, words per
+               second and peak memory. Then the measured variant's
+               counters against the host's per-row counts, the fold at
+               its own shape on a reduce row (`fold_case`: the kernel
+               against its plain version bit for bit, both timed beside
+               `torch.bincount` and the bound), and the quickstart's
+               workload statistics.
+10. summary — a ``{"kernels": [...]}`` line (the histogram's times are
+               the fold's, the path's shape), then the last line
                ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, the script
@@ -1670,6 +1693,281 @@ def train_phase(torch, np, seed: int, smi: str) -> dict:
     return line
 
 
+# -- phase 9: the paper's decoupled MapReduce --------------------------------------
+
+MR_ROWS = 8
+# 16,384 documents of 4,096 word slots (2^26), Zipf(1.4) ids, skewed lengths
+MR_CFG = dict(n_docs_per_row=2048, words_per_doc=4096, skew=0.8)
+MR_VOCABS = (151_936, 32_000)  # qwen's vocabulary (global path); the block path
+MR_GRANULARITY = 8192  # words per element: 64 KiB [keys | counts] elements
+# (run, mode, vocab, keyword arguments of run_wordcount)
+MR_RUNS = [("reference", "reference", 151_936, {}),
+           ("decoupled", "decoupled", 151_936, {"alpha": 0.25}),
+           ("pipelined", "pipelined", 151_936, {"alpha": 0.25, "chain_alphas": {"io": 0.125}}),
+           ("decoupled_32000", "decoupled", 32_000, {"alpha": 0.25})]
+MR_FOLD_ELEMENTS = 256  # elements of compute row 0's stream timed on a reduce row
+# the measured variant's reduce-stage word count is an f32 running sum, as
+# in the reference: each reduce row adds ~4,098 exact element counts and
+# passes 2^24 (~17.2M words each), where every add may round by one (half
+# an ulp of 2), and the group sum of the two rows by two (half an ulp of
+# 4). So |count - valid words| <= adds on a row + 2; the per-row work
+# vector and the histogram stay exact.
+
+
+def fold_case(torch, device, corpus, vocab: int, work_rows: int) -> dict:
+    """MapReduce's fold at the shape the main path gives it: the first
+    `MR_FOLD_ELEMENTS` elements of compute row 0's stream, each added into
+    an accumulator. Times per element the kernel's wrapper (keys already
+    converted and clamped, one launch), its plain version (`index_add_`
+    of the valid keys) and `torch.bincount` of the element's valid keys on
+    the same inputs, and the whole fold (`histogram_fold`: conversion,
+    clamp and launch); holds the kernel's and the fold's accumulators
+    against the plain one bit for bit (integer counts under 2^24); the
+    bound of one element from this data: its keys and counts read once,
+    each bin it touches read and written once, one add per valid key."""
+    from repro_torch.apps.mapreduce import _pack_word_elements, row_docs
+    from repro_torch.core.operators import histogram_fold
+    from repro_torch.kernels.stream_reduce import ops
+    from repro_torch.kernels.stream_reduce.stream_reduce import histogram_plan
+
+    t, m = row_docs(*corpus, 0, work_rows, MR_ROWS)
+    elements, s = _pack_word_elements(torch.from_numpy(t).to(device),
+                                      torch.from_numpy(m).to(device), MR_GRANULARITY)
+    elements = elements[:MR_FOLD_ELEMENTS].contiguous()
+    n = elements.shape[0]
+    keys = [e[:s].to(torch.int32).clamp_(max=vocab - 1) for e in elements]
+    counts = [e[s:] for e in elements]
+    lib_in = [(k[k >= 0].long(), c[k >= 0]) for k, c in zip(keys, counts)]
+    touched = sum(torch.unique(k).numel() for k, _ in lib_in)
+    valid = sum(k.numel() for k, _ in lib_in)
+    fold = histogram_fold(vocab, s)
+
+    def kern(acc):
+        for k, c in zip(keys, counts):
+            ops.keyed_histogram(k, c, vocab, out=acc)
+
+    def plain(acc):
+        for k, c in zip(keys, counts):
+            ops.keyed_histogram(k, c, vocab, out=acc, impl="ref")
+
+    def whole(acc):
+        for i in range(n):
+            fold(acc, elements[i], i)
+
+    accs = {}
+    for name, fn in (("kernel", kern), ("plain", plain), ("fold", whole)):
+        accs[name] = torch.zeros(vocab, device=device)
+        fn(accs[name])
+    torch.cuda.synchronize()
+    if accs["plain"].max().item() >= 2 ** 24:
+        raise AssertionError("mapreduce fold: a bin is past f32's exact integers")
+    err = max((accs[k] - accs["plain"]).abs().max().item() for k in ("kernel", "fold"))
+    identical = all(torch.equal(accs[k], accs["plain"]) for k in ("kernel", "fold"))
+    acc = torch.zeros(vocab, device=device)
+    run = {"kernel": [lambda: kern(acc)], "plain": [lambda: plain(acc)],
+           "library": [lambda: [torch.bincount(k, c, minlength=vocab) for k, c in lib_in]],
+           "fold": [lambda: whole(acc)]}
+    nbytes = n * 2 * s * 4 + touched * 8
+    b_ms, b_by = bound_ms(nbytes, float(valid), F32_FLOPS)
+    case = {"elements": n, "keys_per_element": s, "valid_keys": valid, "touched_bins": touched,
+            "plan": list(histogram_plan(vocab)), "bit_identical": identical,
+            "max_abs_err": err, "bytes_per_element": nbytes / n,
+            "bound_ms": b_ms / n, "bound_by": b_by,
+            "library_call": "torch.bincount(keys[valid], counts[valid], minlength) per element"}
+    for name, fns in run.items():
+        by_kernel = device_ms_by_kernel(torch, fns, iters=4)
+        case[f"{name}_ms"] = cuda_ms(torch, fns, iters=4, warmup=1) / n
+        case[f"{name}_device_ms"] = sum(by_kernel.values()) / n if by_kernel else None
+        case[f"{name}_device_ms_by_kernel"] = {k: v / n for k, v in by_kernel.items()}
+    if not identical:
+        raise AssertionError(f"mapreduce fold at {vocab} bins disagrees with its plain version:"
+                             f" max abs err {err}")
+    return case
+
+
+def mapreduce_rank(mesh, seed: int, paths: dict) -> dict:
+    """One rank of the MapReduce phase's eight-row world (run by `spawn`):
+    each run of `MR_RUNS` through `run_wordcount`, its kernel counts set to
+    0 just before and read just after, its phases, wire bytes and peak
+    memory; the measured variant's counters; the fold timed on the first
+    reduce row; the quickstart's workload statistics."""
+    import torch
+
+    from repro_torch.apps.mapreduce import (
+        CorpusCfg,
+        decoupled_wordcount_measured,
+        load_corpus,
+        row_docs,
+        run_wordcount,
+        wordcount_graph,
+    )
+    from repro_torch.examples.quickstart import workload_stats
+    from repro_torch.launch.mesh import WireStats
+
+    counters = kernel_counters()
+    corpora = {v: load_corpus(paths[v]) for v in MR_VOCABS}
+    out = {"row": mesh.row, "runs": {}}
+    for name, mode, vocab, kw in MR_RUNS:
+        cfg = CorpusCfg(**MR_CFG, vocab=vocab, seed=seed)
+        phases = {}
+        mesh.stats = WireStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.barrier()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        hist, _ = run_wordcount(mesh, mode, cfg, granularity_words=MR_GRANULARITY,
+                                corpus=corpora[vocab], phases=phases, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["runs"][name] = {"wall_s": wall, "phases": phases,
+                             "launches": {k: fn.launches for k, fn in counters.items()},
+                             "wire": mesh.stats.as_dict(),
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                             "hist": hist.cpu().numpy(), "device": str(hist.device)}
+        del hist
+        torch.cuda.empty_cache()
+
+    # the measured variant: per-row mapped words and the reduce stage's count
+    cfg = CorpusCfg(**MR_CFG, vocab=MR_VOCABS[0], seed=seed)
+    graph, gmesh, _ = wordcount_graph(mesh, "decoupled", 0.25)
+    t, m = row_docs(*corpora[cfg.vocab], mesh.row, gmesh.compute.size, MR_ROWS)
+    hist, work, stage = decoupled_wordcount_measured(
+        torch.from_numpy(t).to(mesh.device), torch.from_numpy(m).to(mesh.device), cfg.vocab,
+        graph, MR_GRANULARITY)
+    out["measured"] = {"hist": hist.cpu().numpy(), "work": work.cpu().numpy(),
+                       "stage": float(stage)}
+    del t, m, hist
+
+    # the fold alone, on the first reduce row while the others wait
+    mesh.barrier()
+    if mesh.row == gmesh.group("reduce").start:
+        out["fold"] = {v: fold_case(torch, mesh.device, corpora[v], v, gmesh.compute.size)
+                       for v in MR_VOCABS}
+    mesh.barrier()
+    out["quickstart"] = workload_stats(mesh, seed)
+    return out
+
+
+def mapreduce_phase(torch, np, seed: int, smi: str) -> dict:
+    """The MapReduce phase: the corpora made once here and shared with the
+    eight ranks through files, every run's histogram held against
+    `np.bincount` of the valid words bit for bit, the modes against each
+    other, the histogram kernel's launches against the schedule, the
+    measured counters against the host's per-row counts, and the
+    quickstart's statistics against the rows' figures."""
+    import tempfile
+
+    from repro_torch.apps.mapreduce import CorpusCfg, histogram_launches, save_corpus
+    from repro_torch.launch.mesh import spawn
+
+    total_docs = MR_CFG["n_docs_per_row"] * MR_ROWS
+    t0 = time.perf_counter()
+    host, paths, stats = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        for vocab in MR_VOCABS:
+            cfg = CorpusCfg(**MR_CFG, vocab=vocab, seed=seed)
+            os.makedirs(os.path.join(tmp, str(vocab)))
+            paths[vocab] = save_corpus(cfg, total_docs, os.path.join(tmp, str(vocab)))
+            tokens = np.load(paths[vocab] + ".tokens.npy", mmap_mode="r")
+            mask = np.load(paths[vocab] + ".mask.npy", mmap_mode="r")
+            valid = np.asarray(mask) > 0
+            host[vocab] = np.bincount(np.asarray(tokens)[valid], minlength=vocab)
+            stats[vocab] = {"valid_words": int(valid.sum()),
+                            "hottest_bin": int(host[vocab].max()),
+                            "doc_words": np.asarray(mask).sum(1)}
+            del tokens, mask, valid
+        corpus_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn(mapreduce_rank, MR_ROWS, device="cuda", args=(seed, paths),
+                      timeout_s=900)
+        world_s = time.perf_counter() - t0
+    for vocab in MR_VOCABS:
+        if stats[vocab]["hottest_bin"] >= 2 ** 24:
+            raise AssertionError(f"mapreduce: a bin ({stats[vocab]['hottest_bin']}) is past "
+                                 f"f32's exact integers")
+    runs, launches_total = [], {}
+    for name, mode, vocab, kw in MR_RUNS:
+        cfg = CorpusCfg(**MR_CFG, vocab=vocab, seed=seed)
+        per = [r["runs"][name] for r in ranks]
+        launches = {k: sum(p["launches"][k] for p in per) for k in per[0]["launches"]}
+        for k, v in launches.items():
+            launches_total[k] = launches_total.get(k, 0) + v
+        want = histogram_launches(mode, cfg, MR_ROWS, granularity_words=MR_GRANULARITY, **kw)
+        wall = max(p["wall_s"] for p in per)
+        line = {"phase": "mapreduce", "run": name, "mode": mode, "vocab": vocab,
+                "rows": MR_ROWS, "corpus": {**MR_CFG, "seed": seed, "docs": total_docs},
+                "granularity_words": MR_GRANULARITY, "element_bytes": 2 * MR_GRANULARITY * 4,
+                "valid_words": stats[vocab]["valid_words"],
+                "hottest_bin": stats[vocab]["hottest_bin"], "wall_s": wall,
+                "valid_words_per_s": stats[vocab]["valid_words"] / wall,
+                "launches": launches, "histogram_expected": want,
+                "histogram_by_row": [p["launches"]["histogram"] for p in per],
+                "bit_identical_to_host": all(np.array_equal(p["hist"], host[vocab])
+                                             for p in per),
+                "device": per[0]["device"],
+                "per_rank": [{"row": r["row"], "wall_s": p["wall_s"], "phases": p["phases"],
+                              "peak_gib": p["peak_gib"],
+                              "wire": {k: v for k, v in p["wire"].items() if v}}
+                             for r, p in zip(ranks, per)],
+                "wire": "gloo over host loopback (device -> pinned host -> gloo -> host -> device)",
+                "nvidia_smi": smi}
+        emit(line)
+        if not line["bit_identical_to_host"]:
+            raise AssertionError(f"mapreduce {name}: a row's histogram differs from the host's "
+                                 f"np.bincount")
+        if launches["histogram"] != want or want <= 0:
+            raise AssertionError(f"mapreduce {name}: histogram launched {launches['histogram']} "
+                                 f"times, the schedule says {want}")
+        if not per[0]["device"].startswith("cuda"):
+            raise AssertionError(f"mapreduce {name}: the histogram lies on {per[0]['device']}")
+        runs.append(line)
+    by_vocab = {}
+    for (name, _, vocab, _), r in zip(MR_RUNS, ranks[0]["runs"].values()):
+        by_vocab.setdefault(vocab, []).append(r["hist"])
+    if not all(np.array_equal(h, hs[0]) for hs in by_vocab.values() for h in hs):
+        raise AssertionError("mapreduce: the modes disagree")
+
+    # the measured variant's counters against the host's per-row counts:
+    # the work vector exactly; the reduce stage's word count, an f32 sum
+    # (the reference's counter) past 2^24 on each reduce row, within its
+    # rounding (stated beside MR_FOLD_ELEMENTS)
+    per_row = -(-total_docs // (MR_ROWS - 2))
+    doc_words = stats[MR_VOCABS[0]]["doc_words"]
+    want_work = np.array([doc_words[r * per_row:(r + 1) * per_row].sum()
+                          for r in range(MR_ROWS)], np.float32)
+    valid = stats[MR_VOCABS[0]]["valid_words"]
+    folds = max(next(r for r in runs if r["run"] == "decoupled")["histogram_by_row"])
+    stage_budget = folds + 2
+    measured = [{"row": r["row"], "work": r["measured"]["work"].tolist(),
+                 "stage": r["measured"]["stage"]} for r in ranks]
+    measured_ok = all(np.array_equal(r["measured"]["work"], want_work)
+                      and abs(r["measured"]["stage"] - valid) <= stage_budget
+                      and np.array_equal(r["measured"]["hist"], host[MR_VOCABS[0]])
+                      for r in ranks)
+    fold = next(r["fold"] for r in ranks if "fold" in r)
+    local = np.array([r["quickstart"]["local"] for r in ranks])
+    qstats = ranks[-1]["quickstart"]["stats"]
+    compute = np.sort(local[:-1])
+    quick_ok = (abs(qstats["min"] - compute[0]) <= 1e-3 and abs(qstats["max"] - compute[-1])
+                <= 1e-3 and abs(qstats["median"] - float(np.median(compute))) <= 1e-3
+                and qstats["count"] == MR_ROWS - 1)
+    summary = {"phase": "mapreduce_summary", "corpus_s": corpus_s, "world_s": world_s,
+               "numpy": np.__version__,
+               "measured_counters_match_host": measured_ok, "host_work": want_work.tolist(),
+               "valid_words": valid, "stage_budget": stage_budget, "measured": measured,
+               "fold": {str(k): v for k, v in fold.items()},
+               "quickstart": {"local": local.tolist(), "stats": qstats, "ok": quick_ok},
+               "launches": launches_total, "nvidia_smi": smi}
+    emit(summary)
+    if not measured_ok:
+        raise AssertionError("mapreduce: the measured counters differ from the host's counts")
+    if not quick_ok:
+        raise AssertionError(f"quickstart: analytics {qstats} disagree with the rows {local}")
+    return {"runs": runs, "launches": launches_total, "fold": fold}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1780,27 +2078,46 @@ def main(argv=None) -> int:
     # four-row world on this card
     train = train_phase(torch, np, args.seed + 8, smi)
 
-    # phase 9: summary; "launches" is the count from the run of the path
+    # phase 9: the paper's decoupled MapReduce in an eight-row world on this card
+    mapreduce = mapreduce_phase(torch, np, args.seed, smi)
+
+    # phase 10: summary; "launches" is the count from the run of the path
     # each kernel belongs to (the bf16 tinyllama arm for paged decode,
     # argmax and flash; the mamba arm for the SSD scan; the train phase,
-    # summed over its four ranks, for chunk_accumulate; histogram has no
-    # caller on any path, in either package), each arm's counts beside it.
+    # summed over its four ranks, for chunk_accumulate; the MapReduce
+    # phase, its four runs summed over their eight ranks, for histogram),
+    # each arm's counts beside it.
     # "ms", "plain_ms" and "library_ms" are CUDA-event times of
     # back-to-back calls (host launch gaps included); the "*device_ms"
-    # keys are the profiler's kernel time alone.
+    # keys are the profiler's kernel time alone. The histogram's path gives
+    # it 8,192-key elements to add into the reducer's accumulator, so its
+    # row holds that fold's times per element at 151,936 bins, and the
+    # 2^26-key case's beside them ("isolated_2p26").
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+             "plain_device_ms", "library_device_ms")
     for kern in kernels:
         name = kern["name"]
-        main_arm = {"ssd_scan": mamba["launches"],
-                    "chunk_accumulate": train["launches"]}.get(name, bf16["launches"])
+        if name == "histogram":
+            fold = mapreduce["fold"][MR_VOCABS[0]]
+            kern["isolated_2p26"] = {k: kern[k] for k in timed}
+            kern.update({k: fold["kernel_" + k if k in ("ms", "device_ms") else k]
+                         for k in timed},
+                        max_abs_err=max(kern["max_abs_err"], fold["max_abs_err"]))
+        main_arm = {"ssd_scan": mamba["launches"], "chunk_accumulate": train["launches"],
+                    "histogram": mapreduce["launches"]}.get(name, bf16["launches"])
         kern["launches"] = main_arm[name]
         kern["launches_long_arm"] = long["launches"][name]
         kern["launches_mamba_arm"] = mamba["launches"][name]
         kern["launches_train"] = train["launches"][name]
+        kern["launches_mapreduce"] = mapreduce["launches"][name]
+        if kern["launches"] <= 0:
+            raise AssertionError(f"{name} was launched no time on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "plain_device_ms", "library_device_ms", "launches_long_arm",
-            "launches_mamba_arm", "launches_train")
-    emit({"kernels": [{k: kern[k] for k in keys} for kern in kernels]})
+            "launches_mamba_arm", "launches_train", "launches_mapreduce")
+    emit({"kernels": [{k: kern[k] for k in keys + ("isolated_2p26",) if k in kern}
+                      for kern in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,1 +1,3 @@
-"""Core operators of the port (the KV subset of `repro.core.operators`)."""
+"""The decoupling runtime of the port: groups, stream channels and their
+wire, decoupled collectives, stream operators, the dataflow executor, the
+paper's performance model and the imbalance models."""

@@ -338,6 +338,24 @@ class StreamChannel:
         bit: broadcast from the group's first row."""
         return broadcast_from_row(self.gmesh, self.gmesh.group(self.consumer).start, value)
 
+    def scatter_back(self, value: Any, *, wave_of_target: int = 0) -> Any:
+        """Reverse-direction transfer: the consumer rows of wave
+        ``wave_of_target`` send ``value`` to that wave's producer rows,
+        along the inverse of `wave_perm` (isend/irecv). A producer row of
+        the wave returns what its consumer sent; every other row returns
+        zeros of ``value``'s structure, as the reference's ppermute does.
+        ``value`` gives every row the shapes and dtypes."""
+        self._check_device(value)
+        leaves, treedef = tree_flatten(value)
+        for prod, cons in self.wave_perm(wave_of_target):
+            if cons == self.mesh.row:
+                for p in [self.mesh.isend(x, prod) for x in leaves]:
+                    p.wait()
+            elif prod == self.mesh.row:
+                pending = [self.mesh.irecv(x.shape, x.dtype, cons) for x in leaves]
+                return tree_unflatten(treedef, [p.wait() for p in pending])
+        return self._zeros_like(value)
+
 
 def make_channel(gmesh: GroupedMesh, consumer: str, producer: str = COMPUTE, *,
                  codec: "wirelib.WireCodec | str | None" = None,

@@ -1,16 +1,155 @@
-"""KV-cache operators of the serving path: slot migration, the paged
-block pool's gather and fill, and the int8 row codec.
+"""Stream operators (the paper's `MPIStream_Attach` payload, Sec. III-A)
+and the KV-cache operators of the serving path: slot migration, the
+paged block pool's gather and fill, and the int8 row codec.
+
+A stream operator is a fold ``(acc, element, k) -> acc`` applied on the
+consumer group to every arriving element (k = the element's index in its
+stream), plus an ``init`` constructor, so it composes with
+`StreamChannel.stream_fold` and `ServiceGraph.run`. The four here match
+the paper's case studies:
+
+  * `sum_op`            -- decoupled reduce (MapReduce, gradient reduction)
+  * `histogram_op`      -- keyed word-count reduce (MapReduce), through
+                           the keyed-histogram kernel on the card
+  * `buffer_op`         -- aggressive buffering for a decoupled I/O group
+  * `workload_stats_op` -- min/max/median workload analytics (Listing 1)
 
 The reference's operators are pure (`.at[].set` returns a new array);
-the port's writers update their destination tensors IN PLACE and return
-them, so a pool is never copied. Block 0 of a pool is the permanent zero
+the port's operators and writers update their accumulator or destination
+IN PLACE and return it, so neither a pool nor a histogram is copied per
+element. A caller that needs an earlier state keeps a clone
+(`dataflow.delta_emitter` does). Block 0 of a pool is the permanent zero
 block: table entries of -1 clamp to it on gather, which makes the
 gathered view of a partly allocated slot equal to the zero-extended
 dense cache.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Callable
+
 import torch
+
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.kernels.stream_reduce import ops as reduce_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamOperator:
+    """A named fold: ``init()`` makes a fresh state, ``apply(acc, element,
+    k)`` folds one element into it (in place) and returns it."""
+
+    name: str
+    init: Callable[[], Any]
+    apply: Callable[[Any, torch.Tensor, int], Any]
+
+
+# -- decoupled reduce ---------------------------------------------------------
+
+def sum_op(chunk_elems: int, dtype=torch.float32, *, device=None) -> StreamOperator:
+    """acc <- acc + element: the decoupled reduction operator. ``device``:
+    where the state lives (cuda unless named)."""
+    dev = resolve_device(device)
+
+    def apply(acc, elem, k):
+        return acc.add_(elem.to(dtype))
+
+    return StreamOperator(name="sum", init=lambda: torch.zeros((chunk_elems,), dtype=dtype,
+                                                                device=dev), apply=apply)
+
+
+# -- keyed histogram (MapReduce word count) ----------------------------------
+
+def histogram_fold(n_bins: int, keys_per_elem: int) -> Callable:
+    """The fold of `histogram_op`: an element ``[keys | counts]`` (each
+    ``keys_per_elem`` wide, keys as floats) adds counts[i] to
+    acc[keys[i]] through `keyed_histogram(..., out=acc)`, the kernel on a
+    CUDA tensor. Negative keys are padding; keys past the last bin are
+    clamped into it first, as the reference clips them (the kernel alone
+    would drop them). Keys are exact as f32 below 2^24."""
+
+    def apply(acc, elem, k):
+        keys = elem[:keys_per_elem].to(torch.int32).clamp_(max=n_bins - 1)
+        counts = elem[keys_per_elem:2 * keys_per_elem]
+        return reduce_ops.keyed_histogram(keys, counts, n_bins, out=acc)
+
+    return apply
+
+
+def histogram_op(n_bins: int, keys_per_elem: int, *, device=None) -> StreamOperator:
+    """acc[key] += count for every (key, count) pair of an element packed
+    ``[keys | counts]``; key < 0 marks padding (`histogram_fold`)."""
+    dev = resolve_device(device)
+    return StreamOperator(name="histogram",
+                          init=lambda: torch.zeros((n_bins,), dtype=torch.float32, device=dev),
+                          apply=histogram_fold(n_bins, keys_per_elem))
+
+
+def pack_kv(keys: torch.Tensor, counts: torch.Tensor, elem_width: int) -> torch.Tensor:
+    """Pack (keys, counts) into `histogram_op`'s element layout, zero-padded
+    to ``elem_width``."""
+    pad = max(elem_width - 2 * keys.shape[0], 0)
+    return torch.cat([keys.float(), counts.float(), keys.new_zeros((pad,), dtype=torch.float32)])
+
+
+# -- buffering I/O group -------------------------------------------------------
+
+def buffer_op(capacity_chunks: int, chunk_elems: int, dtype=torch.float32, *,
+              device=None) -> StreamOperator:
+    """Append arriving elements into a preallocated ring buffer. State =
+    (buffer (capacity, S), write pointer as a 0-d int32 tensor); the
+    decoupled I/O group drains it to host storage off the critical path."""
+    dev = resolve_device(device)
+
+    def init():
+        return (torch.zeros((capacity_chunks, chunk_elems), dtype=dtype, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+
+    def apply(state, elem, k):
+        buf, ptr = state
+        row = (ptr % capacity_chunks).reshape(1).long()
+        buf.index_copy_(0, row, elem.to(dtype)[None])
+        return buf, ptr + 1
+
+    return StreamOperator(name="buffer", init=init, apply=apply)
+
+
+# -- workload analytics (paper Listing 1) --------------------------------------
+
+def workload_stats_op(max_samples: int, *, device=None) -> StreamOperator:
+    """Collect scalar workload samples (slot 0 of each element); finalize
+    to (min, max, median) with `finalize_workload_stats`: three reductions
+    that would otherwise be three global collectives."""
+    dev = resolve_device(device)
+
+    def init():
+        return (torch.full((max_samples,), float("nan"), dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+
+    def apply(state, elem, k):
+        samples, n = state
+        slot = n.clamp(max=max_samples - 1).reshape(1).long()
+        samples.index_copy_(0, slot, elem[:1].float())
+        return samples, n + 1
+
+    return StreamOperator(name="workload_stats", init=init, apply=apply)
+
+
+def finalize_workload_stats(state) -> dict[str, torch.Tensor]:
+    """{min, max, median, count} of the collected samples; the median of an
+    even count is the mean of the two middle samples (numpy's)."""
+    samples, n = state
+    valid = ~torch.isnan(samples)
+    inf = torch.tensor(float("inf"), device=samples.device)
+    kept = torch.sort(samples[valid]).values
+    m = kept.numel()
+    med = (kept[(m - 1) // 2] + kept[m // 2]) * 0.5 if m else inf.new_tensor(float("nan"))
+    return {"min": torch.where(valid, samples, inf).min(),
+            "max": torch.where(valid, samples, -inf).max(),
+            "median": med, "count": n}
+
+
+# -- KV-cache operators --------------------------------------------------------
 
 
 def migrate_cache_into_slot(dst_cache: dict, src_cache: dict, slot: int) -> dict:

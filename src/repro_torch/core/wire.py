@@ -15,9 +15,11 @@ reference's `core/wire.py`: the codecs, `WireSpec` and `WirePacker`).
   floating groups only; integer and bool groups pass through unchanged.
 * `raw_bytes` / `encoded_bytes` count the bytes of one payload send.
 
-The reference's producer-side error feedback (`compress_with_feedback`)
-and its speculative-decoding payload helpers are not ported yet (they
-come with the int8 training wire and with ROADMAP A6).
+* `compress_with_feedback` / `init_residual`: producer-side error
+  feedback for the lossy codecs.
+
+The reference's speculative-decoding payload helpers are not ported yet
+(they come with speculative decoding, ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -189,6 +191,40 @@ class WireSpec:
 
 
 # ---------------------------------------------------------------------------
+# error feedback (producer-side, payload space)
+# ---------------------------------------------------------------------------
+
+def init_residual(payload_like: Any) -> Any:
+    """A zero residual of the payload's structure, f32 leaves on the
+    leaves' devices (``meta`` leaves give ``meta`` zeros)."""
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
+                    payload_like)
+
+
+def compress_with_feedback(payload: Any, residual: Any, codec: "str | WireCodec" = "int8",
+                           chunk_bytes: "int | None" = None) -> tuple[Any, Any]:
+    """Error feedback for a lossy codec: correct the payload with the last
+    step's residual, and make this step's round-trip error the next
+    residual, so the compression bias vanishes over steps.
+
+    Returns ``(corrected_payload, new_residual)``, both f32. Stream the
+    corrected payload through a channel whose wire uses the same
+    ``codec`` and the same ``chunk_bytes``: the round trip here must be
+    the one the wire applies (whole-leaf scales when ``chunk_bytes`` is
+    None, per-chunk scales on the chunked schedule)."""
+    codec = get_codec(codec)
+    corrected = tree_map(lambda g, r: g.float() + r, payload, residual)
+    if chunk_bytes is None:
+        roundtrip = tree_map(lambda c: codec.decode_leaf(codec.encode_leaf(c)), corrected)
+    else:
+        packer = WirePacker.plan(corrected, chunk_bytes)
+        roundtrip = packer.unpack([codec.decode_chunk(codec.encode_chunks(buf))
+                                   if codec.applies(g.dtype) else buf
+                                   for g, buf in zip(packer.groups, packer.pack(corrected))])
+    return corrected, tree_map(torch.sub, corrected, roundtrip)
+
+
+# ---------------------------------------------------------------------------
 # the packer
 # ---------------------------------------------------------------------------
 
@@ -283,4 +319,5 @@ class WirePacker:
 
 
 __all__ = ["CODECS", "Bf16Codec", "Int8Codec", "WireCodec", "WireGroup", "WirePacker",
-           "WireSpec", "get_codec", "is_int8_payload"]
+           "WireSpec", "compress_with_feedback", "get_codec", "init_residual",
+           "is_int8_payload"]

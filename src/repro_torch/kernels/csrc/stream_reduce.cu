@@ -47,7 +47,9 @@
 // loops on this card (ATOMS.CAST.SPIN, and ATOM.E.CAST.SPIN into another
 // CTA), so remote adds spin on hot bins and trail L2's native float
 // atomics on cold ones (PERF.md).
-// The output must be zeroed by the caller (the wrapper allocates it so).
+// Every path only adds into the output (atomics, the cache flush too): the
+// caller passes zeros for a fresh histogram, or an accumulator to fold into
+// (the wrapper's `out=`, one launch per arriving stream element).
 // Atomics reorder the sums, so the result matches a sequential sum to f32
 // rounding only; counts of 1 sum exactly while a bin stays under 2^24.
 

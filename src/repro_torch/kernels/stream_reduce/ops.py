@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels.stream_reduce.ref import chunk_accumulate_ref, histogram_ref
 from repro_torch.kernels.stream_reduce.stream_reduce import (
+    check_hist_out,
     chunk_accumulate_kernel,
     histogram_kernel,
 )
@@ -29,12 +30,16 @@ def accumulate(elements: torch.Tensor, *, impl: str | None = None) -> torch.Tens
 
 
 def keyed_histogram(keys: torch.Tensor, counts: torch.Tensor, n_bins: int, *,
-                    impl: str | None = None) -> torch.Tensor:
-    """keys (N,) int32 (negative = padding), counts (N,) -> (n_bins,) f32."""
+                    out: torch.Tensor | None = None, impl: str | None = None) -> torch.Tensor:
+    """keys (N,) int32 (negative = padding), counts (N,) -> (n_bins,) f32;
+    with ``out`` (a contiguous (n_bins,) f32 accumulator on the keys'
+    device) the sums are added into it in place."""
     _check_impl(impl)
     if impl is None and keys.is_cuda:
-        return histogram_kernel(keys, counts, n_bins)
-    return histogram_ref(keys, counts, n_bins)
+        return histogram_kernel(keys, counts, n_bins, out=out)
+    if out is not None:
+        check_hist_out(out, keys, n_bins)
+    return histogram_ref(keys, counts, n_bins, out=out)
 
 
 __all__ = ["accumulate", "keyed_histogram"]

@@ -19,10 +19,13 @@ def chunk_accumulate_ref(elements: torch.Tensor) -> torch.Tensor:
     return elements.float().sum(0)
 
 
-def histogram_ref(keys: torch.Tensor, counts: torch.Tensor, n_bins: int) -> torch.Tensor:
-    """keys (N,) int, counts (N,) float -> (n_bins,) f32 keyed sums."""
+def histogram_ref(keys: torch.Tensor, counts: torch.Tensor, n_bins: int, *,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """keys (N,) int, counts (N,) float -> (n_bins,) f32 keyed sums, added
+    into ``out`` (a (n_bins,) f32 accumulator) where one is given."""
     valid = (keys >= 0) & (keys < n_bins)
-    out = torch.zeros((n_bins,), dtype=torch.float32, device=keys.device)
+    if out is None:
+        out = torch.zeros((n_bins,), dtype=torch.float32, device=keys.device)
     return out.index_add_(0, keys[valid].long(), counts[valid].float())
 
 

@@ -5,9 +5,11 @@
 Each wrapper checks its inputs, allocates the output, launches on
 PyTorch's current stream and counts one launch in ``<wrapper>.launches``
 per call (`chunk_accumulate_kernel` may issue a second CUDA launch for a
-ragged or unaligned tail; it still counts once). The histogram's path
-comes from `histogram_plan`, a function of ``n_bins`` alone. The library
-is built and loaded on the first call, never at import.
+ragged or unaligned tail; it still counts once). The histogram adds into
+its output; given ``out=``, it adds into that accumulator (a stream of
+elements folded into one histogram pays no zero fill per element). Its
+path comes from `histogram_plan`, a function of ``n_bins`` alone. The
+library is built and loaded on the first call, never at import.
 """
 from __future__ import annotations
 
@@ -68,9 +70,20 @@ def chunk_accumulate_kernel(elements: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def histogram_kernel(keys: torch.Tensor, counts: torch.Tensor, n_bins: int) -> torch.Tensor:
+def check_hist_out(out: torch.Tensor, keys: torch.Tensor, n_bins: int) -> None:
+    """An accumulator a histogram may add into: contiguous (n_bins,) f32 on
+    the keys' device."""
+    if out.dtype != torch.float32 or tuple(out.shape) != (n_bins,) \
+            or not out.is_contiguous() or out.device != keys.device:
+        raise ValueError(f"out must be a contiguous ({n_bins},) float32 tensor on "
+                         f"{keys.device}, got {tuple(out.shape)} {out.dtype} on {out.device}")
+
+
+def histogram_kernel(keys: torch.Tensor, counts: torch.Tensor, n_bins: int, *,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Keyed sum of counts (N,) f32/bf16 by keys (N,) int32 -> (n_bins,) f32;
-    negative keys and keys >= n_bins are dropped."""
+    negative keys and keys >= n_bins are dropped. With ``out`` the sums are
+    added into it (`check_hist_out`), and it is returned."""
     runtime.require_cuda("histogram_kernel", keys, counts)
     if keys.dtype != torch.int32:
         raise TypeError(f"keys must be int32, got {keys.dtype}")
@@ -83,7 +96,10 @@ def histogram_kernel(keys: torch.Tensor, counts: torch.Tensor, n_bins: int) -> t
         raise ValueError(f"n_bins={n_bins} outside [1, 2^31)")
     keys, counts = keys.contiguous(), counts.contiguous()
     path, block_bins = histogram_plan(n_bins)
-    out = torch.zeros((n_bins,), dtype=torch.float32, device=keys.device)
+    if out is None:
+        out = torch.zeros((n_bins,), dtype=torch.float32, device=keys.device)
+    else:
+        check_hist_out(out, keys, n_bins)
     rc = _lib().keyed_histogram(keys.data_ptr(), counts.data_ptr(), keys.shape[0], n_bins,
                                 _CODE[counts.dtype], PATHS.index(path), block_bins,
                                 out.data_ptr(), runtime.stream_handle(keys))
@@ -95,4 +111,4 @@ def histogram_kernel(keys: torch.Tensor, counts: torch.Tensor, n_bins: int) -> t
 chunk_accumulate_kernel.launches = 0
 histogram_kernel.launches = 0
 
-__all__ = ["chunk_accumulate_kernel", "histogram_kernel", "histogram_plan"]
+__all__ = ["check_hist_out", "chunk_accumulate_kernel", "histogram_kernel", "histogram_plan"]

@@ -15,6 +15,7 @@ calls of this rank:
                                          `Mesh.irecv` on its destination
   ``lax.psum(x, axis, groups)``          `Mesh.all_reduce` on a subgroup
                                          (a group of one row is the identity)
+  ``lax.all_gather(x, axis, groups)``    `Mesh.all_gather` on a subgroup
   masked-psum broadcast from a row       `Mesh.broadcast` from that row (exact)
   ``lax.cond(is_compute, ...)``          a plain Python ``if``
   =====================================  ========================================
@@ -169,6 +170,17 @@ class Mesh:
             host = t.clone()
         dist.all_reduce(host, op=op, group=group)
         out = self._from_host(host, t.dtype)
+        self.stats.collective_s += time.perf_counter() - t0
+        return out
+
+    def all_gather(self, t: torch.Tensor, group=None) -> torch.Tensor:
+        """Every row's ``t`` (one shape on all of them) concatenated along
+        dim 0 in row order, over ``group`` (the whole world when None)."""
+        t0 = time.perf_counter()
+        host = self._to_host(t)
+        parts = [self._host_buffer(t.shape, t.dtype) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, host, group=group)
+        out = self._from_host(torch.cat(parts), t.dtype)
         self.stats.collective_s += time.perf_counter() - t0
         return out
 

@@ -35,7 +35,9 @@ Tolerances, with their reasons:
     bf16 input (summation order);
   * argmax: exact at every split edge, NaN and -inf rows included;
   * histogram: 1e-5 relative (atomics add in a varying order); exact
-    where counts are small integers (every partial sum is exact).
+    where counts are small integers (every partial sum is exact), also
+    added into an accumulator (``out=``), through the stream operators
+    and in the word count.
 """
 import dataclasses
 
@@ -64,7 +66,7 @@ from repro_torch.kernels.stream_reduce.stream_reduce import CTA_BINS
 from repro_torch.launch.mesh import spawn
 from repro_torch.models.model_zoo import build
 from repro_torch.serve import EngineConfig, KVSpec, Request, make_engine
-from torch_worlds import cuda_fold_case
+from torch_worlds import N_ROWS, WC_CFG, cuda_fold_case, cuda_wordcount_case
 
 pytestmark = pytest.mark.gpu
 
@@ -865,3 +867,89 @@ def test_two_row_world_folds_a_wave_through_the_kernel(cuda):
         assert not sender["kernel"][k].any()
     assert sender["stats"]["sent_bytes"] == reducer["stats"]["recv_bytes"] == 2 * 3 * (1 << 20)
     assert reducer["stats"]["h2d_bytes"] >= reducer["stats"]["recv_bytes"]
+
+
+# -- the accumulating histogram, the stream operators and the word count -------------
+
+@pytest.mark.parametrize("bins", [4096, CTA_BINS, CTA_BINS + 1, 151_936])
+def test_histogram_kernel_adds_into_an_accumulator(cuda, bins):
+    """``out=``: one launch adds the keys' counts into a nonzero
+    accumulator in place (block and global paths), exact at counts of 1;
+    padding and keys past the last bin add nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(bins + 1)
+    n = 1 << 20
+    keys = torch.randint(-1, bins + bins // 8, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    acc = torch.randint(0, 1000, (bins,), generator=gen, device=cuda).float()
+    want = acc + keyed_histogram(keys, torch.ones(n, device=cuda), bins, impl="ref")
+    before = histogram_kernel.launches
+    got = histogram_kernel(keys, torch.ones(n, device=cuda), bins, out=acc)
+    assert histogram_kernel.launches == before + 1
+    assert got is acc
+    assert torch.equal(acc, want)
+
+
+def test_histogram_kernel_refuses_a_bad_accumulator(cuda):
+    keys = torch.zeros(8, dtype=torch.int32, device=cuda)
+    counts = torch.ones(8, device=cuda)
+    for out in (torch.zeros(16), torch.zeros(16, dtype=torch.float64, device=cuda),
+                torch.zeros(32, device=cuda)[::2], torch.zeros(17, device=cuda)):
+        with pytest.raises(ValueError, match="out must be"):
+            keyed_histogram(keys, counts, 16, out=out)
+
+
+@pytest.mark.parametrize("bins", [500, 32_000, 151_936])
+def test_histogram_op_on_the_card_matches_plain(cuda, bins):
+    """`histogram_op` (MapReduce's fold, `histogram_fold`) over CUDA
+    ``[keys | counts]`` elements with padding (-1) and keys past the last
+    bin (clamped into it, as the reference clips): one launch per element,
+    exact against the same fold on the CPU (the plain version)."""
+    from repro_torch.core.operators import histogram_op
+
+    rng = np.random.default_rng(bins)
+    s = 8192
+    keys = rng.integers(-1, bins + 50, size=(5, s)).astype(np.float32)
+    counts = rng.integers(0, 2, size=(5, s)).astype(np.float32)
+    elems = torch.from_numpy(np.concatenate([keys, counts], axis=1))
+    op = histogram_op(bins, s, device=cuda)
+    acc = op.init()
+    before = histogram_kernel.launches
+    for k, e in enumerate(elems.to(cuda)):
+        acc = op.apply(acc, e, k)
+    assert histogram_kernel.launches == before + 5
+    plain = torch.zeros(bins)
+    for k, e in enumerate(elems):
+        plain = op.apply(plain, e, k)
+    assert torch.equal(acc.cpu(), plain)
+    assert plain[bins - 1] > 0
+
+
+@pytest.mark.parametrize("granularity", [256, 100])
+def test_wordcount_world_on_the_card(cuda, granularity):
+    """An 8-rank world on the card: the word count in every mode, on every
+    row, bit for bit `np.bincount` of the valid words, the histogram
+    kernel launched as often as the schedule says (summed over ranks)."""
+    from repro_torch.apps.mapreduce import MODES, CorpusCfg, histogram_launches, make_corpus
+
+    ranks = spawn(cuda_wordcount_case, N_ROWS, device="cuda", args=(granularity,),
+                  timeout_s=300)
+    cfg = CorpusCfg(**WC_CFG)
+    tokens, mask = make_corpus(cfg, cfg.n_docs_per_row * N_ROWS)
+    host = np.bincount(tokens[mask > 0], minlength=cfg.vocab).astype(np.float32)
+    for mode in MODES:
+        for r in ranks:
+            assert r[mode]["device"].startswith("cuda")
+            np.testing.assert_array_equal(r[mode]["hist"], host)
+        launches = sum(r[mode]["launches"] for r in ranks)
+        assert launches == histogram_launches(mode, cfg, N_ROWS, granularity_words=granularity)
+        assert launches > 0
+
+
+def test_wordcount_world_runs_on_the_card(cuda):
+    from repro_torch.apps.mapreduce import CorpusCfg, make_corpus, wordcount_world
+
+    cfg = CorpusCfg(**WC_CFG)
+    hists = wordcount_world(cfg, device=None, n_rows=N_ROWS)
+    tokens, mask = make_corpus(cfg, cfg.n_docs_per_row * N_ROWS)
+    for h in hists.values():
+        np.testing.assert_array_equal(h, np.bincount(tokens[mask > 0], minlength=cfg.vocab))

@@ -177,3 +177,181 @@ def cuda_fold_case(mesh) -> dict:
             "scan": {k: v.cpu().numpy() for k, v in scan.items()},
             "payload": {k: v.cpu().numpy() for k, v in payload.items()},
             "stats": mesh.stats.as_dict()}
+
+
+# -- the dataflow runtime and the MapReduce app -----------------------------------------
+
+WC_CFG = dict(n_docs_per_row=4, words_per_doc=256, vocab=500, skew=0.7)
+# (name, mode, keyword arguments of run_wordcount)
+WC_VARIANTS = [("reference", "reference", {}), ("decoupled", "decoupled", {}),
+               ("pipelined", "pipelined", {}),
+               ("deep", "pipelined", {"chain_alphas": {"relay": 0.125, "io": 0.125}}),
+               ("decoupled_s7", "decoupled", {"granularity_words": 7})]
+FEEDBACK_STEPS = 60
+# the phases `run_wordcount(..., phases=)` times, by mode
+PHASES = {"reference": ("map_s", "group_sum_s"),
+          "decoupled": ("map_s", "stream_s", "group_sum_s", "broadcast_s"),
+          "pipelined": ("map_s", "stream_s", "group_sum_s", "broadcast_s")}
+
+
+def dataflow_cases(mesh, inputs_path: str) -> dict:
+    """`ServiceGraph.run`/`run_chain` (a three-stage chain with and without
+    a producer count, two chains in one run), `with_work_probe`,
+    `regroup`, a bidirectional edge, `scatter_back`, the group collectives,
+    `select_by_role`, error feedback over an int8 wire, the word count in
+    every mode, its measured variant and the quickstart's statistics."""
+    from repro_torch.apps.mapreduce import (
+        CorpusCfg,
+        decoupled_wordcount_measured,
+        make_corpus,
+        row_docs,
+        run_wordcount,
+        wordcount_graph,
+    )
+    from repro_torch.core.dataflow import (
+        ServiceGraph,
+        Stage,
+        delta_emitter,
+        sink_sum_stage,
+        with_work_probe,
+    )
+    from repro_torch.core.decouple import (
+        group_all_gather,
+        group_psum,
+        group_psum_scatter,
+        role_index,
+        select_by_role,
+    )
+    from repro_torch.core.groups import GroupedMesh
+    from repro_torch.core.wire import WireSpec, compress_with_feedback
+    from repro_torch.examples.quickstart import workload_stats
+
+    inp = dict(np.load(inputs_path))
+    r = mesh.row
+    x = torch.from_numpy(inp["x"][r])  # (4, 16) integer-valued f32
+    out = {}
+
+    def head_op(acc, e, k):
+        return acc.add_(e * (k + 1))
+
+    def chain3(count=None):
+        zero = torch.zeros(16)
+        head = Stage("compute", "reduce", head_op, zero, elements=x, count=count,
+                     emit=delta_emitter(zero))
+        relay = sink_sum_stage("reduce", "relay", 16, device="cpu")
+        relay = dataclasses.replace(relay, emit=delta_emitter(relay.init))
+        return g3.run_chain([head, relay, sink_sum_stage("relay", "io", 16, device="cpu")])
+
+    g3 = ServiceGraph.build(mesh, stages={"reduce": 0.25, "relay": 0.125, "io": 0.125},
+                            edges=[("compute", "reduce"), ("reduce", "relay"), ("relay", "io")])
+    for i, acc in enumerate(chain3()):
+        out[f"chain3/{i}"] = acc
+    for i, acc in enumerate(chain3(torch.tensor(int(inp["count"][r])))):
+        out[f"chain3_count/{i}"] = acc
+
+    g2 = ServiceGraph.build(mesh, stages={"reduce": 0.25, "io": 0.125},
+                            edges=[("compute", "reduce"), ("compute", "io")])
+    zero = torch.zeros(16)
+    (a,), (b,) = g2.run([[Stage("compute", "reduce", head_op, zero, elements=x)],
+                         [Stage("compute", "io", lambda acc, e, k: acc.add_(e * e), zero,
+                                elements=x)]])
+    out["two_chains/a"], out["two_chains/b"] = a, b
+
+    g = ServiceGraph.build(mesh, stages={"reduce": 0.25}, edges=[("compute", "reduce")])
+    plain = Stage("compute", "reduce", lambda acc, e, k: acc.add_(e), torch.zeros(16),
+                  elements=x)
+    probed = with_work_probe(plain, work_of=lambda e: (e.abs() >= 0).sum())
+    acc, count = g.run_chain([probed])[0]
+    out["probe/acc"], out["probe/bare"] = acc, g.run_chain([plain])[0]
+    out["probe/total"] = group_psum(count, g.gmesh, "reduce")
+
+    g_re = g.regroup({"reduce": 3})
+    out["regroup/rows"] = torch.tensor([[s.start, s.stop] for s in g_re.gmesh.groups])
+    out["regroup/acc"] = g_re.run_chain([Stage("compute", "reduce", head_op, torch.zeros(16),
+                                               elements=x)])[0]
+
+    def chunk_op(acc, elem, k):
+        acc[k] += elem * (k + 1)
+        return acc
+
+    gb = ServiceGraph.build(mesh, stages={"reduce": 0.25}, bidirectional=[("compute", "reduce")])
+    fwd = gb.channel("compute", "reduce").stream_fold(x, chunk_op, torch.zeros_like(x))
+    out["bidir/fwd"] = fwd
+    out["bidir/back"] = gb.reverse_channel("compute", "reduce").stream_fold(
+        fwd, chunk_op, torch.zeros_like(x))
+
+    ch = g.channel("compute", "reduce")
+    for w in range(ch.n_waves):
+        out[f"scatter/{w}"] = ch.scatter_back(x + 100 * r, wave_of_target=w)
+
+    y = x.reshape(-1)
+    gt = GroupedMesh.trivial(mesh)
+    g1 = GroupedMesh.build(mesh, services={"reduce": 1 / 8})
+    out["psum_scatter/all"] = group_psum_scatter(y, gt, "compute")
+    out["all_gather/all"] = group_all_gather(y, gt, "compute")
+    out["psum_scatter/one"] = group_psum_scatter(y, g1, "reduce")
+    out["all_gather/one"] = group_all_gather(y, g1, "reduce")
+
+    out["role"] = torch.tensor(role_index(g.gmesh))
+    out["select"] = select_by_role(g.gmesh, {"compute": lambda: x * 2,
+                                             "reduce": lambda: x + 100})
+    out["select3"] = select_by_role(g3.gmesh, {"reduce": lambda: x - 1, "io": lambda: x * 3})
+    try:
+        select_by_role(g.gmesh, {"compute": lambda: x, "reduce": lambda: x[:2]})
+        out["select_mismatch_raised"] = torch.tensor(False)
+    except ValueError:
+        out["select_mismatch_raised"] = torch.tensor(True)
+
+    # error feedback: SGD over compute -> reduce with an int8 wire
+    gf = ServiceGraph.build(mesh, stages={"reduce": 0.25}, edges=[("compute", "reduce")],
+                            wire={("compute", "reduce"): WireSpec(codec="int8",
+                                                                  chunk_bytes=256)})
+    fch = gf.channel("compute", "reduce")
+    target = torch.from_numpy(inp["target"][r])
+    params = torch.zeros(96)
+    residual = torch.zeros(96)
+    weight = 1.0 if gf.gmesh.is_member("compute") else 0.0
+    for _ in range(FEEDBACK_STEPS):
+        grads = (params - target) * weight
+        corrected, residual = compress_with_feedback(grads, residual, "int8", chunk_bytes=256)
+        acc = group_psum(fch.stream_fold_tree(corrected), gf.gmesh, "reduce")
+        params = params - 0.1 * fch.broadcast_from_consumer(acc) / 6.0
+    out["feedback/params"] = params
+
+    cfg = CorpusCfg(**WC_CFG)
+    corpus = make_corpus(cfg, cfg.n_docs_per_row * N_ROWS)
+    for name, mode, kw in WC_VARIANTS:
+        phases = {}
+        out[f"wc/{name}"] = run_wordcount(mesh, mode, cfg, alpha=ALPHA, corpus=corpus,
+                                          phases=phases, **kw)[0]
+        out[f"wc_phases/{name}"] = torch.tensor([phases.get(p, 0.0) > 0 for p in PHASES[mode]])
+    graph, gmesh, _ = wordcount_graph(mesh, "decoupled", ALPHA)
+    t, m = row_docs(*corpus, r, gmesh.compute.size, N_ROWS)
+    hist, work, stage = decoupled_wordcount_measured(torch.from_numpy(t), torch.from_numpy(m),
+                                                     cfg.vocab, graph)
+    out["measured/hist"], out["measured/work"], out["measured/stage"] = hist, work, stage
+
+    qs = workload_stats(mesh, 0)
+    out["quickstart/local"] = torch.tensor(qs["local"])
+    if qs["stats"] is not None:
+        out["quickstart/stats"] = torch.tensor([qs["stats"][k]
+                                                for k in ("min", "max", "median", "count")])
+    return {k: _np(v) for k, v in out.items()}
+
+
+def cuda_wordcount_case(mesh, granularity_words: int) -> dict:
+    """The word count in every mode on the card, with this rank's
+    keyed-histogram launches per mode."""
+    from repro_torch.apps.mapreduce import MODES, CorpusCfg, make_corpus, run_wordcount
+    from repro_torch.kernels.stream_reduce import histogram_kernel
+
+    cfg = CorpusCfg(**WC_CFG)
+    corpus = make_corpus(cfg, cfg.n_docs_per_row * N_ROWS)
+    out = {}
+    for mode in MODES:
+        before = histogram_kernel.launches
+        hist, _ = run_wordcount(mesh, mode, cfg, alpha=ALPHA,
+                                granularity_words=granularity_words, corpus=corpus)
+        out[mode] = {"hist": hist.cpu().numpy(), "launches": histogram_kernel.launches - before,
+                     "device": str(hist.device)}
+    return out
