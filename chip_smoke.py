@@ -93,7 +93,35 @@ prints no result:
                against its plain version bit for bit, both timed beside
                `torch.bincount` and the bound), and the quickstart's
                workload statistics.
-10. summary — a ``{"kernels": [...]}`` line (the histogram's times are
+10. cg      — the paper's CG Poisson solver (Sec. IV-C) in an eight-row
+               gloo world on this card: the paper's 120^3 grid per process
+               and its 300 iterations (a 1,008 x 120 x 120 global grid,
+               x-slabs of 126 over 8 rows, or of 144 over 7 compute rows
+               and a halo row), through `apps.cg.run_cg`'s set-up and
+               solve (the clock around the solve alone) in the blocking,
+               nonblocking and decoupled halo modes: blocking and
+               nonblocking bit for bit, decoupled within `CG_FIRST_REL`
+               and `CG_ALL_REL` of blocking, every mode converging, and
+               each reported residual against ||b - A u|| recomputed in
+               float64 on the host; per mode the slowest rank's wall time
+               and seconds per iteration, wire statistics and peak memory
+               per rank; the stencil of one slab timed alone.
+11. pic     — the paper's particle-in-cell mini-app (Sec. IV-D) in an
+               eight-row gloo world on this card: 2^21 particles (skew
+               0.8, from --seed) in 2^20-slot rows, 8 steps, through
+               `apps.pic.run_pic` with neighbour forwarding (8 rows), the
+               decoupled comm row (7 + 1), and the comm row beside the io
+               row buffering every step's trace (6 + 1 + 1); particles
+               conserved at every step and on the rows owning them, the
+               valid (x, v) over all rows equal to a numpy replay of the
+               push from the run's initial particles, 144 trace chunks on
+               the io row; then the io run's final state streamed to a
+               `HostSink` (`io.iogroup.stream_to_io_group`, 18 chunks of
+               4 MiB) and the drained file held against the packed state
+               bit for bit; per run wall time, seconds per step, movers
+               per step, wire bytes, peak memory, the drain's bytes and
+               seconds.
+12. summary — a ``{"kernels": [...]}`` line (the histogram's times are
                the fold's, the path's shape), then the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -1968,6 +1996,302 @@ def mapreduce_phase(torch, np, seed: int, smi: str) -> dict:
     return {"runs": runs, "launches": launches_total, "fold": fold}
 
 
+# -- phase 10: the paper's halo-exchange CG -------------------------------------------
+
+CG_ROWS = 8
+# the paper's per-process grid (120^3) and its 300 iterations; the x-slab
+# is 126 so that 7 compute rows (decoupled) split the same 1,008 x 120 x
+# 120 global grid, 144 planes each
+CG_CFG = dict(nx_local=126, ny=120, nz=120, n_iters=300)
+CG_ALPHA = 0.125  # decoupled: 7 compute rows, 1 halo row
+CG_MODES = ("blocking", "nonblocking", "decoupled")
+# tolerances, stated before the run (PERF.md §6): blocking and
+# nonblocking bit for bit (the same operations in the same order). The
+# decoupled mode against blocking, on sqrt(r.r) per iteration: 1e-3 over
+# the first 20 iterations (the reference test's bound) and 1e-4 over all
+# 300 (another slab split sums the dot products in another order; f32
+# drift measured <= 8.5e-6 on grids of the same x extent,
+# scripts/torch_cg_drift.py). The reported residual sqrt(r.r) against
+# ||b - A u|| recomputed in float64 on the host from the gathered u: 1e-4
+# relative (the recursive residual's f32 drift, measured <= 1.9e-5 there).
+CG_FIRST_REL = 1e-3
+CG_ALL_REL = 1e-4
+CG_TRUE_REL = 1e-4
+
+
+def cg_rank(mesh) -> dict:
+    """One rank of the CG phase's eight-row world (run by `spawn`): each
+    mode of `CG_MODES` as `apps.cg.run_cg` runs it: `cg_setup` (the
+    grouped mesh, the right-hand side on the card) before the clock starts
+    and `cg_solve` inside it, so that the wall time and wire statistics
+    are the iterations' alone; its kernel counts set to 0 just before and
+    read just after, and peak memory; then the
+    stencil of one slab timed on row 0. The right-hand side is the
+    reference's (`default_rng(7)`), so the phase takes no seed."""
+    import torch
+
+    from repro_torch.apps.cg import (CGCfg, _apply_halo, _laplacian_inner, cg_rhs, cg_setup,
+                                     cg_solve)
+    from repro_torch.launch.mesh import WireStats
+
+    counters = kernel_counters()
+    base = CGCfg(**CG_CFG)
+    rhs = {n: cg_rhs(base, CG_ROWS, n) for n in (CG_ROWS, CG_ROWS - 1)}
+    out = {"row": mesh.row, "runs": {}}
+    for mode in CG_MODES:
+        cfg = dataclasses.replace(base, mode=mode)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        b, gmesh = cg_setup(mesh, cfg, CG_ALPHA,
+                            rhs=rhs[CG_ROWS - 1 if mode == "decoupled" else CG_ROWS])
+        mesh.stats = WireStats()
+        torch.cuda.synchronize()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        u, res, hist = cg_solve(b, cfg, gmesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["runs"][mode] = {"wall_s": wall, "u": u.cpu().numpy(), "res": float(res),
+                             "hist": hist.cpu().numpy(), "wire": mesh.stats.as_dict(),
+                             "launches": {k: fn.launches for k, fn in counters.items()},
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                             "device": str(u.device)}
+        del u
+    mesh.barrier()
+    if mesh.row == 0:
+        slab = torch.randn((144, CG_CFG["ny"], CG_CFG["nz"]), device=mesh.device)
+        plane = torch.zeros_like(slab[0])
+        out["stencil_ms"] = cuda_ms(torch, [lambda: _apply_halo(_laplacian_inner(slab), plane,
+                                                                plane)], iters=20)
+    mesh.barrier()
+    return out
+
+
+def cg_phase(torch, np, smi: str) -> dict:
+    """The CG phase: one line per mode, then the checks, with the
+    tolerances stated beside `CG_CFG`."""
+    from repro_torch.apps.cg import CGCfg, cg_rhs, residual_norm
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(cg_rank, CG_ROWS, device="cuda", timeout_s=600)
+    world_s = time.perf_counter() - t0
+    cfg = CGCfg(**CG_CFG)
+    b = cg_rhs(cfg, CG_ROWS, CG_ROWS).reshape(-1, cfg.ny, cfg.nz)
+    lines = {}
+    base = np.sqrt(ranks[0]["runs"]["blocking"]["hist"])
+    for mode in CG_MODES:
+        per = [r["runs"][mode] for r in ranks]
+        work = CG_ROWS - 1 if mode == "decoupled" else CG_ROWS
+        u = np.stack([p["u"] for p in per])
+        hist = per[0]["hist"]
+        rel = np.abs(np.sqrt(hist) - base) / base
+        true = residual_norm(u[:work].reshape(-1, cfg.ny, cfg.nz), b)
+        wall = max(p["wall_s"] for p in per)
+        launches = {k: sum(p["launches"][k] for p in per) for k in per[0]["launches"]}
+        line = {"phase": "cg", "mode": mode, "grid": list(b.shape), "rows": CG_ROWS,
+                "compute_rows": work, "slab": [u.shape[1], cfg.ny, cfg.nz],
+                "iters": cfg.n_iters, "wall_s": wall, "s_per_iter": wall / cfg.n_iters,
+                "hist_first_last": [float(hist[0]), float(hist[-1])],
+                "reported_residual": per[0]["res"], "true_residual": true,
+                "true_vs_reported_rel": abs(true - per[0]["res"]) / per[0]["res"],
+                "vs_blocking_first20": float(rel[:20].max()),
+                "vs_blocking_all": float(rel.max()),
+                "sent_bytes": sum(p["wire"]["sent_bytes"] for p in per),
+                "launches": launches, "device": per[0]["device"],
+                "per_rank": [{"row": r["row"], "wall_s": p["wall_s"], "peak_gib": p["peak_gib"],
+                              "wire": {k: v for k, v in p["wire"].items() if v}}
+                             for r, p in zip(ranks, per)],
+                "wire": "gloo over host loopback (device -> pinned host -> gloo -> host -> device)",
+                "nvidia_smi": smi}
+        emit(line)
+        lines[mode] = line
+        if not per[0]["device"].startswith("cuda"):
+            raise AssertionError(f"cg {mode}: u lies on {per[0]['device']}")
+        if not all(np.array_equal(p["hist"], hist) for p in per[:work]):
+            raise AssertionError(f"cg {mode}: the compute rows' histories differ")
+        if not hist[-1] < hist[0]:
+            raise AssertionError(f"cg {mode}: r.r rose from {hist[0]} to {hist[-1]}")
+        if line["true_vs_reported_rel"] > CG_TRUE_REL:
+            raise AssertionError(f"cg {mode}: true residual {true} against the reported "
+                                 f"{per[0]['res']}")
+    same = all(np.array_equal(r["runs"]["blocking"][k], r["runs"]["nonblocking"][k])
+               for r in ranks for k in ("u", "hist"))
+    summary = {"phase": "cg_summary", "world_s": world_s,
+               "blocking_equals_nonblocking": same,
+               "stencil_ms": next(r["stencil_ms"] for r in ranks if "stencil_ms" in r),
+               "tolerances": {"decoupled_first20": CG_FIRST_REL, "decoupled_all": CG_ALL_REL,
+                              "true_residual": CG_TRUE_REL},
+               "nvidia_smi": smi}
+    emit(summary)
+    if not same:
+        raise AssertionError("cg: blocking and nonblocking differ")
+    dec = lines["decoupled"]
+    if dec["vs_blocking_first20"] > CG_FIRST_REL or dec["vs_blocking_all"] > CG_ALL_REL:
+        raise AssertionError(f"cg: decoupled against blocking {dec['vs_blocking_first20']} "
+                             f"(first 20), {dec['vs_blocking_all']} (all)")
+    return {"lines": lines, "launches": {k: sum(ln["launches"][k] for ln in lines.values())
+                                         for k in dec["launches"]}}
+
+
+# -- phase 11: the paper's particle communication and decoupled I/O ------------------------
+
+PIC_ROWS = 8
+# 2^21 particles over 1,048,576 slots per row: the heaviest row starts with
+# ~0.35 x 2^21 (skew 0.8 over 6 rows), under the capacity
+PIC_CFG = dict(capacity=2 ** 20, n_particles_total=2 ** 21, n_steps=8, dt=0.08, skew=0.8)
+PIC_ALPHA = 0.125
+PIC_IO_CHUNKS = 256  # the io service's ring: 6 rows x 3 chunks x 8 steps = 144 fit
+DRAIN_GRANULARITY = 2 ** 20  # the final state's drain: 6 rows x 3 chunks
+DRAIN_CAPACITY = 64
+
+
+def pic_rank(mesh, seed: int, sink_dir: str) -> dict:
+    """One rank of the PIC phase's eight-row world (run by `spawn`): each
+    run of `apps.pic.RUNS` through `apps.pic.run_pic`, its kernel counts set to
+    0 just before and read just after, with its phase times, movers, wire
+    statistics and peak memory; after the io run, its final state streamed
+    to a `HostSink` through `io.iogroup.stream_to_io_group`."""
+    import torch
+
+    from repro_torch.apps.pic import RUNS, PICCfg, pic_graph, run_pic
+    from repro_torch.io.iogroup import HostSink, stream_to_io_group
+    from repro_torch.launch.mesh import WireStats
+
+    counters = kernel_counters()
+    cfg = PICCfg(**PIC_CFG, seed=3 + seed)
+    out = {"row": mesh.row, "runs": {}}
+    for name, mode, io_alpha in RUNS:
+        stats = {}
+        mesh.stats = WireStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.barrier()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = run_pic(mesh, mode, cfg, PIC_ALPHA, io_alpha, PIC_IO_CHUNKS, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        x, v, m = res[:3]
+        run = {"wall_s": wall, "stats": stats, "x": x.cpu().numpy(), "v": v.cpu().numpy(),
+               "m": m.cpu().numpy(), "counts": res[3].cpu().numpy(),
+               "io_chunks": int(res[4]) if len(res) > 4 else None,
+               "launches": {k: fn.launches for k, fn in counters.items()},
+               "wire": mesh.stats.as_dict(),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "device": str(x.device)}
+        if io_alpha > 0:
+            graph = pic_graph(mesh, mode, PIC_ALPHA, io_alpha)
+            sink = HostSink(sink_dir)
+            mesh.barrier()
+            t0 = time.perf_counter()
+            n = stream_to_io_group({"x": x, "v": v, "m": m}, graph, sink,
+                                   granularity_elems=DRAIN_GRANULARITY,
+                                   capacity_chunks=DRAIN_CAPACITY)
+            torch.cuda.synchronize()
+            run["drain"] = {"s": time.perf_counter() - t0, "chunks": int(n),
+                            "files": sink.n_drains}
+        out["runs"][name] = run
+        del res, x, v, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def pic_phase(torch, np, seed: int, smi: str) -> dict:
+    """The PIC phase: one line per run, then the checks: particles conserved
+    at every step and owned by their row, the valid (x, v) over all rows
+    equal to a numpy replay of the push in f32 from the run's initial
+    particles, the io row's chunks, and the drained file equal to the
+    packed final state bit for bit."""
+    import tempfile
+
+    from repro_torch.apps.pic import RUNS, PICCfg, init_particles
+    from repro_torch.launch.mesh import spawn
+
+    cfg = PICCfg(**PIC_CFG, seed=3 + seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sink_") as sink_dir:
+        t0 = time.perf_counter()
+        ranks = spawn(pic_rank, PIC_ROWS, device="cuda", args=(seed, sink_dir), timeout_s=600)
+        world_s = time.perf_counter() - t0
+        files = sorted(os.listdir(sink_dir))
+        drained = np.load(os.path.join(sink_dir, files[0])) if files else None
+    lines, launches_total = {}, {}
+
+    def sorted_pairs(x, v):
+        order = np.lexsort((v, x))
+        return np.stack([x[order], v[order]])
+
+    for name, mode, io_alpha in RUNS:
+        per = [r["runs"][name] for r in ranks]
+        work = PIC_ROWS - (0 if mode == "reference" else 1) - (1 if io_alpha > 0 else 0)
+        width = np.float32(cfg.domain / work)
+        counts = np.stack([p["counts"] for p in per])
+        conserved = bool((counts.sum(0) == cfg.n_particles_total).all())
+        owned = all(r < work or not (p["m"] > 0).any() for r, p in enumerate(per)) and all(
+            (np.floor(p["x"][p["m"] > 0] / width) == r).all() for r, p in enumerate(per))
+        xs, vs, valid = init_particles(cfg, work)
+        x, v = xs[valid > 0], vs[valid > 0]
+        for _ in range(cfg.n_steps):
+            x = x + v * np.float32(cfg.dt) * np.float32(1.0)
+            v = np.where((x < 0) | (x > np.float32(cfg.domain)), -v, v)
+            x = np.clip(x, np.float32(0.0), np.float32(cfg.domain - 1e-6))
+        got_x = np.concatenate([p["x"][p["m"] > 0] for p in per])
+        got_v = np.concatenate([p["v"][p["m"] > 0] for p in per])
+        replay = got_x.shape == x.shape and np.array_equal(sorted_pairs(got_x, got_v),
+                                                           sorted_pairs(x, v))
+        steps_s = [sum(p["stats"].get(k, 0.0) for k in ("push_s", "comm_s", "io_s"))
+                   for p in per]
+        launches = {k: sum(p["launches"][k] for p in per) for k in per[0]["launches"]}
+        for k, n in launches.items():
+            launches_total[k] = launches_total.get(k, 0) + n
+        line = {"phase": "pic", "run": name, "mode": mode, "rows": PIC_ROWS,
+                "compute_rows": work, "service": {"comm": int(mode == "decoupled"),
+                                                  "io": int(io_alpha > 0)},
+                "cfg": {**PIC_CFG, "seed": cfg.seed}, "wall_s": max(p["wall_s"] for p in per),
+                "steps_s": max(steps_s), "s_per_step": max(steps_s) / cfg.n_steps,
+                "movers_per_step": np.sum([p["stats"]["movers"] for p in per], 0).tolist(),
+                "max_row_particles": int(counts.max()),
+                "sent_bytes": sum(p["wire"]["sent_bytes"] for p in per),
+                "conserved": conserved, "owned": owned, "replay_identical": replay,
+                "io_chunks": [p["io_chunks"] for p in per], "launches": launches,
+                "device": per[0]["device"],
+                "per_rank": [{"row": r["row"], "wall_s": p["wall_s"], "peak_gib": p["peak_gib"],
+                              **{k: p["stats"][k] for k in ("push_s", "comm_s", "io_s")
+                                 if k in p["stats"]},
+                              "wire": {k: v for k, v in p["wire"].items() if v}}
+                             for r, p in zip(ranks, per)],
+                "wire": "gloo over host loopback (device -> pinned host -> gloo -> host -> device)",
+                "nvidia_smi": smi}
+        if io_alpha > 0:
+            state = np.concatenate([np.stack([p["m"], p["v"], p["x"]]) for p in per[:work]])
+            io_row = per[PIC_ROWS - 1]["drain"]
+            line["drain"] = {"files": files, "chunks": io_row["chunks"],
+                             "bytes": None if drained is None else drained.nbytes,
+                             "io_row_s": io_row["s"],
+                             "slowest_s": max(p["drain"]["s"] for p in per),
+                             "identical": drained is not None
+                             and drained.shape == state.shape
+                             and np.array_equal(drained.view(np.uint32), state.view(np.uint32))}
+        emit(line)
+        lines[name] = line
+        if not per[0]["device"].startswith("cuda"):
+            raise AssertionError(f"pic {name}: particles lie on {per[0]['device']}")
+        if not (conserved and owned and replay):
+            raise AssertionError(f"pic {name}: conserved {conserved}, owned {owned}, "
+                                 f"replay identical {replay}")
+        if io_alpha > 0:
+            want = [0] * (PIC_ROWS - 1) + [work * 3 * cfg.n_steps]
+            if line["io_chunks"] != want:
+                raise AssertionError(f"pic {name}: io chunks {line['io_chunks']}, want {want}")
+            if files != ["drain_000000.npy"] or not line["drain"]["identical"]:
+                raise AssertionError(f"pic {name}: the drain wrote {files}, identical to the "
+                                     f"packed state: {line['drain']['identical']}")
+    emit({"phase": "pic_summary", "world_s": world_s, "launches": launches_total,
+          "nvidia_smi": smi})
+    return {"lines": lines, "launches": launches_total}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2081,12 +2405,19 @@ def main(argv=None) -> int:
     # phase 9: the paper's decoupled MapReduce in an eight-row world on this card
     mapreduce = mapreduce_phase(torch, np, args.seed, smi)
 
-    # phase 10: summary; "launches" is the count from the run of the path
+    # phases 10 and 11: the paper's halo-exchange CG, and its particle
+    # communication and decoupled I/O, in eight-row worlds on this card
+    cg = cg_phase(torch, np, smi)
+    pic = pic_phase(torch, np, args.seed, smi)
+
+    # phase 12: summary; "launches" is the count from the run of the path
     # each kernel belongs to (the bf16 tinyllama arm for paged decode,
     # argmax and flash; the mamba arm for the SSD scan; the train phase,
     # summed over its four ranks, for chunk_accumulate; the MapReduce
     # phase, its four runs summed over their eight ranks, for histogram),
-    # each arm's counts beside it.
+    # each arm's counts beside it (the CG and PIC phases launch none of the
+    # kernels: their stencil, dots, push and merges are plain PyTorch, as the
+    # reference's are plain jnp).
     # "ms", "plain_ms" and "library_ms" are CUDA-event times of
     # back-to-back calls (host launch gaps included); the "*device_ms"
     # keys are the profiler's kernel time alone. The histogram's path gives
@@ -2110,12 +2441,15 @@ def main(argv=None) -> int:
         kern["launches_mamba_arm"] = mamba["launches"][name]
         kern["launches_train"] = train["launches"][name]
         kern["launches_mapreduce"] = mapreduce["launches"][name]
+        kern["launches_cg"] = cg["launches"][name]
+        kern["launches_pic"] = pic["launches"][name]
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was launched no time on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "plain_device_ms", "library_device_ms", "launches_long_arm",
-            "launches_mamba_arm", "launches_train", "launches_mapreduce")
+            "launches_mamba_arm", "launches_train", "launches_mapreduce", "launches_cg",
+            "launches_pic")
     emit({"kernels": [{k: kern[k] for k in keys + ("isolated_2p26",) if k in kern}
                       for kern in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

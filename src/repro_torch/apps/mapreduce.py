@@ -29,11 +29,9 @@ each rank moves only its own rows' documents to its device.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import tempfile
-import time
 from typing import Sequence
 
 import numpy as np
@@ -107,20 +105,6 @@ def layout_corpus(tokens: np.ndarray, mask: np.ndarray, work_rows: int, n_rows: 
     return np.stack([t for t, _ in rows]), np.stack([m for _, m in rows])
 
 
-@contextlib.contextmanager
-def _phase(mesh, phases: dict | None, name: str):
-    """Adds the synchronised seconds of the block to ``phases[name]``
-    (nothing is synchronised when ``phases`` is None)."""
-    if phases is None:
-        yield
-        return
-    mesh.sync()
-    t0 = time.perf_counter()
-    yield
-    mesh.sync()
-    phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
-
-
 def _local_histogram(tokens: torch.Tensor, mask: torch.Tensor, vocab: int) -> torch.Tensor:
     """The map: word -> (word, 1) pairs folded locally; the mask is the
     count (the keyed-histogram kernel on the card)."""
@@ -153,9 +137,9 @@ def _zero_hist(vocab: int, device) -> torch.Tensor:
 def reference_wordcount(tokens, mask, vocab: int, gmesh: GroupedMesh, *,
                         phases: dict | None = None) -> torch.Tensor:
     """Local map, then one sum over the world (the paper's Fig. 3a)."""
-    with _phase(gmesh.mesh, phases, "map_s"):
+    with gmesh.mesh.phase(phases, "map_s"):
         local = _local_histogram(tokens, mask, vocab)
-    with _phase(gmesh.mesh, phases, "group_sum_s"):
+    with gmesh.mesh.phase(phases, "group_sum_s"):
         return conventional_allreduce(local, gmesh)
 
 
@@ -164,7 +148,7 @@ def reference_wordcount(tokens, mask, vocab: int, gmesh: GroupedMesh, *,
 def _stream_hist(channel: StreamChannel, tokens, mask, vocab: int, granularity_words: int,
                  phases: dict | None, probe: bool):
     mesh = channel.mesh
-    with _phase(mesh, phases, "map_s"):
+    with mesh.phase(phases, "map_s"):
         elements, s = _pack_word_elements(tokens, mask, granularity_words)
     fold = histogram_fold(vocab, s)
     init = _zero_hist(vocab, mesh.device)
@@ -176,7 +160,7 @@ def _stream_hist(channel: StreamChannel, tokens, mask, vocab: int, granularity_w
         init = (init, torch.zeros((), dtype=torch.float32, device=mesh.device))
     else:
         op = fold
-    with _phase(mesh, phases, "stream_s"):
+    with mesh.phase(phases, "stream_s"):
         return channel.stream_fold(elements, op, init)
 
 
@@ -188,9 +172,9 @@ def decoupled_wordcount(tokens, mask, vocab: int, graph: ServiceGraph,
     master aggregation) completes it; the result goes to every row."""
     channel = graph.channel(COMPUTE, "reduce")
     partial = _stream_hist(channel, tokens, mask, vocab, granularity_words, phases, False)
-    with _phase(channel.mesh, phases, "group_sum_s"):
+    with channel.mesh.phase(phases, "group_sum_s"):
         total = group_psum(partial, graph.gmesh, "reduce")
-    with _phase(channel.mesh, phases, "broadcast_s"):
+    with channel.mesh.phase(phases, "broadcast_s"):
         return channel.broadcast_from_consumer(total)
 
 
@@ -204,11 +188,11 @@ def decoupled_wordcount_measured(tokens, mask, vocab: int, graph: ServiceGraph,
     channel = graph.channel(COMPUTE, "reduce")
     partial, folded = _stream_hist(channel, tokens, mask, vocab, granularity_words, phases,
                                    True)
-    with _phase(channel.mesh, phases, "group_sum_s"):
+    with channel.mesh.phase(phases, "group_sum_s"):
         total = group_psum(partial, graph.gmesh, "reduce")
         stage_words = group_psum(folded, graph.gmesh, "reduce")
     work = work_vector(graph.gmesh, mask.sum())
-    with _phase(channel.mesh, phases, "broadcast_s"):
+    with channel.mesh.phase(phases, "broadcast_s"):
         return (channel.broadcast_from_consumer(total), work,
                 channel.broadcast_from_consumer(stage_words))
 
@@ -224,7 +208,7 @@ def pipelined_wordcount(tokens, mask, vocab: int, graph: ServiceGraph, chain: tu
     next wave (`ServiceGraph.run`), and the sink group's sum completes
     the total, returned to every row bit for bit."""
     mesh = graph.gmesh.mesh
-    with _phase(mesh, phases, "map_s"):
+    with mesh.phase(phases, "map_s"):
         elements, s = _pack_word_elements(tokens, mask, granularity_words)
     zero = _zero_hist(vocab, mesh.device)
     stages = [Stage(src=COMPUTE, dst=chain[0], operator=histogram_fold(vocab, s), init=zero,
@@ -234,11 +218,11 @@ def pipelined_wordcount(tokens, mask, vocab: int, graph: ServiceGraph, chain: tu
         if i < len(chain) - 1:
             relay = dataclasses.replace(relay, emit=delta_emitter(relay.init))
         stages.append(relay)
-    with _phase(mesh, phases, "stream_s"):
+    with mesh.phase(phases, "stream_s"):
         accs = graph.run_chain(stages)
-    with _phase(mesh, phases, "group_sum_s"):
+    with mesh.phase(phases, "group_sum_s"):
         total = group_psum(accs[-1], graph.gmesh, chain[-1])
-    with _phase(mesh, phases, "broadcast_s"):
+    with mesh.phase(phases, "broadcast_s"):
         return graph.broadcast_from(chain[-1], total)
 
 

@@ -35,6 +35,7 @@ fails the call instead of blocking it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import multiprocessing as mp
@@ -206,6 +207,19 @@ class Mesh:
         """Wait for this rank's device work (a no-op on the CPU)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def phase(self, phases: dict | None, name: str):
+        """Adds the block's synchronised seconds to ``phases[name]``
+        (nothing is synchronised when ``phases`` is None)."""
+        if phases is None:
+            yield
+            return
+        self.sync()
+        t0 = time.perf_counter()
+        yield
+        self.sync()
+        phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
 
 
 def _rank_main(fn, row: int, n_rows: int, device: str, init_method: str, args: tuple,

@@ -953,3 +953,99 @@ def test_wordcount_world_runs_on_the_card(cuda):
     tokens, mask = make_corpus(cfg, cfg.n_docs_per_row * N_ROWS)
     for h in hists.values():
         np.testing.assert_array_equal(h, np.bincount(tokens[mask > 0], minlength=cfg.vocab))
+
+
+# -- the CG and PIC apps (no kernel of their own: the card's PyTorch ops) -----------
+
+def _particle_buffers(seed: int, cap: int, fill: float, n_in: int):
+    """A buffer with about ``fill`` of its slots valid (scattered, so the
+    sort meets long runs of ties), and ``n_in`` arrivals scattered over a
+    buffer of the same capacity."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(cap, np.float32)
+    mask[rng.permutation(cap)[:n_in]] = 1.0
+    return [torch.from_numpy(a) for a in (
+        rng.uniform(0, 1, cap).astype(np.float32), rng.normal(size=cap).astype(np.float32),
+        (rng.uniform(size=cap) < fill).astype(np.float32),
+        rng.uniform(0, 1, cap).astype(np.float32), rng.normal(size=cap).astype(np.float32),
+        mask)]
+
+
+@pytest.mark.parametrize("fill,n_in", [(0.35, 200_000), (0.7, 400_000), (0.0, 1 << 20)])
+def test_pic_merge_in_on_the_card_matches_cpu(cuda, fill, n_in):
+    """`_merge_in` at the smoke's capacity, 2^20 slots, bit for bit against
+    the CPU (stable sorts on both; the second case overflows the free
+    slots, the third fills an empty buffer)."""
+    from repro_torch.apps.pic import _merge_in
+
+    arrays = _particle_buffers(int(fill * 10) + n_in, 1 << 20, fill, n_in)
+    want = _merge_in(*arrays)
+    got = _merge_in(*[a.to(cuda) for a in arrays])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[2].sum()) == min(1 << 20, int(arrays[2].sum()) + n_in)
+
+
+def test_pic_compact_on_the_card_matches_cpu(cuda):
+    from repro_torch.apps.pic import _compact
+
+    x, v, valid = _particle_buffers(11, 1 << 20, 0.5, 0)[:3]
+    want = _compact(x, v, valid)
+    got = _compact(x.to(cuda), v.to(cuda), valid.to(cuda))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_pic_buckets_on_the_card_match_cpu(cuda):
+    """The comm row's bucketing of 7 rows of 2^20 slots, one destination
+    over capacity."""
+    from repro_torch.apps.pic import _buckets
+
+    rng = np.random.default_rng(12)
+    n, cap = 7, 1 << 20
+    m = (rng.uniform(size=(n, cap)) < 0.2).astype(np.float32)
+    m[0] = 1.0
+    dst = np.where(m > 0, rng.integers(0, n, size=(n, cap)), -1).astype(np.float32)
+    dst[0] = 3.0
+    table = torch.from_numpy(np.stack([rng.uniform(size=(n, cap)).astype(np.float32) * m,
+                                       rng.normal(size=(n, cap)).astype(np.float32) * m,
+                                       m, dst]))
+    want = _buckets(table, list(range(n)), cap)
+    assert torch.equal(_buckets(table.to(cuda), list(range(n)), cap).cpu(), want)
+    assert int(want[3, 2].sum()) == cap
+
+
+def test_cg_stencil_on_the_card_matches_cpu(cuda):
+    """The matvec's arithmetic at the smoke's slab (144 x 120 x 120): inner
+    Laplacian, both halo planes, negation, bit for bit."""
+    from repro_torch.apps.cg import _apply_halo, _laplacian_inner
+
+    rng = np.random.default_rng(13)
+    u, below, above = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                       for s in ((144, 120, 120), (120, 120), (120, 120)))
+    want = -_apply_halo(_laplacian_inner(u), below, above)
+    got = -_apply_halo(_laplacian_inner(u.to(cuda)), below.to(cuda), above.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_cg_and_pic_worlds_run_on_the_card(cuda):
+    """`cg_world` and `pic_world` at the reference tests' sizes on the card
+    (their default device): blocking and nonblocking bit for bit, each
+    mode converging; every PIC run conserving its particles, each on the
+    row that owns it."""
+    from repro_torch.apps.cg import CGCfg, cg_world
+    from repro_torch.apps.pic import RUNS, PICCfg, pic_world
+
+    cg = cg_world(CGCfg(nx_local=14, ny=12, nz=12, n_iters=20), n_rows=N_ROWS)
+    for got, want in zip(cg["nonblocking"], cg["blocking"]):
+        np.testing.assert_array_equal(got, want)
+    assert all(hist[-1] < hist[0] for _, _, hist in cg.values())
+    cfg = PICCfg(capacity=1024, n_particles_total=1024, n_steps=3, dt=0.15)
+    pic = pic_world(cfg, n_rows=N_ROWS)
+    for (name, _, _), rows in zip(RUNS, (8, 7, 6)):
+        x, _, m, counts = pic[name][:4]
+        assert (counts.sum(0) == cfg.n_particles_total).all(), name
+        for r in range(rows):
+            owner = np.floor(x[r][m[r] > 0] / np.float32(1.0 / rows))
+            assert (owner == r).all(), (name, r)
+    assert pic["decoupled_io"][4].tolist() == [0] * 7 + [54]

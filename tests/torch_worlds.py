@@ -355,3 +355,54 @@ def cuda_wordcount_case(mesh, granularity_words: int) -> dict:
         out[mode] = {"hist": hist.cpu().numpy(), "launches": histogram_kernel.launches - before,
                      "device": str(hist.device)}
     return out
+
+
+IO_VOCAB = 64
+
+
+def iogroup_cases(mesh, inputs_path: str, sink_dir: str) -> dict:
+    """The decoupled I/O group: `io_sink_stage` as the tail of a chain
+    (compute -> reduce -> io, the reference's test), `stream_to_io_group`
+    draining to a `HostSink` (one io row; a ring that wraps; a bare
+    `GroupedMesh`; two io rows, whose files must not collide)."""
+    import os
+
+    from repro_torch.core.dataflow import ServiceGraph, Stage, delta_emitter
+    from repro_torch.core.decouple import group_psum
+    from repro_torch.core.groups import GroupedMesh
+    from repro_torch.io.iogroup import HostSink, io_sink_stage, stream_to_io_group
+
+    inp = dict(np.load(inputs_path))
+    r = mesh.row
+    out = {}
+
+    graph = ServiceGraph.build(mesh, stages={"reduce": 1 / 4, "io": 1 / 8},
+                               edges=[("compute", "reduce"), ("reduce", "io")])
+    elems = torch.from_numpy(inp["tokens"][r]).float().reshape(4, -1)  # 4 chunks per row
+
+    def hist_op(acc, elem, k):
+        idx = elem.to(torch.int64).clamp(0, IO_VOCAB - 1)
+        return acc.index_add_(0, idx, torch.ones_like(elem))
+
+    zero = torch.zeros((IO_VOCAB,), dtype=torch.float32)
+    head = Stage(src="compute", dst="reduce", operator=hist_op, init=zero, elements=elems,
+                 emit=delta_emitter(zero))
+    tail = io_sink_stage("reduce", granularity_elems=IO_VOCAB, capacity_chunks=16,
+                         device=mesh.device)
+    _, (buf, count) = graph.run_chain([head, tail])
+    out["chain/total"] = group_psum(buf.sum(0), graph.gmesh, "io")
+    out["chain/count"] = count
+
+    x = {"x": torch.from_numpy(inp["x"][r])}
+    io1 = ServiceGraph.build(mesh, stages={"io": 1 / 8}, edges=[("compute", "io")])
+    for name, kw in (("drain", {}), ("wrap", {"capacity_chunks": 4})):
+        sink = HostSink(os.path.join(sink_dir, name))
+        out[f"{name}/count"] = stream_to_io_group(x, io1, sink, granularity_elems=16,
+                                                  **{"capacity_chunks": 64, **kw})
+    bare = GroupedMesh.build(mesh, services={"io": 1 / 8})
+    out["bare/count"] = stream_to_io_group(x, bare, HostSink(os.path.join(sink_dir, "bare")),
+                                           granularity_elems=16)
+    io2 = ServiceGraph.build(mesh, stages={"io": 2 / 8}, edges=[("compute", "io")])
+    out["two/count"] = stream_to_io_group(x, io2, HostSink(os.path.join(sink_dir, "two")),
+                                          granularity_elems=16)
+    return {k: _np(v) for k, v in out.items()}
