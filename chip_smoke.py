@@ -61,16 +61,25 @@ prints no result:
    and 2^24 keys at 58,112 / 58,113 bins, the plan's path boundary),
    exact at counts of 1.
 8. train    — qwen1.5-0.5b at full width and depth, random f32 weights
-               from --seed, through `Trainer` in decoupled mode in a
-               four-row gloo world on this card (`launch.mesh.spawn`,
-               three compute rows and one reducer; the wire is host
-               loopback): 3 AdamW steps over 6 sequences of 2,048 tokens,
-               the reducer folding each wave of 16 MiB gradient chunks
-               with chunk_accumulate (launches checked: waves x steps);
-               per-step loss and wall time, per-rank phase times, wire
-               bytes and peak memory; then one SGD step (lr 1) of the
-               world held against the conventional step in one process
-               in f32 (1e-4 of the largest gradient), and reported in bf16.
+               from --seed, through `Trainer` in a four-row gloo world on
+               this card (`launch.mesh.spawn`; the wire is host loopback),
+               3 AdamW steps of 2,048-token sequences in each run:
+               decoupled mode (three compute rows and one reducer, 6
+               sequences, the reducer folding each wave of 16 MiB gradient
+               chunks with chunk_accumulate: launches checked, waves x
+               steps), checkpointing at steps 2 and 3 into a temporary
+               directory (row 0 reads step 3 back, bit for bit against the
+               live state); a fresh trainer in overlap mode resuming from
+               step 2 and taking step 3 (its loss against the decoupled
+               run's step 3); then the data-parallel conventional step and
+               the ZeRO-1 overlap step on 8 sequences (chunk_accumulate
+               launched 0 times). Per run and step the loss and the
+               slowest rank's time; per rank the phases, wire and staging
+               bytes and seconds, peak device and host memory, moment bytes
+               held, checkpoint bytes and seconds. Then one SGD step (lr 1)
+               of each mode in the world held against the conventional
+               step in one process in f32 (1e-4 of the largest gradient),
+               and reported in bf16.
 9. mapreduce — the paper's word-count MapReduce (Sec. IV-B) in an
                eight-row gloo world on this card (`launch.mesh.spawn`;
                the wire is host loopback): 16,384 documents of 4,096 word
@@ -1557,23 +1566,61 @@ def profile_prefill(torch, np, model, params, *, seed: int, s: int = 8192) -> di
     return out
 
 
-# -- phase 8: the decoupled training step ---------------------------------------
+# -- phase 8: training, in every step mode, with checkpoints ------------------------
 
 TRAIN_ROWS = 4
 TRAIN_STEPS = 3
 TRAIN_CHUNK_BYTES = 16 << 20
+TRAIN_SEQ = 2048
+DECOUPLED_BATCH = 6  # two sequences for each of the three compute rows
+DATA_PARALLEL_BATCH = 8  # two sequences for each of the four rows
+TRAIN_CKPT_EVERY = 2  # the decoupled run saves at steps 2 and 3 (the last)
+RESUME_STEP = 2
+# the step the modes are compared at: step 1 carries each run's first-call
+# costs, and the decoupled run's step 3 shares the host with the write of
+# its step-2 save (the other runs save only after their last step)
+COMPARE_STEP = 2
 
 
-def train_rank(mesh, seed: int) -> dict:
-    """One rank of the train phase's four-row world (run by `spawn`):
-    3 AdamW steps of qwen1.5-0.5b at full width through `Trainer` in
-    decoupled mode, with this rank's kernel counts set to 0 just before
-    and read just after; then the parity step in f32 and in bf16."""
+class PaddedPipeline:
+    """The decoupled run's batches as conventional and overlap rows take
+    them: the global batch padded with zero-masked sequences to the
+    decoupled layout (8 sequences, 2 per row, the last row's masked), so
+    that every row count divides it and the same tokens are counted."""
+
+    def __init__(self, pipe, compute_rows: int, rows: int):
+        self.pipe, self.compute_rows, self.rows = pipe, compute_rows, rows
+
+    def global_batch(self, step: int) -> dict:
+        return self.pipe.padded_for_groups(step, self.compute_rows, self.rows)
+
+
+def _host_peak_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
+    """One rank of the train phase's four-row world (run by `spawn`), at
+    qwen1.5-0.5b's full width: 3 AdamW steps through `Trainer` in
+    decoupled mode, saving at steps 2 and 3; a fresh overlap `Trainer`
+    resuming from step 2 (step 3's commit marker removed, as a crash
+    before it would leave it) and taking step 3; 3 steps each of the
+    conventional and the overlap step on 8 sequences; each run with this
+    rank's kernel counts set to 0 just before and read just after, and row
+    0 reading the files of its last step back against the live state, so
+    every checkpoint written is read. Then one SGD step of each mode
+    against the conventional step in one process, in f32 and bf16."""
+    import shutil
+
     import torch
 
     from repro_torch.configs import get
     from repro_torch.data.pipeline import DataConfig, Pipeline, row_shard
+    from repro_torch.io import checkpoint as ckpt
     from repro_torch.models.model_zoo import build
+    from repro_torch.train import sharding
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     from repro_torch.train.train_step import (
         TrainStepConfig,
@@ -1592,133 +1639,303 @@ def train_rank(mesh, seed: int) -> dict:
                     torch.cuda.memory_reserved() / 2 ** 30))
 
     cfg = get("qwen1.5-0.5b")
-    ts_cfg = TrainStepConfig(mode="decoupled", reduce_alpha=0.25,
-                             wire_chunk_bytes=TRAIN_CHUNK_BYTES)
     model = build(cfg)
-    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=2048, global_batch=6,
-                               seed=seed, kind="zipf", skew=0.4))
-    trainer = Trainer(model, mesh, pipe, OptConfig(lr=1e-3, warmup_steps=10,
-                                                   total_steps=TRAIN_STEPS),
-                      ts_cfg, TrainerConfig(total_steps=TRAIN_STEPS, log_every=1))
+    adamw = OptConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    decoupled_cfg = TrainStepConfig(mode="decoupled", reduce_alpha=0.25,
+                                    wire_chunk_bytes=TRAIN_CHUNK_BYTES)
+    pipe6 = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=DECOUPLED_BATCH, seed=seed, kind="zipf", skew=0.4))
+    pipe8 = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=DATA_PARALLEL_BATCH, seed=seed, kind="zipf",
+                                skew=0.4))
+    counters = kernel_counters()
+    out = {"row": mesh.row, "runs": {}, "mem": mem}
+
+    def read_back(trainer, state) -> dict:
+        """The files of the state's step against the state, on row 0."""
+        def leaves(s):
+            return tree_leaves(s["params"]) + tree_leaves(s["opt"]["m"]) \
+                + tree_leaves(s["opt"]["v"])
+
+        t0 = time.perf_counter()
+        back = trainer.restore(state["step"], state)
+        read_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(leaves(state), leaves(back)))
+        return {"step": state["step"], "device_restore_s": read_s, "leaves": len(leaves(state)),
+                "bit_identical": same and back["step"] == state["step"]
+                and back["opt"]["step"] == state["opt"]["step"]}
+
+    def drive(name: str, trainer, state, resume: bool) -> dict:
+        """``trainer.run`` with the kernel counts at 0 just before, read
+        just after, then its last files read back on row 0; this rank's
+        record of the run."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer.run(state, resume=resume)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"wall_s": wall, "launches": {k: fn.launches for k, fn in counters.items()},
+               "log": trainer.metrics_log, "timings": trainer.step_fn.timings,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "host_peak_gib": _host_peak_gib(), "ckpt": trainer.checkpointer.log,
+               "resumed": trainer.resumed,
+               "moment_bytes": trainer.moment_bytes, "restore_check": None,
+               "finite": all(bool(torch.isfinite(p).all())
+                             for p in tree_leaves(state["params"]))}
+        trainer.close()
+        if mesh.row == 0:
+            run["restore_check"] = read_back(trainer, state)
+        snap(f"{name} done")
+        out["runs"][name] = run
+        return run
+
+    # the decoupled run, checkpointing
+    dec_dir = os.path.join(ckpt_root, "decoupled")
+    trainer = Trainer(model, mesh, pipe6, adamw, decoupled_cfg,
+                      TrainerConfig(total_steps=TRAIN_STEPS, log_every=1,
+                                    ckpt_every=TRAIN_CKPT_EVERY, keep=2, ckpt_dir=dec_dir))
     state = trainer.init_state(seed)
     snap("adamw state")
-    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    counters = kernel_counters()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    trainer.run(state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    out = {"row": mesh.row, "params": n_params, "wall_s": wall,
-           "launches": {k: fn.launches for k, fn in counters.items()},
-           "log": trainer.metrics_log, "timings": trainer.step_fn.timings,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "finite": all(bool(torch.isfinite(p).all()) for p in tree_leaves(state["params"])),
-           "mem": mem}
-    snap("after 3 steps")
-    del trainer, state
+    out["params"] = sum(p.numel() for p in tree_leaves(state["params"]))
+    drive("decoupled", trainer, state, resume=False)
+    if mesh.row == 0:  # step 3's save never committed, as if the run had crashed in it
+        os.remove(os.path.join(dec_dir, f"step_{TRAIN_STEPS:08d}", ckpt.COMMIT))
     gc.collect()
     torch.cuda.empty_cache()
-    snap("freed")
+    mesh.barrier()
 
-    # parity: one SGD step (lr 1: new params = params - gradient) of the
-    # decoupled world against the conventional step on the same batch
+    # a fresh trainer in overlap mode resumes the decoupled run's files
+    trainer = Trainer(model, mesh, PaddedPipeline(pipe6, TRAIN_ROWS - 1, TRAIN_ROWS), adamw,
+                      TrainStepConfig(mode="overlap"),
+                      TrainerConfig(total_steps=TRAIN_STEPS, log_every=1,
+                                    ckpt_every=TRAIN_CKPT_EVERY, keep=2, ckpt_dir=dec_dir))
+    drive("overlap_resume", trainer, state, resume=True)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the conventional and overlap steps on 8 sequences
+    for mode in ("conventional", "overlap"):
+        d = os.path.join(ckpt_root, mode)
+        trainer = Trainer(model, mesh, pipe8, adamw, TrainStepConfig(mode=mode),
+                          TrainerConfig(total_steps=TRAIN_STEPS, log_every=1, keep=1,
+                                        ckpt_dir=d))
+        state = trainer.init_state(seed)
+        drive(mode, trainer, state, resume=False)
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        if mesh.row == 0:
+            shutil.rmtree(d, ignore_errors=True)
+        mesh.barrier()
+
+    # parity: one SGD step (lr 1: new params = params - gradient) of each
+    # mode in the world against the conventional step in one process on the
+    # same global batch (the decoupled layout: 6 real sequences of 8)
     sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
                     weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
-    compute_rows = TRAIN_ROWS - 1
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         pmodel = build(dataclasses.replace(cfg, dtype=dtype))
         params = pmodel.init(seed, param_dtype=torch.float32)
-        step = make_step(pmodel, mesh, sgd, ts_cfg)
-        batch = row_shard(pipe.padded_for_groups(0, compute_rows, TRAIN_ROWS), mesh.row,
+        batch = row_shard(pipe6.padded_for_groups(0, TRAIN_ROWS - 1, TRAIN_ROWS), mesh.row,
                           TRAIN_ROWS, pmodel.device)
-        snap(f"parity {name} state")
-        new, _, metrics = step(params, init_opt_state(sgd, params), batch)
+        news, losses = {}, {}
+        for mode, ts in (("decoupled", decoupled_cfg), ("conventional", TrainStepConfig()),
+                         ("overlap", TrainStepConfig(mode="overlap"))):
+            opt = init_opt_state(sgd, params)
+            if mode == "overlap":
+                opt = sharding.shard_opt_state(
+                    sharding.zero1_plan(params, mesh.n_rows, mesh.row), opt)
+            new, _, metrics = make_step(pmodel, mesh, sgd, ts)(params, opt, batch)
+            losses[mode] = metrics["loss"]
+            if mesh.row == 0:  # only row 0 compares: the others leave the card to it
+                news[mode] = new
+            del new, opt
+            gc.collect()
+            torch.cuda.empty_cache()
         snap(f"parity {name} stepped")
-        del batch, step
-        if mesh.row != 0:  # only row 0 compares: leave the card to its conventional step
-            params = new = None
+        del batch
+        if mesh.row != 0:
+            params = None
         gc.collect()
         torch.cuda.empty_cache()
         mesh.barrier()
         if mesh.row == 0:
             conv, _, cmetrics = build_conventional_step(pmodel, sgd)(
                 params, init_opt_state(sgd, params),
-                {k: v.to(pmodel.device) for k, v in pipe.global_batch(0).items()})
-            diff = max((a - b).abs().max().item()
-                       for a, b in zip(tree_leaves(new), tree_leaves(conv)))
+                {k: v.to(pmodel.device) for k, v in pipe6.global_batch(0).items()})
             gmax = max((a - b).abs().max().item()
                        for a, b in zip(tree_leaves(params), tree_leaves(conv)))
-            out[f"parity_{name}"] = {"max_abs_diff": diff, "max_abs_grad": gmax,
-                                     "rel": diff / gmax, "loss": metrics["loss"],
-                                     "conventional_loss": float(cmetrics["loss"])}
+            for mode, new in news.items():
+                diff = max((a - b).abs().max().item()
+                           for a, b in zip(tree_leaves(new), tree_leaves(conv)))
+                # the world's modes against each other: each sums the same
+                # rows' gradients, the order of the sum is gloo's or the
+                # reducer's
+                vs_dec = max((a - b).abs().max().item()
+                             for a, b in zip(tree_leaves(new), tree_leaves(news["decoupled"])))
+                out[f"parity_{name}_{mode}"] = {
+                    "max_abs_diff": diff, "max_abs_grad": gmax, "rel": diff / gmax,
+                    "max_abs_diff_vs_decoupled": vs_dec, "loss": losses[mode],
+                    "conventional_loss": float(cmetrics["loss"])}
             del conv
-        del params, new, pmodel
+        del params, news, pmodel
         gc.collect()
         torch.cuda.empty_cache()
         mesh.barrier()
     out["peak_gib_parity"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["host_peak_gib"] = _host_peak_gib()
     return out
+
+
+PHASES_BY_MODE = {
+    "decoupled": ("fwd_bwd_s", "stream_s", "analytics_s", "broadcast_s", "update_s"),
+    "conventional": ("fwd_bwd_s", "all_reduce_s", "update_s"),
+    "overlap": ("fwd_bwd_s", "reduce_scatter_s", "update_s", "all_gather_s"),
+}
+WIRE_KEYS = ("wire_wait_s", "wire_fold_s", "wire_d2h_s", "wire_h2d_s", "wire_collective_s",
+             "wire_sent_bytes", "wire_recv_bytes", "wire_collective_bytes", "wire_d2h_bytes",
+             "wire_h2d_bytes")
+# the resumed step 3 in overlap mode against the decoupled run's step 3:
+# the loss is taken before the update, from step 2's parameters restored
+# bit for bit, on the same sequences, each row's shard the same as a
+# decoupled compute row's (the fourth row's masked); the rows' loss sums
+# add in another order (four ranks against three), a few f32 ulps of the
+# sum.
+RESUME_LOSS_REL = 1e-5
+# overlap's per-step losses against conventional's (the same parameters,
+# batches, AdamW and clip): the parameters agree to f32 rounding after a
+# step (the SGD parity holds the two modes' gradients within an ulp), but
+# qwen1.5-0.5b computes in bf16, so a parameter that the rounding moves
+# across a bf16 boundary changes the forward pass at bf16 resolution
+# (2^-8), which a step's mean over 16,384 tokens averages down to about
+# 2^-8 / sqrt(16,384) = 3e-5 of the loss (on an H100: 1.3e-5 and 1.6e-5
+# at steps 2 and 3). A step moves the loss by 0.3 to 2.7 here, so an
+# update wrong on one row's part shows far above this budget.
+OVERLAP_LOSS_REL = 1e-4
+
+
+def train_run_line(name: str, mode: str, ranks: list, smi: str, **extra) -> dict:
+    """One JSON line of a train run: per step the slowest rank's summed
+    phases, per rank the phases, wire and staging bytes and seconds, peak
+    device and host memory, checkpoint saves."""
+    runs = [r["runs"][name] for r in ranks]
+    n_steps = len(runs[0]["timings"])
+    phase_keys = PHASES_BY_MODE[mode]
+    saved = {c["step"] for c in runs[0]["ckpt"]}
+    steps = [{"step": runs[0]["log"][i]["step"], "loss": runs[0]["log"][i]["loss"],
+              "wall_s": max(sum(run["timings"][i][k] for k in phase_keys) for run in runs),
+              "after_save": runs[0]["log"][i]["step"] - 1 in saved}
+             for i in range(n_steps)]
+    launches = {k: sum(run["launches"][k] for run in runs) for k in runs[0]["launches"]}
+    per_rank = [{"row": r["row"], "wall_s": run["wall_s"], "peak_gib": run["peak_gib"],
+                 "host_peak_gib": run["host_peak_gib"], "moment_bytes": run["moment_bytes"],
+                 "per_step": [{k: t[k] for k in phase_keys + WIRE_KEYS} for t in run["timings"]]}
+                for r, run in zip(ranks, runs)]
+    line = {"phase": "train", "run": name, "mode": mode, "model": "qwen1.5-0.5b",
+            "params": ranks[0]["params"], "rows": TRAIN_ROWS, "seq_len": TRAIN_SEQ,
+            "steps": steps, "launches": launches, "per_rank": per_rank,
+            "ckpt": runs[0]["ckpt"], "resumed": runs[0]["resumed"],
+            "restore_check": runs[0]["restore_check"],
+            "wire": "gloo over host loopback (device -> pinned host -> gloo -> host -> device)",
+            "nvidia_smi": smi, **extra}
+    emit(line)
+    losses = [x["loss"] for x in runs[0]["log"]]
+    if not all(math.isfinite(x) for x in losses) or not all(run["finite"] for run in runs):
+        raise AssertionError(f"train {name}: non-finite losses or parameters: {losses}")
+    if any([x["loss"] for x in run["log"]] != losses for run in runs):
+        raise AssertionError(f"train {name}: the rows disagree on the loss")
+    if not line["restore_check"]["bit_identical"]:
+        raise AssertionError(f"train {name}: the checkpoint read back differs: "
+                             f"{line['restore_check']}")
+    if mode != "decoupled" and launches["chunk_accumulate"] != 0:
+        raise AssertionError(f"train {name}: chunk_accumulate launched "
+                             f"{launches['chunk_accumulate']} times in {mode} mode")
+    return line
 
 
 def train_phase(torch, np, seed: int, smi: str) -> dict:
     """The four-row world on the card (every kernel already built by the
-    parent), its train line, and the checks."""
+    parent), its train lines, and the checks. Checkpoints go to a fresh
+    temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
     from repro_torch.launch.mesh import spawn
 
     # the ranks' allocators map memory in growable segments, so the large,
     # differently sized buffers of the fold and the parity step reuse it
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     parent_gib = torch.cuda.memory_reserved() / 2 ** 30
-    t0 = time.perf_counter()
-    ranks = spawn(train_rank, TRAIN_ROWS, device="cuda", args=(seed,), timeout_s=900)
-    world_s = time.perf_counter() - t0
-    reducer = ranks[-1]
-    losses = [row["loss"] for row in ranks[0]["log"]]
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free_gib = shutil.disk_usage(ckpt_root).free / 2 ** 30
+        t0 = time.perf_counter()
+        ranks = spawn(train_rank, TRAIN_ROWS, device="cuda", args=(seed, ckpt_root),
+                      timeout_s=1000)
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     waves, f32_groups = TRAIN_ROWS - 1, 1
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
-    steps = []
-    for i in range(TRAIN_STEPS):
-        steps.append({"step": i + 1, "loss": losses[i],
-                      "wall_s": max(sum(v for k, v in r["timings"][i].items()
-                                        if k.endswith("_s") and not k.startswith("wire_"))
-                                    for r in ranks)})
-    phase_keys = ("fwd_bwd_s", "stream_s", "broadcast_s", "update_s", "wire_wait_s",
-                  "wire_fold_s", "wire_d2h_s", "wire_h2d_s", "wire_collective_s",
-                  "wire_sent_bytes", "wire_recv_bytes", "wire_d2h_bytes", "wire_h2d_bytes")
-    per_rank = [{"row": r["row"], "role": "reduce" if r is reducer else "compute",
-                 "peak_gib": r["peak_gib"], "peak_gib_parity": r["peak_gib_parity"],
-                 "mem_gib": r["mem"], "wall_s": r["wall_s"],
-                 "per_step": [{k: t[k] for k in phase_keys} for t in r["timings"]]}
-                for r in ranks]
-    line = {"phase": "train", "model": "qwen1.5-0.5b", "params": reducer["params"],
-            "rows": TRAIN_ROWS, "compute_rows": TRAIN_ROWS - 1, "reduce_rows": 1,
-            "seq_len": 2048, "global_batch": 6, "steps": steps,
-            "wire_chunk_bytes": TRAIN_CHUNK_BYTES, "waves": waves,
-            "wire": "gloo over host loopback (device -> pinned host -> gloo -> host -> device)",
-            "launches": launches,
-            "chunk_accumulate_expected": waves * f32_groups * TRAIN_STEPS,
-            "per_rank": per_rank, "world_s": world_s, "parent_reserved_gib": parent_gib,
-            "parity_f32": ranks[0]["parity_f32"], "parity_f32_budget": TRAIN_PARITY_REL,
-            "parity_bf16": ranks[0]["parity_bf16"], "nvidia_smi": smi}
-    emit(line)
-    if launches["chunk_accumulate"] != waves * f32_groups * TRAIN_STEPS:
-        raise AssertionError(f"train: chunk_accumulate launched {launches['chunk_accumulate']} "
-                             f"times, want {waves * f32_groups * TRAIN_STEPS}")
-    if reducer["launches"]["chunk_accumulate"] != launches["chunk_accumulate"]:
+    expected = waves * f32_groups * TRAIN_STEPS
+    parity = {k: ranks[0][k] for k in ranks[0] if k.startswith("parity_")}
+    dec = train_run_line("decoupled", "decoupled", ranks, smi, compute_rows=TRAIN_ROWS - 1,
+                         reduce_rows=1, global_batch=DECOUPLED_BATCH,
+                         wire_chunk_bytes=TRAIN_CHUNK_BYTES, waves=waves,
+                         chunk_accumulate_expected=expected, ckpt_dir_free_gib=free_gib)
+    resume = train_run_line("overlap_resume", "overlap", ranks, smi,
+                            global_batch=DECOUPLED_BATCH, resume_loss_budget=RESUME_LOSS_REL)
+    conv = train_run_line("conventional", "conventional", ranks, smi,
+                          global_batch=DATA_PARALLEL_BATCH)
+    over = train_run_line("overlap", "overlap", ranks, smi, global_batch=DATA_PARALLEL_BATCH)
+    launches = {name: line["launches"] for name, line in
+                (("decoupled", dec), ("overlap_resume", resume), ("conventional", conv),
+                 ("overlap", over))}
+    by_mode = {"decoupled": dec, "conventional": conv, "overlap": over}
+    overlap_loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                        for a, b in zip(over["steps"], conv["steps"])]
+    summary = {"phase": "train_summary", "world_s": world_s, "parent_reserved_gib": parent_gib,
+               "launches_by_run": launches,
+               "compare_step": COMPARE_STEP,
+               "compare_step_wall_s": {m: line["steps"][COMPARE_STEP - 1]["wall_s"]
+                                       for m, line in by_mode.items()},
+               "overlap_vs_conventional_loss_rel": overlap_loss_rel,
+               "overlap_loss_budget": OVERLAP_LOSS_REL,
+               "parity_f32_budget": TRAIN_PARITY_REL, **parity,
+               "peak_gib_parity": [r["peak_gib_parity"] for r in ranks],
+               "host_peak_gib": [r["host_peak_gib"] for r in ranks], "nvidia_smi": smi}
+    emit(summary)
+    reducer = ranks[-1]["runs"]["decoupled"]
+    if launches["decoupled"]["chunk_accumulate"] != expected:
+        raise AssertionError(f"train: chunk_accumulate launched "
+                             f"{launches['decoupled']['chunk_accumulate']} times, want {expected}")
+    if reducer["launches"]["chunk_accumulate"] != expected:
         raise AssertionError("train: a compute row folded a wave")
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) \
-            or not all(r["finite"] for r in ranks):
-        raise AssertionError(f"train: non-finite losses or parameters: {losses}")
-    if any([x["loss"] for x in r["log"]] != losses for r in ranks):
-        raise AssertionError("train: the rows disagree on the loss")
-    if not ranks[0]["parity_f32"]["rel"] <= TRAIN_PARITY_REL:
-        raise AssertionError(f"train: decoupled step off the conventional step: "
-                             f"{ranks[0]['parity_f32']}")
-    return line
+    if len(dec["steps"]) != TRAIN_STEPS or len(conv["steps"]) != TRAIN_STEPS \
+            or len(over["steps"]) != TRAIN_STEPS:
+        raise AssertionError("train: a run did not take its steps")
+    if any(line["steps"][COMPARE_STEP - 1]["after_save"] for line in by_mode.values()):
+        raise AssertionError(f"train: a run saved before step {COMPARE_STEP}, the step the "
+                             f"modes are compared at")
+    if not all(r <= OVERLAP_LOSS_REL for r in overlap_loss_rel):
+        raise AssertionError(f"train: overlap's losses are off conventional's: "
+                             f"{overlap_loss_rel}, budget {OVERLAP_LOSS_REL}")
+    if resume["resumed"] is None or resume["resumed"]["step"] != RESUME_STEP \
+            or [s["step"] for s in resume["steps"]] != [RESUME_STEP + 1]:
+        raise AssertionError(f"train: overlap did not resume from step {RESUME_STEP}: "
+                             f"{resume['resumed']}, {resume['steps']}")
+    want, got = dec["steps"][RESUME_STEP]["loss"], resume["steps"][0]["loss"]
+    if not abs(got - want) <= RESUME_LOSS_REL * abs(want):
+        raise AssertionError(f"train: the resumed step {RESUME_STEP + 1} loss {got} is off the "
+                             f"decoupled run's {want}")
+    for mode in ("decoupled", "conventional", "overlap"):
+        if not parity[f"parity_f32_{mode}"]["rel"] <= TRAIN_PARITY_REL:
+            raise AssertionError(f"train: the {mode} step is off the conventional step in one "
+                                 f"process: {parity[f'parity_f32_{mode}']}")
+    return {"launches": launches["decoupled"], "launches_by_run": launches}
 
 
 # -- phase 9: the paper's decoupled MapReduce --------------------------------------
@@ -2398,8 +2615,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 8: the decoupled training step, qwen1.5-0.5b at full width in a
-    # four-row world on this card
+    # phase 8: training in every step mode, with checkpoints and a resume,
+    # qwen1.5-0.5b at full width in a four-row world on this card
     train = train_phase(torch, np, args.seed + 8, smi)
 
     # phase 9: the paper's decoupled MapReduce in an eight-row world on this card
@@ -2412,8 +2629,9 @@ def main(argv=None) -> int:
 
     # phase 12: summary; "launches" is the count from the run of the path
     # each kernel belongs to (the bf16 tinyllama arm for paged decode,
-    # argmax and flash; the mamba arm for the SSD scan; the train phase,
-    # summed over its four ranks, for chunk_accumulate; the MapReduce
+    # argmax and flash; the mamba arm for the SSD scan; the train phase's
+    # decoupled run, summed over its four ranks, for chunk_accumulate, every
+    # train run's counts beside it (launches_train_by_run); the MapReduce
     # phase, its four runs summed over their eight ranks, for histogram),
     # each arm's counts beside it (the CG and PIC phases launch none of the
     # kernels: their stencil, dots, push and merges are plain PyTorch, as the
@@ -2440,6 +2658,8 @@ def main(argv=None) -> int:
         kern["launches_long_arm"] = long["launches"][name]
         kern["launches_mamba_arm"] = mamba["launches"][name]
         kern["launches_train"] = train["launches"][name]
+        kern["launches_train_by_run"] = {run: counts[name]
+                                         for run, counts in train["launches_by_run"].items()}
         kern["launches_mapreduce"] = mapreduce["launches"][name]
         kern["launches_cg"] = cg["launches"][name]
         kern["launches_pic"] = pic["launches"][name]
@@ -2448,8 +2668,8 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "plain_device_ms", "library_device_ms", "launches_long_arm",
-            "launches_mamba_arm", "launches_train", "launches_mapreduce", "launches_cg",
-            "launches_pic")
+            "launches_mamba_arm", "launches_train", "launches_train_by_run",
+            "launches_mapreduce", "launches_cg", "launches_pic")
     emit({"kernels": [{k: kern[k] for k in keys + ("isolated_2p26",) if k in kern}
                       for kern in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

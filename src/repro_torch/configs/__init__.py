@@ -1,3 +1,11 @@
-from repro_torch.configs.base import ArchConfig, get, get_smoke
+from repro_torch.configs.base import (
+    ARCH_NAMES,
+    SHAPES,
+    ArchConfig,
+    ShapeCfg,
+    cells,
+    get,
+    get_smoke,
+)
 
-__all__ = ["ArchConfig", "get", "get_smoke"]
+__all__ = ["ARCH_NAMES", "SHAPES", "ArchConfig", "ShapeCfg", "cells", "get", "get_smoke"]

@@ -8,7 +8,8 @@ labels int32, mask f32); `row_shard` cuts one mesh row's rows out of
 a global batch and moves them to that row's device. In decoupled mode
 `padded_for_groups` lays the global batch over the compute rows and gives
 the service rows zero-masked shards (the same total workload, Sec. IV-A).
-The reference's audio/vision frontend inputs are not ported (ROADMAP A12).
+The reference's audio/vision frontend inputs are not ported (ROADMAP A12):
+`build_for_arch` refuses an architecture that has a frontend.
 """
 from __future__ import annotations
 
@@ -70,12 +71,25 @@ class Pipeline:
         return out
 
 
+def build_for_arch(arch_cfg, shape_cfg, seed: int = 0, skew: float = 0.0) -> Pipeline:
+    """The synthetic pipeline of one (architecture, shape) cell."""
+    if arch_cfg.frontend:
+        raise NotImplementedError(f"{arch_cfg.name}: {arch_cfg.frontend} frontend inputs are "
+                                  f"not ported yet; see ROADMAP A12")
+    return Pipeline(DataConfig(vocab_size=arch_cfg.vocab_size, seq_len=shape_cfg.seq_len,
+                               global_batch=shape_cfg.global_batch, seed=seed, skew=skew))
+
+
 def row_shard(batch: dict, row: int, n_rows: int, device=None) -> dict:
     """Row ``row`` of ``n_rows`` equal shards of a global batch (the
-    reference's ``P("data")`` layout of the leading axis), on ``device``."""
-    per_row = next(iter(batch.values())).shape[0] // n_rows
+    reference's ``P("data")`` layout of the leading axis), on ``device``.
+    The batch must divide into the rows, as that layout requires."""
+    b = next(iter(batch.values())).shape[0]
+    if b % n_rows:
+        raise ValueError(f"a global batch of {b} does not divide over {n_rows} rows")
+    per_row = b // n_rows
     sl = slice(row * per_row, (row + 1) * per_row)
     return {k: v[sl].to(device) for k, v in batch.items()}
 
 
-__all__ = ["DataConfig", "Pipeline", "row_shard"]
+__all__ = ["DataConfig", "Pipeline", "build_for_arch", "row_shard"]

@@ -16,6 +16,8 @@ calls of this rank:
   ``lax.psum(x, axis, groups)``          `Mesh.all_reduce` on a subgroup
                                          (a group of one row is the identity)
   ``lax.all_gather(x, axis, groups)``    `Mesh.all_gather` on a subgroup
+  ``lax.psum_scatter(x, axis)`` (the     `Mesh.reduce_scatter` of a flat buffer
+  reduce-scatter of GSPMD's ZeRO-1)
   masked-psum broadcast from a row       `Mesh.broadcast` from that row (exact)
   ``lax.cond(is_compute, ...)``          a plain Python ``if``
   =====================================  ========================================
@@ -63,7 +65,8 @@ class WireStats:
     h2d_bytes: int = 0
     h2d_s: float = 0.0
     wait_s: float = 0.0  # blocked in `wait()` of a send or receive
-    collective_s: float = 0.0  # all_reduce and broadcast, staging included
+    collective_bytes: int = 0  # the local payloads given to collectives
+    collective_s: float = 0.0  # the collectives, staging included
     fold_s: float = 0.0  # the consumer's wave folds (`StreamChannel`), synchronised
 
     def as_dict(self) -> dict:
@@ -171,7 +174,23 @@ class Mesh:
             host = t.clone()
         dist.all_reduce(host, op=op, group=group)
         out = self._from_host(host, t.dtype)
-        self.stats.collective_s += time.perf_counter() - t0
+        self._collective(host, t0)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """This row's part of the sum of ``t`` over the world: ``t`` is
+        1-D, its length divides by the row count, and row i gets the i-th
+        of that many equal parts. Returns a new tensor on ``t``'s device."""
+        t0 = time.perf_counter()
+        n = self.n_rows
+        if t.dim() != 1 or t.shape[0] % n:
+            raise ValueError(f"reduce_scatter takes a 1-D buffer whose length divides by "
+                             f"{n}; got shape {tuple(t.shape)}")
+        host = self._to_host(t)
+        part = self._host_buffer((t.shape[0] // n,), t.dtype)
+        dist.reduce_scatter(part, list(host.chunk(n)))
+        out = self._from_host(part, t.dtype)
+        self._collective(host, t0)
         return out
 
     def all_gather(self, t: torch.Tensor, group=None) -> torch.Tensor:
@@ -182,7 +201,7 @@ class Mesh:
         parts = [self._host_buffer(t.shape, t.dtype) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, host, group=group)
         out = self._from_host(torch.cat(parts), t.dtype)
-        self.stats.collective_s += time.perf_counter() - t0
+        self._collective(host, t0)
         return out
 
     def broadcast(self, t: torch.Tensor, src_row: int) -> torch.Tensor:
@@ -196,8 +215,12 @@ class Mesh:
             host = self._host_buffer(t.shape, t.dtype)
         dist.broadcast(host, src_row)
         out = t if self.row == src_row else self._from_host(host, t.dtype)
-        self.stats.collective_s += time.perf_counter() - t0
+        self._collective(host, t0)
         return out
+
+    def _collective(self, host: torch.Tensor, t0: float) -> None:
+        self.stats.collective_bytes += host.numel() * host.element_size()
+        self.stats.collective_s += time.perf_counter() - t0
 
     def barrier(self) -> None:
         if self.in_world:
@@ -220,6 +243,21 @@ class Mesh:
         yield
         self.sync()
         phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
+
+
+def make_host_mesh(data: int = 4, model: int = 1, device=None) -> Mesh:
+    """A planning mesh of ``data`` rows (no world: its transfers raise).
+    The reference's ``model`` axis is GSPMD tensor parallelism, which the
+    port does not have: ``model`` must be 1."""
+    if model != 1:
+        raise NotImplementedError(f"a model axis of {model}: model-parallel training "
+                                  f"(GSPMD over the model axis) is not ported; see ROADMAP A8")
+    return Mesh(n_rows=data, device=device)
+
+
+def required_devices(*, multi_pod: bool = False) -> int:
+    """Devices of the reference's production mesh: 16 x 16 per pod."""
+    return 512 if multi_pod else 256
 
 
 def _rank_main(fn, row: int, n_rows: int, device: str, init_method: str, args: tuple,
@@ -293,4 +331,4 @@ def spawn(fn, n_rows: int, *, device=None, args: tuple = (), timeout_s: float = 
     return [out[r] for r in range(n_rows)]
 
 
-__all__ = ["Mesh", "WireStats", "spawn"]
+__all__ = ["Mesh", "WireStats", "make_host_mesh", "required_devices", "spawn"]

@@ -67,20 +67,28 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        norm: torch.Tensor | None = None) -> tuple[Any, torch.Tensor]:
+    """``grads`` scaled so that their global norm is at most ``max_norm``.
+    ``norm``: the global norm when ``grads`` is one part of the gradient
+    (a ZeRO-1 shard); by default that of ``grads``."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
 
 
 @torch.no_grad()
 def apply_updates(cfg: OptConfig, params: Any, grads: Any, state: dict, *,
-                  inplace: bool = False) -> tuple[Any, dict]:
-    """One optimizer step -> (new params, new state)."""
+                  inplace: bool = False,
+                  grad_norm: torch.Tensor | None = None) -> tuple[Any, dict]:
+    """One optimizer step -> (new params, new state). The update is
+    elementwise, so ``params``, ``grads`` and the moments may be any one
+    part of the whole (a ZeRO-1 shard); clipping then needs the whole
+    gradient's norm, ``grad_norm``, which the caller gathers."""
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)
     if cfg.grad_clip > 0:
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, _ = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
 
     def put(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
         return old.copy_(new) if inplace else new

@@ -1,8 +1,10 @@
 """Train-step builders: the paper's technique as a training feature (a
 port of the reference's `train/train_step.py`).
 
-  conventional  one process computes the whole global batch's gradient
-                and updates (every operation on every process, Fig. 3a).
+  conventional  every row computes its shard's gradient, and the rows
+                all-reduce one flat gradient buffer (every operation on
+                every process, Fig. 3a); with one row, one process
+                computes the whole global batch's gradient.
 
   decoupled     the gradient reduction runs on a reducer service group
                 (``reduce_alpha`` of the world's rows, Fig. 3c). Compute
@@ -17,9 +19,18 @@ port of the reference's `train/train_step.py`).
                 gradient on to an analytics group, which computes its
                 norm and abs-max off the update's path.
 
+  overlap       ZeRO-1 (`train.sharding`): the rows reduce-scatter the
+                flat gradient, clip with the global norm, update their own
+                part of the parameters and moments, and all-gather the
+                parameters. The reference gets the same collectives from
+                GSPMD sharding constraints.
+
 Each rank runs the step on its own row's shard of the batch
-(`data.pipeline.row_shard`). The reference's ``overlap`` mode (ZeRO-1
-through GSPMD sharding constraints) has no port yet (ROADMAP A11).
+(`data.pipeline.row_shard`). Every mode sums the rows' local loss sums
+and token counts and divides once by the global count, so a row whose
+shard is wholly masked adds nothing (never a mean of means). Not ported:
+the reference's ``runtime_skip=False``, ``zero1=False`` and FSDP
+(``fsdp``, ``fsdp_threshold``; ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -31,8 +42,17 @@ import torch
 from repro_torch.core.dataflow import COMPUTE, ServiceGraph, work_vector
 from repro_torch.core.decouple import group_psum
 from repro_torch.core.wire import WireSpec
+from repro_torch.train import sharding
 from repro_torch.train.optimizer import OptConfig, apply_updates
-from repro_torch.utils.treeutil import tree_flatten, tree_leaves, tree_meta, tree_unflatten
+from repro_torch.utils.treeutil import (
+    flatten,
+    spec_of,
+    tree_flatten,
+    tree_leaves,
+    tree_meta,
+    tree_unflatten,
+    unflatten,
+)
 
 REDUCE = "reduce"
 ANALYTICS = "analytics"
@@ -74,6 +94,132 @@ def build_conventional_step(model, opt_cfg: OptConfig, *, inplace: bool = False)
     return step
 
 
+def _loss_sum(model):
+    """``model.loss`` as a local sum (mean x token count), so that the
+    rows' sums combine into the global mean."""
+
+    def loss_sum(params, batch):
+        loss_mean, metrics = model.loss(params, batch)
+        return loss_mean * batch["mask"].sum(), metrics
+
+    return loss_sum
+
+
+class _Laps:
+    """One step call's phase times, each phase ended by a device
+    synchronise, and the call's `WireStats` deltas (``wire_*``)."""
+
+    def __init__(self, mesh):
+        self.mesh, self.t = mesh, {}
+        self.stats0 = mesh.stats.as_dict()
+        self.clock = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        self.mesh.sync()
+        now = time.perf_counter()
+        self.t[name + "_s"] = now - self.clock
+        self.clock = now
+
+    def done(self) -> dict:
+        stats1 = self.mesh.stats.as_dict()
+        self.t.update({"wire_" + k: stats1[k] - self.stats0[k] for k in stats1})
+        return self.t
+
+
+def _row_gradient(model, params, batch):
+    """This row's gradient of its local loss sum, and the row's [loss sum,
+    token count, token-weighted metrics] for one world sum
+    (`_world_means`)."""
+    loss_tot, metrics, grads = value_and_grad(_loss_sum(model), params, batch)
+    cnt = batch["mask"].sum().float()
+    names = sorted(metrics)
+    vec = torch.stack([loss_tot.float(), cnt] + [metrics[k].float() * cnt for k in names])
+    return grads, names, vec.cpu()
+
+
+def _world_means(mesh, names, vec) -> tuple[float, dict]:
+    """The global token count (at least 1), and the loss and metrics as
+    means over every row's tokens."""
+    sums = mesh.all_reduce(vec)
+    total = max(float(sums[1]), 1.0)
+    out = {"loss": float(sums[0]) / total}
+    out.update({k: float(sums[2 + i]) / total for i, k in enumerate(names)})
+    return total, out
+
+
+def build_data_parallel_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool = False):
+    """The conventional step over the rows of a world: each row's
+    gradient, one all-reduce of the flattened gradient, the same update on
+    every row. ``step.timings`` gets one dict per call: seconds in forward
+    and backward, in the all-reduces (the gradient's and the scalars') and
+    in the update, and the call's `WireStats` deltas."""
+    timings: list[dict] = []
+
+    def step(params, opt_state, batch):
+        laps = _Laps(mesh)
+        grads, names, vec = _row_gradient(model, params, batch)
+        spec = spec_of(grads)
+        flat = flatten(grads)
+        del grads
+        laps("fwd_bwd")
+        total, out = _world_means(mesh, names, vec)
+        flat = mesh.all_reduce(flat).div_(total)
+        laps("all_reduce")
+        new_params, new_state = apply_updates(opt_cfg, params, unflatten(spec, flat),
+                                              opt_state, inplace=inplace)
+        del flat
+        laps("update")
+        timings.append(laps.done())
+        return new_params, new_state, out
+
+    step.timings = timings
+    return step
+
+
+def build_overlap_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool = False):
+    """ZeRO-1 over the rows of a world (`train.sharding`): the step takes
+    and returns the optimizer state as this row's parts of the moments
+    (`sharding.shard_opt_state`). Each row's gradient is reduce-scattered
+    into the rows' parts; the clip takes the global norm from an
+    all-reduce of every part's sum of squares; each row updates its part
+    of the parameters and moments; the rows all-gather the parameters.
+    ``step.timings`` gets seconds in forward and backward, the
+    reduce-scatter (and the scalars' all-reduce), the sharded update (the
+    norm's all-reduce included) and the all-gather, and the call's
+    `WireStats` deltas."""
+    timings: list[dict] = []
+
+    def step(params, opt_state, batch):
+        laps = _Laps(mesh)
+        plan = sharding.zero1_plan(params, mesh.n_rows, mesh.row)
+        grads, names, vec = _row_gradient(model, params, batch)
+        flat = sharding.flat_padded(plan, grads)
+        del grads
+        laps("fwd_bwd")
+        total, out = _world_means(mesh, names, vec)
+        g = mesh.reduce_scatter(flat).div_(total)
+        del flat
+        laps("reduce_scatter")
+        norm = None
+        if opt_cfg.grad_clip > 0:
+            norm = torch.sqrt(mesh.all_reduce(torch.sum(g * g).reshape(1))[0])
+        part, new_state = apply_updates(opt_cfg, sharding.shard_of(plan, params), g,
+                                        opt_state, inplace=inplace, grad_norm=norm)
+        del g
+        laps("update")
+        full = sharding.gather(plan, mesh, part)
+        if inplace:
+            for p, new in zip(tree_leaves(params), tree_leaves(full)):
+                p.copy_(new)
+            full = params
+        laps("all_gather")
+        timings.append(laps.done())
+        return full, new_state, out
+
+    step.timings = timings
+    return step
+
+
 def train_service_graph(mesh, ts_cfg: TrainStepConfig, axis: str = "data") -> ServiceGraph:
     """compute -> reduce, chained on to analytics when ``analytics_alpha
     > 0``; the gradient stream's wire is declared on compute -> reduce."""
@@ -103,23 +249,10 @@ def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
     is_reduce = gmesh.is_member(REDUCE)
     n_compute = gmesh.compute.size
     timings: list[dict] = []
-
-    def loss_sum(params, batch):
-        # local sum of the loss, so rows' sums combine into the global mean
-        loss_mean, metrics = model.loss(params, batch)
-        return loss_mean * batch["mask"].sum(), metrics
+    loss_sum = _loss_sum(model)
 
     def step(params, opt_state, batch):
-        stats0 = mesh.stats.as_dict()
-        t = {}
-        clock = [time.perf_counter()]
-
-        def lap(name):
-            mesh.sync()
-            now = time.perf_counter()
-            t[name + "_s"] = now - clock[0]
-            clock[0] = now
-
+        lap = _Laps(mesh)
         cnt = float(batch["mask"].sum())
         if is_compute:
             loss_tot, metrics, grads = value_and_grad(loss_sum, params, batch)
@@ -181,9 +314,7 @@ def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
             out["grad_absmax"] = float(grad_stats[1]) / total_cnt
         for i, k in enumerate(names):
             out[k] = float(sums[2 + i]) / max(n_compute, 1)
-        stats1 = mesh.stats.as_dict()
-        t.update({"wire_" + k: stats1[k] - stats0[k] for k in stats1})
-        timings.append(t)
+        timings.append(lap.done())
         return new_params, new_state, out
 
     step.timings = timings
@@ -194,16 +325,16 @@ def make_step(model, mesh, opt_cfg: OptConfig, ts_cfg: TrainStepConfig, *,
               inplace: bool = False):
     """The step of ``ts_cfg.mode`` for this rank of ``mesh`` (the
     counterpart of the reference's `make_jitted_step`). ``inplace``: the
-    update writes into the given params and moments."""
+    update writes into the given params and moments. Every mode but a
+    one-row conventional step runs in a world (`launch.mesh.spawn`); in
+    overlap mode the optimizer state holds this row's parts of the
+    moments (`train.sharding.shard_opt_state`)."""
     if ts_cfg.mode == "conventional":
-        if mesh.n_rows != 1:
-            raise NotImplementedError(
-                "the conventional step runs in one process on the global batch; its "
-                "data-parallel form over many rows is not ported (ROADMAP A11)")
-        return build_conventional_step(model, opt_cfg, inplace=inplace)
+        if mesh.n_rows == 1:
+            return build_conventional_step(model, opt_cfg, inplace=inplace)
+        return build_data_parallel_step(model, opt_cfg, mesh, inplace=inplace)
     if ts_cfg.mode == "overlap":
-        raise NotImplementedError("mode='overlap' (ZeRO-1 through GSPMD sharding, "
-                                  "train/sharding.py) is not ported yet: ROADMAP A11")
+        return build_overlap_step(model, opt_cfg, mesh, inplace=inplace)
     if ts_cfg.mode == "decoupled":
         return build_decoupled_step(model, opt_cfg, train_service_graph(mesh, ts_cfg),
                                     ts_cfg, inplace=inplace)
@@ -211,4 +342,5 @@ def make_step(model, mesh, opt_cfg: OptConfig, ts_cfg: TrainStepConfig, *,
 
 
 __all__ = ["ANALYTICS", "REDUCE", "TrainStepConfig", "build_conventional_step",
-           "build_decoupled_step", "make_step", "train_service_graph", "value_and_grad"]
+           "build_data_parallel_step", "build_decoupled_step", "build_overlap_step",
+           "make_step", "train_service_graph", "value_and_grad"]

@@ -37,7 +37,13 @@ Tolerances, with their reasons:
   * histogram: 1e-5 relative (atomics add in a varying order); exact
     where counts are small integers (every partial sum is exact), also
     added into an accumulator (``out=``), through the stream operators
-    and in the word count.
+    and in the word count;
+  * the conventional and overlap steps in a two-row world on the card
+    against the same world on the CPU, one SGD step (lr 1, so the new
+    parameters differ by the gradients' difference): 1e-4 of the largest
+    gradient element, the chip smoke's `TRAIN_PARITY_REL` (f32 with TF32
+    off; other GEMM blockings sum in another order); checkpoints of CUDA
+    tensors: bit for bit.
 """
 import dataclasses
 
@@ -66,7 +72,13 @@ from repro_torch.kernels.stream_reduce.stream_reduce import CTA_BINS
 from repro_torch.launch.mesh import spawn
 from repro_torch.models.model_zoo import build
 from repro_torch.serve import EngineConfig, KVSpec, Request, make_engine
-from torch_worlds import N_ROWS, WC_CFG, cuda_fold_case, cuda_wordcount_case
+from torch_worlds import (
+    N_ROWS,
+    WC_CFG,
+    cuda_fold_case,
+    cuda_wordcount_case,
+    data_parallel_case,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -1049,3 +1061,47 @@ def test_cg_and_pic_worlds_run_on_the_card(cuda):
             owner = np.floor(x[r][m[r] > 0] / np.float32(1.0 / rows))
             assert (owner == r).all(), (name, r)
     assert pic["decoupled_io"][4].tolist() == [0] * 7 + [54]
+
+
+# -- the training path: data-parallel steps and checkpoints on the card ---------------
+
+TRAIN_PARITY_REL = 1e-4
+
+
+def test_data_parallel_steps_on_the_card_match_cpu(cuda):
+    gpu = spawn(data_parallel_case, 2, device="cuda", timeout_s=300)
+    cpu = spawn(data_parallel_case, 2, device="cpu", timeout_s=300)
+    assert gpu[0]["device"].startswith("cuda") and cpu[0]["device"] == "cpu"
+    gmax = max(float(np.abs(a - b).max()) for a, b in zip(cpu[0]["p0"], cpu[0]["conventional"]))
+    assert gmax > 1e-3  # it moved
+    for mode in ("conventional", "overlap"):
+        for row in range(2):
+            diff = max(float(np.abs(a - b).max())
+                       for a, b in zip(gpu[row][mode], cpu[0][mode]))
+            assert diff <= TRAIN_PARITY_REL * gmax, (mode, row, diff / gmax)
+        assert gpu[0][mode + "/loss"] == pytest.approx(cpu[0][mode + "/loss"], rel=1e-5)
+
+
+def test_cuda_state_round_trips_through_a_checkpoint(cuda, tmp_path):
+    from repro_torch.io import checkpoint as ckpt
+    from repro_torch.utils.treeutil import tree_leaves, tree_meta
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = {"params": {"w": torch.randn((1000, 77), generator=gen, device="cuda"),
+                        "layers": [{"b": torch.randn((13,), generator=gen, device="cuda")}]},
+             "opt": {"step": 5, "count": torch.arange(7, device="cuda", dtype=torch.int32)},
+             "step": 5}
+    before = [t.clone() for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
+    saver = ckpt.AsyncCheckpointer(str(tmp_path), keep=1)
+    saver.save(5, state)
+    for t in tree_leaves(state):  # an in-place update right after save returns
+        if isinstance(t, torch.Tensor):
+            t.add_(1)
+    saver.close()
+    like = {**state, "params": tree_meta(state["params"]),
+            "opt": {**state["opt"], "count": tree_meta(state["opt"]["count"])}}
+    back = ckpt.restore(str(tmp_path), 5, like, device="cuda")
+    got = [t for t in tree_leaves(back) if isinstance(t, torch.Tensor)]
+    assert all(t.is_cuda for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, before))
+    assert back["step"] == 5 and back["opt"]["step"] == 5

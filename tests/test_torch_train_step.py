@@ -29,9 +29,10 @@ from repro.train import optimizer as jopt
 from repro_torch.configs import get_smoke
 from repro_torch.models.model_zoo import build, synthetic_batch
 from repro_torch.train import optimizer as opt
-from repro_torch.train.train_step import TrainStepConfig, make_step, value_and_grad
+from repro_torch.train.train_step import TrainStepConfig, value_and_grad
 from repro_torch.train.trainer import Trainer, TrainerConfig
-from repro_torch.launch.mesh import Mesh, spawn
+from repro_torch.launch.mesh import Mesh, make_host_mesh, spawn
+from repro_torch.launch.train import main as launch_main
 from repro_torch.utils.convert import params_from_numpy
 from repro_torch.utils.treeutil import tree_flatten, tree_leaves
 from torch_worlds import ALPHA, N_ROWS, train_cases, unflatten_params
@@ -122,19 +123,23 @@ def test_model_loss_without_autograd_needs_no_checkpoint():
 
 
 def test_unported_modes_and_options_are_refused():
+    """What is still unported raises naming its ROADMAP item: adaptive
+    sizing (A9), a model axis (A8) and the reference's other families
+    (A12). Checkpoints and the conventional and overlap steps over many
+    rows are ported (tests/test_torch_trainer.py)."""
     cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.float32)
     model = build(cfg, device="cpu")
     mesh = Mesh(n_rows=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_step(model, mesh, opt.OptConfig(), TrainStepConfig(mode="overlap"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_step(model, Mesh(n_rows=4, device="cpu"), opt.OptConfig(), TrainStepConfig())
-    for kw in (dict(ckpt_every=5), dict(fail_at_step=1), dict(adapt=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            Trainer(model, mesh, None, opt.OptConfig(), TrainStepConfig(), TrainerConfig(**kw))
-    trainer = Trainer(model, mesh, None, opt.OptConfig(), TrainStepConfig(), TrainerConfig())
-    with pytest.raises(NotImplementedError, match="A7"):
-        trainer.run(resume=True)
+    with pytest.raises(NotImplementedError, match="A9"):
+        Trainer(model, mesh, None, opt.OptConfig(), TrainStepConfig(),
+                TrainerConfig(adapt=object()))
+    with pytest.raises(NotImplementedError, match="A8"):
+        make_host_mesh(4, 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        launch_main(["--smoke", "--device", "cpu", "--model", "2"])
+    for name in ("mixtral-8x7b", "hymba-1.5b", "whisper-small", "pixtral-12b"):
+        with pytest.raises(NotImplementedError, match="A12"):
+            get_smoke(name)
 
 
 JAX_TRAIN = """
@@ -215,7 +220,8 @@ def world(tmp_path_factory):
     jax_out = dict(np.load(jax_path))
     both = str(tmp / "both.npz")
     np.savez(both, **batch, **{k: v for k, v in jax_out.items() if k.startswith("p0/")})
-    port = spawn(train_cases, N_ROWS, device="cpu", args=(both,), timeout_s=240)
+    port = spawn(train_cases, N_ROWS, device="cpu", args=(both, str(tmp / "ckpt")),
+                 timeout_s=240)
     return jax_out, port
 
 

@@ -72,7 +72,7 @@ def channel_cases(mesh, inputs_path: str) -> dict:
     return {k: _np(v) for k, v in out.items()}
 
 
-def train_cases(mesh, inputs_path: str) -> dict:
+def train_cases(mesh, inputs_path: str, ckpt_dir: str) -> dict:
     """The decoupled step (with and without the analytics chain, and with
     the int8 wire) on the reference's parameters, the port's conventional
     step on the global batch and on compute row 1's shard alone, and a
@@ -133,10 +133,183 @@ def train_cases(mesh, inputs_path: str) -> dict:
     trainer = Trainer(model, mesh, pipe, adamw,
                       TrainStepConfig(mode="decoupled", reduce_alpha=ALPHA,
                                       wire_chunk_bytes=65536),
-                      TrainerConfig(total_steps=3, log_every=1))
+                      TrainerConfig(total_steps=3, log_every=1, ckpt_dir=ckpt_dir))
     state = {"params": params, "opt": init_opt_state(adamw, params), "step": 0}
     trainer.run(state)
     out["trainer/loss"] = np.array([row["loss"] for row in trainer.metrics_log], np.float64)
+    return out
+
+
+# -- the data-parallel and ZeRO-1 steps, checkpoints, crash and resume ------------------
+
+# the crash-resume sequence of the reference's
+# test_trainer_crash_resume_and_elastic: decoupled on 8 rows, a crash at
+# step 5 (checkpoint every 3), then conventional on 4 rows to step 8
+CRASH = dict(seq=16, global_batch=8, lr=1e-3, warmup=2, total=20, steps=8, ckpt_every=3,
+             fail_at=5)
+ADAMW_STEPS = 3
+ADAMW_LR = 1e-3
+MOMENT_STEPS = 2  # the checkpoint that crosses modes, then one more step
+
+
+def _trainer_parts(inp: dict):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model_zoo import build
+    from repro_torch.utils.convert import params_from_numpy
+
+    cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.float32)
+    model = build(cfg, device="cpu")
+    params = params_from_numpy(unflatten_params(inp, "p0/"), cfg, "cpu",
+                               param_dtype=torch.float32)
+    return cfg, model, params
+
+
+def _crash_trainer(model, mesh, mode: str, ckpt_dir: str, fail: bool):
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import TrainStepConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    c = CRASH
+    pipe = Pipeline(DataConfig(vocab_size=model.cfg.vocab_size, seq_len=c["seq"],
+                               global_batch=c["global_batch"]))
+    opt = OptConfig(lr=c["lr"], warmup_steps=c["warmup"], total_steps=c["total"])
+    ts = TrainStepConfig(mode=mode, reduce_alpha=ALPHA) if mode == "decoupled" else \
+        TrainStepConfig(mode=mode)
+    return Trainer(model, mesh, pipe, opt, ts,
+                   TrainerConfig(total_steps=c["steps"], ckpt_every=c["ckpt_every"],
+                                 ckpt_dir=ckpt_dir, log_every=1,
+                                 fail_at_step=c["fail_at"] if fail else None))
+
+
+def trainer_cases(mesh, inputs_path: str, ckpt_root: str) -> dict:
+    """In an 8-row world: one SGD step (lr 1) of the conventional and
+    overlap steps; three AdamW steps of each with the clip the inputs name
+    (and conventional without it); the decoupled trainer's crash at step
+    5; and checkpoints that cross between overlap and conventional mode."""
+    import os
+
+    from repro_torch.data.pipeline import DataConfig, Pipeline, row_shard
+    from repro_torch.io import checkpoint as ckpt
+    from repro_torch.train import sharding
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainStepConfig, make_step
+    from repro_torch.train.trainer import SimulatedFailure, Trainer, TrainerConfig
+    from repro_torch.utils.treeutil import tree_flatten
+
+    inp = dict(np.load(inputs_path))
+    cfg, model, params = _trainer_parts(inp)
+    out = {}
+
+    def flat(tree, prefix):
+        out.update({f"{prefix}{i}": _np(v) for i, v in enumerate(tree_flatten(tree)[0])})
+
+    def run(mode, opt_cfg, batches):
+        """``len(batches)`` steps of ``mode`` from the inputs' parameters:
+        (params, whole optimizer state, losses, the step's timings)."""
+        step = make_step(model, mesh, opt_cfg, TrainStepConfig(mode=mode))
+        p, o = params, init_opt_state(opt_cfg, params)
+        plan = sharding.zero1_plan(params, mesh.n_rows, mesh.row)
+        if mode == "overlap":
+            o = sharding.shard_opt_state(plan, o)
+        losses = []
+        for b in batches:
+            p, o, m = step(p, o, row_shard(b, mesh.row, mesh.n_rows))
+            losses.append(m["loss"])
+        if mode == "overlap":
+            out[f"{mode}/moment_elems"] = np.int64(o["m"].numel())
+            o = sharding.gather_opt_state(plan, mesh, o)
+        return p, o, np.asarray(losses, np.float64), step.timings
+
+    sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
+                    weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
+    batch = {k: torch.from_numpy(inp["batch/" + k]) for k in ("tokens", "labels", "mask")}
+    for mode in ("conventional", "overlap"):
+        new, _, losses, timings = run(mode, sgd, [batch])
+        flat(new, f"sgd/{mode}/new/")
+        out[f"sgd/{mode}/loss"] = losses
+        out[f"sgd/{mode}/phases"] = np.array(sorted(timings[0]))
+
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8,
+                               kind="zipf", skew=0.4))
+    batches = [pipe.global_batch(s) for s in range(ADAMW_STEPS)]
+    for name, clip in (("clip", float(inp["clip"])), ("noclip", 0.0)):
+        adamw = OptConfig(lr=ADAMW_LR, warmup_steps=0, total_steps=ADAMW_STEPS,
+                          grad_clip=clip)
+        for mode in ("conventional", "overlap") if clip else ("conventional",):
+            p, o, losses, _ = run(mode, adamw, batches)
+            flat(p, f"adamw_{name}/{mode}/params/")
+            flat(o["m"], f"adamw_{name}/{mode}/m/")
+            flat(o["v"], f"adamw_{name}/{mode}/v/")
+            out[f"adamw_{name}/{mode}/loss"] = losses
+
+    # the reference's crash: decoupled on 8 rows, checkpoints at step 3
+    crash_dir = os.path.join(ckpt_root, "crash")
+    tr = _crash_trainer(model, mesh, "decoupled", crash_dir, fail=True)
+    state = {"params": _clone(params), "opt": init_opt_state(tr.opt_cfg, params), "step": 0}
+    try:
+        tr.run(state)
+        out["crash/raised"] = np.bool_(False)
+    except SimulatedFailure:
+        out["crash/raised"] = np.bool_(True)
+    tr.close()
+    out["crash/loss"] = np.array([r["loss"] for r in tr.metrics_log], np.float64)
+    out["crash/latest"] = np.int64(ckpt.latest_step(crash_dir))
+
+    # checkpoints across modes: MOMENT_STEPS steps in one mode, then the
+    # other resumes from its checkpoint and takes one more step; against
+    # conventional mode run straight through
+    adamw = OptConfig(lr=ADAMW_LR, warmup_steps=0, total_steps=MOMENT_STEPS + 1)
+    for name, legs in (("overlap_then_conventional", ("overlap", "conventional")),
+                       ("conventional_then_overlap", ("conventional", "overlap")),
+                       ("straight", ("conventional",))):
+        d = os.path.join(ckpt_root, name)
+        for i, mode in enumerate(legs):
+            total = MOMENT_STEPS + 1 if i == len(legs) - 1 else MOMENT_STEPS
+            tr = Trainer(model, mesh, pipe, adamw, TrainStepConfig(mode=mode),
+                         TrainerConfig(total_steps=total, ckpt_every=MOMENT_STEPS,
+                                       ckpt_dir=d, log_every=1))
+            state = tr.run({"params": _clone(params), "opt": init_opt_state(adamw, params),
+                            "step": 0})
+            tr.close()
+            key = f"cross/{name}/{i}"
+            for part, tree in (("params", state["params"]), ("m", state["opt"]["m"]),
+                               ("v", state["opt"]["v"])):
+                flat(tree, f"{key}/{part}/")
+            out[f"{key}/steps"] = np.array([r["step"] for r in tr.metrics_log])
+            out[f"{key}/moment_bytes"] = np.int64(tr.moment_bytes)
+            if total == MOMENT_STEPS:  # what the files hold, read back
+                saved = tr.restore(MOMENT_STEPS, state)
+                flat(saved["opt"]["m"], f"{key}/saved_m/")
+                flat(saved["opt"]["v"], f"{key}/saved_v/")
+    return out
+
+
+def _clone(tree):
+    from repro_torch.utils.treeutil import tree_map
+
+    return tree_map(torch.clone, tree)
+
+
+def elastic_case(mesh, inputs_path: str, ckpt_root: str) -> dict:
+    """The crash's checkpoint resumed in conventional mode on 4 rows, to
+    step 8."""
+    import os
+
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.utils.treeutil import tree_flatten
+
+    inp = dict(np.load(inputs_path))
+    _, model, params = _trainer_parts(inp)
+    tr = _crash_trainer(model, mesh, "conventional", os.path.join(ckpt_root, "crash"),
+                        fail=False)
+    state = tr.run({"params": params, "opt": init_opt_state(tr.opt_cfg, params), "step": 0})
+    tr.close()
+    out = {f"final/{i}": _np(v) for i, v in enumerate(tree_flatten(state["params"])[0])}
+    out["loss"] = np.array([r["loss"] for r in tr.metrics_log], np.float64)
+    out["steps"] = np.array([r["step"] for r in tr.metrics_log])
+    out["resumed"] = np.int64(tr.resumed["step"])
+    out["step"] = np.int64(state["step"])
     return out
 
 
@@ -177,6 +350,41 @@ def cuda_fold_case(mesh) -> dict:
             "scan": {k: v.cpu().numpy() for k, v in scan.items()},
             "payload": {k: v.cpu().numpy() for k, v in payload.items()},
             "stats": mesh.stats.as_dict()}
+
+
+def data_parallel_case(mesh) -> dict:
+    """One SGD step (lr 1) of the conventional and the overlap step on
+    the f32 tinyllama smoke config, from the same parameters and batch on
+    any device (drawn on the CPU, then moved): the new parameters."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig, Pipeline, row_shard
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train import sharding
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainStepConfig, make_step
+    from repro_torch.utils.treeutil import tree_flatten, tree_map
+
+    cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.float32)
+    params = tree_map(lambda t: t.to(mesh.device),
+                      build(cfg, device="cpu").init(0, param_dtype=torch.float32))
+    model = build(cfg, device=mesh.device)
+    sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
+                    weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
+    batch = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4,
+                                kind="zipf", skew=0.4)).global_batch(0)
+    out = {}
+    for mode in ("conventional", "overlap"):
+        opt = init_opt_state(sgd, params)
+        if mode == "overlap":
+            opt = sharding.shard_opt_state(sharding.zero1_plan(params, mesh.n_rows, mesh.row),
+                                           opt)
+        new, _, metrics = make_step(model, mesh, sgd, TrainStepConfig(mode=mode))(
+            params, opt, row_shard(batch, mesh.row, mesh.n_rows, mesh.device))
+        out[mode] = [t.cpu().numpy() for t in tree_flatten(new)[0]]
+        out[mode + "/loss"] = metrics["loss"]
+    out["p0"] = [t.cpu().numpy() for t in tree_flatten(params)[0]]
+    out["device"] = str(mesh.device)
+    return out
 
 
 # -- the dataflow runtime and the MapReduce app -----------------------------------------
