@@ -39,6 +39,24 @@ prints no result:
                the same checks, prefill time per call, prefill tokens/s
                and time to first token; then 8 decode ticks of 2 slots
                at 15,000 and 9,500 tokens profiled as in phase 5.
+6b. scenario — the serving user's path, `python -m
+               repro_torch.examples.serve_lm --scenario bursty-prefix --paged
+               --trace PATH`, through the example's own `serve_lm.serve`
+               on the same qwen2.5-3b weights: 145 requests of three
+               tenants through `FleetScheduler` (WFQ,
+               token budget 2000, aging 0.05) into the paged engine (4
+               slots, max_len 160, prefix cache) with the tracer on: a
+               valid Chrome trace, one closed lifecycle per accepted
+               request, the registry's counts against the engine's, launch
+               counts (paged = layers x decode ticks, flash = layers x
+               prefill calls, argmax >= ticks + admissions) and the
+               tracer's own host time (its calls made again on a fresh
+               tracer); then the same replay with the tracer off, whose
+               streams, ticks, ledger and every decode tick's logits (a hash
+               a tick) must be identical; then `single-fifo` through two
+               aligned engines in lockstep, `FleetScheduler.fifo()` against
+               a bare deque (`DequeShim`), every decode tick's logits bit for
+               bit.
 7. mamba    — mamba2-130m at full width and depth, random bf16 weights
                from --seed, through `make_engine` in aligned mode over
                the dense store (8 slots, max_len 16384): 16 prompts of
@@ -140,11 +158,13 @@ exits non-zero before printing any result. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1365,6 +1385,253 @@ def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16,
                            for ms, n, name in kernels[:10]]}
     emit(out)
     return out
+
+
+# -- phase 6b: traffic scenarios through the serving example -----------------
+
+SCENARIO = "bursty-prefix"
+FIFO_SCENARIO = "single-fifo"
+
+
+class DequeShim:
+    """The submit-order admission path written apart from the port's
+    scheduler, as the reference's FIFO test writes it
+    (`tests/test_fleet.py`, `_DequeShim`): the bit-identity reference for
+    `FleetScheduler.fifo()`."""
+
+    def __init__(self):
+        self.q = collections.deque()
+
+    def submit(self, req, now=0):
+        self.q.append(req)
+        return True
+
+    def take(self, now, max_n=None, inflight_tokens=0):
+        out = []
+        while self.q and (max_n is None or len(out) < max_n):
+            out.append(self.q.popleft())
+        return out
+
+    def pending(self):
+        return len(self.q)
+
+    def slo(self, tenant):
+        from repro_torch.serve.traffic import SLOClass
+
+        return SLOClass()
+
+
+def tracer_emit_ms(events, repeats: int = 21) -> float:
+    """Host ms to make again, through the tracer's own methods on a fresh
+    tracer, the calls that recorded ``events`` (a traced run's buffer):
+    the median of ``repeats`` passes. The tracer's host cost of that run,
+    measured apart from the run's own tick-to-tick spread."""
+    from repro_torch.obs.trace import REQUESTS_PROCESS, Tracer
+
+    def calls(t):
+        for ev in events:
+            ph, track, args = ev["ph"], ev["track"], dict(ev.get("args", {}))
+            if track[0] == REQUESTS_PROCESS and ph in ("B", "E"):
+                uid = int(track[1][3:])
+                yield (t.request_begin if ph == "B" else t.request_end), (uid,), args
+            elif ph == "X" and ev["dur"] == 0 and "uid" in args:
+                uid = args.pop("uid")
+                yield t.request_mark, (uid, ev["name"], track), args
+            elif ph == "B":
+                yield t.begin, (ev["name"], track), args
+            elif ph == "E":
+                yield t.end, (track,), args
+            elif ph == "C":
+                yield t.counter, (ev["name"], args, track), {}
+            elif ph == "i":
+                yield t.instant, (ev["name"], track), args
+            # s/t/f: made by request_begin/request_mark/request_end
+
+    times = []
+    for _ in range(repeats):
+        t = Tracer()
+        todo = list(calls(t))
+        ts = time.perf_counter()
+        for fn, a, kw in todo:
+            fn(*a, **kw)
+        times.append((time.perf_counter() - ts) * 1e3)
+        if len(t.events) != len(events):
+            raise AssertionError(f"tracer re-emit made {len(t.events)} events, "
+                                 f"not {len(events)}")
+    return statistics.median(times)
+
+
+def scenario_replay(torch, model, params, *, trace: str | None) -> dict:
+    """One replay of `SCENARIO` through `examples.serve_lm.serve` (the
+    paged engine under the multi-tenant scheduler, the example's
+    settings), with every kernel count set to 0 just before and read just
+    after. A per-tick hook hashes each decode tick's logits on the host
+    (so no logits are held) and its host time is left out of the run's
+    time; prefill calls are counted through the model."""
+    import hashlib
+
+    from repro_torch.examples import serve_lm
+
+    calls = []
+
+    def counted_prefill(*a, **kw):
+        calls.append(1)
+        return model.prefill(*a, **kw)
+
+    hashes, hook_s, tick_ms, last = [], 0.0, [], None
+
+    def on_tick(engine):
+        nonlocal hook_s, last
+        ts = time.perf_counter()
+        if last is not None:  # the tick between the previous hook's end and now
+            tick_ms.append((ts - last) * 1e3)
+        logits = engine.last_logits if engine.last_tick["decode_batch"] else None
+        hashes.append(None if logits is None else hashlib.sha256(
+            logits.contiguous().view(torch.int16).cpu().numpy().tobytes()).hexdigest())
+        last = time.perf_counter()
+        hook_s += last - ts
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for k in counters.values():
+        k.launches = 0
+    out = serve_lm.serve(dataclasses.replace(model, prefill=counted_prefill), params,
+                         scenario_name=SCENARIO, paged=True, trace=trace, on_tick=on_tick)
+    launches = {name: k.launches for name, k in counters.items()}
+    eng = out["engine"]
+    wall = out["seconds"] - hook_s
+    return {"out": out, "engine": eng, "launches": launches, "prefill_calls": len(calls),
+            "decode_ticks": sum(h is not None for h in hashes), "hashes": hashes,
+            "wall_s": wall, "hook_s": hook_s, "ms_per_tick": wall * 1e3 / eng.tick,
+            "median_tick_ms": statistics.median(tick_ms),
+            "streams": {r.uid: (tuple(r.out_tokens), r.first_token_tick, r.done_tick)
+                        for r in eng.finished},
+            "ledger": eng.ledger.snapshot()}
+
+
+def scenario_phase(torch, np, model, params, smi: str) -> dict:
+    """Phase 6b: the serving user's path, `python -m
+    repro_torch.examples.serve_lm --scenario bursty-prefix --paged --trace
+    PATH`, through the example's own `serve` at qwen2.5-3b's full width and
+    depth. (1) The replay with the tracer on: a valid Chrome trace, one
+    closed lifecycle per accepted request, the registry's counts against
+    the engine's, and the launch counts. (2) The same replay with the
+    tracer off: identical streams, ticks and ledger, and every decode
+    tick's logits bit for bit (a hash per tick). (3) `single-fifo` through
+    two aligned engines in lockstep, one under `FleetScheduler.fifo()` and
+    one under `DequeShim`: every decode tick's logits bit for bit, the same
+    streams."""
+    import tempfile
+
+    from repro_torch.obs.export import validate_chrome_trace
+    from repro_torch.serve import EngineConfig, make_engine
+    from repro_torch.serve.traffic import scenario
+
+    cfg = model.cfg
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scenario_trace.json")
+        on = scenario_replay(torch, model, params, trace=path)
+        with open(path) as fh:
+            obj = json.load(fh)
+    errors = validate_chrome_trace(obj)
+    eng = on["engine"]
+    tr = on["out"]["trace"]
+    life, metrics = tr["lifecycle"], on["out"]["metrics"]
+    requests = on["out"]["requests"]
+    accepted = requests - eng.sched.rejected
+    snap = on["ledger"]
+    n = on["launches"]
+    emit_ms = tracer_emit_ms(list(tr["tracer"].events))
+    line = {"phase": "scenario", "run": "traced", "scenario": SCENARIO, "model": cfg.name,
+            "nvidia_smi": smi, "requests": requests, "accepted": accepted,
+            "ticks": eng.tick, "decode_ticks": on["decode_ticks"],
+            "prefill_calls": on["prefill_calls"], "cold_admissions": eng.stats["prefills"],
+            "tokens_out": eng.stats["tokens_out"],
+            "prompt_tokens": int(sum(r.prompt.shape[0] for r in eng.finished)),
+            "wall_s": on["wall_s"], "tokens_per_s": eng.stats["tokens_out"] / on["wall_s"],
+            "ms_per_tick": on["ms_per_tick"], "median_tick_ms": on["median_tick_ms"],
+            "hook_s": on["hook_s"],
+            "prefix_hit_tokens": eng.stats["prefix_hit_tokens"],
+            "prefill_skips": eng.stats["prefill_skips"],
+            "ttft_p50": snap["ttft_p50"], "ttft_p99": snap["ttft_p99"],
+            "latency_p99": snap["latency_p99"], "good_tokens": snap["good_tokens"],
+            "by_tenant": snap["by_tenant"], "trace_events": tr["events"],
+            "trace_bytes": tr["bytes"], "trace_dropped": tr["dropped"], "lifecycle": life,
+            "tracer_emit_ms": emit_ms, "tracer_emit_ms_per_tick": emit_ms / eng.tick,
+            "trace_errors": errors[:5], "launches": n,
+            "registry": {k: metrics.get(k) for k in ("sched.submitted", "sched.admitted",
+                                                     "serve.completions", "serve.tokens_out",
+                                                     "serve.good_tokens")}}
+    emit(line)
+    if errors:
+        raise AssertionError(f"scenario: invalid Chrome trace: {errors[:5]}")
+    if not (life["begins"] == life["ends"] == accepted) or life["open"] \
+            or life["double_begins"] or life["double_ends"]:
+        raise AssertionError(f"scenario: lifecycle {life} against {accepted} accepted")
+    if len(eng.finished) != accepted or any(len(r.out_tokens) != r.max_new_tokens
+                                           for r in eng.finished):
+        raise AssertionError("scenario: not every accepted request finished with its tokens")
+    if (metrics.get("sched.submitted"), metrics.get("serve.completions"),
+            metrics.get("serve.tokens_out")) != (accepted, len(eng.finished),
+                                                  eng.stats["tokens_out"]):
+        raise AssertionError(f"scenario: registry {line['registry']} against the engine's")
+    if n["paged_decode_attention"] != cfg.n_layers * on["decode_ticks"]:
+        raise AssertionError(f"scenario: paged kernel ran {n['paged_decode_attention']} "
+                             f"times, want {cfg.n_layers} x {on['decode_ticks']} ticks")
+    if not on["prefill_calls"] or n["flash_attention"] != cfg.n_layers * on["prefill_calls"]:
+        raise AssertionError(f"scenario: flash kernel ran {n['flash_attention']} times, want "
+                             f"{cfg.n_layers} x {on['prefill_calls']} prefill calls")
+    if n["argmax_last"] < on["decode_ticks"] + eng.stats["prefills"]:
+        raise AssertionError(f"scenario: argmax kernel ran {n['argmax_last']} times, want >= "
+                             f"{on['decode_ticks']} ticks + {eng.stats['prefills']} admissions")
+    if eng.last_logits is None or not bool(torch.isfinite(eng.last_logits).all()):
+        raise AssertionError("scenario: non-finite logits")
+    del on["out"], on["engine"], eng
+    gc.collect()
+
+    off = scenario_replay(torch, model, params, trace=None)
+    same = {k: off[k] == on[k] for k in ("streams", "ledger", "hashes")}
+    emit({"phase": "scenario", "run": "untraced", "ticks": off["engine"].tick,
+          "decode_ticks": off["decode_ticks"], "wall_s": off["wall_s"],
+          "tokens_per_s": off["engine"].stats["tokens_out"] / off["wall_s"],
+          "ms_per_tick": off["ms_per_tick"], "median_tick_ms": off["median_tick_ms"],
+          "tracer_host_ms_per_tick": on["ms_per_tick"] - off["ms_per_tick"],
+          "tracer_host_median_ms_per_tick": on["median_tick_ms"] - off["median_tick_ms"],
+          "identical_to_traced": same, "launches": off["launches"]})
+    if not all(same.values()):
+        raise AssertionError(f"scenario: tracing changed the run: {same}")
+    del off["out"], off["engine"]
+    gc.collect()
+
+    # single-fifo: the FIFO scheduler against the bare deque, in lockstep
+    sc = scenario(FIFO_SCENARIO)
+    ecfg = EngineConfig(max_batch=4, max_len=160)
+    a = make_engine(model, params, ecfg)
+    b = make_engine(model, params, ecfg, sched=DequeShim())
+    for _, r in sc.requests(cfg.vocab_size):
+        a.submit(dataclasses.replace(r, out_tokens=[]))
+        b.submit(dataclasses.replace(r, out_tokens=[]))
+    ticks, compared = 0, 0
+    t0 = time.perf_counter()
+    while not a.idle():
+        a.step()
+        b.step()
+        ticks += 1
+        if ticks > 500:
+            raise AssertionError("single-fifo: the engines did not drain")
+        if a.last_tick["decode_batch"]:
+            if not torch.equal(a.last_logits, b.last_logits):
+                raise AssertionError(f"single-fifo: logits differ at tick {a.tick}")
+            compared += 1
+    fifo_s = time.perf_counter() - t0
+    streams = [[r.out_tokens for r in e.finished] for e in (a, b)]
+    fifo = {"phase": "scenario", "run": FIFO_SCENARIO, "requests": len(a.finished),
+            "ticks": ticks, "decode_ticks_compared": compared, "wall_s": fifo_s,
+            "deque_idle": b.idle(), "streams_identical": streams[0] == streams[1]}
+    emit(fifo)
+    if not b.idle() or streams[0] != streams[1] or len(a.finished) != len(sc.generate()):
+        raise AssertionError(f"single-fifo: the FIFO scheduler differs from the deque: {fifo}")
+    return {"launches": line["launches"], "traced": line, "fifo": fifo}
 
 
 # -- phase 7: mamba2-130m in aligned mode ------------------------------------
@@ -2596,6 +2863,12 @@ def main(argv=None) -> int:
     # arm's 15,000- and 9,500-token prompts
     profile_decode(torch, np, qmodel, qparams, seed=args.seed + 7, ticks=8,
                    prompt_lens=(15_000, 9_500), max_len=16384)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6b: the serving example's traffic scenarios, qwen2.5-3b at full
+    # width and depth, the same weights
+    scen = scenario_phase(torch, np, qmodel, qparams, smi)
     del qparams
     # the arms' engines hold their params in reference cycles (the timed
     # step closures): collect them, so the mamba arm's peak is its own
@@ -2629,9 +2902,10 @@ def main(argv=None) -> int:
 
     # phase 12: summary; "launches" is the count from the run of the path
     # each kernel belongs to (the bf16 tinyllama arm for paged decode,
-    # argmax and flash; the mamba arm for the SSD scan; the train phase's
-    # decoupled run, summed over its four ranks, for chunk_accumulate, every
-    # train run's counts beside it (launches_train_by_run); the MapReduce
+    # argmax and flash, the scenario phase's traced replay beside it; the
+    # mamba arm for the SSD scan; the train phase's decoupled run, summed
+    # over its four ranks, for chunk_accumulate, every train run's counts
+    # beside it (launches_train_by_run); the MapReduce
     # phase, its four runs summed over their eight ranks, for histogram),
     # each arm's counts beside it (the CG and PIC phases launch none of the
     # kernels: their stencil, dots, push and merges are plain PyTorch, as the
@@ -2656,6 +2930,7 @@ def main(argv=None) -> int:
                     "histogram": mapreduce["launches"]}.get(name, bf16["launches"])
         kern["launches"] = main_arm[name]
         kern["launches_long_arm"] = long["launches"][name]
+        kern["launches_scenario"] = scen["launches"][name]
         kern["launches_mamba_arm"] = mamba["launches"][name]
         kern["launches_train"] = train["launches"][name]
         kern["launches_train_by_run"] = {run: counts[name]
@@ -2668,7 +2943,7 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "plain_device_ms", "library_device_ms", "launches_long_arm",
-            "launches_mamba_arm", "launches_train", "launches_train_by_run",
+            "launches_scenario", "launches_mamba_arm", "launches_train", "launches_train_by_run",
             "launches_mapreduce", "launches_cg", "launches_pic")
     emit({"kernels": [{k: kern[k] for k in keys + ("isolated_2p26",) if k in kern}
                       for kern in kernels]})

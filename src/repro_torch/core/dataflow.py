@@ -43,6 +43,7 @@ from repro_torch.core.channel import Operator, StreamChannel, broadcast_from_row
 from repro_torch.core.groups import COMPUTE, GroupedMesh
 from repro_torch.core.wire import WireSpec, get_codec
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.obs import trace as _obs
 from repro_torch.utils.treeutil import tree_leaves, tree_map
 
 
@@ -144,6 +145,9 @@ class ServiceGraph:
             self.gmesh.mesh, axis=self.gmesh.axis,
             rows={g.name: int(rows[g.name]) for g in self.gmesh.service_groups},
             min_compute_rows=min_compute_rows)
+        if _obs.enabled():
+            _obs.instant("regroup", ("graph", "control"),
+                         **{k: int(v) for k, v in rows.items()})
         return dataclasses.replace(self, gmesh=gmesh)
 
     # -- queries ----------------------------------------------------------
@@ -240,19 +244,23 @@ class ServiceGraph:
             k = t - i  # the head wave this stage handles at tick t
             if not 0 <= k < plan["n_waves"]:
                 continue
-            if i == 0:
-                accs[0] = ch.stream_fold(stage.elements, stage.operator, accs[0],
-                                         count=stage.count, waves=[k])
-            else:
-                # one emission, every wave of this edge, the operator's
-                # stream step re-indexed to k
-                elem = plan["emissions"][i].pop(k)
-                op = stage.operator
-                accs[i] = ch.stream_fold(elem[None, :],
-                                         lambda acc, e, _j, _op=op, _k=k: _op(acc, e, _k),
-                                         accs[i])
-            if i < len(stages) - 1:
-                plan["emissions"][i + 1][k] = stage.emit(accs[i], k)
+            # a host-side span: it shows the schedule (which stage took
+            # which wave at which tick) as the host issued it; it never
+            # waits for the device
+            with _obs.span(f"{stage.src}->{stage.dst}", ("graph", f"stage{i}"), wave=k, tick=t):
+                if i == 0:
+                    accs[0] = ch.stream_fold(stage.elements, stage.operator, accs[0],
+                                             count=stage.count, waves=[k])
+                else:
+                    # one emission, every wave of this edge, the operator's
+                    # stream step re-indexed to k
+                    elem = plan["emissions"][i].pop(k)
+                    op = stage.operator
+                    accs[i] = ch.stream_fold(elem[None, :],
+                                             lambda acc, e, _j, _op=op, _k=k: _op(acc, e, _k),
+                                             accs[i])
+                if i < len(stages) - 1:
+                    plan["emissions"][i + 1][k] = stage.emit(accs[i], k)
 
 
 def delta_emitter(init: Any) -> Callable[[Any, int], Any]:

@@ -1,5 +1,5 @@
-"""The serving-engine API of the port: `KVSpec`, `ServeConfig` and the
-`make_engine` front door.
+"""The serving-engine API of the port: `KVSpec`, `ServeConfig`, the
+`ServingEngine` protocol and the `make_engine` front door.
 
 The port has the colocated `Engine` in aligned and continuous mode. The
 disaggregated, fleet and speculative engines are later slices:
@@ -8,6 +8,11 @@ disaggregated, fleet and speculative engines are later slices:
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING, Protocol, runtime_checkable
+
+if TYPE_CHECKING:  # pragma: no cover
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.sched import FleetLedger
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +65,40 @@ class ServeConfig:
             raise ValueError("paged KV needs mode='continuous' (per-slot cursors)")
 
 
+@runtime_checkable
+class ServingEngine(Protocol):
+    """What it means to be a serving engine: `traffic.replay` and the
+    examples drive engines through this surface alone."""
+
+    def submit(self, req: "Request") -> bool:
+        """Queue a request; False = refused at the door (budget)."""
+        ...
+
+    def step(self) -> None:
+        """One engine tick: admit, decode, retire."""
+        ...
+
+    def drain(self, max_steps: int = 10_000) -> int:
+        """Step until idle; return the steps taken. Raises RuntimeError
+        if the engine is still not idle after ``max_steps``."""
+        ...
+
+    def idle(self) -> bool:
+        ...
+
+    def workload_sample(self) -> dict:
+        """Per-tick analytics payload (decoupled-analytics stream)."""
+        ...
+
+    @property
+    def stats(self) -> dict:
+        ...
+
+    @property
+    def ledger(self) -> "FleetLedger":
+        ...
+
+
 def make_engine(model, params, cfg: ServeConfig, sched=None):
     """Build the engine a config describes: `EngineConfig` (or a bare
     `ServeConfig`) gives the colocated `Engine`. Any other serving config
@@ -77,4 +116,4 @@ def make_engine(model, params, cfg: ServeConfig, sched=None):
     )
 
 
-__all__ = ["KVSpec", "ServeConfig", "make_engine"]
+__all__ = ["KVSpec", "ServeConfig", "ServingEngine", "make_engine"]

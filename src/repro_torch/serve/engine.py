@@ -21,8 +21,17 @@ straight into the pool through the block tables (the paged decode kernel
 on the GPU) and returns its new K/V rows for the store to scatter.
 
 In both, the argmax kernel picks every admission's first token and
-every tick's next tokens. The reference's tracing spans are not ported
-(ROADMAP).
+every tick's next tokens.
+
+Tracing (`obs.trace`) emits what the reference's engine emits, where it
+does: a lifecycle span per accepted submit, the ``prefill`` /
+``prefill_packed`` spans and ``admit`` marks on ``("engine",
+"prefill")``, the decode span, ``retire`` marks and the ``kv`` counter on
+``("engine", "decode")``. It is host-side only: no span adds, reorders or
+waits for device work. A span closes when the host returns from the call
+it wraps, so the prefill and aligned decode spans time the dispatch; the
+continuous decode span ends after the tick's token copy to the host,
+the engine's one wait for the device each tick.
 """
 from __future__ import annotations
 
@@ -32,9 +41,16 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.sample import sample_last
+from repro_torch.obs import registry as _metrics
+from repro_torch.obs import trace as _obs
 from repro_torch.serve.api import ServeConfig
 from repro_torch.serve.kvstore import make_kvstore
 from repro_torch.serve.sched import FleetLedger, FleetScheduler
+
+# colocated-engine tracks (obs.trace): process "engine", one thread per
+# phase; requests flow-link through these via request_mark
+_T_PREFILL = ("engine", "prefill")
+_T_DECODE = ("engine", "decode")
 
 
 def prefill_bucket(n: int, minimum: int = 8, max_len: int | None = None) -> int:
@@ -165,9 +181,23 @@ class Engine:
                       "prefix_hit_tokens": 0, "prefill_skips": 0}
         self.last_tick: dict = {"prefill_lens": [], "decode_batch": 0}
 
+    @property
+    def cache(self) -> dict:
+        """The slot KV as a dense cache dict (a read view; the paged
+        store gathers its block tables)."""
+        if self.kv.kind == "dense":
+            return self.kv.cache
+        return self.kv.view([i for i, s in enumerate(self.slots) if s is not None])
+
     def submit(self, req: Request) -> bool:
         req.submitted_tick = self.tick
-        return self.sched.submit(req, now=self.tick)
+        ok = self.sched.submit(req, now=self.tick)
+        # the lifecycle span opens here and only here: a re-queue goes
+        # straight to sched.submit, so the one span closes in record_done
+        if ok and _obs.enabled():
+            _obs.request_begin(req.uid, tenant=req.tenant, tick=self.tick,
+                               prompt_tokens=int(req.prompt.shape[0]))
+        return ok
 
     def idle(self) -> bool:
         return self.sched.pending() == 0 and all(s is None for s in self.slots)
@@ -187,7 +217,11 @@ class Engine:
         for req in self.sched.take(self.tick, max_n=len(free)):
             slot = free.pop(0)
             self.slots[slot] = req
-            logits, cache1 = self._prefill(req.prompt)
+            with _obs.span("prefill", _T_PREFILL, uid=req.uid,
+                           tokens=int(req.prompt.shape[0])):
+                logits, cache1 = self._prefill(req.prompt)
+            if _obs.enabled():
+                _obs.request_mark(req.uid, "admit", _T_PREFILL, slot=slot)
             self.kv.admit(slot, cache1, int(req.prompt.shape[0]))
             first = sample_last(logits)[0]
             self.tokens[slot, 0] = first
@@ -212,6 +246,8 @@ class Engine:
             if entry is not None:
                 info = self.kv.admit_from_full(slot, entry)
                 self.tokens[slot, 0] = entry.first
+                if _obs.enabled():
+                    _obs.request_mark(req.uid, "admit:prefix_hit", _T_PREFILL, slot=slot)
                 self.stats["prefill_skips"] += 1
                 self.stats["prefix_hit_tokens"] += info["prefix_tokens"]
                 self.last_tick["prefix_hit_tokens"] += info["prefix_tokens"]
@@ -219,7 +255,11 @@ class Engine:
                 cold.append((slot, req))
         if not cold:
             return
-        logits, batch = self._prefill.run_batch([r.prompt for _, r in cold])
+        with _obs.span("prefill_packed", _T_PREFILL, batch=len(cold)):
+            logits, batch = self._prefill.run_batch([r.prompt for _, r in cold])
+        if _obs.enabled():
+            for slot, req in cold:
+                _obs.request_mark(req.uid, "admit", _T_PREFILL, slot=slot)
         call_nets = []
         for i, (slot, req) in enumerate(cold):
             n = int(req.prompt.shape[0])
@@ -248,7 +288,8 @@ class Engine:
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return
-        logits, cache = self.model.decode_step(self.params, self.kv.view(), self.tokens)
+        with _obs.span("decode", _T_DECODE, tick=self.tick, batch=len(active)):
+            logits, cache = self.model.decode_step(self.params, self.kv.view(), self.tokens)
         self.kv.absorb(cache, active)
         self.last_logits = logits
         next_tok = sample_last(logits)
@@ -264,17 +305,27 @@ class Engine:
         self.tick += 1
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if active:
+            _obs.begin("decode", _T_DECODE, tick=self.tick, batch=len(active))
             logits, rows_k, rows_v = self.model.decode_step_paged(
                 self.params, self.kv.kernel_view(active), self.tokens)
             self.kv.absorb_rows(rows_k, rows_v, active)
             self.last_logits = logits
             next_tok = sample_last(logits)
+            # the tick's one wait for the device, inside the span, so the
+            # span covers the device work and not only its dispatch
+            next_np = next_tok.cpu().numpy()
+            _obs.end(_T_DECODE)
             self.last_tick["decode_batch"] = len(active)
-            for slot in self._retire(next_tok.cpu().numpy()):
+            for slot in self._retire(next_np):
                 self.kv.free(slot)
             self.tokens = next_tok[:, None]
         self._admit_continuous()
         self.last_tick["kv"] = self.kv.stats
+        _metrics.publish_kv_stats(self.last_tick["kv"])
+        if _obs.enabled():
+            kv = self.last_tick["kv"]
+            _obs.counter("kv", {k: kv[k] for k in ("blocks_in_use", "live_tokens")
+                                if k in kv}, _T_DECODE)
         self.stats["steps"] += 1
 
     def _retire(self, next_np: np.ndarray) -> list[int]:
@@ -293,6 +344,8 @@ class Engine:
                 req.done = True
                 req.done_tick = self.tick
                 self.finished.append(req)
+                if _obs.enabled():
+                    _obs.request_mark(req.uid, "retire", _T_DECODE, slot=i)
                 self.ledger.record_done(req, self.sched.slo(req.tenant), self.tick)
                 self.slots[i] = None
                 freed.append(i)
@@ -311,3 +364,14 @@ class Engine:
                 f"slots={sum(s is not None for s in self.slots)}"
             )
         return max_steps
+
+    # the reference's earlier name, kept as an alias
+    run_until_drained = drain
+
+    def workload_sample(self) -> dict:
+        """Per-tick analytics payload for the decoupled analytics group."""
+        return {
+            "active_slots": sum(s is not None for s in self.slots),
+            "queue_depth": self.sched.pending(),
+            "tokens_out": self.stats["tokens_out"],
+        }

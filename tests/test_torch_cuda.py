@@ -1105,3 +1105,64 @@ def test_cuda_state_round_trips_through_a_checkpoint(cuda, tmp_path):
     assert all(t.is_cuda for t in got)
     assert all(torch.equal(a, b) for a, b in zip(got, before))
     assert back["step"] == 5 and back["opt"]["step"] == 5
+
+
+def _replay(model, params, *, trace_on=False):
+    """`bursty-prefix` (horizon cut to 24 ticks) through the multi-tenant
+    scheduler and the paged engine, as `examples/serve_lm.py` builds them:
+    (engine, per-tick logits on the host)."""
+    from repro_torch.obs import trace
+    from repro_torch.serve.sched import FleetScheduler
+    from repro_torch.serve.traffic import replay, scenario
+
+    sc = dataclasses.replace(scenario("bursty-prefix"), horizon=24)
+    if trace_on:
+        trace.enable()
+    try:
+        e = make_engine(model, params,
+                        EngineConfig(mode="continuous", max_batch=4, max_len=160,
+                                     kv=KVSpec(kind="paged", block_size=16, prefix_cache=True)),
+                        sched=FleetScheduler(sc.tenants, token_budget=200, aging=0.05))
+        logits = []
+        replay(e, sc, model.cfg.vocab_size,
+               on_tick=lambda eng: logits.append(
+                   eng.last_logits.cpu() if eng.last_tick["decode_batch"] else None))
+    finally:
+        tracer = trace.disable()
+    if trace_on:
+        life = tracer.lifecycle_report()
+        assert life["begins"] == life["ends"] == len(e.finished) and life["open"] == []
+    return e, logits
+
+
+def test_scenario_replay_on_gpu_matches_cpu(cuda):
+    """The same f32 weights replay the same scenario on both devices (the
+    kernels on the card, their plain versions on the CPU): the same
+    streams, first-token and done ticks, and ledger."""
+    cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.float32)
+    cpu_model, gpu_model = build(cfg, device="cpu"), build(cfg, device="cuda")
+    params = cpu_model.init(0)
+    paged0 = paged_decode_attention_kernel.launches
+    ge, _ = _replay(gpu_model, _to(params, cuda))
+    assert paged_decode_attention_kernel.launches > paged0
+    ce, _ = _replay(cpu_model, params)
+    by_uid = [{r.uid: (r.out_tokens, r.first_token_tick, r.done_tick) for r in e.finished}
+              for e in (ge, ce)]
+    assert by_uid[0] == by_uid[1] and len(by_uid[0]) > 20
+    assert ge.ledger.snapshot() == ce.ledger.snapshot()
+
+
+def test_tracing_on_the_card_does_not_change_logits(cuda):
+    """Tracing is host-side only: the same replay on the card with the
+    tracer off and on gives bit-identical logits every tick."""
+    cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.float32)
+    model = build(cfg, device="cuda")
+    params = model.init(0)
+    off, logits_off = _replay(model, params)
+    on, logits_on = _replay(model, params, trace_on=True)
+    assert len(logits_off) == len(logits_on)
+    for a, b in zip(logits_off, logits_on):
+        assert (a is None) == (b is None)
+        assert a is None or torch.equal(a, b)
+    assert {r.uid: r.out_tokens for r in off.finished} == \
+           {r.uid: r.out_tokens for r in on.finished}

@@ -395,6 +395,63 @@ def test_bidirectional_queries_match_jax():
     assert re.describe() == jre.describe() and re.alphas == jre.alphas
 
 
+class _FoldCounter:
+    """A stand-in channel for the schedule alone: each fold adds one."""
+
+    n_waves = 3
+
+    def stream_fold(self, elements, op, acc, count=None, waves=None):
+        return acc + 1
+
+
+def _traced_schedule(mod, tick_chain, regroup):
+    """The events of a two-stage chain ticked over its whole schedule and
+    of a regroup, with ``mod`` (a package's `obs.trace`) on."""
+    from types import SimpleNamespace
+
+    tracer = mod.enable()
+    try:
+        stages = [SimpleNamespace(src="compute", dst="reduce", elements=np.zeros((3, 2)),
+                                  operator=None, count=None, emit=lambda acc, k: acc),
+                  SimpleNamespace(src="reduce", dst="io", elements=None, operator=None,
+                                  count=None, emit=None)]
+        plan = {"stages": stages, "channels": [_FoldCounter(), _FoldCounter()],
+                "accs": [np.zeros(2), np.zeros(2)], "n_waves": 3, "emissions": {1: {}}}
+        for t in range(4):
+            tick_chain(plan, t)
+        regroup({"reduce": 3, "io": 2})
+    finally:
+        mod.disable()
+    return [(e["ph"], e.get("name"), e["track"], e.get("args")) for e in tracer.events], plan
+
+
+def test_schedule_spans_and_regroup_instant_match_jax():
+    """The runtime's trace: one span per stage and wave on ("graph",
+    "stage<i>") around the fold and the emit, and a "regroup" instant on
+    ("graph", "control") with the new rows, as the reference emits them."""
+    from repro.obs import trace as j_trace
+    from repro_torch.obs import trace as t_trace
+
+    kw = dict(stages={"reduce": 0.25, "io": 0.125},
+              edges=[("compute", "reduce"), ("reduce", "io")])
+    jg = JServiceGraph.build(_FakeJaxMesh(8), **kw)
+    tg = ServiceGraph.build(Mesh(n_rows=8, device="cpu"), **kw)
+    got, plan = _traced_schedule(t_trace, ServiceGraph._tick_chain, tg.regroup)
+    want, _ = _traced_schedule(j_trace, lambda p, t: JServiceGraph._tick_chain(jg, p, t),
+                               jg.regroup)
+    assert got == want
+    spans = [e for e in got if e[0] == "B"]
+    assert [(e[1], e[2], e[3]["wave"], e[3]["tick"]) for e in spans] == [
+        ("compute->reduce", ("graph", "stage0"), 0, 0),
+        ("compute->reduce", ("graph", "stage0"), 1, 1),
+        ("reduce->io", ("graph", "stage1"), 0, 1),
+        ("compute->reduce", ("graph", "stage0"), 2, 2),
+        ("reduce->io", ("graph", "stage1"), 1, 2),
+        ("reduce->io", ("graph", "stage1"), 2, 3)]
+    assert got[-1] == ("i", "regroup", ("graph", "control"), {"reduce": 3, "io": 2})
+    assert [a.tolist() for a in plan["accs"]] == [[3.0, 3.0], [3.0, 3.0]]
+
+
 @pytest.mark.parametrize("chunk_bytes", [None, 64, 256])
 @pytest.mark.parametrize("codec", ["int8", "bf16"])
 def test_compress_with_feedback_matches_jax(codec, chunk_bytes):

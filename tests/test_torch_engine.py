@@ -300,3 +300,76 @@ def test_prefill_bucket(n, max_len, want):
 def test_prefill_bucket_rejects_overlong_prompt():
     with pytest.raises(ValueError, match="exceeds max_len"):
         prefill_bucket(600, max_len=512)
+
+
+def test_scenario_replay_matches_reference(models):
+    """`bursty-prefix` replayed through both packages' engines under the
+    multi-tenant scheduler (WFQ with a token budget, aging 0.05; the
+    paged store with the prefix cache, the example's engine settings).
+    The horizon is cut from 56 to 24 ticks for CPU time, and the budget
+    to 200 prompt tokens a tick, so that it binds (prompts reach 120).
+    Identical streams, first-token and done ticks, and ledger snapshots.
+    Logits get 1e-3, for the reason the aligned test gives: the pools are
+    bf16 in both packages, K/V rows computed ~1e-7 apart in f32 round one
+    bf16 ulp apart (2^-7 at values in [1, 2), seen here), and by the 17th
+    tick of a 120-token prompt that moves its logits by up to 1.4e-4."""
+    from repro.serve.sched import FleetScheduler as JFleetScheduler
+    from repro.serve.traffic import replay as j_replay
+    from repro.serve.traffic import scenario as j_scenario
+    from repro_torch.serve.sched import FleetScheduler
+    from repro_torch.serve.traffic import replay, scenario
+
+    (jm, jp), (tm, tp) = models
+    kv = dict(kind="paged", block_size=16, prefix_cache=True)
+    runs = []
+    for mk, cfg_cls, kv_cls, sched_cls, sc_fn, rp in (
+            (j_make_engine, JEngineConfig, JKVSpec, JFleetScheduler, j_scenario, j_replay),
+            (make_engine, EngineConfig, KVSpec, FleetScheduler, scenario, replay)):
+        sc = dataclasses.replace(sc_fn("bursty-prefix"), horizon=24)
+        model, params = (jm, jp) if mk is j_make_engine else (tm, tp)
+        eng = mk(model, params, cfg_cls(max_batch=4, max_len=160, mode="continuous",
+                                         kv=kv_cls(**kv)),
+                 sched=sched_cls(sc.tenants, token_budget=200, aging=0.05))
+        logits = []
+        pairs = rp(eng, sc, model.cfg.vocab_size,
+                   on_tick=lambda e: logits.append(
+                       None if not e.last_tick["decode_batch"] else np.asarray(e.last_logits)))
+        runs.append((eng, pairs, logits))
+    (je, jpairs, jlog), (te, tpairs, tlog) = runs
+    assert len(tpairs) == len(jpairs) and len(te.finished) == len(tpairs) > 20
+    assert _by_uid(te) == _by_uid(je)
+    assert te.ledger.snapshot() == je.ledger.snapshot()
+    assert te.sched.rejected == je.sched.rejected == 0
+    assert te.stats == je.stats and te.stats["prefix_hit_tokens"] > 0
+    assert len(tlog) == len(jlog)
+    for a, b in zip(tlog, jlog):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_allclose(a, b, atol=1e-3, rtol=1e-3)
+
+
+def test_serve_lm_example_runs_and_writes_a_valid_trace(tmp_path):
+    """The port's serving example as a user launches it, on the CPU with
+    the reduced config: it exits 0, and its trace validates with every
+    request's lifecycle closed."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.obs.export import validate_chrome_trace
+
+    path = tmp_path / "serve.json"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.serve_lm", "--smoke", "--device", "cpu",
+         "--scenario", "single-fifo", "--paged", "--trace", str(path)],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "served 17 requests" in proc.stdout and "tok/s on CPU" in proc.stdout
+    obj = json.loads(path.read_text())
+    assert validate_chrome_trace(obj) == []
+    life = obj["otherData"]["lifecycle"]
+    assert life["begins"] == life["ends"] == 17 and life["open"] == []
+    assert obj["otherData"]["metrics"]["serve.completions"] == 17
