@@ -57,6 +57,33 @@ prints no result:
                aligned engines in lockstep, `FleetScheduler.fifo()` against
                a bare deque (`DequeShim`), every decode tick's logits bit for
                bit.
+6c. spec    — speculative decoding (`serve/spec.py`) on qwen2.5-3b at full
+               width and depth, k = 4. (a) f32 (TF32 off) from --seed, the
+               draft the target's copy plus `SPEC_EPS` * N(0, 1) per float
+               leaf: fig17's settings (4 slots, max_len 96, 12 requests of
+               4-15 prompt tokens, 14 new each) over the dense store and the
+               paged store of 8-token blocks; every stream equal to the
+               target-only engine's up to its first step with a top-2 margin
+               under `SPEC_MARGIN`, acceptance inside `SPEC_ACCEPT_BAND`, at
+               every tick the draft store's lengths equal to the target
+               store's and private blocks = the live block demand, none in
+               use after the drain, and exact launch counts (argmax =
+               admissions + draft steps + verify calls; flash = layers x
+               each model's prefill calls; paged 0). (b) bf16 on phase 6's
+               weights through `serve_lm.serve` at the example's settings
+               (paged, 16-token blocks, prefix cache): the example's 10
+               requests target-only, with a full-width qwen1.5-0.5b draft
+               (random bf16 weights from --seed + 1; the reference's pair)
+               and with the noised bf16 target; then `bursty-prefix` with
+               the noised draft beside phase 6b's untraced replay: tokens/s,
+               ms a tick (no synchronisation added, as target-only),
+               acceptance, tokens per verify, peak memory, launch counts;
+               then for each draft a fresh engine of 4 slots at a fixed
+               load: 8 spec ticks on the host clock (the pair's also 8
+               profiled as in phase 5) and 8 with ms per draft step,
+               verify forward and rollback, each ended by a
+               synchronisation. (c) sampled mode: seed 3 twice gives identical
+               streams, seed 4 others.
 7. mamba    — mamba2-130m at full width and depth, random bf16 weights
                from --seed, through `make_engine` in aligned mode over
                the dense store (8 slots, max_len 16384): 16 prompts of
@@ -71,7 +98,8 @@ prints no result:
    version (bit for bit at the train phase's (2, 465,567,744) f32 fold
    and at a ragged S; 1e-6 at n = 7 and at 16 rows of bf16); the argmax
    at each serve arm's decode shape ((8, 32,000), (2, 151,936), (8,
-   50,280)) and at two admission rows (the last position of (1, 1024, V),
+   50,280)), at the spec path's verify targets and draft step ((20,
+   151,936), (4, 151,936)) and at two admission rows (the last position of (1, 1024, V),
    V = 32,000 and 151,936), maxima planted at its split's edges, exact,
    with host microseconds per call beside `torch.argmax`'s; and the keyed
    histogram (2^26 Zipf keys into 151,936 bins, the same keys with the
@@ -149,7 +177,8 @@ prints no result:
                per step, wire bytes, peak memory, the drain's bytes and
                seconds.
 12. summary — a ``{"kernels": [...]}`` line (the histogram's times are
-               the fold's, the path's shape), then the last line
+               the fold's, the path's shape; ``launches_spec`` from phase
+               6c's run with the qwen1.5-0.5b draft), then the last line
                ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, the script
@@ -559,10 +588,13 @@ def check_paged(torch, np, seed: int) -> dict:
 
 
 # argmax at the shapes the serve arms launch, on the last position of
-# (B, S, V) bf16 logits: each arm's decode tick (S = 1) and an admission's
+# (B, S, V) bf16 logits: each arm's decode tick (S = 1), the speculative
+# path's verify targets and draft steps (phase 6c), and an admission's
 # prefill row (S = 1024, rows strided by S x V). (case, B, S, V)
 ARGMAX_CASES = [("tinyllama-1.1b decode", 8, 1, 32_000),
                 ("qwen2.5-3b long-arm decode", 2, 1, 151_936),
+                ("qwen2.5-3b spec verify targets (4 slots x (k + 1))", 20, 1, 151_936),
+                ("spec draft step (4 slots)", 4, 1, 151_936),
                 ("mamba2-130m decode", 8, 1, 50_280),
                 ("tinyllama-1.1b admission", 1, 1024, 32_000),
                 ("qwen2.5-3b admission", 1, 1024, 151_936)]
@@ -682,6 +714,10 @@ FLASH_CASES = [
     ("qwen2.5-3b", 2, 16384, 16, 2, 128, 0, True, 3),
     ("qwen2.5-3b window 4096", 2, 16384, 16, 2, 128, 4096, True, 3),
     ("starcoder2-15b group", 1, 4096, 48, 4, 128, 0, False, 10),
+    # phase 6c: the qwen1.5-0.5b draft's batch-1 prefill (MHA, group 1) at
+    # its 16-token bucket, and the target's packed short-bucket prefill
+    ("qwen1.5-0.5b spec draft prefill", 1, 16, 16, 16, 64, 0, False, 20),
+    ("qwen2.5-3b packed short-bucket prefill", 4, 128, 16, 2, 128, 0, False, 20),
 ]
 
 
@@ -727,11 +763,12 @@ def row_rel_err(out, ref) -> float:
 
 def check_flash_f32(torch, np, seed: int) -> None:
     """The kernel's logic at f32 precision: S=1000 (not a multiple of the
-    64-row and 64-key tiles), windows 0 and 256, groups of 8 (hd 64) and
-    12 (hd 128)."""
+    64-row and 64-key tiles), windows 0 and 256, groups of 8 (hd 64 and
+    hd 128: qwen2.5-3b, the f32 spec parity run's target and draft), 12
+    (hd 128) and 1 (hd 64: the qwen1.5-0.5b draft's MHA)."""
     from repro_torch.kernels.flash_attention import ops
 
-    for h, n_kv, hd in ((32, 4, 64), (48, 4, 128)):
+    for h, n_kv, hd in ((32, 4, 64), (48, 4, 128), (16, 2, 128), (16, 16, 64)):
         for window in (0, 256):
             q, k, v = flash_inputs(torch, b=2, s=1000, h=h, n_kv=n_kv, hd=hd,
                                    dtype=torch.float32, seed=seed)
@@ -1330,9 +1367,6 @@ def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16,
     unprofiled tick, device time by kernel class and the top kernels. Not
     part of the counted run; a profiler that sees no device activity
     leaves the device numbers as None ("not measured")."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serve import EngineConfig, KVSpec, Request, make_engine
 
     kv = KVSpec(kind="paged", block_size=16) if mode == "continuous" else KVSpec()
@@ -1352,8 +1386,29 @@ def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16,
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / ticks
 
+    out = {"phase": "profile", "model": model.cfg.name, "mode": mode, "ticks": ticks,
+           "batch": len(prompt_lens), "context_tokens": list(prompt_lens),
+           **profile_window(torch, run_ticks, ticks)}
+    emit(out)
+    return out
+
+
+def profile_window(torch, run_ticks, ticks: int) -> dict:
+    """``run_ticks()`` (wall ms per tick of ``ticks`` ticks, ended by a
+    synchronisation) once on the host clock, then once more under
+    `torch.profiler`: the wall time per tick without and with the profiler,
+    the device time per tick, the device's idle share of the unprofiled
+    tick, device time by kernel class and the top kernels, and the
+    profiled window's seconds with the trace's reading. It records device
+    activity alone: nothing reads the host's operator events, which made
+    most of a long trace's reading time. A profiler that sees no device
+    activity leaves the device numbers as None ("not measured")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     wall_ms = run_ticks()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profiled_wall_ms = run_ticks()
     classes = {"paged_decode_attention": 0.0, "argmax_last": 0.0, "gemm": 0.0, "other": 0.0}
     kernels = []
@@ -1374,17 +1429,14 @@ def profile_decode(torch, np, model, params, *, seed: int, ticks: int = 16,
         kernels.append((ms, ev.count // ticks, name[:90]))
     dev_ms = sum(classes.values()) if kernels else None
     kernels.sort(reverse=True)
-    out = {"phase": "profile", "model": model.cfg.name, "mode": mode, "ticks": ticks,
-           "batch": len(prompt_lens), "context_tokens": list(prompt_lens),
-           "wall_ms_per_tick": wall_ms, "profiled_wall_ms_per_tick": profiled_wall_ms,
-           "device_ms_per_tick": dev_ms,
-           "idle_share": None if dev_ms is None else 1.0 - dev_ms / wall_ms,
-           "device_launches_per_tick": sum(n for _, n, _ in kernels),
-           "device_ms_per_tick_by_class": classes if kernels else None,
-           "top_kernels": [{"ms_per_tick": ms, "launches_per_tick": n, "name": name}
-                           for ms, n, name in kernels[:10]]}
-    emit(out)
-    return out
+    return {"wall_ms_per_tick": wall_ms, "profiled_wall_ms_per_tick": profiled_wall_ms,
+            "profile_s": time.perf_counter() - t0,
+            "device_ms_per_tick": dev_ms,
+            "idle_share": None if dev_ms is None else 1.0 - dev_ms / wall_ms,
+            "device_launches_per_tick": sum(n for _, n, _ in kernels),
+            "device_ms_per_tick_by_class": classes if kernels else None,
+            "top_kernels": [{"ms_per_tick": ms, "launches_per_tick": n, "name": name}
+                            for ms, n, name in kernels[:10]]}
 
 
 # -- phase 6b: traffic scenarios through the serving example -----------------
@@ -1591,7 +1643,7 @@ def scenario_phase(torch, np, model, params, smi: str) -> dict:
 
     off = scenario_replay(torch, model, params, trace=None)
     same = {k: off[k] == on[k] for k in ("streams", "ledger", "hashes")}
-    emit({"phase": "scenario", "run": "untraced", "ticks": off["engine"].tick,
+    emit(untraced := {"phase": "scenario", "run": "untraced", "ticks": off["engine"].tick,
           "decode_ticks": off["decode_ticks"], "wall_s": off["wall_s"],
           "tokens_per_s": off["engine"].stats["tokens_out"] / off["wall_s"],
           "ms_per_tick": off["ms_per_tick"], "median_tick_ms": off["median_tick_ms"],
@@ -1631,7 +1683,495 @@ def scenario_phase(torch, np, model, params, smi: str) -> dict:
     emit(fifo)
     if not b.idle() or streams[0] != streams[1] or len(a.finished) != len(sc.generate()):
         raise AssertionError(f"single-fifo: the FIFO scheduler differs from the deque: {fifo}")
-    return {"launches": line["launches"], "traced": line, "fifo": fifo}
+    return {"launches": line["launches"], "traced": line, "untraced": untraced, "fifo": fifo}
+
+
+# -- phase 6c: speculative decoding ---------------------------------------------
+
+SPEC_K = 4
+# the draft of the parity and speed runs: the target's weights plus
+# SPEC_EPS * N(0, 1) per float leaf (fig17's acceptance dial), chosen so
+# that acceptance lies between SPEC_ACCEPT_BAND's ends in f32 (the sweep of
+# scripts/torch_spec_eps.py; PERF.md §6)
+SPEC_EPS = 3e-4
+SPEC_ACCEPT_BAND = (0.3, 0.95)
+# greedy spec against target-only, f32 with TF32 off: the verify attends a
+# dense view with plain attention, target-only decode runs the paged
+# kernel, and both keep K/V in bf16, so a K/V row can round one bf16 ulp
+# apart between the routes. Every stream must equal target-only up to the
+# first step whose target-only top-2 logit margin is under SPEC_MARGIN
+# (the prefill's margin counts for the first step)
+SPEC_MARGIN = 1e-3
+# fig17's parity settings: every rollback meets a partial block
+SPEC_PARITY = dict(max_batch=4, max_len=96, block_size=8, n_req=12, new_tokens=14)
+SPEC_PROFILE_TICKS = 8
+SPEC_DRAFT = "qwen1.5-0.5b"  # the reference's pair for qwen2.5-3b
+
+
+def noised_params(torch, params, eps: float, seed: int, dtype=None):
+    """A draft: every float leaf of ``params`` plus ``eps`` * N(0, 1) drawn
+    in f32 on the leaf's device from ``seed``, cast to ``dtype`` (the
+    leaf's own by default)."""
+    gen = None
+
+    def walk(t):
+        nonlocal gen
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        if gen is None:
+            gen = torch.Generator(device=t.device).manual_seed(seed)
+        noise = torch.randn(t.shape, generator=gen, dtype=torch.float32, device=t.device)
+        out = (t.float() + eps * noise).to(dtype or t.dtype)
+        del noise
+        return out
+
+    return walk(params)
+
+
+def spec_requests(np, vocab: int, *, n_req: int, new_tokens: int, seed: int) -> list:
+    """fig17's traffic: prompts of 4-15 tokens, ``new_tokens`` each."""
+    from repro_torch.serve import Request
+
+    rng = np.random.RandomState(seed)
+    return [Request(uid=u, prompt=rng.randint(1, vocab, rng.randint(4, 16)).astype(np.int32),
+                    max_new_tokens=new_tokens) for u in range(n_req)]
+
+
+def top2_margins(torch, rows) -> list:
+    """Top-1 minus top-2 of each (V,) row of ``rows`` (n, V), on the host."""
+    top = rows.float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def target_only_margins(torch, model, params, reqs: list, kv, *, max_batch: int,
+                        max_len: int) -> dict:
+    """The target-only continuous engine over ``reqs``: its streams, and per
+    uid the top-2 logit margin of every emitted token (decode step ``s``
+    gives token ``s``; the prefill's margin is kept at -1, since it picks
+    the first fed token)."""
+    from repro_torch.serve import EngineConfig, make_engine
+
+    margins = {r.uid: {} for r in reqs}
+    by_prompt = {r.prompt.tobytes(): r.uid for r in reqs}
+    holder = {}
+
+    def decode(params_, pview, token, *, impl=None):
+        out = model.decode_step_paged(params_, pview, token, impl=impl)
+        eng = holder["engine"]
+        live = [(i, r) for i, r in enumerate(eng.slots) if r is not None]
+        got = top2_margins(torch, out[0][[i for i, _ in live], -1])
+        for (_, r), m in zip(live, got):
+            margins[r.uid][len(r.out_tokens)] = m
+        return out
+
+    eng = make_engine(dataclasses.replace(model, decode_step_paged=decode), params,
+                      EngineConfig(mode="continuous", max_batch=max_batch, max_len=max_len,
+                                   kv=kv))
+    holder["engine"] = eng
+    run_batch = eng._prefill.run_batch
+
+    def prefill(prompts):
+        logits, batch = run_batch(prompts)
+        for p, m in zip(prompts, top2_margins(torch, logits[:, -1])):
+            margins[by_prompt[p.tobytes()]][-1] = m
+        return logits, batch
+
+    eng._prefill.run_batch = prefill
+    for r in reqs:
+        eng.submit(dataclasses.replace(r, out_tokens=[]))
+    eng.drain()
+    return {"streams": {r.uid: list(r.out_tokens) for r in eng.finished},
+            "margins": margins, "ticks": eng.tick}
+
+
+def margin_rule(spec_streams: dict, base: dict) -> dict:
+    """Hold each spec stream to the target-only one up to its first step with
+    a top-2 margin under `SPEC_MARGIN`; raises on a mismatch before it.
+    Returns uid -> the step the rule cut the stream at (-1: the prefill)."""
+    cut = {}
+    for uid, want in base["streams"].items():
+        low = sorted(s for s, m in base["margins"][uid].items() if m < SPEC_MARGIN)
+        upto = len(want) if not low else max(low[0], 0)
+        got = spec_streams.get(uid)
+        if got is None or len(got) != len(want) or got[:upto] != want[:upto]:
+            raise AssertionError(f"spec: uid {uid} stream {got} != target-only {want} "
+                                 f"before step {upto} (margins {base['margins'][uid]})")
+        if low:
+            cut[uid] = low[0]
+    return cut
+
+
+def spec_engine_run(torch, np, model, params, draft, reqs: list, kv, *, max_batch: int,
+                    max_len: int, spec_mode: str = "greedy", seed: int = 0) -> dict:
+    """Drain ``reqs`` through `make_engine(..., SpecConfig(...), draft=)` with
+    every kernel count set to 0 just before and read just after. Checks at
+    every tick: the draft store's lengths equal the target store's for
+    every live slot, and in a paged store the private blocks in use equal
+    the live-token block demand (both stores); after the drain no block is
+    in use. Counts the target's and the draft's prefill calls."""
+    from repro_torch.serve import SpecConfig, make_engine
+
+    calls = {"target": 0, "draft": 0}
+
+    def counted(m, who):
+        def prefill(*a, **kw):
+            calls[who] += 1
+            return m.prefill(*a, **kw)
+        return dataclasses.replace(m, prefill=prefill)
+
+    dmodel, dparams = draft
+    eng = make_engine(counted(model, "target"), params,
+                      SpecConfig(max_batch=max_batch, max_len=max_len, kv=kv, spec_k=SPEC_K,
+                                 spec_mode=spec_mode, seed=seed),
+                      draft=(counted(dmodel, "draft"), dparams))
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for k in counters.values():
+        k.launches = 0
+    for r in reqs:
+        eng.submit(dataclasses.replace(r, out_tokens=[]))
+    blocks_checked = 0
+    while not eng.idle():
+        eng.step()
+        live = [i for i, r in enumerate(eng.slots) if r is not None]
+        if [int(eng.draft_kv.lens[i]) for i in live] != [int(eng.kv.lens[i]) for i in live]:
+            raise AssertionError(f"spec: draft lens {eng.draft_kv.lens} != target lens "
+                                 f"{eng.kv.lens} at tick {eng.tick}")
+        if eng.kv.kind == "paged":
+            for store in (eng.kv, eng.draft_kv):
+                st = store.stats
+                if st["blocks_in_use"] - st["evictable_blocks"] != st["live_block_demand"]:
+                    raise AssertionError(f"spec: block accounting off at tick {eng.tick}: {st}")
+            blocks_checked += 1
+        if eng.tick > 1000:
+            raise AssertionError("spec: the engine did not drain")
+    launches = {name: k.launches for name, k in counters.items()}
+    leaked = [st.stats.get("blocks_in_use", 0) - st.stats.get("evictable_blocks", 0)
+              for st in (eng.kv, eng.draft_kv)]
+    if any(leaked):
+        raise AssertionError(f"spec: blocks in use after the drain: {leaked}")
+    return {"engine": eng, "streams": {r.uid: list(r.out_tokens) for r in eng.finished},
+            "launches": launches, "prefill_calls": calls, "blocks_checked": blocks_checked,
+            "acceptance": eng.stats["accepted"] / max(1, eng.stats["drafted"])}
+
+
+def check_spec_launches(name: str, run: dict, target_layers: int, draft_layers: int) -> dict:
+    """argmax = target admissions + draft steps + verify calls; flash =
+    layers x prefill calls of each model; the paged kernel never."""
+    st, n, calls = run["engine"].stats, run["launches"], run["prefill_calls"]
+    want = {"argmax_last": st["prefills"] + st["draft_steps"] + st["verify_calls"],
+            "flash_attention": target_layers * calls["target"] + draft_layers * calls["draft"],
+            "paged_decode_attention": 0}
+    got = {k: n[k] for k in want}
+    if got != want or not calls["target"] or not calls["draft"]:
+        raise AssertionError(f"spec {name}: launches {got}, want {want} "
+                             f"(prefill calls {calls})")
+    return want
+
+
+def spec_parity(torch, np, cfg, seed: int, smi: str) -> dict:
+    """Phase 6c (a) and (c): qwen2.5-3b at full width and depth in f32 (TF32
+    off) from ``seed``, the draft its copy noised by `SPEC_EPS`; fig17's
+    settings over the dense store and the paged store. The margin rule
+    against the target-only engine, the store checks, exact launch counts;
+    then sampled mode: seed 3 twice (identical streams), seed 4 (different)."""
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serve import KVSpec
+
+    s = SPEC_PARITY
+    model = build(dataclasses.replace(cfg, dtype=torch.float32))
+    params = model.init(seed)
+    draft = (model, noised_params(torch, params, SPEC_EPS, seed + 100))
+    reqs = spec_requests(np, cfg.vocab_size, n_req=s["n_req"], new_tokens=s["new_tokens"],
+                         seed=seed)
+    geo = dict(max_batch=s["max_batch"], max_len=s["max_len"])
+    paged = KVSpec(kind="paged", block_size=s["block_size"])
+    t0 = time.perf_counter()
+    base = target_only_margins(torch, model, params, reqs, paged, **geo)
+    base_s = time.perf_counter() - t0
+    runs, lines = {}, []
+    for store, kv in (("dense", KVSpec()), ("paged", paged)):
+        t0 = time.perf_counter()
+        run = spec_engine_run(torch, np, model, params, draft, reqs, kv, **geo)
+        wall = time.perf_counter() - t0
+        cut = margin_rule(run["streams"], base)
+        want = check_spec_launches(store, run, cfg.n_layers, cfg.n_layers)
+        st = run["engine"].stats
+        line = {"phase": "spec", "run": f"parity {store}", "model": cfg.name, "dtype": "f32",
+                "nvidia_smi": smi, "eps": SPEC_EPS, "spec_k": SPEC_K, **geo,
+                "block_size": s["block_size"] if store == "paged" else None,
+                "requests": len(reqs), "ticks": run["engine"].tick,
+                "target_only_ticks": base["ticks"], "acceptance": run["acceptance"],
+                "tokens_per_verify": st["tokens_out"] / st["verify_calls"],
+                **{k: st[k] for k in ("accepted", "drafted", "verify_calls", "draft_steps",
+                                      "prefills")},
+                "identical_streams": sum(run["streams"][u] == base["streams"][u]
+                                         for u in base["streams"]),
+                "cut_by_margin_rule": cut, "spec_margin": SPEC_MARGIN,
+                "min_target_only_margin": min(min(m.values()) for m in base["margins"].values()),
+                "blocks_checked_ticks": run["blocks_checked"], "launches": run["launches"],
+                "launches_expected": want, "prefill_calls": run["prefill_calls"],
+                "wall_s": wall, "target_only_wall_s": base_s}
+        emit(line)
+        lines.append(line)
+        lo, hi = SPEC_ACCEPT_BAND
+        if not lo <= run["acceptance"] <= hi:
+            raise AssertionError(f"spec parity {store}: acceptance {run['acceptance']} at eps "
+                                 f"{SPEC_EPS} outside {SPEC_ACCEPT_BAND}")
+        runs[store] = run
+    del runs
+    gc.collect()
+    sampled = {}
+    for sd in (3, 3, 4):
+        run = spec_engine_run(torch, np, model, params, draft, reqs[:4], KVSpec(), **geo,
+                              spec_mode="sampled", seed=sd)
+        if any(len(v) != s["new_tokens"] for v in run["streams"].values()):
+            raise AssertionError("spec sampled: a request ended short")
+        sampled.setdefault(sd, []).append(run["streams"])
+    replay = sampled[3][0] == sampled[3][1]
+    differs = sampled[3][0] != sampled[4][0]
+    emit({"phase": "spec", "run": "sampled", "dtype": "f32", "requests": 4, "seeds": [3, 3, 4],
+          "replays": replay, "differs_across_seeds": differs})
+    if not (replay and differs):
+        raise AssertionError(f"spec sampled: replay {replay}, differs across seeds {differs}")
+    del model, params, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"parity": lines}
+
+
+class _SpecTimers:
+    """Component times of speculative ticks, each call ended by
+    `torch.cuda.synchronize()` (it starts after one too), while ``on``:
+    the draft's decode steps (catch-up steps included), the verify
+    forwards, and per tick the rollback (the target store's `absorb_span`
+    and both stores' `truncate` calls, patched on the store class while
+    the window lasts)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.on = False
+        self.ms = {"draft_step": [], "verify": [], "rollback": []}
+        self._rollback = 0.0
+        self._saved = []
+
+    def timed(self, fn, key):
+        torch = self.torch
+
+        def call(*a, **kw):
+            if not self.on:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if key == "rollback":
+                self._rollback += ms
+            else:
+                self.ms[key].append(ms)
+            return out
+        return call
+
+    def patch_stores(self, cls):
+        for name in ("absorb_span", "truncate"):
+            fn = getattr(cls, name)
+            self._saved.append((cls, name, fn))
+            setattr(cls, name, self.timed(fn, "rollback"))
+
+    def restore(self):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        self._saved = []
+
+    def end_tick(self, verified: bool):
+        if verified:
+            self.ms["rollback"].append(self._rollback)
+        self._rollback = 0.0
+
+    def summary(self) -> dict:
+        return {f"{k}_ms": {"mean": statistics.fmean(v), "median": statistics.median(v),
+                            "n": len(v)} if v else None for k, v in self.ms.items()}
+
+
+def spec_speed_run(torch, np, model, params, draft, *, name: str,
+                   scenario_name: str | None = None, spec: bool = True) -> dict:
+    """One run of `examples.serve_lm.serve` at the example's settings (4
+    slots, max_len 160, the paged store with 16-token blocks and the prefix
+    cache), speculative with ``draft`` (k = 4) or target-only, with every
+    kernel count set to 0 just before and read just after. Times each tick
+    on the host clock (a hook's own time left out) with no synchronisation
+    added, so spec and target-only are timed alike; peak device memory.
+    The component times come from `spec_window`."""
+    from repro_torch.examples import serve_lm
+
+    calls = {"target": 0, "draft": 0}
+
+    def counted(m, who):
+        def prefill(*a, **kw):
+            calls[who] += 1
+            return m.prefill(*a, **kw)
+        return dataclasses.replace(m, prefill=prefill)
+
+    tick_ms, hook_s, last = [], 0.0, None
+
+    def on_tick(engine):
+        nonlocal hook_s, last
+        ts = time.perf_counter()
+        if last is not None:
+            tick_ms.append((ts - last) * 1e3)
+        last = time.perf_counter()
+        hook_s += last - ts
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    out = serve_lm.serve(counted(model, "target"), params, scenario_name=scenario_name,
+                         paged=True, on_tick=on_tick, spec=spec, spec_k=SPEC_K,
+                         draft=(counted(draft[0], "draft"), draft[1]) if spec else None)
+    launches = {k: c.launches for k, c in counters.items()}
+    eng = out["engine"]
+    wall = out["seconds"] - hook_s
+    st = eng.stats
+    line = {"phase": "spec", "run": name, "scenario": scenario_name or "legacy",
+            "model": model.cfg.name, "draft": draft[0].cfg.name if spec else None,
+            "requests": out["requests"], "ticks": eng.tick, "tokens_out": st["tokens_out"],
+            "wall_s": wall, "tokens_per_s": st["tokens_out"] / wall,
+            "ms_per_tick": wall * 1e3 / eng.tick,
+            "median_tick_ms": statistics.median(tick_ms) if tick_ms else None,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "prefill_calls": calls}
+    if spec:
+        line.update(acceptance=eng.ledger.acceptance_rate(),
+                    tokens_per_verify=st["tokens_out"] / max(1, st["verify_calls"]),
+                    **{k: st[k] for k in ("accepted", "drafted", "verify_calls", "draft_steps",
+                                          "prefills")})
+    emit(line)
+    if len(eng.finished) != out["requests"] - eng.sched.rejected or \
+            any(len(r.out_tokens) != r.max_new_tokens for r in eng.finished):
+        raise AssertionError(f"spec {name}: not every request finished with its tokens")
+    if spec:
+        check_spec_launches(name, {"engine": eng, "launches": launches, "prefill_calls": calls},
+                            model.cfg.n_layers, draft[0].cfg.n_layers)
+    if eng.last_logits is None or not bool(torch.isfinite(eng.last_logits).all()):
+        raise AssertionError(f"spec {name}: non-finite logits")
+    line["streams"] = {r.uid: list(r.out_tokens) for r in eng.finished}
+    return line
+
+
+def spec_window(torch, np, model, params, draft, *, seed: int, profile: bool) -> dict:
+    """Where a speculative tick's time goes, at a fixed load: a fresh
+    `SpecEngine` at the example's settings with 4 slots of 16-token
+    prompts, after its admission tick, `SPEC_PROFILE_TICKS` ticks on the
+    host clock (and, with ``profile``, as many under `torch.profiler`:
+    `profile_window`), then as many with every
+    draft step, verify forward and rollback timed (`_SpecTimers`)."""
+    from repro_torch.serve import KVSpec, Request, SpecConfig, make_engine
+    from repro_torch.serve.kvstore import PagedKVStore
+
+    timers = _SpecTimers(torch)
+    target = dataclasses.replace(model, verify_step=timers.timed(model.verify_step, "verify"))
+    dmodel = dataclasses.replace(draft[0],
+                                 decode_step=timers.timed(draft[0].decode_step, "draft_step"))
+    eng = make_engine(target, params, SpecConfig(
+        max_batch=4, max_len=160, kv=KVSpec(kind="paged", block_size=16, prefix_cache=True),
+        spec_k=SPEC_K), draft=(dmodel, draft[1]))
+    rng = np.random.default_rng(seed)
+    for i in range(4):
+        eng.submit(Request(uid=i, prompt=rng.integers(0, model.cfg.vocab_size, 16)
+                           .astype(np.int32), max_new_tokens=120))
+    eng.step()
+    ticks = SPEC_PROFILE_TICKS
+
+    def run_ticks() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / ticks
+
+    out = {"phase": "spec", "run": "window", "draft": draft[0].cfg.name, "ticks": ticks}
+    if profile:
+        out.update(profile_window(torch, run_ticks, ticks))
+    else:
+        out["wall_ms_per_tick"] = run_ticks()
+    st0 = dict(eng.stats)
+    timers.on = True
+    timers.patch_stores(PagedKVStore)
+    try:
+        for _ in range(ticks):
+            eng.step()
+            timers.end_tick(bool(eng.last_tick.get("verify")))
+    finally:
+        timers.restore()
+        timers.on = False
+    st = eng.stats
+    out.update(timers.summary(),
+               timed_acceptance=(st["accepted"] - st0["accepted"])
+               / max(1, st["drafted"] - st0["drafted"]),
+               live_slots_after=sum(r is not None for r in eng.slots))
+    emit(out)
+    return out
+
+
+def spec_phase(torch, np, model, params, smi: str, seed: int, scen: dict) -> dict:
+    """Phase 6c: speculative decoding on qwen2.5-3b at full width and depth.
+    (a) and (c) in f32 (`spec_parity`); (b) the speed runs in bf16 on
+    ``params`` through `examples.serve_lm.serve`: the reference's pair (a
+    full-width qwen1.5-0.5b draft with random bf16 weights from ``seed`` +
+    1) and the noised bf16 target, each beside the target-only engine on
+    the example's requests (their streams reported, not checked: bf16),
+    then `bursty-prefix` with the noised draft beside phase 6b's untraced
+    replay; a window of spec ticks at a fixed load for each draft, the
+    pair's profiled. Returns the launches of the reference pair's run, the
+    user's ``serve_lm --spec --paged``."""
+    from repro_torch.configs import get
+    from repro_torch.models.model_zoo import build
+
+    cfg = model.cfg
+    part_s, t0 = {}, time.perf_counter()
+    parity = spec_parity(torch, np, cfg, seed, smi)
+    part_s["parity_and_sampled"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    small = build(get(SPEC_DRAFT))
+    pair = (small, small.init(seed + 1))
+    noised = (model, noised_params(torch, params, SPEC_EPS, seed + 100))
+    base = spec_speed_run(torch, np, model, params, None, name="target-only legacy",
+                          spec=False)
+    runs = {}
+    for name, draft in (("spec legacy, qwen1.5-0.5b draft", pair),
+                        ("spec legacy, noised target draft", noised)):
+        runs[name] = spec_speed_run(torch, np, model, params, draft, name=name)
+        same = sum(runs[name]["streams"].get(u) == v for u, v in base["streams"].items())
+        emit({"phase": "spec", "run": name, "streams_equal_target_only": same,
+              "of": len(base["streams"]),
+              "speed_vs_target_only": runs[name]["tokens_per_s"] / base["tokens_per_s"]})
+    part_s["legacy_speed_runs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bursty = spec_speed_run(torch, np, model, params, noised,
+                            name="spec bursty-prefix, noised target draft",
+                            scenario_name=SCENARIO)
+    ref = scen["untraced"]
+    emit({"phase": "spec", "run": "bursty-prefix vs target-only (phase 6b untraced)",
+          "spec_tokens_per_s": bursty["tokens_per_s"], "target_tokens_per_s": ref["tokens_per_s"],
+          "spec_ms_per_tick": bursty["ms_per_tick"], "target_ms_per_tick": ref["ms_per_tick"],
+          "spec_ticks": bursty["ticks"], "target_ticks": ref["ticks"]})
+    part_s["bursty_prefix_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    windows = [spec_window(torch, np, model, params, pair, seed=seed + 9, profile=True),
+               spec_window(torch, np, model, params, noised, seed=seed + 9, profile=False)]
+    part_s["windows"] = time.perf_counter() - t0
+    emit({"phase": "spec", "run": "phase seconds", **part_s})
+    main_run = runs["spec legacy, qwen1.5-0.5b draft"]
+    del pair, noised, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": main_run["launches"], "parity": parity, "windows": windows}
 
 
 # -- phase 7: mamba2-130m in aligned mode ------------------------------------
@@ -2869,6 +3409,12 @@ def main(argv=None) -> int:
     # phase 6b: the serving example's traffic scenarios, qwen2.5-3b at full
     # width and depth, the same weights
     scen = scenario_phase(torch, np, qmodel, qparams, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6c: speculative decoding, qwen2.5-3b at full width and depth (f32
+    # parity from --seed; the speed runs on the same bf16 weights)
+    spec = spec_phase(torch, np, qmodel, qparams, smi, args.seed, scen)
     del qparams
     # the arms' engines hold their params in reference cycles (the timed
     # step closures): collect them, so the mamba arm's peak is its own
@@ -2902,7 +3448,8 @@ def main(argv=None) -> int:
 
     # phase 12: summary; "launches" is the count from the run of the path
     # each kernel belongs to (the bf16 tinyllama arm for paged decode,
-    # argmax and flash, the scenario phase's traced replay beside it; the
+    # argmax and flash, the scenario phase's traced replay and the spec
+    # phase's run with the qwen1.5-0.5b draft beside it; the
     # mamba arm for the SSD scan; the train phase's decoupled run, summed
     # over its four ranks, for chunk_accumulate, every train run's counts
     # beside it (launches_train_by_run); the MapReduce
@@ -2931,6 +3478,7 @@ def main(argv=None) -> int:
         kern["launches"] = main_arm[name]
         kern["launches_long_arm"] = long["launches"][name]
         kern["launches_scenario"] = scen["launches"][name]
+        kern["launches_spec"] = spec["launches"][name]
         kern["launches_mamba_arm"] = mamba["launches"][name]
         kern["launches_train"] = train["launches"][name]
         kern["launches_train_by_run"] = {run: counts[name]
@@ -2943,7 +3491,7 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "plain_device_ms", "library_device_ms", "launches_long_arm",
-            "launches_scenario", "launches_mamba_arm", "launches_train", "launches_train_by_run",
+            "launches_scenario", "launches_spec", "launches_mamba_arm", "launches_train", "launches_train_by_run",
             "launches_mapreduce", "launches_cg", "launches_pic")
     emit({"kernels": [{k: kern[k] for k in keys + ("isolated_2p26",) if k in kern}
                       for kern in kernels]})

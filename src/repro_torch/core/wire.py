@@ -17,9 +17,9 @@ reference's `core/wire.py`: the codecs, `WireSpec` and `WirePacker`).
 
 * `compress_with_feedback` / `init_residual`: producer-side error
   feedback for the lossy codecs.
-
-The reference's speculative-decoding payload helpers are not ported yet
-(they come with speculative decoding, ROADMAP A6).
+* The speculative-decoding payloads of the bidirectional draft <-> verify
+  edge (`make_draft_payload` and `make_accept_payload`, with their
+  `split_*`), and `leaf_encoded_bytes` for the unchunked wire.
 """
 from __future__ import annotations
 
@@ -318,6 +318,52 @@ class WirePacker:
                    for g in self.groups)
 
 
+# ---------------------------------------------------------------------------
+# speculative-decoding payloads (the bidirectional draft <-> verify edge)
+# ---------------------------------------------------------------------------
+#
+# Forward: a draft block (token ids and the draft's probability of each).
+# Back: the verify group's verdict (accept counts and the corrected or
+# bonus token). The integer leaves pass every codec bit for bit (codecs
+# transform floating leaves only); the f32 draft probabilities may go
+# through a lossy codec, since rejection sampling only compares against
+# them and the emitted token is always drawn from the target.
+
+
+def make_draft_payload(tokens: torch.Tensor, probs: torch.Tensor) -> dict:
+    """Draft block: ``tokens`` (B, k) int32 draft ids, ``probs`` (B, k)
+    f32 draft probabilities of those ids."""
+    return {"tokens": tokens.to(torch.int32), "probs": probs.to(torch.float32)}
+
+
+def split_draft_payload(payload: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    return payload["tokens"], payload["probs"]
+
+
+def make_accept_payload(accepts: torch.Tensor, corrected: torch.Tensor) -> dict:
+    """Verdict: ``accepts`` (B,) int32 accepted-draft counts (0..k),
+    ``corrected`` (B,) int32 token emitted after the accepted prefix."""
+    return {"accepts": accepts.to(torch.int32), "corrected": corrected.to(torch.int32)}
+
+
+def split_accept_payload(payload: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    return payload["accepts"], payload["corrected"]
+
+
+def leaf_encoded_bytes(payload_like: Any, codec: "str | WireCodec") -> int:
+    """Bytes of one payload send on the unchunked (whole-leaf) wire."""
+    codec = get_codec(codec)
+    total = 0
+    for leaf in tree_flatten(payload_like)[0]:
+        n = math.prod(leaf.shape)
+        if codec.applies(leaf.dtype):
+            total += codec.encoded_chunk_bytes(n, leaf.dtype.itemsize)
+        else:
+            total += n * _wire_dtype(leaf.dtype).itemsize
+    return total
+
+
 __all__ = ["CODECS", "Bf16Codec", "Int8Codec", "WireCodec", "WireGroup", "WirePacker",
            "WireSpec", "compress_with_feedback", "get_codec", "init_residual",
-           "is_int8_payload"]
+           "is_int8_payload", "leaf_encoded_bytes", "make_accept_payload",
+           "make_draft_payload", "split_accept_payload", "split_draft_payload"]

@@ -4,7 +4,8 @@ applied to an inference fleet); the counterpart of the reference's
 `examples/serve_lm.py`.
 
     python -m repro_torch.examples.serve_lm [--scenario NAME] [--continuous] [--paged]
-        [--trace PATH] [--smoke] [--device cpu] [--seed 0]
+        [--spec [--spec-k K] [--draft NAME]] [--trace PATH] [--smoke] [--device cpu]
+        [--seed 0]
 
 It serves qwen2.5-3b at full width with random bf16 weights from
 ``--seed`` on the card unless ``--device`` names another device;
@@ -19,9 +20,17 @@ adds the paged KV store with the cross-tenant prefix cache (and implies
 continuous batching). ``--trace PATH`` records a Chrome/Perfetto trace of
 the run (open it at https://ui.perfetto.dev or chrome://tracing).
 
-The reference's ``--disagg`` and ``--adapt`` (ROADMAP A9), ``--spec``
-(A6), and ``--fail-at`` / ``--preempt-at`` (the fleet's fault paths, A9)
-name engines that are not ported yet: they raise.
+``--spec`` serves through the speculative draft -> verify engine
+(`serve/spec.py`, implies continuous batching, composes with
+``--paged`` and ``--scenario``): the ``--draft`` model drafts
+``--spec-k``-token blocks that the target scores in one verify forward.
+At full width the draft is the full-width ``--draft`` config with random
+bf16 weights from ``--seed + 1``; with ``--smoke`` the engine builds the
+draft's reduced config itself, as the reference's does.
+
+The reference's ``--disagg`` and ``--adapt`` (ROADMAP A9), and
+``--fail-at`` / ``--preempt-at`` (the fleet's fault paths, A9), name
+engines that are not ported yet: they raise.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ import torch
 from repro_torch.obs import export as obs_export
 from repro_torch.obs import registry as obs_registry
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serve import EngineConfig, KVSpec, Request, make_engine
+from repro_torch.serve import EngineConfig, KVSpec, Request, SpecConfig, make_engine
 from repro_torch.serve.sched import FleetScheduler
 from repro_torch.serve.traffic import SCENARIOS, replay, scenario
 
@@ -46,11 +55,11 @@ MAX_LEN = 160
 TOKEN_BUDGET = 2000
 AGING = 0.05
 BLOCK_SIZE = 16
+DRAFT = "qwen1.5-0.5b"
 
 _NOT_PORTED = {
     "disagg": "the disaggregated engine is not ported yet (ROADMAP A9)",
     "adapt": "the adaptive fleet is not ported yet (ROADMAP A9)",
-    "spec": "speculative decoding is not ported yet (ROADMAP A6)",
     "fail_at": "fault injection needs the fleet engine, not ported yet (ROADMAP A9)",
     "preempt_at": "fault injection needs the fleet engine, not ported yet (ROADMAP A9)",
 }
@@ -70,12 +79,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help=f"serve {ARCH}'s reduced config (the reference example's)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
-    for flag in ("--disagg", "--adapt", "--spec"):
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative draft->verify decoding (implies --continuous)")
+    ap.add_argument("--spec-k", type=int, default=4, metavar="K",
+                    help="draft block length per verify step (with --spec)")
+    ap.add_argument("--draft", default=DRAFT, help="zoo name of the draft model (with --spec)")
+    for flag in ("--disagg", "--adapt"):
         ap.add_argument(flag, action="store_true", help="not ported yet (raises)")
     for flag in ("--fail-at", "--preempt-at"):
         ap.add_argument(flag, type=int, default=None, metavar="TICK",
                         help="not ported yet (raises)")
     args = ap.parse_args(argv)
+    faulted = args.fail_at is not None or args.preempt_at is not None
+    if args.spec and (args.disagg or args.adapt or faulted):
+        raise SystemExit("--spec composes with --paged/--scenario, not "
+                         "--disagg/--adapt/fault flags")
     for name, why in _NOT_PORTED.items():
         if getattr(args, name) not in (None, False):
             raise NotImplementedError(f"--{name.replace('_', '-')}: {why}")
@@ -90,6 +108,16 @@ def build_model(*, smoke: bool = False, device=None, seed: int = 0):
     from repro_torch.models.model_zoo import build
 
     model = build(get_smoke(ARCH) if smoke else get(ARCH), device=device)
+    return model, model.init(seed)
+
+
+def build_draft(name: str = DRAFT, *, device=None, seed: int = 1):
+    """(model, params) of the full-width ``name`` draft with random weights
+    from ``seed``, on the card unless ``device`` names another."""
+    from repro_torch.configs import get
+    from repro_torch.models.model_zoo import build
+
+    model = build(get(name), device=device)
     return model, model.init(seed)
 
 
@@ -124,24 +152,32 @@ def drive_scenario(eng, cfg, sc, on_tick=None):
 
 
 def serve(model, params, *, scenario_name: str | None = None, continuous: bool = False,
-          paged: bool = False, trace: str | None = None, on_tick=None) -> dict:
+          paged: bool = False, trace: str | None = None, on_tick=None, spec: bool = False,
+          spec_k: int = 4, draft_name: str = DRAFT, draft=None) -> dict:
     """Build the engine the flags describe, drive it, and
     return what the example reports. ``on_tick(engine)`` runs after every
     tick (the caller's own sampling). The metrics registry is zeroed at
     the start, so its counts are this run's; with ``trace`` the tracer is
-    on from before the engine is built until the trace is written."""
+    on from before the engine is built until the trace is written.
+    ``spec`` serves through `SpecEngine` with ``draft`` (a ``(model,
+    params)`` pair; None builds ``draft_name``'s reduced config)."""
     sc = scenario(scenario_name) if scenario_name else None
     sched = FleetScheduler(sc.tenants, token_budget=TOKEN_BUDGET, aging=AGING) if sc else None
-    batching = "continuous" if (continuous or paged) else "aligned"
+    batching = "continuous" if (continuous or paged or spec) else "aligned"
     kv = KVSpec(kind="paged", block_size=BLOCK_SIZE, prefix_cache=True) if paged else KVSpec()
-    mode = "colocated" + ("" if batching == "aligned" else
-                          "+paged" if paged else "+continuous")
+    mode = (f"speculative k={spec_k}" if spec else "colocated") + (
+        "" if batching == "aligned" else "+paged" if paged else "+continuous")
+    if spec:
+        engine_cfg = SpecConfig(max_batch=MAX_BATCH, max_len=MAX_LEN, mode=batching, kv=kv,
+                                spec_k=spec_k, draft=draft_name)
+    else:
+        engine_cfg = EngineConfig(max_batch=MAX_BATCH, max_len=MAX_LEN, mode=batching, kv=kv)
     obs_registry.reset()
     if trace:
         obs_trace.enable()
     try:
-        eng = make_engine(model, params, EngineConfig(max_batch=MAX_BATCH, max_len=MAX_LEN,
-                                                      mode=batching, kv=kv), sched=sched)
+        eng = make_engine(model, params, engine_cfg, sched=sched,
+                          draft=draft if spec else None)
         t0 = time.perf_counter()
         if sc is not None:
             n_requests, analytics = drive_scenario(eng, model.cfg, sc, on_tick)
@@ -180,6 +216,13 @@ def report(out: dict) -> None:
     if eng.kv.kind == "paged":
         print(f"prefix cache: {eng.stats['prefix_hit_tokens']} hit tokens, "
               f"{eng.stats['prefill_skips']} prefill skips")
+    if "verify_calls" in eng.stats:
+        acc = eng.ledger.acceptance_rate()
+        verify_calls = max(1, eng.stats["verify_calls"])
+        print(f"speculative: acceptance rate {acc:.2f}, rows draft/verify = "
+              f"{eng.draft_rows}/{eng.n_rows - eng.draft_rows}, "
+              f"{eng.stats['tokens_out'] / verify_calls:.2f} tokens per verify step "
+              f"(drafted {eng.stats['drafted']}, accepted {eng.stats['accepted']})")
     if out["scenario"] is not None:
         snap = eng.ledger.snapshot()
         print(f"fleet: ttft p50/p99 = {snap['ttft_p50']:.0f}/{snap['ttft_p99']:.0f} "
@@ -199,8 +242,12 @@ def report(out: dict) -> None:
 def main(argv=None) -> dict:
     args = parse_args(argv)
     model, params = build_model(smoke=args.smoke, device=args.device, seed=args.seed)
+    draft = None
+    if args.spec and not args.smoke:
+        draft = build_draft(args.draft, device=args.device, seed=args.seed + 1)
     out = serve(model, params, scenario_name=args.scenario, continuous=args.continuous,
-                paged=args.paged, trace=args.trace)
+                paged=args.paged, trace=args.trace, spec=args.spec, spec_k=args.spec_k,
+                draft_name=args.draft, draft=draft)
     report(out)
     return out
 

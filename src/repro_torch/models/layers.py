@@ -232,6 +232,39 @@ def attention_decode(
     return out.reshape(b, 1, h, hd)
 
 
+def attention_verify(
+    q: torch.Tensor,  # (B, S, H, hd): one chunk of draft positions per slot
+    k_cache: torch.Tensor,  # (B, Sc, Kv*hd) flattened layout
+    v_cache: torch.Tensor,
+    n_kv: int,
+    valid_len: torch.Tensor,  # (B, S) live length per chunk position
+    window: int,
+    softmax_scale: float,
+) -> torch.Tensor:
+    """`attention_decode` over a whole speculative chunk at once: chunk
+    position ``j`` of slot ``b`` attends the cache prefix ``[0,
+    valid_len[b, j])`` under the same window mask and `NEG_INF`, with the
+    f32 softmax cast to q's dtype before the product with V."""
+    b, sq, h, hd = q.shape
+    s = k_cache.shape[1]
+    g = h // n_kv
+    ct = torch.promote_types(q.dtype, k_cache.dtype)
+    qg = q.reshape(b, sq, n_kv, g, hd).to(ct)
+    kc = k_cache.reshape(b, s, n_kv, hd).to(ct)
+    vc = v_cache.reshape(b, s, n_kv, hd)
+    logits = torch.einsum("bjkgd,bskd->bjkgs", qg, kc).float() * softmax_scale
+    pos = torch.arange(s, device=q.device)
+    vl = valid_len.to(q.device)[:, :, None]
+    ok = pos[None, None, :] < vl
+    if window > 0:
+        ok = ok & (pos[None, None, :] >= vl - window)
+    logits = torch.where(ok[:, :, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    vt = torch.promote_types(q.dtype, vc.dtype)
+    out = torch.einsum("bjkgs,bskd->bjkgd", probs.to(vt), vc.to(vt))
+    return out.reshape(b, sq, h, hd)
+
+
 # -- MLPs -----------------------------------------------------------------------------
 
 def apply_mlp(p: Params, x: torch.Tensor, kind: str, dtype=torch.bfloat16) -> torch.Tensor:

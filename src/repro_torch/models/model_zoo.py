@@ -7,10 +7,12 @@
     logits, cache = model.prefill(params, tokens, length=...)   # impl="ref": plain route
     logits, cache = model.decode_step(params, cache, token)      # aligned mode
     logits, rows_k, rows_v = model.decode_step_paged(params, kernel_view, token)
+    logits, cache = model.verify_step(params, cache, tokens, n_new)  # speculative verify
 
 The dense decoder family and the Mamba-2 SSM family are ported. An SSM
 model has no paged decode (``decode_step_paged`` is None): it serves in
-aligned mode only. Other families raise `NotImplementedError` naming the
+aligned mode only, and no ``verify_step`` (it is None), so it cannot
+serve speculatively. Other families raise `NotImplementedError` naming the
 ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -49,6 +51,10 @@ class Model:
     # (params, batch) -> (mean masked cross-entropy, {"ce": ...}); batch
     # holds tokens/labels (B, S) int and mask (B, S) f32
     loss: Callable[..., tuple]
+    # (params, cache, tokens (B, S), n_new (B,)) -> (logits (B, S, V), cache):
+    # one batched forward scoring a speculative chunk (serve/spec.py);
+    # None for the ssm family
+    verify_step: Callable[..., tuple] | None = None
 
 
 def build(cfg, device=None) -> Model:
@@ -85,12 +91,16 @@ def build(cfg, device=None) -> Model:
     def decode_step(params, cache, token):
         return transformer.decode_step_lm(cfg, params, cache, token)
 
-    decode_step_paged = None
+    decode_step_paged = verify_step = None
     if cfg.family == "dense":
         def decode_step_paged(params, pview, token, *, impl=None):
             return transformer.decode_step_paged_lm(cfg, params, pview, token, impl=impl)
 
-    return Model(cfg, dev, init, prefill, init_cache, decode_step, decode_step_paged, loss)
+        def verify_step(params, cache, tokens, n_new):
+            return transformer.verify_step_lm(cfg, params, cache, tokens, n_new)
+
+    return Model(cfg, dev, init, prefill, init_cache, decode_step, decode_step_paged, loss,
+                 verify_step)
 
 
 def synthetic_batch(cfg, batch: int, seq: int, seed: int = 0, device=None) -> dict:

@@ -353,6 +353,63 @@ def decode_step_lm(cfg, params: Params, cache: dict, token: torch.Tensor):
     return lm_logits(cfg, params, x), cache
 
 
+def verify_step_lm(cfg, params: Params, cache: dict, tokens: torch.Tensor,
+                   n_new: torch.Tensor):
+    """Score a whole speculative chunk in one batched forward.
+
+    ``tokens`` (B, S) int is each slot's chunk: its pending token followed
+    by the draft block. ``cache["pos"]`` must be the ragged (B,) cursor
+    vector, and ``n_new`` (B,) says how many chunk positions each slot
+    really carries: chunk position ``j`` of slot ``i`` lands at ``pos[i] +
+    j`` when ``j < n_new[i]`` (and that row is inside the cache), and
+    nowhere otherwise. The cache is written in place, as `decode_step_lm`
+    writes it; ``pos`` advances by ``n_new``. Returns ``(logits (B, S, V),
+    cache)``. Each position attends the prefix the sequential decode step
+    would see (`layers.attention_verify`), so the logits equal k + 1
+    sequential `decode_step_lm` calls up to summation order.
+    Attention-only families, like the paged decode.
+    """
+    if cfg.family == "ssm" or cfg.hybrid:
+        raise ValueError("verify step needs an attention-only cache")
+    pos = cache["pos"]
+    if pos.ndim != 1:
+        raise ValueError("verify step is ragged-only: cache['pos'] must be (B,)")
+    dtype = cfg.dtype
+    b, s_chunk = tokens.shape
+    x = layers.embed(params["embed"], tokens, dtype)  # (B, S, d)
+    offs = torch.arange(s_chunk, dtype=torch.int32, device=x.device)
+    chunk_pos = pos[:, None].to(torch.int32) + offs[None, :]  # (B, S)
+    n_new = torch.as_tensor(n_new, device=x.device)
+    s_cache = cache["k"].shape[2]
+    write = (offs[None, :] < n_new[:, None]) & (chunk_pos < s_cache)
+    rows, cols = torch.nonzero(write, as_tuple=True)
+    at = chunk_pos[rows, cols].long()
+    if cfg.pos_kind == "sinusoidal":
+        x = x + layers.sinusoidal_at(chunk_pos, cfg.d_model).to(dtype)
+    hd = cfg.resolved_head_dim
+    scale = 1.0 / math.sqrt(hd)
+    for li, (p, window) in enumerate(zip(params["layers"], cfg.layer_windows())):
+        h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+        q = layers.linear(p["attn"]["wq"], h, dtype).reshape(b, s_chunk, cfg.n_heads, hd)
+        kn = layers.linear(p["attn"]["wk"], h, dtype).reshape(b, s_chunk, cfg.n_kv_heads, hd)
+        vn = layers.linear(p["attn"]["wv"], h, dtype)
+        if cfg.pos_kind == "rope":
+            q = layers.apply_rope(q, chunk_pos, cfg.rope_theta)
+            kn = layers.apply_rope(kn, chunk_pos, cfg.rope_theta)
+        kc, vc = cache["k"][li], cache["v"][li]
+        kc[rows, at] = kn.reshape(b, s_chunk, cfg.d_kv)[rows, cols].to(kc.dtype)
+        vc[rows, at] = vn.reshape(b, s_chunk, cfg.d_kv)[rows, cols].to(vc.dtype)
+        attn = layers.attention_verify(q, kc, vc, cfg.n_kv_heads, chunk_pos + 1, window,
+                                       scale)
+        attn = layers.linear(p["attn"]["wo"], attn.reshape(b, s_chunk, cfg.d_q), dtype)
+        x = x + attn
+        h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+        x = x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
+    cache["pos"] = pos + n_new.to(pos.dtype)
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return lm_logits(cfg, params, x), cache
+
+
 def decode_step_paged_lm(cfg, params: Params, pview: dict, token: torch.Tensor,
                          *, impl: str | None = None):
     """Paged-kernel decode step: attention reads the KV block pool

@@ -1,9 +1,10 @@
 """The serving-engine API of the port: `KVSpec`, `ServeConfig`, the
 `ServingEngine` protocol and the `make_engine` front door.
 
-The port has the colocated `Engine` in aligned and continuous mode. The
-disaggregated, fleet and speculative engines are later slices:
-`make_engine` raises for their configs, naming the ROADMAP item.
+The port has the colocated `Engine` in aligned and continuous mode and
+the speculative `SpecEngine`. The disaggregated and fleet engines are a
+later slice: `make_engine` raises for any other config, naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -99,20 +100,30 @@ class ServingEngine(Protocol):
         ...
 
 
-def make_engine(model, params, cfg: ServeConfig, sched=None):
-    """Build the engine a config describes: `EngineConfig` (or a bare
-    `ServeConfig`) gives the colocated `Engine`. Any other serving config
-    names an engine that is not ported yet and raises."""
+def make_engine(model, params, cfg: ServeConfig, sched=None, *, mesh=None, clock=None,
+                draft=None):
+    """Build the engine a config describes: `SpecConfig` gives the
+    speculative `SpecEngine` (``draft`` an optional ``(draft_model,
+    draft_params)`` pair, else the config's zoo draft is built; ``mesh``
+    lays out its ServiceGraph, ``clock`` prices its ticks), `EngineConfig`
+    (or a bare `ServeConfig`) the colocated `Engine`. Any other serving
+    config names an engine that is not ported yet and raises."""
     from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.spec import SpecConfig, SpecEngine
 
+    if isinstance(cfg, SpecConfig):  # before EngineConfig: SpecConfig extends it
+        return SpecEngine(model, params, cfg, sched=sched, draft=draft, mesh=mesh,
+                          clock=clock)
+    if mesh is not None or clock is not None or draft is not None:
+        raise ValueError("mesh/clock/draft are FleetConfig/SpecConfig-only knobs")
     if isinstance(cfg, EngineConfig):
         return Engine(model, params, cfg, sched=sched)
     if type(cfg) is ServeConfig:
         shared = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
         return Engine(model, params, EngineConfig(**shared), sched=sched)
     raise NotImplementedError(
-        f"{type(cfg).__name__}: only the colocated engine is ported; the disaggregated "
-        "and fleet engines wait for ROADMAP A9, the speculative one for A6"
+        f"{type(cfg).__name__}: the port has the colocated and speculative engines; the "
+        "disaggregated and fleet engines wait for ROADMAP A9"
     )
 
 

@@ -18,6 +18,12 @@ IN PLACE where the reference rebinds `.at[].set` results.
     block and ``-1`` table entries read it.
   * `PrefixCache` — prompt-prefix keyed, refcounted sharing of full
     blocks, LRU-bounded; whole-prompt entries skip prefill.
+
+Speculative decoding (serve/spec.py) adds three operations to both
+stores: `absorb` of a decode step that wrote into the `view` (the
+draft's), `absorb_span` of a verify step's chunk, and `truncate` back to
+the accept point; `resize` re-sizes the slot pool without losing the
+moved slots' KV.
 """
 from __future__ import annotations
 
@@ -80,6 +86,7 @@ class DenseKVStore:
     block_size: int | None = None  # not page-limited
 
     def __init__(self, model, slots: int, max_len: int, *, ragged: bool = False):
+        self._model = model
         self.device = model.device
         self.slots = slots
         self.max_len = max_len
@@ -95,14 +102,24 @@ class DenseKVStore:
                 "pos": torch.as_tensor(pos, device=self.device)}
 
     def absorb(self, cache: dict, active: Sequence[int]) -> None:
-        """Take back the aligned decode step's cache (the step updated it
-        in place) and advance the active slots' lengths."""
-        if self.ragged:
-            raise RuntimeError("absorb takes an aligned decode step's cache; continuous mode "
-                               "scatters rows with absorb_rows")
-        self.cache = cache
+        """Take back a decode step's cache and advance the active slots'
+        lengths (capped at ``max_len``). A step given `view` wrote its rows
+        into the store's own tensors, so ragged mode only advances the
+        lengths; aligned mode takes the step's shared ``pos``."""
+        if not self.ragged:
+            self.cache = cache
         for i in active:
             self.lens[i] = min(self.lens[i] + 1, self.max_len)
+
+    def absorb_span(self, cache: dict, active: Sequence[int],
+                    n_new: Sequence[int]) -> None:
+        """Take back a verify step's cache: slot ``active[i]`` appended
+        ``n_new[i]`` rows at its cursor, into the store's own tensors, in
+        one forward (serve/spec.py); the cursors advance by as many rows."""
+        if not self.ragged:
+            raise RuntimeError("absorb_span needs ragged mode (per-slot cursors)")
+        for i, n in zip(active, n_new):
+            self.lens[i] = min(self.lens[i] + int(n), self.max_len)
 
     def kernel_view(self, active: Sequence[int] | None = None) -> dict:
         """The dense cache as a trivially paged pool: one block of
@@ -177,6 +194,15 @@ class DenseKVStore:
         pos = (self.cache["pos"] if not self.ragged
                else torch.tensor(int(self.lens[slot]), dtype=torch.int32, device=self.device))
         return {k: (pos if k == "pos" else v[:, slot : slot + 1]) for k, v in self.cache.items()}
+
+    def resize(self, new_slots: int, moves: Sequence[tuple[int, int]]) -> "DenseKVStore":
+        """A fresh store of ``new_slots``; ``moves`` are (dst, src) pairs,
+        each slot copied whole with its length (`migrate_cache_into_slot`)."""
+        new = DenseKVStore(self._model, new_slots, self.max_len, ragged=self.ragged)
+        for dst, src in moves:
+            migrate_cache_into_slot(new.cache, self.slot_cache(src), dst)
+            new.lens[dst] = self.lens[src]
+        return new
 
 
 # ---------------------------------------------------------------------------
@@ -433,15 +459,44 @@ class PagedKVStore:
         first; int8 pools quantize the rows here."""
         idx, blocks, offs, fresh = self._tail_slots(active)
         if idx:
-            args = (_ids(idx, self.device), _ids(blocks, self.device),
-                    _ids(offs, self.device), _ids(fresh, self.device))
-            if self.quantized:
-                _paged_scatter_rows_int8(self.k_pool, self.v_pool, self.k_scale,
-                                         self.v_scale, rows_k, rows_v, *args)
-            else:
-                _paged_scatter_rows(self.k_pool, self.v_pool, rows_k, rows_v, *args)
+            self._scatter(rows_k, rows_v, _ids(idx, self.device), blocks, offs, fresh)
         for i in active:
             self.lens[i] = min(self.lens[i] + 1, self.max_len)
+
+    def _scatter(self, rows_k, rows_v, slot_idx, blocks, offs, fresh) -> None:
+        args = (slot_idx, _ids(blocks, self.device), _ids(offs, self.device),
+                _ids(fresh, self.device))
+        if self.quantized:
+            _paged_scatter_rows_int8(self.k_pool, self.v_pool, self.k_scale, self.v_scale,
+                                     rows_k, rows_v, *args)
+        else:
+            _paged_scatter_rows(self.k_pool, self.v_pool, rows_k, rows_v, *args)
+
+    def absorb(self, cache: dict, active: Sequence[int]) -> None:
+        """Take back a decode step that wrote into the gathered `view`:
+        each active slot's new row sits at view position ``lens[i]``;
+        extract it and scatter it into the slot's tail block as
+        `absorb_rows` does (fresh tail blocks zeroed first)."""
+        idx, blocks, offs, fresh = self._tail_slots(active)
+        if idx:
+            sl = _ids(idx, self.device)
+            at = _ids(self.lens[idx], self.device)
+            rows_k, rows_v = cache["k"][:, sl, at], cache["v"][:, sl, at]  # (L, n, d)
+            self._scatter(rows_k, rows_v, _ids(range(len(idx)), self.device), blocks, offs,
+                          fresh)
+        for i in active:
+            self.lens[i] = min(self.lens[i] + 1, self.max_len)
+
+    def absorb_span(self, cache: dict, active: Sequence[int],
+                    n_new: Sequence[int]) -> None:
+        """Take back a verify step's gathered view: slot ``active[i]``
+        appended ``n_new[i]`` rows at view positions ``lens[i] + j``, where
+        `absorb` extracts from once the cursor has advanced ``j`` times. So
+        a span absorb is ``max(n_new)`` plain absorbs over the still-live
+        subset, and the refcounts stay those of one-token decode."""
+        counts = [int(n) for n in n_new]
+        for j in range(max(counts, default=0)):
+            self.absorb(cache, [i for i, n in zip(active, counts) if n > j])
 
     def truncate(self, slot: int, new_len: int) -> None:
         """Roll a slot back to ``new_len`` tokens: blocks wholly past the
@@ -560,6 +615,25 @@ class PagedKVStore:
         """K/V data bytes (the f32 scale sidecar is reported apart)."""
         return (self.k_pool.numel() * self.k_pool.element_size()
                 + self.v_pool.numel() * self.v_pool.element_size())
+
+    def resize(self, new_slots: int, moves: Sequence[tuple[int, int]]) -> "PagedKVStore":
+        """Re-size the slot pool by table moves ((dst, src) pairs): no KV
+        bytes are copied, the pool and the moved slots' blocks stay; slots
+        named as no source are freed (their blocks dereferenced)."""
+        new_tables = np.full((new_slots, self.max_blocks), -1, np.int32)
+        new_lens = np.zeros(new_slots, np.int64)
+        moved = set()
+        for dst, src in moves:
+            new_tables[dst] = self.tables[src]
+            new_lens[dst] = self.lens[src]
+            moved.add(src)
+        for i in range(self.slots):
+            if i not in moved:
+                for b in self.tables[i]:
+                    if b > 0:
+                        self._decref(int(b))
+        self.tables, self.lens, self.slots = new_tables, new_lens, new_slots
+        return self
 
     @property
     def stats(self) -> dict:

@@ -30,6 +30,9 @@ Tolerances, with their reasons:
     kernel's tensor-core body takes each f32 operand as two bf16 terms
     (2^-17 of it); the f32 final state keeps 1e-4;
   * engine: identical token streams and admissions in f32, logits 1e-4;
+    the speculative engine's f32 streams equal the target-only engine's
+    up to the first step with a top-2 margin under 1e-3 (bf16 K/V rows may
+    round one ulp apart between the verify and the paged kernel);
   * chunk_accumulate: bit for bit at n = 2 (one rounding, the stream
     channel's call), ragged S included; 1e-6 relative at n > 2 and for
     bf16 input (summation order);
@@ -46,6 +49,7 @@ Tolerances, with their reasons:
     tensors: bit for bit.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -284,9 +288,11 @@ def test_paged_kernel_long_walk(cuda):
 
 
 # flash attention: (head dim, KV heads, group) covering every head dim the
-# shipped configs use and groups 1, 8 and 12; lengths are not multiples of
-# the kernel's 64-row and 64-key tiles
-FLASH_GEOMETRIES = [(16, 2, 1), (16, 2, 4), (32, 1, 8), (64, 4, 8), (128, 2, 8), (128, 4, 12)]
+# shipped configs use and groups 1, 8 and 12 (group 1 at head dim 64: the
+# qwen1.5-0.5b spec draft's MHA); lengths are not multiples of the
+# kernel's 64-row and 64-key tiles
+FLASH_GEOMETRIES = [(16, 2, 1), (16, 2, 4), (32, 1, 8), (64, 4, 8), (128, 2, 8), (128, 4, 12),
+                    (64, 16, 1)]
 
 
 def _flash_inputs(seed, b, sq, sk, n_kv, rep, hd, dtype, device):
@@ -345,8 +351,9 @@ def test_flash_kernel_reads_strided_views(cuda):
 
 # the bf16 body at head dims 64 and 128 (TMA and wgmma): (head dim, KV
 # heads, group); lengths not multiples of its 128-row and 128-key tiles,
-# windows across tile edges, and starcoder2-15b's group of 12
-WGMMA_GEOMETRIES = [(64, 2, 8), (128, 2, 8), (128, 1, 12)]
+# windows across tile edges, starcoder2-15b's group of 12 and the
+# qwen1.5-0.5b spec draft's group of 1
+WGMMA_GEOMETRIES = [(64, 2, 8), (128, 2, 8), (128, 1, 12), (64, 16, 1)]
 
 
 @pytest.mark.parametrize("window", [0, 129])
@@ -634,6 +641,38 @@ def test_argmax_kernel_scratch_stays_clean_across_shapes(cuda):
         assert torch.equal(g, sample_last(x, impl="ref"))
 
 
+# the speculative path's argmax shapes over qwen's vocabulary: the verify's
+# targets, (slots x (k + 1), V) = (20, 151,936) at 4 slots and k = 4, and a
+# draft step's (4, 151,936)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [20, 4])
+def test_argmax_kernel_at_spec_shapes(cuda, b, dtype):
+    vocab = 151_936
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    x = torch.randn((b, 1, vocab), generator=gen, device=cuda).to(dtype)
+    span, splits = argmax_split(b, vocab, x.element_size())
+    want = _plant_argmax_rows(x[:, -1], span, splits)
+    before = argmax_last_kernel.launches
+    got = sample_last(x)
+    assert argmax_last_kernel.launches == before + 1
+    assert torch.equal(got, sample_last(x, impl="ref"))
+    assert {r: got[r].item() for r in want} == want
+
+
+def _chip_smoke():
+    """The chip smoke script as a module: its phase-6c helpers (the noised
+    draft, the spec run with its store checks, exact launch counts, the
+    target-only margins and the margin rule) are the one copy."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -698,6 +737,34 @@ def test_engine_on_gpu_matches_cpu(cuda, kv_dtype):
     assert gticks == cticks
     assert {r.uid: r.out_tokens for r in ge.finished} == \
            {r.uid: r.out_tokens for r in ce.finished}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_spec_engine_on_gpu_matches_target_only(cuda, paged):
+    """The f32 qwen1.5 smoke target with a noised draft, k = 4, on the card,
+    through the chip smoke's own phase-6c helpers: eight fig17-style
+    requests; every speculative stream equals the target-only engine's up
+    to the first step whose target-only top-2 logit margin is under
+    `SPEC_MARGIN` (the margin rule: the verify attends a dense view with
+    plain attention, target-only decode runs the paged kernel, and both
+    keep K/V in bf16, so a K/V row can round one bf16 ulp apart between
+    the routes), and at most half the streams cut; the draft's lengths
+    equal the target's at every tick and no block leaks; launches exact
+    (argmax = admissions + draft steps + verify calls, flash = layers x
+    the target's and the draft's prefill calls, no paged-kernel launch)."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_smoke("qwen1.5-0.5b"), dtype=torch.float32)
+    model = build(cfg, device="cuda")
+    params = _to(build(cfg, device="cpu").init(0), cuda)
+    draft = (model, cs.noised_params(torch, params, 1e-3, 1))
+    kv = KVSpec(kind="paged", block_size=4) if paged else KVSpec()
+    reqs = cs.spec_requests(np, cfg.vocab_size, n_req=8, new_tokens=8, seed=0)
+    run = cs.spec_engine_run(torch, np, model, params, draft, reqs, kv, max_batch=4, max_len=64)
+    assert run["engine"].stats["drafted"] > 0
+    cs.check_spec_launches("gpu test", run, cfg.n_layers, cfg.n_layers)
+    base = cs.target_only_margins(torch, model, params, reqs, kv, max_batch=4, max_len=64)
+    cut = cs.margin_rule(run["streams"], base)
+    assert len(base["streams"]) == 8 and len(cut) <= 4
 
 
 def test_aligned_mamba_engine_on_gpu_matches_cpu(cuda):

@@ -237,18 +237,19 @@ def test_page_admission_budget_matches_reference(models):
 
 def test_make_engine_dispatch(models):
     """A bare `ServeConfig` builds the colocated engine in the reference's
-    default mode, aligned, over the dense store."""
+    default mode, aligned, over the dense store; a config of an engine not
+    ported yet raises naming its ROADMAP item."""
     _, (tm, tp) = models
     e = make_engine(tm, tp, ServeConfig(max_len=32))
     assert e.cfg.max_batch == 8 and e.kv.kind == "dense" and e.cfg.mode == "aligned"
     assert ServeConfig().mode == JEngineConfig().mode == "aligned" and not e.kv.ragged
 
     @dataclasses.dataclass
-    class SpecConfig(ServeConfig):
-        k: int = 4
+    class DisaggConfig(ServeConfig):
+        n_prefill_rows: int = 2
 
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_engine(tm, tp, SpecConfig(mode="continuous"))
+    with pytest.raises(NotImplementedError, match="A9"):
+        make_engine(tm, tp, DisaggConfig(mode="continuous"))
     with pytest.raises(ValueError, match="continuous"):
         EngineConfig(mode="aligned", kv=KVSpec(kind="paged"))
 

@@ -256,6 +256,45 @@ class _Driver:
         self.j.free(slot)
         self.check()
 
+    def _write_view(self, active, n_new):
+        """Each package's decode-surface view with ``n_new[i]`` random rows
+        written from slot ``active[i]``'s cursor, as a decode or verify
+        step leaves it (in place in the port's view, functionally in the
+        reference's)."""
+        tv, jv = self.t.view(active), self.j.view(active)
+        jk, jvv = jv["k"], jv["v"]
+        for i, n in zip(active, n_new):
+            for r in range(n):
+                at = int(self.t.lens[i]) + r
+                if at >= self.t.max_len:
+                    break
+                k, v = (_bf16(self.rng, self.ln, self.d) for _ in range(2))
+                tv["k"][:, i, at] = torch.from_numpy(k).to(tv["k"].dtype)
+                tv["v"][:, i, at] = torch.from_numpy(v).to(tv["v"].dtype)
+                jk = jk.at[:, i, at].set(jnp.asarray(k, jk.dtype))
+                jvv = jvv.at[:, i, at].set(jnp.asarray(v, jvv.dtype))
+        return tv, {"k": jk, "v": jvv, "pos": jv["pos"]}
+
+    def absorb(self, active):
+        """A ragged decode step that wrote into the view (the draft's)."""
+        tv, jv = self._write_view(active, [1] * len(active))
+        self.t.absorb(tv, active)
+        self.j.absorb(jv, active)
+        self.check()
+
+    def span(self, active, n_new):
+        """A verify step's chunk of ``n_new[i]`` rows per slot."""
+        tv, jv = self._write_view(active, n_new)
+        self.t.absorb_span(tv, active, n_new)
+        self.j.absorb_span(jv, active, n_new)
+        self.check()
+
+    def resize(self, slots, moves):
+        self.t = self.t.resize(slots, moves)
+        self.j = self.j.resize(slots, moves)
+        assert self.t.slots == self.j.slots == slots
+        self.check()
+
     def truncate(self, slot, n):
         self.t.truncate(slot, n)
         self.j.truncate(slot, n)
@@ -325,6 +364,47 @@ def test_dense_store_matches_reference(models):
     for key in tk:
         _same(tk[key], jk[key])
     assert drv.t.free_tokens() == drv.j.free_tokens() and drv.t.stats == drv.j.stats
+
+
+@pytest.mark.parametrize("spec", [dict(kind="dense"),
+                                  dict(kind="paged", block_size=4, prefix_cache=True),
+                                  dict(kind="paged", block_size=4, kv_dtype="int8")],
+                         ids=["dense", "paged", "paged-int8"])
+def test_stores_under_a_spec_schedule_match_reference(models, spec):
+    """Speculative decoding's store traffic, step for step against the JAX
+    stores: verify spans (`absorb_span`, ragged chunks, one past
+    ``max_len``), rollbacks to the accept point (`truncate`), the draft's
+    one-row `absorb` (its catch-up step), retirements, re-admissions and
+    slot-pool `resize` down (requests moved, one dropped) and back up."""
+    p = _prompts(9)
+    drv = _Driver(models, spec, slots=3, max_len=24)
+    drv.admit(0, p["a"])
+    drv.admit(1, p["b"])
+    drv.admit(2, p["d"])
+    n0 = [int(n) for n in drv.t.lens]
+    drv.span([0, 1, 2], [5, 3, 1])
+    for slot, a in ((0, 2), (1, 2), (2, 0)):  # slot 1 accepted all: no rollback
+        drv.truncate(slot, n0[slot] + a + 1)
+    drv.absorb([1])  # the catch-up step of slot 1's draft
+    drv.absorb([0, 1, 2])
+    n0 = [int(n) for n in drv.t.lens]
+    drv.span([0, 2], [4, 5])
+    drv.truncate(0, n0[0] + 1)  # nothing accepted: keep the pending row
+    drv.truncate(2, n0[2] + 3)
+    drv.free(1)
+    drv.admit(1, p["c"])
+    drv.span([0, 1, 2], [5, 5, 5])
+    drv.span([1], [5])  # runs past max_len: the cursor stops there
+    drv.resize(2, [(0, 2), (1, 0)])  # slot 1 dropped (its request re-queued)
+    drv.span([0, 1], [2, 3])
+    drv.truncate(1, int(drv.t.lens[1]) - 2)
+    drv.resize(3, [(0, 0), (1, 1)])
+    drv.admit(2, p["e"][:7])
+    drv.span([0, 1, 2], [1, 2, 3])
+    for slot in range(3):
+        drv.free(slot)
+    if spec["kind"] == "paged":
+        assert drv.t.stats["blocks_in_use"] == drv.t.stats["evictable_blocks"]
 
 
 @pytest.mark.parametrize("name", [NAME, "mamba2-130m"])

@@ -137,3 +137,68 @@ def test_split_argmax_emulation_matches_the_reference(vocab, elt):
     got = _split_argmax(rows, elt)
     np.testing.assert_array_equal(got, np.asarray(jnp.argmax(jnp.asarray(rows), axis=-1)))
     assert got[5] == vocab - 2 and got[3] == 0
+
+
+# -- the seeded draw (speculative decoding's sampler) ---------------------------
+#
+# The port's counter-based generator (`utils.prng`) is held to replay, to
+# its distribution and to independence across counters, not to
+# `jax.random`'s bits. Every statistic below is of a fixed draw, so it is
+# deterministic; each bound is its test's 0.1 % level.
+
+
+def test_seeded_draw_replays_and_spreads_over_ties():
+    """A fixed key gives a fixed draw, ties included; other keys spread over
+    the tied set (the reference test's all-tied logits); k > 1 with a key
+    is refused."""
+    from repro_torch.utils import prng
+
+    logits = torch.zeros((2, 1, 7))
+    key = prng.key(11)
+    a, b = sample_last(logits, key=key), sample_last(logits, key=key)
+    assert torch.equal(a, b) and a.dtype == torch.int32 and a.shape == (2,)
+    draws = {int(sample_last(logits, key=prng.key(s))[0]) for s in range(32)}
+    assert len(draws) > 1 and draws <= set(range(7))
+    with pytest.raises(ValueError, match="k=1"):
+        sample_last(logits, k=2, key=key)
+    assert prng.fold_in(key, 3) == prng.fold_in(prng.key(11), 3) != prng.fold_in(key, 4)
+    assert prng.fold_in(prng.fold_in(key, 1), 2) != prng.fold_in(prng.fold_in(key, 2), 1)
+
+
+def test_seeded_categorical_chi_square():
+    """20,000 draws from a fixed 7-way categorical (one row per draw,
+    batched): the counts against the probabilities, chi-square with 6
+    degrees of freedom under 22.46."""
+    from repro_torch.utils import prng
+
+    p = np.array([0.3, 0.2, 0.15, 0.15, 0.1, 0.07, 0.03])
+    logits = torch.log(torch.from_numpy(p)).float().expand(20_000, 1, 7)
+    ids = sample_last(logits, key=prng.fold_in(prng.key(5), 9)).numpy()
+    counts = np.bincount(ids, minlength=7)
+    expected = p * 20_000
+    assert float(((counts - expected) ** 2 / expected).sum()) < 22.46, counts
+
+
+def test_seeded_uniforms_are_uniform_and_independent_across_counters():
+    """Uniforms of one key: mean and variance of U(0, 1) within 3.3 sigma,
+    a 16-bin chi-square (15 dof) under 37.70; the same elements under
+    counters 0..3 (fold_in) are uncorrelated (|r| < 3.3 / sqrt(n)), and
+    keys differing in the last counter bit give unrelated words."""
+    from repro_torch.utils import prng
+
+    n = 50_000
+    root = prng.key(2)
+    us = [prng.uniform(prng.fold_in(root, c), (n,)).numpy() for c in range(4)]
+    for u in us:
+        assert 0.0 <= u.min() and u.max() < 1.0
+        assert abs(u.mean() - 0.5) < 3.3 * np.sqrt(1 / 12 / n)
+        assert abs(u.var() - 1 / 12) < 3.3 * np.sqrt(1 / 180 / n)
+        counts = np.bincount((u * 16).astype(int), minlength=16)
+        assert float(((counts - n / 16) ** 2 / (n / 16)).sum()) < 37.70
+    for i in range(4):
+        for j in range(i + 1, 4):
+            assert abs(np.corrcoef(us[i], us[j])[0, 1]) < 3.3 / np.sqrt(n)
+    a = prng.bits(prng.fold_in(root, 6), n).numpy()
+    b = prng.bits(prng.fold_in(root, 7), n).numpy()
+    flips = np.unpackbits((a ^ b).astype(">u4").view(np.uint8)).mean()
+    assert abs(flips - 0.5) < 3.3 * np.sqrt(0.25 / (32 * n))
