@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, each printing one JSON line; any failure exits non-zero and
-prints no result:
+Phases, each printing JSON lines (each phase line carries ``seconds``
+since its phase began; a ``timing`` line gives every phase's total); any
+failure exits non-zero and prints no result:
 
 1. device   — the card's name and power limit (nvidia-smi); TF32 off.
 2. build    — nvcc builds every kernel of the main path from
@@ -74,11 +75,14 @@ prints no result:
                (paged, 16-token blocks, prefix cache): the example's 10
                requests target-only, with a full-width qwen1.5-0.5b draft
                (random bf16 weights from --seed + 1; the reference's pair)
-               and with the noised bf16 target; then `bursty-prefix` with
-               the noised draft beside phase 6b's untraced replay: tokens/s,
-               ms a tick (no synchronisation added, as target-only),
-               acceptance, tokens per verify, peak memory, launch counts;
-               then for each draft a fresh engine of 4 slots at a fixed
+               and with the noised bf16 target: tokens/s, ms a tick (no
+               synchronisation added, as target-only), acceptance, tokens
+               per verify, peak memory, launch counts; then `bursty-prefix`
+               cut to its first 24 arrival ticks (25 of 145 requests)
+               with the noised draft, through the multi-tenant scheduler
+               and the shared prefix cache: the stores checked every
+               tick and after the drain, prefix hits, launch counts; then
+               for each draft a fresh engine of 4 slots at a fixed
                load: 8 spec ticks on the host clock (the pair's also 8
                profiled as in phase 5) and 8 with ms per draft step,
                verify forward and rollback, each ended by a
@@ -122,10 +126,20 @@ prints no result:
                launched 0 times). Per run and step the loss and the
                slowest rank's time; per rank the phases, wire and staging
                bytes and seconds, peak device and host memory, moment bytes
-               held, checkpoint bytes and seconds. Then one SGD step (lr 1)
-               of each mode in the world held against the conventional
-               step in one process in f32 (1e-4 of the largest gradient),
-               and reported in bf16.
+               held, checkpoint bytes and seconds. Then the decoupled
+               trainer under the adaptive loop (`TrainerConfig.adapt`,
+               window 2, cooldown 1, threshold 1.05) for 5 steps from the
+               same initial state: its regroups, chunk_accumulate
+               launches against the schedule (every compute row's
+               gradient folded once a step, whatever the partition), its
+               losses bit for bit the static decoupled run's up to the
+               first regroup and within `OVERLAP_LOSS_REL` after it (the
+               static run carried on by one more step, so a regroup after
+               step 3 has step 5's loss hold the update made on the new
+               partition), the seconds of the steps on the new partition.
+               Then one SGD step (lr 1) of each mode in the world held
+               against the conventional step in one process in f32 (1e-4
+               of the largest gradient), and reported in bf16.
 9. mapreduce — the paper's word-count MapReduce (Sec. IV-B) in an
                eight-row gloo world on this card (`launch.mesh.spawn`;
                the wire is host loopback): 16,384 documents of 4,096 word
@@ -133,9 +147,8 @@ prints no result:
                151,936-word vocabulary, 8,192-word (64 KiB) elements, run
                through `apps.mapreduce.run_wordcount` in the reference
                (8 map rows and one sum), decoupled (6 map rows, 2 reduce
-               rows, 3 waves) and pipelined (5 map, 2 reduce, 1 io) modes,
-               and decoupled again at 32,000 words (the histogram's block
-               path); every reduce-side fold and every local map is the
+               rows, 3 waves) and pipelined (5 map, 2 reduce, 1 io) modes;
+               every reduce-side fold and every local map is the
                keyed-histogram kernel. Each run's histogram equals
                `np.bincount` of the valid words bit for bit on every row,
                the modes agree, and the kernel's launches, summed over
@@ -144,10 +157,20 @@ prints no result:
                stream+fold, group sum, broadcast), wire bytes, words per
                second and peak memory. Then the measured variant's
                counters against the host's per-row counts, the fold at
-               its own shape on a reduce row (`fold_case`: the kernel
+               its own shape on a reduce row, at 151,936 and at 32,000
+               bins (the histogram's block path) (`fold_case`: the kernel
                against its plain version bit for bit, both timed beside
                `torch.bincount` and the bound), and the quickstart's
-               workload statistics.
+               workload statistics. Then `run_wordcount_adaptive` over
+               4 balanced corpora (skew 0: every slot a word; 8,192
+               documents of 4,096 slots, so that every bin stays under
+               2^24; seeds --seed + t) from alpha0 1/2, the planner's own allocation for a
+               balanced load at this size (fig12's check (a), the no-op
+               hysteresis, at the paper's scale): no regroup, every
+               superstep's histogram `np.bincount`'s bit for bit on every
+               row, the kernel's launches the schedule's with the warmup
+               superstep of `warmed_step` included; each superstep's wall
+               and reason.
 10. cg      — the paper's CG Poisson solver (Sec. IV-C) in an eight-row
                gloo world on this card: the paper's 120^3 grid per process
                and its 300 iterations (a 1,008 x 120 x 120 global grid,
@@ -175,11 +198,21 @@ prints no result:
                4 MiB) and the drained file held against the packed state
                bit for bit; per run wall time, seconds per step, movers
                per step, wire bytes, peak memory, the drain's bytes and
-               seconds.
-12. summary — a ``{"kernels": [...]}`` line (the histogram's times are
-               the fold's, the path's shape; ``launches_spec`` from phase
-               6c's run with the qwen1.5-0.5b draft), then the last line
-               ``{"ok": true, "device": {...}}``.
+               seconds. Then `run_pic_adaptive` (fig12's check (b)):
+               2^21 particles in 2^21-slot rows, skew 0.9, the current
+               sheet from 0.25 drifting 0.12 a step with pull 2.0, dt
+               0.1, 2 steps a superstep, 4 supersteps from alpha0 1/4:
+               its regroups, every particle conserved at every superstep
+               and across each in-memory migration
+               (`launch.elastic.reshard_state`), each owned by its row on
+               the final partition, each migration's seconds and bytes.
+12. summary — a ``timing`` line, a ``{"kernels": [...]}`` line (the
+               histogram's times are the fold's, the path's shape;
+               ``launches_spec`` from phase 6c's run with the qwen1.5-0.5b
+               draft; the histogram's ``launches_adaptive`` from phase 9's
+               adaptive run, and chunk_accumulate's
+               ``launches_train_by_run`` with phase 8's adaptive run), then
+               the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, the script
 exits non-zero before printing any result. It imports nothing of JAX.
@@ -188,10 +221,12 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -304,7 +339,33 @@ ACC_TPU = "src/repro/kernels/stream_reduce/stream_reduce.py:104"
 HIST_TPU = "src/repro/kernels/stream_reduce/stream_reduce.py:51"
 
 
+class PhaseClock:
+    """Seconds since the current phase of `main` began: `emit` adds them to
+    every phase line as ``seconds`` (a line that has its own keeps it), and
+    `summary` gives every phase's total."""
+
+    def __init__(self):
+        self.name, self.t0, self.totals = None, None, {}
+
+    def start(self, name: str) -> None:
+        self.stop()
+        self.name, self.t0 = name, time.perf_counter()
+
+    def stop(self) -> None:
+        if self.name is not None:
+            self.totals[self.name] = time.perf_counter() - self.t0
+            self.name = None
+
+    def elapsed(self) -> float | None:
+        return None if self.name is None else time.perf_counter() - self.t0
+
+
+CLOCK = PhaseClock()
+
+
 def emit(obj) -> None:
+    if "phase" in obj and "seconds" not in obj and CLOCK.elapsed() is not None:
+        obj = {**obj, "seconds": CLOCK.elapsed()}
     print(json.dumps(obj), flush=True)
 
 
@@ -1643,7 +1704,7 @@ def scenario_phase(torch, np, model, params, smi: str) -> dict:
 
     off = scenario_replay(torch, model, params, trace=None)
     same = {k: off[k] == on[k] for k in ("streams", "ledger", "hashes")}
-    emit(untraced := {"phase": "scenario", "run": "untraced", "ticks": off["engine"].tick,
+    emit({"phase": "scenario", "run": "untraced", "ticks": off["engine"].tick,
           "decode_ticks": off["decode_ticks"], "wall_s": off["wall_s"],
           "tokens_per_s": off["engine"].stats["tokens_out"] / off["wall_s"],
           "ms_per_tick": off["ms_per_tick"], "median_tick_ms": off["median_tick_ms"],
@@ -1683,7 +1744,7 @@ def scenario_phase(torch, np, model, params, smi: str) -> dict:
     emit(fifo)
     if not b.idle() or streams[0] != streams[1] or len(a.finished) != len(sc.generate()):
         raise AssertionError(f"single-fifo: the FIFO scheduler differs from the deque: {fifo}")
-    return {"launches": line["launches"], "traced": line, "untraced": untraced, "fifo": fifo}
+    return {"launches": line["launches"], "traced": line, "fifo": fifo}
 
 
 # -- phase 6c: speculative decoding ---------------------------------------------
@@ -1706,6 +1767,11 @@ SPEC_MARGIN = 1e-3
 SPEC_PARITY = dict(max_batch=4, max_len=96, block_size=8, n_req=12, new_tokens=14)
 SPEC_PROFILE_TICKS = 8
 SPEC_DRAFT = "qwen1.5-0.5b"  # the reference's pair for qwen2.5-3b
+# the multi-tenant spec replay: `SCENARIO`'s traffic cut to its first 24
+# arrival ticks (25 requests of its 145: chat, rag and background, shared
+# prefixes), registered under its own name for `serve_lm.serve`
+SPEC_SCENARIO = "bursty-prefix-24"
+SPEC_SCENARIO_HORIZON = 24
 
 
 def noised_params(torch, params, eps: float, seed: int, dtype=None):
@@ -1803,6 +1869,38 @@ def margin_rule(spec_streams: dict, base: dict) -> dict:
     return cut
 
 
+def check_spec_stores(eng) -> int:
+    """A spec engine's stores after a tick: the draft store's lengths equal
+    the target store's for every live slot; in a paged store (both) the
+    slots' block references equal the live-token block demand, and the
+    private blocks in use equal it too, or, once prefix-cache hits let
+    slots share blocks, do not exceed it. Returns 1 when the blocks were
+    checked."""
+    live = [i for i, r in enumerate(eng.slots) if r is not None]
+    if [int(eng.draft_kv.lens[i]) for i in live] != [int(eng.kv.lens[i]) for i in live]:
+        raise AssertionError(f"spec: draft lens {eng.draft_kv.lens} != target lens "
+                             f"{eng.kv.lens} at tick {eng.tick}")
+    if eng.kv.kind != "paged":
+        return 0
+    for store in (eng.kv, eng.draft_kv):
+        st = store.stats
+        private = st["blocks_in_use"] - st["evictable_blocks"]
+        shared = st.get("prefix_hits", 0) > 0
+        if st["ref_total"] - st["prefix_ref_total"] != st["live_block_demand"] or \
+                private > st["live_block_demand"] or \
+                (not shared and private != st["live_block_demand"]):
+            raise AssertionError(f"spec: block accounting off at tick {eng.tick}: {st}")
+    return 1
+
+
+def check_spec_drained(eng) -> None:
+    """No private block in use in either store of a drained spec engine."""
+    leaked = [st.stats.get("blocks_in_use", 0) - st.stats.get("evictable_blocks", 0)
+              for st in (eng.kv, eng.draft_kv)]
+    if any(leaked):
+        raise AssertionError(f"spec: blocks in use after the drain: {leaked}")
+
+
 def spec_engine_run(torch, np, model, params, draft, reqs: list, kv, *, max_batch: int,
                     max_len: int, spec_mode: str = "greedy", seed: int = 0) -> dict:
     """Drain ``reqs`` through `make_engine(..., SpecConfig(...), draft=)` with
@@ -1835,23 +1933,11 @@ def spec_engine_run(torch, np, model, params, draft, reqs: list, kv, *, max_batc
     blocks_checked = 0
     while not eng.idle():
         eng.step()
-        live = [i for i, r in enumerate(eng.slots) if r is not None]
-        if [int(eng.draft_kv.lens[i]) for i in live] != [int(eng.kv.lens[i]) for i in live]:
-            raise AssertionError(f"spec: draft lens {eng.draft_kv.lens} != target lens "
-                                 f"{eng.kv.lens} at tick {eng.tick}")
-        if eng.kv.kind == "paged":
-            for store in (eng.kv, eng.draft_kv):
-                st = store.stats
-                if st["blocks_in_use"] - st["evictable_blocks"] != st["live_block_demand"]:
-                    raise AssertionError(f"spec: block accounting off at tick {eng.tick}: {st}")
-            blocks_checked += 1
+        blocks_checked += check_spec_stores(eng)
         if eng.tick > 1000:
             raise AssertionError("spec: the engine did not drain")
     launches = {name: k.launches for name, k in counters.items()}
-    leaked = [st.stats.get("blocks_in_use", 0) - st.stats.get("evictable_blocks", 0)
-              for st in (eng.kv, eng.draft_kv)]
-    if any(leaked):
-        raise AssertionError(f"spec: blocks in use after the drain: {leaked}")
+    check_spec_drained(eng)
     return {"engine": eng, "streams": {r.uid: list(r.out_tokens) for r in eng.finished},
             "launches": launches, "prefill_calls": calls, "blocks_checked": blocks_checked,
             "acceptance": eng.stats["accepted"] / max(1, eng.stats["drafted"])}
@@ -1996,8 +2082,7 @@ class _SpecTimers:
                             "n": len(v)} if v else None for k, v in self.ms.items()}
 
 
-def spec_speed_run(torch, np, model, params, draft, *, name: str,
-                   scenario_name: str | None = None, spec: bool = True) -> dict:
+def spec_speed_run(torch, np, model, params, draft, *, name: str, spec: bool = True) -> dict:
     """One run of `examples.serve_lm.serve` at the example's settings (4
     slots, max_len 160, the paged store with 16-token blocks and the prefix
     cache), speculative with ``draft`` (k = 4) or target-only, with every
@@ -2030,14 +2115,14 @@ def spec_speed_run(torch, np, model, params, draft, *, name: str,
     torch.cuda.reset_peak_memory_stats()
     for k in counters.values():
         k.launches = 0
-    out = serve_lm.serve(counted(model, "target"), params, scenario_name=scenario_name,
-                         paged=True, on_tick=on_tick, spec=spec, spec_k=SPEC_K,
+    out = serve_lm.serve(counted(model, "target"), params, paged=True, on_tick=on_tick,
+                         spec=spec, spec_k=SPEC_K,
                          draft=(counted(draft[0], "draft"), draft[1]) if spec else None)
     launches = {k: c.launches for k, c in counters.items()}
     eng = out["engine"]
     wall = out["seconds"] - hook_s
     st = eng.stats
-    line = {"phase": "spec", "run": name, "scenario": scenario_name or "legacy",
+    line = {"phase": "spec", "run": name, "scenario": "legacy",
             "model": model.cfg.name, "draft": draft[0].cfg.name if spec else None,
             "requests": out["requests"], "ticks": eng.tick, "tokens_out": st["tokens_out"],
             "wall_s": wall, "tokens_per_s": st["tokens_out"] / wall,
@@ -2060,6 +2145,68 @@ def spec_speed_run(torch, np, model, params, draft, *, name: str,
     if eng.last_logits is None or not bool(torch.isfinite(eng.last_logits).all()):
         raise AssertionError(f"spec {name}: non-finite logits")
     line["streams"] = {r.uid: list(r.out_tokens) for r in eng.finished}
+    return line
+
+
+def spec_scenario_run(torch, model, params, draft) -> dict:
+    """`SPEC_SCENARIO` through `examples.serve_lm.serve(scenario_name=...,
+    spec=True)` with ``draft``: the multi-tenant `FleetScheduler` feeds the
+    `SpecEngine` (paged store, prefix cache shared across tenants), every
+    kernel count set to 0 just before and read just after. Checks the
+    stores after every tick (`check_spec_stores`) and after the drain,
+    every admitted request finished with its tokens, prefix-cache hits,
+    finite logits, and the launches (`check_spec_launches`)."""
+    from repro_torch.examples import serve_lm
+    from repro_torch.serve import traffic
+
+    traffic.SCENARIOS[SPEC_SCENARIO] = lambda: dataclasses.replace(
+        traffic.scenario(SCENARIO), name=SPEC_SCENARIO, horizon=SPEC_SCENARIO_HORIZON)
+    calls = {"target": 0, "draft": 0}
+
+    def counted(m, who):
+        def prefill(*a, **kw):
+            calls[who] += 1
+            return m.prefill(*a, **kw)
+        return dataclasses.replace(m, prefill=prefill)
+
+    checked = []
+
+    def on_tick(engine):
+        checked.append(check_spec_stores(engine))
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for k in counters.values():
+        k.launches = 0
+    out = serve_lm.serve(counted(model, "target"), params, scenario_name=SPEC_SCENARIO,
+                         paged=True, on_tick=on_tick, spec=True, spec_k=SPEC_K,
+                         draft=(counted(draft[0], "draft"), draft[1]))
+    launches = {k: c.launches for k, c in counters.items()}
+    eng = out["engine"]
+    st = eng.stats
+    line = {"phase": "spec", "run": "spec bursty-prefix, noised target draft",
+            "scenario": SPEC_SCENARIO, "horizon": SPEC_SCENARIO_HORIZON,
+            "model": model.cfg.name, "requests": out["requests"],
+            "rejected": eng.sched.rejected, "ticks": eng.tick, "ticks_checked": sum(checked),
+            "tokens_out": st["tokens_out"], "wall_s": out["seconds"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"],
+            "acceptance": eng.ledger.acceptance_rate(), "launches": launches,
+            "prefill_calls": calls,
+            **{k: st[k] for k in ("accepted", "drafted", "verify_calls", "draft_steps")}}
+    emit(line)
+    check_spec_drained(eng)
+    if len(eng.finished) != out["requests"] - eng.sched.rejected or not eng.finished or \
+            any(len(r.out_tokens) != r.max_new_tokens for r in eng.finished):
+        raise AssertionError(f"spec {SPEC_SCENARIO}: not every request finished with its tokens")
+    if len(checked) != eng.tick or not all(checked):
+        raise AssertionError(f"spec {SPEC_SCENARIO}: {sum(checked)} of {eng.tick} ticks checked")
+    if st["prefix_hit_tokens"] <= 0:
+        raise AssertionError(f"spec {SPEC_SCENARIO}: no prefix-cache hit")
+    if eng.last_logits is None or not bool(torch.isfinite(eng.last_logits).all()):
+        raise AssertionError(f"spec {SPEC_SCENARIO}: non-finite logits")
+    check_spec_launches(SPEC_SCENARIO, {"engine": eng, "launches": launches,
+                                        "prefill_calls": calls},
+                        model.cfg.n_layers, draft[0].cfg.n_layers)
     return line
 
 
@@ -2119,17 +2266,17 @@ def spec_window(torch, np, model, params, draft, *, seed: int, profile: bool) ->
     return out
 
 
-def spec_phase(torch, np, model, params, smi: str, seed: int, scen: dict) -> dict:
+def spec_phase(torch, np, model, params, smi: str, seed: int) -> dict:
     """Phase 6c: speculative decoding on qwen2.5-3b at full width and depth.
     (a) and (c) in f32 (`spec_parity`); (b) the speed runs in bf16 on
     ``params`` through `examples.serve_lm.serve`: the reference's pair (a
     full-width qwen1.5-0.5b draft with random bf16 weights from ``seed`` +
     1) and the noised bf16 target, each beside the target-only engine on
-    the example's requests (their streams reported, not checked: bf16),
-    then `bursty-prefix` with the noised draft beside phase 6b's untraced
-    replay; a window of spec ticks at a fixed load for each draft, the
-    pair's profiled. Returns the launches of the reference pair's run, the
-    user's ``serve_lm --spec --paged``."""
+    the example's requests (their streams reported, not checked: bf16);
+    the first ticks of `bursty-prefix` with the noised draft through the
+    multi-tenant scheduler (`spec_scenario_run`); a window of spec ticks at
+    a fixed load for each draft, the pair's profiled. Returns the launches
+    of the reference pair's run, the user's ``serve_lm --spec --paged``."""
     from repro_torch.configs import get
     from repro_torch.models.model_zoo import build
 
@@ -2153,14 +2300,7 @@ def spec_phase(torch, np, model, params, smi: str, seed: int, scen: dict) -> dic
               "speed_vs_target_only": runs[name]["tokens_per_s"] / base["tokens_per_s"]})
     part_s["legacy_speed_runs"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    bursty = spec_speed_run(torch, np, model, params, noised,
-                            name="spec bursty-prefix, noised target draft",
-                            scenario_name=SCENARIO)
-    ref = scen["untraced"]
-    emit({"phase": "spec", "run": "bursty-prefix vs target-only (phase 6b untraced)",
-          "spec_tokens_per_s": bursty["tokens_per_s"], "target_tokens_per_s": ref["tokens_per_s"],
-          "spec_ms_per_tick": bursty["ms_per_tick"], "target_ms_per_tick": ref["ms_per_tick"],
-          "spec_ticks": bursty["ticks"], "target_ticks": ref["ticks"]})
+    spec_scenario_run(torch, model, params, noised)
     part_s["bursty_prefix_run"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     windows = [spec_window(torch, np, model, params, pair, seed=seed + 9, profile=True),
@@ -2383,6 +2523,12 @@ DECOUPLED_BATCH = 6  # two sequences for each of the three compute rows
 DATA_PARALLEL_BATCH = 8  # two sequences for each of the four rows
 TRAIN_CKPT_EVERY = 2  # the decoupled run saves at steps 2 and 3 (the last)
 RESUME_STEP = 2
+# the decoupled trainer under the adaptive loop (`TrainerConfig.adapt`):
+# 5 steps from the same initial state; the first sample after a (re)build
+# is skipped, so the planner's first chance is after step 3, and step 5's
+# loss follows the update step 4 made on the new partition
+ADAPT_TRAIN_STEPS = 5
+ADAPT_POLICY = dict(window=2, cooldown=1, speedup_threshold=1.05)
 # the step the modes are compared at: step 1 carries each run's first-call
 # costs, and the decoupled run's step 3 shares the host with the write of
 # its step-2 save (the other runs save only after their last step)
@@ -2424,6 +2570,7 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
     import torch
 
     from repro_torch.configs import get
+    from repro_torch.core.adapt import AdaptPolicy
     from repro_torch.data.pipeline import DataConfig, Pipeline, row_shard
     from repro_torch.io import checkpoint as ckpt
     from repro_torch.models.model_zoo import build
@@ -2485,7 +2632,7 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         run = {"wall_s": wall, "launches": {k: fn.launches for k, fn in counters.items()},
-               "log": trainer.metrics_log, "timings": trainer.step_fn.timings,
+               "log": trainer.metrics_log, "timings": list(trainer.step_fn.timings),
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "host_peak_gib": _host_peak_gib(), "ckpt": trainer.checkpointer.log,
                "resumed": trainer.resumed,
@@ -2499,6 +2646,26 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
         out["runs"][name] = run
         return run
 
+    def decoupled_batch(index: int) -> dict:
+        """This row's part of the decoupled run's batch ``index`` (step
+        ``index + 1``), laid out over its TRAIN_ROWS - 1 compute rows."""
+        return row_shard(pipe6.padded_for_groups(index, TRAIN_ROWS - 1, TRAIN_ROWS), mesh.row,
+                         TRAIN_ROWS, model.device)
+
+    def next_loss(params, index: int) -> float:
+        """The decoupled trainer's logged loss of step ``index + 1`` on
+        ``params``: every compute row's loss sum and token count, one sum
+        over the world."""
+        batch = decoupled_batch(index)
+        tot, cnt = 0.0, float(batch["mask"].sum())
+        if mesh.row < TRAIN_ROWS - 1:
+            with torch.no_grad():
+                tot = float(model.loss(params, batch)[0] * batch["mask"].sum())
+        else:
+            cnt = 0.0
+        sums = mesh.all_reduce(torch.tensor([tot, cnt], dtype=torch.float32))
+        return float(sums[0]) / max(float(sums[1]), 1.0)
+
     # the decoupled run, checkpointing
     dec_dir = os.path.join(ckpt_root, "decoupled")
     trainer = Trainer(model, mesh, pipe6, adamw, decoupled_cfg,
@@ -2508,6 +2675,14 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
     snap("adamw state")
     out["params"] = sum(p.numel() for p in tree_leaves(state["params"]))
     drive("decoupled", trainer, state, resume=False)
+    # what the adaptive run's steps 4 and 5 are held to: the static run
+    # carried on by its own step once more (in place, after its counts and
+    # timings were read; the overlap run below resumes from the files), its
+    # logged loss, and step 5's loss on the parameters it left
+    _, _, metrics = trainer.step_fn(state["params"], state["opt"], decoupled_batch(TRAIN_STEPS))
+    out["static_next_losses"] = [float(metrics["loss"]),
+                                 next_loss(state["params"], TRAIN_STEPS + 1)]
+    del metrics
     if mesh.row == 0:  # step 3's save never committed, as if the run had crashed in it
         os.remove(os.path.join(dec_dir, f"step_{TRAIN_STEPS:08d}", ckpt.COMMIT))
     gc.collect()
@@ -2538,6 +2713,26 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
         if mesh.row == 0:
             shutil.rmtree(d, ignore_errors=True)
         mesh.barrier()
+
+    # the decoupled trainer under the adaptive loop, from the same initial
+    # state; it saves only at its last step, which row 0 reads back
+    d = os.path.join(ckpt_root, "decoupled_adaptive")
+    trainer = Trainer(model, mesh, pipe6, adamw, decoupled_cfg,
+                      TrainerConfig(total_steps=ADAPT_TRAIN_STEPS, log_every=1, keep=1,
+                                    ckpt_every=ADAPT_TRAIN_STEPS, ckpt_dir=d,
+                                    adapt=AdaptPolicy(**ADAPT_POLICY)))
+    state = trainer.init_state(seed)
+    run = drive("decoupled_adaptive", trainer, state, resume=False)
+    run["adapt_log"] = trainer.adapt_log
+    run["decisions"] = [(d.reason, d.predicted_speedup)
+                        for d in trainer.adaptive_graph.history]
+    run["reduce_rows_final"] = round(trainer.ts_cfg.reduce_alpha * TRAIN_ROWS)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.row == 0:
+        shutil.rmtree(d, ignore_errors=True)
+    mesh.barrier()
 
     # parity: one SGD step (lr 1: new params = params - gradient) of each
     # mode in the world against the conventional step in one process on the
@@ -2664,6 +2859,63 @@ def train_run_line(name: str, mode: str, ranks: list, smi: str, **extra) -> dict
     return line
 
 
+def adaptive_train_line(ranks: list, dec: dict, smi: str) -> dict:
+    """The adaptive decoupled run's line and its checks: its regroups (the
+    same on every rank), the reduce rows of each step, chunk_accumulate's
+    launches against the schedule (each step folds every compute row's
+    gradient once, one launch a wave), its losses against the static
+    decoupled run's bit for bit up to the first regroup and within
+    `OVERLAP_LOSS_REL` after it (steps 4 and 5 against the static run
+    carried on by one more step: with a regroup after step 3, step 5's
+    loss holds the one update made on the new partition), and the seconds
+    of the steps on the new partition."""
+    runs = [r["runs"]["decoupled_adaptive"] for r in ranks]
+    log = runs[0]["adapt_log"]
+    if any(run["adapt_log"] != log for run in runs):
+        raise AssertionError("train adaptive: the rows disagree on the regroups")
+    rows, by_step = 1, []  # decoupled_cfg's reduce_alpha 1/4 of TRAIN_ROWS
+    events = {e["step"]: e["regroup"]["reduce"] for e in log}
+    for step in range(1, ADAPT_TRAIN_STEPS + 1):
+        by_step.append(rows)
+        rows = events.get(step, rows)
+    expected = sum(TRAIN_ROWS - r for r in by_step)
+    first = log[0]["step"] if log else ADAPT_TRAIN_STEPS
+    static = [x["loss"] for x in dec["steps"]] + ranks[0]["static_next_losses"]
+    losses = [x["loss"] for x in runs[0]["log"]]
+    # a regroup after step `first`: step first + 1 updates on the new
+    # partition, and step first + 2's loss is the first to follow it
+    after_update = list(range(first + 2, ADAPT_TRAIN_STEPS + 1)) if log else []
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, static)]
+    same = [a == b for a, b in zip(losses, static)]
+    line = train_run_line("decoupled_adaptive", "decoupled", ranks, smi,
+                          policy=ADAPT_POLICY, adapt_log=log, reduce_rows_by_step=by_step,
+                          chunk_accumulate_expected=expected,
+                          static_losses=static, loss_rel_to_static=rel,
+                          bit_identical_to_static=same, first_regroup_step=first if log else None,
+                          loss_budget_after_regroup=OVERLAP_LOSS_REL,
+                          steps_after_a_regrouped_update=after_update)
+    emit({"phase": "train", "run": "decoupled_adaptive summary", "adapt_log": log,
+          "decisions": runs[0]["decisions"],
+          "step_wall_s": [x["wall_s"] for x in line["steps"]],
+          "new_partition_step_wall_s": [x["wall_s"] for x, r in zip(line["steps"], by_step)
+                                        if r != by_step[0]],
+          "static_step_wall_s": [x["wall_s"] for x in dec["steps"]], "nvidia_smi": smi})
+    if line["launches"]["chunk_accumulate"] != expected:
+        raise AssertionError(f"train adaptive: chunk_accumulate launched "
+                             f"{line['launches']['chunk_accumulate']} times, the schedule "
+                             f"{by_step} says {expected}")
+    if len(losses) != ADAPT_TRAIN_STEPS or len(static) != ADAPT_TRAIN_STEPS:
+        raise AssertionError(f"train adaptive: {len(losses)} steps and {len(static)} static "
+                             f"losses, want {ADAPT_TRAIN_STEPS}")
+    if not all(same[:min(first, TRAIN_STEPS)]):
+        raise AssertionError(f"train adaptive: losses before the first regroup differ from the "
+                             f"static run's: {losses} against {static}")
+    if not all(r <= OVERLAP_LOSS_REL for r in rel):
+        raise AssertionError(f"train adaptive: losses {losses} off the static run's {static}: "
+                             f"{rel}, budget {OVERLAP_LOSS_REL}")
+    return line
+
+
 def train_phase(torch, np, seed: int, smi: str) -> dict:
     """The four-row world on the card (every kernel already built by the
     parent), its train lines, and the checks. Checkpoints go to a fresh
@@ -2698,9 +2950,10 @@ def train_phase(torch, np, seed: int, smi: str) -> dict:
     conv = train_run_line("conventional", "conventional", ranks, smi,
                           global_batch=DATA_PARALLEL_BATCH)
     over = train_run_line("overlap", "overlap", ranks, smi, global_batch=DATA_PARALLEL_BATCH)
+    adaptive = adaptive_train_line(ranks, dec, smi)
     launches = {name: line["launches"] for name, line in
                 (("decoupled", dec), ("overlap_resume", resume), ("conventional", conv),
-                 ("overlap", over))}
+                 ("overlap", over), ("decoupled_adaptive", adaptive))}
     by_mode = {"decoupled": dec, "conventional": conv, "overlap": over}
     overlap_loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
                         for a, b in zip(over["steps"], conv["steps"])]
@@ -2750,14 +3003,30 @@ def train_phase(torch, np, seed: int, smi: str) -> dict:
 MR_ROWS = 8
 # 16,384 documents of 4,096 word slots (2^26), Zipf(1.4) ids, skewed lengths
 MR_CFG = dict(n_docs_per_row=2048, words_per_doc=4096, skew=0.8)
-MR_VOCABS = (151_936, 32_000)  # qwen's vocabulary (global path); the block path
+# qwen's vocabulary (the global path), and 32,000 bins (the block path) for
+# the fold alone (the kernels phase runs the block path too)
+MR_VOCABS = (151_936, 32_000)
 MR_GRANULARITY = 8192  # words per element: 64 KiB [keys | counts] elements
 # (run, mode, vocab, keyword arguments of run_wordcount)
 MR_RUNS = [("reference", "reference", 151_936, {}),
            ("decoupled", "decoupled", 151_936, {"alpha": 0.25}),
-           ("pipelined", "pipelined", 151_936, {"alpha": 0.25, "chain_alphas": {"io": 0.125}}),
-           ("decoupled_32000", "decoupled", 32_000, {"alpha": 0.25})]
+           ("pipelined", "pipelined", 151_936, {"alpha": 0.25, "chain_alphas": {"io": 0.125}})]
 MR_FOLD_ELEMENTS = 256  # elements of compute row 0's stream timed on a reduce row
+# the adaptive word count (fig12's check (a), the no-op hysteresis, at the
+# paper's scale): balanced corpora (skew 0) of the same size, seeds --seed +
+# t, under `run_wordcount_adaptive`'s default policy; it must never regroup.
+# It starts at the planner's own allocation for this load, 4 reduce rows of
+# 8 (the row budget's edge): from alpha0 1/4 the model predicts 1.88x for 4
+# reduce rows here, and regroups (fig12's 16 and 32 documents over 6 map rows
+# leave the last row a third full, and plan 1.133x), so the no-op path at
+# this scale is the optimum's: "already optimal" at every wall
+# (`scripts/torch_adapt_plan.py` replays these verdicts on the host)
+MR_ADAPT_STEPS = 4
+MR_ADAPT_ALPHA0 = 0.5
+# half the static runs' documents: at skew 0 every slot is a valid word, and
+# at 2^26 words Zipf(1.4)'s hottest bin passes 2^24 (~21.6M), where no f32
+# histogram (the reference's included) is exact; at 2^25 it holds ~10.8M
+MR_ADAPT_CFG = dict(n_docs_per_row=1024, words_per_doc=4096, skew=0.0)
 # the measured variant's reduce-stage word count is an f32 running sum, as
 # in the reference: each reduce row adds ~4,098 exact element counts and
 # passes 2^24 (~17.2M words each), where every add may round by one (half
@@ -2851,6 +3120,7 @@ def mapreduce_rank(mesh, seed: int, paths: dict) -> dict:
         load_corpus,
         row_docs,
         run_wordcount,
+        run_wordcount_adaptive,
         wordcount_graph,
     )
     from repro_torch.examples.quickstart import workload_stats
@@ -2881,6 +3151,25 @@ def mapreduce_rank(mesh, seed: int, paths: dict) -> dict:
         del hist
         torch.cuda.empty_cache()
 
+    # the adaptive word count over the balanced corpora, one superstep each
+    cfg = CorpusCfg(**MR_ADAPT_CFG, vocab=MR_VOCABS[0], seed=seed)
+    mesh.stats = WireStats()
+    torch.cuda.synchronize()
+    mesh.barrier()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    report, ag = run_wordcount_adaptive(mesh, cfg, supersteps=MR_ADAPT_STEPS,
+                                        alpha0=MR_ADAPT_ALPHA0, granularity_words=MR_GRANULARITY,
+                                        corpora=[load_corpus(p) for p in paths["adaptive"]])
+    torch.cuda.synchronize()
+    out["adaptive"] = {"wall_s": time.perf_counter() - t0,
+                       "launches": {k: fn.launches for k, fn in counters.items()},
+                       "hist": [r.pop("histogram") for r in report], "report": report,
+                       "rows": ag.rows, "wire": mesh.stats.as_dict(),
+                       "speedups": [d.predicted_speedup for d in ag.history]}
+    torch.cuda.empty_cache()
+
     # the measured variant: per-row mapped words and the reduce stage's count
     cfg = CorpusCfg(**MR_CFG, vocab=MR_VOCABS[0], seed=seed)
     graph, gmesh, _ = wordcount_graph(mesh, "decoupled", 0.25)
@@ -2902,6 +3191,23 @@ def mapreduce_rank(mesh, seed: int, paths: dict) -> dict:
     return out
 
 
+def corpus_job(cfg, total_docs: int, directory: str) -> tuple:
+    """One corpus made and saved under ``directory`` (`save_corpus`; run in
+    a worker process), and its host counts: (path, `np.bincount` of the
+    valid words, valid words, words per document)."""
+    import numpy as np
+
+    from repro_torch.apps.mapreduce import save_corpus
+
+    os.makedirs(directory)
+    path = save_corpus(cfg, total_docs, directory)
+    tokens = np.load(path + ".tokens.npy", mmap_mode="r")
+    mask = np.load(path + ".mask.npy", mmap_mode="r")
+    valid = np.asarray(mask) > 0
+    return (path, np.bincount(np.asarray(tokens)[valid], minlength=cfg.vocab), int(valid.sum()),
+            np.asarray(mask).sum(1))
+
+
 def mapreduce_phase(torch, np, seed: int, smi: str) -> dict:
     """The MapReduce phase: the corpora made once here and shared with the
     eight ranks through files, every run's histogram held against
@@ -2918,18 +3224,26 @@ def mapreduce_phase(torch, np, seed: int, smi: str) -> dict:
     t0 = time.perf_counter()
     host, paths, stats = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        # every corpus at once, one process each: the static runs' two and
+        # the adaptive run's balanced ones
+        jobs = {vocab: (CorpusCfg(**MR_CFG, vocab=vocab, seed=seed), total_docs)
+                for vocab in MR_VOCABS}
+        jobs.update({f"adaptive_{t}": (CorpusCfg(**MR_ADAPT_CFG, vocab=MR_VOCABS[0],
+                                                 seed=seed + t),
+                                       MR_ADAPT_CFG["n_docs_per_row"] * MR_ROWS)
+                     for t in range(MR_ADAPT_STEPS)})
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(len(jobs), mp_context=ctx) as pool:
+            done = {key: pool.submit(corpus_job, cfg, docs, os.path.join(tmp, str(key)))
+                    for key, (cfg, docs) in jobs.items()}
+            done = {key: f.result() for key, f in done.items()}
         for vocab in MR_VOCABS:
-            cfg = CorpusCfg(**MR_CFG, vocab=vocab, seed=seed)
-            os.makedirs(os.path.join(tmp, str(vocab)))
-            paths[vocab] = save_corpus(cfg, total_docs, os.path.join(tmp, str(vocab)))
-            tokens = np.load(paths[vocab] + ".tokens.npy", mmap_mode="r")
-            mask = np.load(paths[vocab] + ".mask.npy", mmap_mode="r")
-            valid = np.asarray(mask) > 0
-            host[vocab] = np.bincount(np.asarray(tokens)[valid], minlength=vocab)
-            stats[vocab] = {"valid_words": int(valid.sum()),
-                            "hottest_bin": int(host[vocab].max()),
-                            "doc_words": np.asarray(mask).sum(1)}
-            del tokens, mask, valid
+            paths[vocab], host[vocab], valid_words, doc_words = done[vocab]
+            stats[vocab] = {"valid_words": valid_words, "hottest_bin": int(host[vocab].max()),
+                            "doc_words": doc_words}
+        paths["adaptive"] = [done[f"adaptive_{t}"][0] for t in range(MR_ADAPT_STEPS)]
+        adaptive_host = [done[f"adaptive_{t}"][1] for t in range(MR_ADAPT_STEPS)]
+        del done
         corpus_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ranks = spawn(mapreduce_rank, MR_ROWS, device="cuda", args=(seed, paths),
@@ -2975,6 +3289,9 @@ def mapreduce_phase(torch, np, seed: int, smi: str) -> dict:
         if not per[0]["device"].startswith("cuda"):
             raise AssertionError(f"mapreduce {name}: the histogram lies on {per[0]['device']}")
         runs.append(line)
+    adaptive = adaptive_mapreduce_line(np, ranks, adaptive_host, smi)
+    for k, v in adaptive["launches"].items():
+        launches_total[k] = launches_total.get(k, 0) + v
     by_vocab = {}
     for (name, _, vocab, _), r in zip(MR_RUNS, ranks[0]["runs"].values()):
         by_vocab.setdefault(vocab, []).append(r["hist"])
@@ -3017,7 +3334,56 @@ def mapreduce_phase(torch, np, seed: int, smi: str) -> dict:
         raise AssertionError("mapreduce: the measured counters differ from the host's counts")
     if not quick_ok:
         raise AssertionError(f"quickstart: analytics {qstats} disagree with the rows {local}")
-    return {"runs": runs, "launches": launches_total, "fold": fold}
+    return {"runs": runs, "launches": launches_total, "fold": fold,
+            "launches_adaptive": adaptive["launches"]["histogram"]}
+
+
+def adaptive_mapreduce_line(np, ranks: list, host: list, smi: str) -> dict:
+    """The adaptive word count's line and its checks: no regroup, the same
+    decisions on every row, every superstep's histogram equal to the
+    host's `np.bincount` bit for bit on every row, and the histogram
+    kernel's launches, summed over the ranks, equal to the schedule's,
+    warmups included (`adaptive_histogram_launches`)."""
+    from repro_torch.apps.mapreduce import CorpusCfg, adaptive_histogram_launches
+
+    per = [r["adaptive"] for r in ranks]
+    report = per[0]["report"]
+    cfg = CorpusCfg(**MR_ADAPT_CFG, vocab=MR_VOCABS[0])
+    hottest = max(int(h.max()) for h in host)
+    if hottest >= 2 ** 24:
+        raise AssertionError(f"mapreduce adaptive: a bin ({hottest}) is past f32's exact integers")
+    want = adaptive_histogram_launches(report, cfg, MR_ROWS, granularity_words=MR_GRANULARITY)
+    launches = {k: sum(p["launches"][k] for p in per) for k in per[0]["launches"]}
+    exact = [all(np.array_equal(p["hist"][t], host[t]) for p in per)
+             for t in range(MR_ADAPT_STEPS)]
+    line = {"phase": "mapreduce", "run": "adaptive", "mode": "decoupled", "vocab": cfg.vocab,
+            "rows": MR_ROWS, "alpha0": MR_ADAPT_ALPHA0, "supersteps": MR_ADAPT_STEPS,
+            "corpus": {**MR_ADAPT_CFG, "seeds": "--seed + t"}, "hottest_bin": hottest,
+            "granularity_words": MR_GRANULARITY,
+            "wall_s": max(p["wall_s"] for p in per),
+            "superstep_wall_s": [r["wall_s"] for r in report],
+            "decisions": [r["decision"] for r in report],
+            "reduce_rows": [r["rows"]["reduce"] for r in report],
+            "predicted_speedups": per[0]["speedups"], "regroups": sum(r["regrouped"]
+                                                                      for r in report),
+            "work_cv": [r["work_cv"] for r in report], "tokens": [float(r["tokens"])
+                                                                 for r in report],
+            "launches": launches, "histogram_expected": want,
+            "histogram_by_row": [p["launches"]["histogram"] for p in per],
+            "bit_identical_to_host": exact,
+            "wire": "gloo over host loopback (device -> pinned host -> gloo -> host -> device)",
+            "nvidia_smi": smi}
+    emit(line)
+    if any(p["report"] != report or p["rows"] != per[0]["rows"] for p in per):
+        raise AssertionError("mapreduce adaptive: the rows disagree on the decisions")
+    if line["regroups"]:
+        raise AssertionError(f"mapreduce adaptive: a balanced load regrouped: {line['decisions']}")
+    if not all(exact):
+        raise AssertionError(f"mapreduce adaptive: a histogram differs from the host's: {exact}")
+    if launches["histogram"] != want or want <= 0:
+        raise AssertionError(f"mapreduce adaptive: histogram launched {launches['histogram']} "
+                             f"times, the schedule (warmups included) says {want}")
+    return line
 
 
 # -- phase 10: the paper's halo-exchange CG -------------------------------------------
@@ -3169,6 +3535,12 @@ PIC_ALPHA = 0.125
 PIC_IO_CHUNKS = 256  # the io service's ring: 6 rows x 3 chunks x 8 steps = 144 fit
 DRAIN_GRANULARITY = 2 ** 20  # the final state's drain: 6 rows x 3 chunks
 DRAIN_CAPACITY = 64
+# the adaptive run (fig12's check (b), the reference test's settings at
+# 2^21 particles): every row can hold them all, so none can overflow
+PIC_ADAPT_CFG = dict(capacity=2 ** 21, n_particles_total=2 ** 21, n_steps=2, dt=0.1, skew=0.9,
+                     sheet_center0=0.25, drift=0.12, attract=2.0)
+PIC_ADAPT_ALPHA0 = 0.25
+PIC_ADAPT_STEPS = 4
 
 
 def pic_rank(mesh, seed: int, sink_dir: str) -> dict:
@@ -3179,7 +3551,8 @@ def pic_rank(mesh, seed: int, sink_dir: str) -> dict:
     to a `HostSink` through `io.iogroup.stream_to_io_group`."""
     import torch
 
-    from repro_torch.apps.pic import RUNS, PICCfg, pic_graph, run_pic
+    from repro_torch.apps.pic import RUNS, PICCfg, pic_graph, run_pic, run_pic_adaptive
+    from repro_torch.core.adapt import AdaptPolicy
     from repro_torch.io.iogroup import HostSink, stream_to_io_group
     from repro_torch.launch.mesh import WireStats
 
@@ -3219,7 +3592,82 @@ def pic_rank(mesh, seed: int, sink_dir: str) -> dict:
         out["runs"][name] = run
         del res, x, v, m
         torch.cuda.empty_cache()
+
+    # the adaptive run: the drifting sheet, regroups and in-memory migrations
+    acfg = PICCfg(**PIC_ADAPT_CFG, seed=3 + seed)
+    stats = {}
+    mesh.stats = WireStats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.barrier()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    report, ag, state = run_pic_adaptive(mesh, acfg, alpha0=PIC_ADAPT_ALPHA0,
+                                         supersteps=PIC_ADAPT_STEPS,
+                                         policy=AdaptPolicy(**ADAPT_POLICY), stats=stats)
+    torch.cuda.synchronize()
+    work = ag.graph.gmesh.compute.size
+    m = state["m"] > 0
+    x = state["x"][m]
+    owned = bool((torch.floor(x / (acfg.domain / work)) == mesh.row).all()) if mesh.row < work \
+        else not bool(m.any())
+    out["adaptive"] = {"wall_s": time.perf_counter() - t0, "report": report, "rows": ag.rows,
+                       "stats": stats, "owned": owned, "valid": int(m.sum()),
+                       "device": str(state["x"].device),
+                       "speedups": [d.predicted_speedup for d in ag.history],
+                       "launches": {k: fn.launches for k, fn in counters.items()},
+                       "wire": mesh.stats.as_dict(),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del state, x, m
+    torch.cuda.empty_cache()
     return out
+
+
+def adaptive_pic_line(ranks: list, smi: str) -> dict:
+    """The adaptive PIC run's line and its checks: the same report on every
+    row, every particle conserved at every superstep (each migration
+    raises on a drop, on every rank alike) and owned by its row on the
+    final partition, and each migration's seconds and bytes."""
+    per = [r["adaptive"] for r in ranks]
+    report = per[0]["report"]
+    total = PIC_ADAPT_CFG["n_particles_total"]
+    line = {"phase": "pic", "run": "adaptive", "mode": "decoupled", "rows": PIC_ROWS,
+            "cfg": PIC_ADAPT_CFG, "alpha0": PIC_ADAPT_ALPHA0, "policy": ADAPT_POLICY,
+            "wall_s": max(p["wall_s"] for p in per),
+            "superstep_wall_s": [r["wall_s"] for r in report],
+            "centers": [r["center"] for r in report], "exits": [r["exits"] for r in report],
+            "comm_rows": [r["rows"]["comm"] for r in report],
+            "decisions": [r["decision"] for r in report],
+            "regroups": sum(r["regrouped"] for r in report), "final_rows": per[0]["rows"],
+            "predicted_speedups": per[0]["speedups"],
+            "n_particles": [r["n_particles"] for r in report],
+            "final_valid_by_row": [p["valid"] for p in per],
+            "owned": all(p["owned"] for p in per),
+            "migrations": [{"superstep": m["superstep"], "bytes_per_rank": m["gathered_bytes"],
+                            "slowest_s": max(p["stats"]["migrations"][i]["seconds"]
+                                             for p in per)}
+                           for i, m in enumerate(per[0]["stats"].get("migrations", []))],
+            "launches": {k: sum(p["launches"][k] for p in per) for k in per[0]["launches"]},
+            "sent_bytes": sum(p["wire"]["sent_bytes"] for p in per),
+            "collective_bytes": sum(p["wire"]["collective_bytes"] for p in per),
+            "peak_gib": [p["peak_gib"] for p in per], "device": per[0]["device"],
+            "wire": "gloo over host loopback (device -> pinned host -> gloo -> host -> device)",
+            "nvidia_smi": smi}
+    emit(line)
+    if any(p["report"] != report for p in per):
+        raise AssertionError("pic adaptive: the rows disagree on the report")
+    if not per[0]["device"].startswith("cuda"):
+        raise AssertionError(f"pic adaptive: particles lie on {per[0]['device']}")
+    if line["n_particles"] != [float(total)] * PIC_ADAPT_STEPS \
+            or sum(line["final_valid_by_row"]) != total:
+        raise AssertionError(f"pic adaptive: particles not conserved: {line['n_particles']}, "
+                             f"final {line['final_valid_by_row']}")
+    if not line["owned"]:
+        raise AssertionError("pic adaptive: a particle lies off its row on the final partition")
+    if len(line["migrations"]) != line["regroups"]:
+        raise AssertionError("pic adaptive: a regroup without its migration")
+    return line
 
 
 def pic_phase(torch, np, seed: int, smi: str) -> dict:
@@ -3311,6 +3759,9 @@ def pic_phase(torch, np, seed: int, smi: str) -> dict:
             if files != ["drain_000000.npy"] or not line["drain"]["identical"]:
                 raise AssertionError(f"pic {name}: the drain wrote {files}, identical to the "
                                      f"packed state: {line['drain']['identical']}")
+    lines["adaptive"] = adaptive = adaptive_pic_line(ranks, smi)
+    for k, n in adaptive["launches"].items():
+        launches_total[k] = launches_total.get(k, 0) + n
     emit({"phase": "pic_summary", "world_s": world_s, "launches": launches_total,
           "nvidia_smi": smi})
     return {"lines": lines, "launches": launches_total}
@@ -3338,6 +3789,8 @@ def main(argv=None) -> int:
         return 2
 
     # phase 1: device
+    t_main = time.perf_counter()
+    CLOCK.start("device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -3350,6 +3803,7 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda})
 
     # phase 2: build every kernel of the path, one nvcc per source at once
+    CLOCK.start("build")
     t0 = time.perf_counter()
     libs = runtime.build_all()
     ptxas = {}
@@ -3361,13 +3815,15 @@ def main(argv=None) -> int:
           "libs": {n: str(p.relative_to(HERE)) for n, p in libs.items()}, "ptxas": ptxas})
 
     # phase 3: kernels against their plain versions, full-width shapes
+    CLOCK.start("kernels")
     kernels = [check_paged(torch, np, args.seed), check_argmax(torch, np, args.seed),
                check_flash(torch, np, args.seed), check_ssd(torch, np, args.seed),
                check_accumulate(torch, np, args.seed), check_histogram(torch, np, args.seed)]
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 4: full-width serve of tinyllama-1.1b
+    # phase 4: full-width serve of tinyllama-1.1b (and phase 5's profile)
+    CLOCK.start("serve")
     cfg = get("tinyllama-1.1b")
     model = build(cfg)
     params = model.init(args.seed)
@@ -3384,6 +3840,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # phase 6: long prompts, qwen2.5-3b at full width and depth
+    CLOCK.start("long")
     qcfg = get("qwen2.5-3b")
     qmodel = build(qcfg)
     # the prefix cache keeps one entry per 16-token block boundary of a
@@ -3408,13 +3865,15 @@ def main(argv=None) -> int:
 
     # phase 6b: the serving example's traffic scenarios, qwen2.5-3b at full
     # width and depth, the same weights
+    CLOCK.start("scenario")
     scen = scenario_phase(torch, np, qmodel, qparams, smi)
     gc.collect()
     torch.cuda.empty_cache()
 
     # phase 6c: speculative decoding, qwen2.5-3b at full width and depth (f32
     # parity from --seed; the speed runs on the same bf16 weights)
-    spec = spec_phase(torch, np, qmodel, qparams, smi, args.seed, scen)
+    CLOCK.start("spec")
+    spec = spec_phase(torch, np, qmodel, qparams, smi, args.seed)
     del qparams
     # the arms' engines hold their params in reference cycles (the timed
     # step closures): collect them, so the mamba arm's peak is its own
@@ -3423,6 +3882,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # phase 7: mamba2-130m at full width and depth, aligned mode
+    CLOCK.start("mamba")
     mcfg = get("mamba2-130m")
     mmodel = build(mcfg)
     mparams = mmodel.init(args.seed)
@@ -3436,15 +3896,20 @@ def main(argv=None) -> int:
 
     # phase 8: training in every step mode, with checkpoints and a resume,
     # qwen1.5-0.5b at full width in a four-row world on this card
+    CLOCK.start("train")
     train = train_phase(torch, np, args.seed + 8, smi)
 
     # phase 9: the paper's decoupled MapReduce in an eight-row world on this card
+    CLOCK.start("mapreduce")
     mapreduce = mapreduce_phase(torch, np, args.seed, smi)
 
     # phases 10 and 11: the paper's halo-exchange CG, and its particle
     # communication and decoupled I/O, in eight-row worlds on this card
+    CLOCK.start("cg")
     cg = cg_phase(torch, np, smi)
+    CLOCK.start("pic")
     pic = pic_phase(torch, np, args.seed, smi)
+    CLOCK.stop()
 
     # phase 12: summary; "launches" is the count from the run of the path
     # each kernel belongs to (the bf16 tinyllama arm for paged decode,
@@ -3452,8 +3917,9 @@ def main(argv=None) -> int:
     # phase's run with the qwen1.5-0.5b draft beside it; the
     # mamba arm for the SSD scan; the train phase's decoupled run, summed
     # over its four ranks, for chunk_accumulate, every train run's counts
-    # beside it (launches_train_by_run); the MapReduce
-    # phase, its four runs summed over their eight ranks, for histogram),
+    # beside it (launches_train_by_run, the adaptive run's too); the MapReduce
+    # phase, its five runs summed over their eight ranks, for histogram, the
+    # adaptive run's beside it as launches_adaptive),
     # each arm's counts beside it (the CG and PIC phases launch none of the
     # kernels: their stencil, dots, push and merges are plain PyTorch, as the
     # reference's are plain jnp).
@@ -3468,6 +3934,7 @@ def main(argv=None) -> int:
     for kern in kernels:
         name = kern["name"]
         if name == "histogram":
+            kern["launches_adaptive"] = mapreduce["launches_adaptive"]
             fold = mapreduce["fold"][MR_VOCABS[0]]
             kern["isolated_2p26"] = {k: kern[k] for k in timed}
             kern.update({k: fold["kernel_" + k if k in ("ms", "device_ms") else k]
@@ -3493,8 +3960,10 @@ def main(argv=None) -> int:
             "plain_device_ms", "library_device_ms", "launches_long_arm",
             "launches_scenario", "launches_spec", "launches_mamba_arm", "launches_train", "launches_train_by_run",
             "launches_mapreduce", "launches_cg", "launches_pic")
-    emit({"kernels": [{k: kern[k] for k in keys + ("isolated_2p26",) if k in kern}
-                      for kern in kernels]})
+    emit({"phase": "timing", "seconds_by_phase": CLOCK.totals,
+          "total_s": time.perf_counter() - t_main})
+    emit({"kernels": [{k: kern[k] for k in keys + ("isolated_2p26", "launches_adaptive")
+                       if k in kern} for kern in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -23,20 +23,34 @@ Counts are integer-valued f32, so every summation order gives the same
 bits while each bin stays under 2^24, and all modes agree bit for bit.
 Keys travel as f32 (exact below 2^24).
 
-Everything but the host entry point `wordcount_world` is this rank's part of
-the computation (`launch.mesh`); the corpus is numpy on the host, and
-each rank moves only its own rows' documents to its device.
+The adaptive variant (`run_wordcount_adaptive`) closes the measure ->
+plan -> regroup loop (`core.adapt`) around the decoupled histogram: each
+superstep's corpus is laid out over the current compute rows, and the
+wall, the per-row word counts and the reduce stage's count feed the
+planner, which may move rows between the map and reduce groups.
+
+Everything but the host entry points `wordcount_world` and
+`wordcount_adaptive_world` is this rank's part of the computation
+(`launch.mesh`); the corpus is numpy on the host, and each rank moves
+only its own rows' documents to its device.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import tempfile
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core.adapt import (
+    AdaptiveGraph,
+    AdaptPolicy,
+    StageTrait,
+    timed_call,
+    warmed_step,
+)
 from repro_torch.core.channel import StreamChannel
 from repro_torch.core.dataflow import (
     ServiceGraph,
@@ -300,6 +314,115 @@ def histogram_launches(mode: str, corpus_cfg: CorpusCfg, n_rows: int, alpha: flo
     return gmesh.compute.size * -(-words // min(granularity_words, words))
 
 
+# -- adaptive: close the measure -> plan -> regroup loop --------------------------
+
+def wordcount_traits(words_per_doc: int = 512) -> tuple[StageTrait, ...]:
+    """Calibration traits of the reduce stage: folding one word into the
+    histogram costs a fraction of mapping it, and each word crosses the
+    wire as a [key | count] f32 pair."""
+    del words_per_doc
+    return (StageTrait("reduce", cost_ratio=0.5, bytes_per_item=8.0),)
+
+
+def _measured_superstep(graph: ServiceGraph, vocab: int, granularity_words: int) -> Callable:
+    """One superstep on ``graph``'s partition: this row's (tokens, mask) ->
+    (histogram, per-row word vector, reduce-stage word count)."""
+
+    def step(tokens, mask):
+        return decoupled_wordcount_measured(tokens, mask, vocab, graph, granularity_words)
+
+    return step
+
+
+def run_wordcount_adaptive(mesh, corpus_cfg: CorpusCfg, *, supersteps: int = 6,
+                           alpha0: float = 0.25,
+                           skew_schedule: Callable[[int], float] | None = None,
+                           policy: AdaptPolicy | None = None, granularity_words: int = 256,
+                           wire_codec: str = "identity",
+                           corpora: Sequence[tuple] | None = None) -> tuple[list, AdaptiveGraph]:
+    """This rank's part of the decoupled word count under the closed
+    adaptive loop (every rank of the world calls it alike).
+
+    Each superstep draws a fresh corpus at ``skew_schedule(t)`` (default:
+    the cfg's skew) and seed ``cfg.seed + t``, lays it out over the
+    CURRENT compute rows, runs the measured decoupled histogram, and feeds
+    (the slowest row's wall, per-row words, the reduce stage's words) to an
+    `AdaptiveGraph`. When the planner's hysteresis clears, the graph is
+    regrouped (collectively); the migration is the next corpus's layout
+    over the new partition (documents carry no state between supersteps),
+    and the step is built and warmed once per distinct partition
+    (`warmed_step`: one extra superstep, outside the samples).
+
+    ``corpora``: superstep ``t``'s whole (tokens, mask) on the host as
+    ``corpora[t]``, e.g. memory-mapped from `save_corpus` (default: every
+    rank makes it, `make_corpus`).
+
+    Returns (per-superstep report, AdaptiveGraph); every histogram is
+    exact, so callers can check each against a host count."""
+    n_rows = mesh.shape["data"]
+    graph0 = ServiceGraph.build(mesh, stages={"reduce": alpha0}, edges=[(COMPUTE, "reduce")],
+                                wire={(COMPUTE, "reduce"): wire_codec})
+    # threshold 1.25: a regroup costs new groups, a warmup and a corpus
+    # re-layout, so marginal modelled wins (balanced load plans ~1.1x from
+    # rounding alpha) must not fire; only real skew shifts clear the gate
+    ag = AdaptiveGraph(graph0, traits=wordcount_traits(corpus_cfg.words_per_doc),
+                       policy=policy or AdaptPolicy(window=2, cooldown=1,
+                                                    speedup_threshold=1.25))
+    built: dict[int, Callable] = {}
+    report = []
+    for t in range(supersteps):
+        graph = ag.graph
+        work_rows = graph.gmesh.compute.size
+        skew = corpus_cfg.skew if skew_schedule is None else float(skew_schedule(t))
+        cfg_t = dataclasses.replace(corpus_cfg, skew=skew, seed=corpus_cfg.seed + t)
+        if corpora is None:
+            all_tokens, all_mask = make_corpus(cfg_t, cfg_t.n_docs_per_row * n_rows)
+        else:
+            all_tokens, all_mask = corpora[t]
+        tk, mk = row_docs(all_tokens, all_mask, mesh.row, work_rows, n_rows)
+        tokens = torch.from_numpy(tk).to(mesh.device)
+        mask = torch.from_numpy(mk).to(mesh.device)
+        del tk, mk
+        step_fn = warmed_step(built, work_rows,
+                              lambda: _measured_superstep(graph, cfg_t.vocab, granularity_words),
+                              tokens, mask)
+        (hist, work_vec, stage), wall = timed_call(step_fn, tokens, mask, mesh=mesh)
+        work = work_vec.cpu().numpy()[:work_rows]
+        stage_tokens = float(stage)
+        decision = ag.step(wall, work, stage_items={"reduce": stage_tokens})
+        if decision.regroup:
+            ag.apply(decision)
+        report.append({
+            "superstep": t,
+            "skew": skew,
+            "wall_s": wall,
+            "rows": {"reduce": graph.gmesh.group("reduce").size},
+            "work_cv": float(work.std() / max(work.mean(), 1e-9)),
+            "histogram": hist.cpu().numpy(),
+            "tokens": np.asarray(all_mask).sum(),
+            "regrouped": decision.regroup,
+            "decision": decision.reason if not decision.regroup else str(decision.rows),
+        })
+        del tokens, mask, hist
+    return report, ag
+
+
+def adaptive_histogram_launches(report: Sequence[dict], corpus_cfg: CorpusCfg, n_rows: int,
+                                granularity_words: int = 256) -> int:
+    """The keyed-histogram calls of one `run_wordcount_adaptive`, summed
+    over the ranks, from its report alone: every superstep's decoupled
+    pass at the superstep's partition, and one warmup pass the first time
+    each partition runs (`warmed_step`)."""
+    total, warmed = 0, set()
+    for r in report:
+        rows = r["rows"]["reduce"]
+        passes = 1 if rows in warmed else 2
+        warmed.add(rows)
+        total += passes * histogram_launches("decoupled", corpus_cfg, n_rows, alpha=rows / n_rows,
+                                             granularity_words=granularity_words)
+    return total
+
+
 # -- the corpus on the host, shared by the ranks -------------------------------
 
 def save_corpus(cfg: CorpusCfg, total_docs: int, directory: str) -> str:
@@ -347,7 +470,48 @@ def wordcount_world(cfg: CorpusCfg, modes: Sequence[str] = MODES, *, n_rows: int
     return {mode: ranks[0][mode] for mode in modes}
 
 
-__all__ = ["CorpusCfg", "MODES", "decoupled_wordcount", "decoupled_wordcount_measured",
-           "histogram_launches", "layout_corpus", "load_corpus", "make_corpus", "pipelined_wordcount",
-           "reference_wordcount", "row_docs", "run_wordcount", "save_corpus",
-           "wordcount_graph", "wordcount_world"]
+def _wordcount_adaptive_rank(mesh, cfg: CorpusCfg, paths: Sequence[str], skews: Sequence[float],
+                             kw: dict) -> dict:
+    corpora = [load_corpus(p) for p in paths]
+    report, ag = run_wordcount_adaptive(mesh, cfg, supersteps=len(paths), corpora=corpora,
+                                        skew_schedule=lambda t: skews[t], **kw)
+    return {"report": report, "rows": ag.rows,
+            "history": [(d.regroup, d.rows, d.predicted_speedup, d.reason) for d in ag.history]}
+
+
+def wordcount_adaptive_world(cfg: CorpusCfg, *, supersteps: int = 6,
+                             skew_schedule: Callable[[int], float] | None = None,
+                             n_rows: int = 8, device=None, **kw) -> tuple[list, dict]:
+    """Host entry point of the adaptive word count: make each superstep's
+    corpus once (`save_corpus`, seed ``cfg.seed + t``, skew
+    ``skew_schedule(t)``), start an ``n_rows``-rank world (on the card
+    unless ``device`` names another) and run `run_wordcount_adaptive` in
+    it (``kw``: its alpha0, policy, granularity_words, wire_codec).
+    Returns (row 0's report, the final rows), checked the same on every
+    row: every decision and every histogram."""
+    from repro_torch.launch.mesh import spawn
+
+    skews = [cfg.skew if skew_schedule is None else float(skew_schedule(t))
+             for t in range(supersteps)]
+    with tempfile.TemporaryDirectory(prefix="repro_torch_corpus_") as tmp:
+        paths = []
+        for t, skew in enumerate(skews):
+            d = os.path.join(tmp, str(t))
+            os.makedirs(d)
+            cfg_t = dataclasses.replace(cfg, skew=skew, seed=cfg.seed + t)
+            paths.append(save_corpus(cfg_t, cfg.n_docs_per_row * n_rows, d))
+        ranks = spawn(_wordcount_adaptive_rank, n_rows, device=device,
+                      args=(cfg, tuple(paths), tuple(skews), dict(kw)), timeout_s=900.0)
+    for r, res in enumerate(ranks):
+        if res["history"] != ranks[0]["history"] or res["rows"] != ranks[0]["rows"] or any(
+                not np.array_equal(a["histogram"], b["histogram"])
+                for a, b in zip(res["report"], ranks[0]["report"])):
+            raise AssertionError(f"row {r}'s adaptive run differs from row 0's")
+    return ranks[0]["report"], ranks[0]["rows"]
+
+
+__all__ = ["CorpusCfg", "MODES", "adaptive_histogram_launches", "decoupled_wordcount",
+           "decoupled_wordcount_measured", "histogram_launches", "layout_corpus", "load_corpus",
+           "make_corpus", "pipelined_wordcount", "reference_wordcount", "row_docs",
+           "run_wordcount", "run_wordcount_adaptive", "save_corpus", "wordcount_adaptive_world",
+           "wordcount_graph", "wordcount_traits", "wordcount_world"]

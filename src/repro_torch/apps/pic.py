@@ -1,5 +1,5 @@
 """Particle-in-cell mini-app: the paper's Sec. IV-D case study (iPIC3D), a
-port of the reference's `apps/pic.py` without its adaptive part.
+port of the reference's `apps/pic.py`.
 
 1-D domain decomposition over the ``data`` axis. Particles (position,
 velocity) live in fixed-capacity per-row buffers with validity masks. A
@@ -23,6 +23,13 @@ rank makes the comm transfers, then the io channel's waves, in one order.
 The GEM-challenge particle skew (a current-sheet concentration) is
 `imbalance.skewed_partition`.
 
+The adaptive variant (`run_pic_adaptive`) lets the current sheet drift
+(``PICCfg.drift``) and pulls velocities toward it (``attract``), so the
+density concentration crosses row boundaries; the measure -> plan ->
+regroup loop (`core.adapt`) resizes the comm group and migrates the
+particle buffers in memory (`launch.elastic.reshard_state`, re-binned by
+owner under the new decomposition).
+
 Messages keep the reference's shapes: full-capacity masked buffers, one
 packed message per peer ((x, v, mask) forwarded; (x, v, mask, dst) to the
 comm row). Slot order follows the reference's stable sorts
@@ -30,24 +37,33 @@ comm row). Slot order follows the reference's stable sorts
 (capacity x capacity) match matrix does, by a stable sort and a
 cumulative-sum scatter in O(capacity log capacity).
 
-Everything but the host entry point `pic_world` is this rank's part of the
-computation (`launch.mesh`). `_owner` divides by the row width; the
+Everything but the host entry points `pic_world` and `pic_adaptive_world`
+is this rank's part of the computation (`launch.mesh`). `_owner` divides by the row width; the
 reference's compiler may multiply by its reciprocal instead (ROADMAP C).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import time
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.dataflow import ServiceGraph
+from repro_torch.core.adapt import (
+    AdaptiveGraph,
+    AdaptPolicy,
+    StageTrait,
+    timed_call,
+    warmed_step,
+)
+from repro_torch.core.dataflow import ServiceGraph, work_vector
 from repro_torch.core.groups import COMPUTE, GroupedMesh
 from repro_torch.core.imbalance import sheet_partition, skewed_partition
 from repro_torch.core.operators import buffer_op
 from repro_torch.core.stream import StreamChunker
 from repro_torch.io.iogroup import io_ring_init
+from repro_torch.launch.elastic import reshard_state
 
 MODES = ("reference", "decoupled")
 # (run name, mode, io_alpha) of `pic_world`: both comm schemes, and the
@@ -65,8 +81,15 @@ class PICCfg:
     skew: float = 0.8
     seed: int = 3
     n_steps: int = 4
-    # the current sheet's width for `init_particles(center=...)`
+    # time-varying skew (the adaptive loop's drill, run_pic_adaptive):
+    # the GEM current sheet sits at `sheet_center0` (fraction of the
+    # domain) and drifts `drift` domain units per step; `attract` pulls
+    # particle velocities toward the sheet so the density concentration
+    # follows it across row boundaries.
+    sheet_center0: float = 0.35
     sheet_width: float = 0.08
+    drift: float = 0.0
+    attract: float = 0.0
 
 
 def init_particles(cfg: PICCfg, work_rows: int, center: float | None = None
@@ -95,9 +118,15 @@ def init_particles(cfg: PICCfg, work_rows: int, center: float | None = None
     return xs, vs, valid
 
 
-def _push(x, v, valid, dt: float, domain: float):
-    """Move particles (the field-free push); reflecting walls at the global
-    domain's ends."""
+def _push(x, v, valid, dt: float, domain: float, attract: float = 0.0, center: float = 0.0):
+    """Move particles; reflecting walls at the global domain's ends.
+
+    ``attract`` (when nonzero) adds a restoring pull toward ``center`` (the
+    drifting current sheet, an f32 value as the reference passes it) so
+    the density concentration follows the sheet; the default keeps the
+    field-free push bit for bit."""
+    if attract:
+        v = v + attract * (center - x) * dt * valid
     x = x + v * dt * valid
     v = torch.where((x < 0) | (x > domain), -v, v)
     x = torch.clamp(x, 0.0, domain - 1e-6)
@@ -322,6 +351,182 @@ def pic_world(cfg: PICCfg, runs: Sequence[tuple] = RUNS, *, n_rows: int = 8,
             for name, _, _ in runs}
 
 
+# -- adaptive: chase the drifting current sheet ------------------------------------------
+
+def pic_traits() -> tuple[StageTrait, ...]:
+    """Comm-stage calibration: bucketing and delivering one exiting
+    particle costs a few pushes, and each exit crosses the wire as (x, v,
+    mass, dst) f32s."""
+    return (StageTrait("comm", cost_ratio=4.0, bytes_per_item=16.0),)
+
+
+def _particle_repartition(capacity: int, domain: float) -> Callable:
+    """`reshard_state` hook: re-bin the surviving particles by owner row
+    under the NEW compute width (a regroup moves the domain decomposition,
+    so ownership is re-derived, not re-dealt). Host numpy, the same on
+    every rank."""
+
+    def repartition(host, old_gmesh, new_gmesh):
+        x, v, m = host["x"], host["v"], host["m"]
+        sel = m > 0
+        xs, vs = x[sel], v[sel]
+        rows = new_gmesh.compute.size
+        width = domain / rows
+        owner = np.clip(np.floor(xs / width).astype(np.int64), 0, rows - 1)
+        out = {k: np.zeros((rows, capacity), np.float32) for k in ("x", "v", "m")}
+        for r in range(rows):
+            # overflow truncates; run_pic_adaptive checks conservation
+            # right after the migration and raises on any drop
+            idx = np.where(owner == r)[0][:capacity]
+            out["x"][r, :len(idx)] = xs[idx]
+            out["v"][r, :len(idx)] = vs[idx]
+            out["m"][r, :len(idx)] = 1.0
+        return out
+
+    return repartition
+
+
+def _adaptive_superstep(graph: ServiceGraph, cfg: PICCfg, n_steps: int) -> Callable:
+    """One superstep (``n_steps`` pushes toward the sheet, each followed by
+    the decoupled comm) on ``graph``'s partition, with the counters: this
+    row's (x, v, m, center) -> (x, v, m, per-row valid-particle vector,
+    total exits over the world, the comm stage's item count)."""
+    gmesh = graph.gmesh
+    mesh = gmesh.mesh
+    width = cfg.domain / gmesh.compute.size
+    computing = gmesh.is_member(COMPUTE)
+
+    def step(x, v, m, center: float):
+        exits = []
+        for _ in range(n_steps):
+            x, v = _push(x, v, m, cfg.dt, cfg.domain, cfg.attract, center)
+            leaving = (_owner(x, width) != mesh.row) & (m > 0) & computing
+            exits.append(leaving.sum().to(torch.float32))
+            x, v, m = comm_decoupled(x, v, m, graph, width)
+        work = work_vector(gmesh, m.sum())
+        total_exits = mesh.all_reduce(torch.stack(exits).sum().reshape(1).cpu())
+        return x, v, m, work, total_exits
+
+    return step
+
+
+def run_pic_adaptive(mesh, cfg: PICCfg, *, alpha0: float = 0.125, supersteps: int = 4,
+                     steps_per_superstep: int | None = None, policy: AdaptPolicy | None = None,
+                     stats: dict | None = None) -> tuple[list, AdaptiveGraph, dict]:
+    """This rank's part of PIC with a drifting current sheet under the
+    closed adaptive loop (every rank of the world calls it alike).
+
+    Each superstep runs ``steps_per_superstep`` steps (default
+    ``cfg.n_steps``) with the sheet at its current center, then advances
+    the center by ``cfg.drift`` per step; (the slowest row's wall, per-row
+    particle counts, total exits) feed an `AdaptiveGraph`. On a regroup the
+    particle buffers migrate in memory (`launch.elastic.reshard_state`,
+    re-binned by owner under the new decomposition), and the superstep is
+    built and warmed once per distinct partition (`warmed_step`: one extra
+    superstep, outside the samples, whose output is dropped).
+
+    ``stats``: a dict that collects each migration (``migrations``: its
+    superstep, synchronised seconds, and the bytes its all-gathers bring
+    to this rank).
+
+    Returns (report, AdaptiveGraph, this row's final state {"x", "v",
+    "m"}). Particles are conserved across regroups while the capacity
+    holds them; a migration that drops one raises on every rank alike
+    (its count is the same on every rank)."""
+    n_rows = mesh.shape["data"]
+    steps = steps_per_superstep or cfg.n_steps
+    graph = ServiceGraph.build(mesh, stages={"comm": alpha0}, edges=[(COMPUTE, "comm")])
+    ag = AdaptiveGraph(graph, traits=pic_traits(),
+                       policy=policy or AdaptPolicy(window=2, cooldown=1, speedup_threshold=1.25))
+    work_rows = graph.gmesh.compute.size
+    xs, vs, valid = init_particles(cfg, work_rows, center=cfg.sheet_center0)
+    dev = mesh.device
+    if mesh.row < work_rows:
+        state = {k: torch.from_numpy(a[mesh.row]).to(dev)
+                 for k, a in (("x", xs), ("v", vs), ("m", valid))}
+    else:
+        state = {k: torch.zeros(cfg.capacity, dtype=torch.float32, device=dev)
+                 for k in ("x", "v", "m")}
+    del xs, vs, valid
+    built: dict[int, Callable] = {}
+    report = []
+    center = cfg.sheet_center0
+    for t in range(supersteps):
+        graph = ag.graph
+        work_rows = graph.gmesh.compute.size
+        c32 = float(np.float32(center))  # the f32 center the reference passes
+        step_fn = warmed_step(built, work_rows, lambda: _adaptive_superstep(graph, cfg, steps),
+                              state["x"], state["v"], state["m"], c32)
+        (x, v, m, work_vec, exits), wall = timed_call(step_fn, state["x"], state["v"],
+                                                       state["m"], c32, mesh=mesh)
+        state = {"x": x, "v": v, "m": m}
+        work = work_vec.cpu().numpy()[:work_rows]
+        total_exits = float(exits[0])
+        n_now = float(work_vec.sum())
+        decision = ag.step(wall, work, stage_items={"comm": total_exits})
+        regrouped = False
+        if decision.regroup:
+            old_gmesh = graph.gmesh
+            ag.apply(decision)
+            # each row leaf is gathered from every row
+            gathered = n_rows * sum(a.numel() * a.element_size() for a in state.values())
+            mesh.sync()
+            t0 = time.perf_counter()
+            state = reshard_state(state, old_gmesh, ag.graph.gmesh,
+                                  repartition=_particle_repartition(cfg.capacity, cfg.domain))
+            n_after = float(work_vector(ag.graph.gmesh, state["m"].sum()).sum())
+            mesh.sync()
+            if stats is not None:
+                stats.setdefault("migrations", []).append(
+                    {"superstep": t, "seconds": time.perf_counter() - t0,
+                     "gathered_bytes": gathered})
+            if n_after != n_now:
+                raise RuntimeError(
+                    f"regroup at superstep {t} dropped {n_now - n_after:.0f} particles: a "
+                    f"destination row overflowed capacity={cfg.capacity}; raise the capacity "
+                    f"or lower the concentration")
+            regrouped = True
+        ran_center = center  # the center THIS superstep ran with
+        center = float(np.clip(center + cfg.drift * steps, 0.05, 0.95))
+        report.append({
+            "superstep": t,
+            "center": ran_center,
+            "wall_s": wall,
+            "rows": {"comm": graph.gmesh.group("comm").size},
+            "n_particles": n_now,
+            "exits": total_exits,
+            "work_cv": float(work.std() / max(work.mean(), 1e-9)),
+            "regrouped": regrouped,
+            "decision": str(decision.rows) if regrouped else decision.reason,
+        })
+    return report, ag, state
+
+
+def _pic_adaptive_rank(mesh, cfg: PICCfg, kw: dict) -> dict:
+    stats: dict = {}
+    report, ag, state = run_pic_adaptive(mesh, cfg, stats=stats, **kw)
+    return {"report": report, "rows": ag.rows, "stats": stats,
+            "state": {k: t.cpu().numpy() for k, t in state.items()}}
+
+
+def pic_adaptive_world(cfg: PICCfg, *, n_rows: int = 8, device=None, **kw) -> tuple:
+    """Host entry point of the adaptive PIC: start an ``n_rows``-rank world
+    (on the card unless ``device`` names another) and run
+    `run_pic_adaptive` in it (``kw``: its alpha0, supersteps,
+    steps_per_superstep, policy). Returns (row 0's report, the final
+    rows, the final state stacked over rows as the reference's (rows,
+    capacity) arrays), the report checked the same on every row."""
+    from repro_torch.launch.mesh import spawn
+
+    ranks = spawn(_pic_adaptive_rank, n_rows, device=device, args=(cfg, dict(kw)),
+                  timeout_s=600.0)
+    for r, res in enumerate(ranks):
+        if res["report"] != ranks[0]["report"]:
+            raise AssertionError(f"row {r}'s adaptive report differs from row 0's")
+    state = {k: np.stack([r["state"][k] for r in ranks]) for k in ("x", "v", "m")}
+    return ranks[0]["report"], ranks[0]["rows"], state
+
+
 def histogram_positions(x, m, bins: int, domain: float) -> np.ndarray:
     """Distribution check: both comm schemes must transport particles to the
     same places."""
@@ -331,4 +536,5 @@ def histogram_positions(x, m, bins: int, domain: float) -> np.ndarray:
 
 
 __all__ = ["MODES", "PICCfg", "RUNS", "comm_decoupled", "comm_reference", "histogram_positions",
-           "init_particles", "io_trace_stream", "pic_graph", "pic_world", "run_pic"]
+           "init_particles", "io_trace_stream", "pic_adaptive_world", "pic_graph", "pic_traits",
+           "pic_world", "run_pic", "run_pic_adaptive"]

@@ -1,27 +1,35 @@
-"""Elastic re-scaling through checkpoints (a port of the checkpoint path
-of the reference's `launch/elastic.py`).
+"""Elastic re-scaling: move state between meshes and row partitions (a
+port of the reference's `launch/elastic.py`).
 
-Checkpoints hold whole leaves (`io.checkpoint`), so the same files resume
-on any row count and in any step mode: `restore_for_mesh` loads them onto
-the target mesh's device, and the step's rows take their shards from
-there (`row_shard`, `train.sharding`). `healthy_mesh` picks the largest
-row count the healthy devices allow, halving the rows as the reference
-halves its data axis; `healthy_mesh_with_backoff` probes a few times
-before it shrinks.
+Two paths:
 
-Not ported yet: the in-memory path (`reshard_state`, `repack_block_pool`),
-which the adaptive loop drives (ROADMAP A9).
+  * the CHECKPOINT path. Checkpoints hold whole leaves (`io.checkpoint`),
+    so the same files resume on any row count and in any step mode:
+    `restore_for_mesh` loads them onto the target mesh's device, and the
+    step's rows take their shards from there (`row_shard`,
+    `train.sharding`). `healthy_mesh` picks the largest row count the
+    healthy devices allow, halving the rows as the reference halves its
+    data axis; `healthy_mesh_with_backoff` probes a few times before it
+    shrinks.
+  * the IN-MEMORY path (`reshard_state`): live row-partitioned state moves
+    between two row partitions of the same world with no checkpoint round
+    trip, the regroup leg of the adaptive loop (`core.adapt`).
+
+Not ported yet: `repack_block_pool`, whose only caller is the serving
+fleet (ROADMAP A9).
 """
 from __future__ import annotations
 
 import math
 import time
-from typing import Callable
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.io import checkpoint as ckpt
 from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.utils.treeutil import tree_flatten, tree_unflatten
 
 
 def restore_for_mesh(ckpt_dir: str, step: int, like_state: dict, mesh: Mesh) -> dict:
@@ -82,4 +90,97 @@ def healthy_mesh_with_backoff(preferred_shape: tuple[int, ...],
     return healthy_mesh(preferred_shape, axis_names, n_devices=n, device=device)
 
 
-__all__ = ["healthy_mesh", "healthy_mesh_with_backoff", "restore_for_mesh"]
+def reshard_state(state: Any, old_gmesh, new_gmesh,
+                  repartition: Callable[[Any, Any, Any], Any] | None = None) -> Any:
+    """This rank's part of an in-memory migration of row-partitioned state
+    between two row partitions of the same world (no checkpoint round
+    trip). Collective: every rank of the world calls it alike.
+
+    A *row leaf* is a leaf that holds this rank's own row of a
+    row-partitioned buffer: the reference's leaf whose leading dimension
+    is the axis size, without that dimension (each rank holds one row of
+    the same shape and dtype). By default every tensor leaf is a row
+    leaf; ``is_row`` marks which are (a replicated tensor, or a Python
+    value, passes through untouched: replicated state needs no migration
+    when only the row partition moves).
+
+    Each row leaf is gathered from every row to the host (one
+    `Mesh.all_gather` a leaf), and the OLD compute rows' slices, stacked
+    ``(old_rows, ...)`` numpy arrays in the tree, are handed to
+    ``repartition(compute_rows_tree, old_gmesh, new_gmesh)`` (a whole-tree
+    hook, so cross-leaf repartitioning, such as re-binning particles by
+    position, sees every leaf at once). It must return the tree with
+    ``(new_rows, ...)`` leaves in their place. Every rank computes the same
+    tree and keeps its new row, on the old leaf's device and in its dtype;
+    service rows get zeros.
+
+    The default repartition flattens each leaf's (rows, per_row, ...)
+    items and deals them evenly over the new compute rows (zero-padding
+    the ragged tail), the natural move for masked item buffers (documents,
+    stream chunks). A 0-d row leaf (the reference's rank-1 leaf) has no
+    item axis to re-deal, so it needs an explicit ``repartition``.
+
+    The reference also takes meshes of different axis sizes (the fleet's
+    shrink onto a `healthy_mesh`); one gloo world has one size, so that
+    raises here."""
+    n_old = old_gmesh.axis_size
+    n_new = new_gmesh.axis_size
+    if n_old != n_new:
+        raise NotImplementedError(
+            f"reshard_state between axis sizes {n_old} and {n_new}: a gloo world has one "
+            f"size; the shrink onto a healthy mesh comes with the serving fleet (ROADMAP A9)")
+    mesh = new_gmesh.mesh
+    old_rows = old_gmesh.compute.size
+    new_rows = new_gmesh.compute.size
+
+    leaves, treedef = tree_flatten(state)
+    row_mask = [isinstance(leaf, torch.Tensor) for leaf in leaves]
+    host = []
+    for leaf, row in zip(leaves, row_mask):
+        if not row:
+            host.append(leaf)
+            continue
+        whole = mesh.all_gather(leaf.detach()[None]) if mesh.in_world else leaf.detach()[None]
+        if whole.shape[0] != n_old:
+            raise ValueError(f"a row leaf gathered {whole.shape[0]} rows, the axis has {n_old}")
+        whole = whole.cpu()
+        if whole.dtype == torch.bfloat16:  # numpy has no bf16; f32 holds it exactly
+            whole = whole.float()
+        host.append(whole.numpy()[:old_rows])
+
+    if repartition is not None:
+        new_tree = repartition(tree_unflatten(treedef, host), old_gmesh, new_gmesh)
+        new_leaves = tree_flatten(new_tree)[0]
+        if len(new_leaves) != len(leaves):
+            raise ValueError("repartition must preserve the state's tree structure")
+    else:
+
+        def redeal(x):
+            if x.ndim < 2:
+                raise ValueError("rank-1 row leaves have no item axis to re-deal; "
+                                 "pass an explicit `repartition`")
+            items = x.reshape((-1,) + x.shape[2:])
+            per = -(-items.shape[0] // new_rows)
+            pad = per * new_rows - items.shape[0]
+            if pad:
+                items = np.concatenate([items, np.zeros((pad,) + items.shape[1:], x.dtype)])
+            return items.reshape((new_rows, per) + items.shape[1:])
+
+        new_leaves = [redeal(leaf) if row else leaf for leaf, row in zip(host, row_mask)]
+
+    def place(rows, like: torch.Tensor) -> torch.Tensor:
+        rows = np.asarray(rows)
+        if rows.shape[0] != new_rows:
+            raise ValueError(f"repartition returned {rows.shape[0]} rows, expected {new_rows}")
+        if mesh.row < new_rows:
+            mine = torch.from_numpy(np.ascontiguousarray(rows[mesh.row]))
+        else:
+            mine = torch.zeros(rows.shape[1:], dtype=like.dtype)
+        return mine.to(device=like.device, dtype=like.dtype)
+
+    out = [place(leaf, orig) if row else orig
+           for leaf, row, orig in zip(new_leaves, row_mask, leaves)]
+    return tree_unflatten(treedef, out)
+
+
+__all__ = ["healthy_mesh", "healthy_mesh_with_backoff", "reshard_state", "restore_for_mesh"]

@@ -39,6 +39,7 @@ import time
 
 import torch
 
+from repro_torch.core.adapt import StageTrait
 from repro_torch.core.dataflow import COMPUTE, ServiceGraph, work_vector
 from repro_torch.core.decouple import group_psum
 from repro_torch.core.wire import WireSpec
@@ -233,6 +234,17 @@ def train_service_graph(mesh, ts_cfg: TrainStepConfig, axis: str = "data") -> Se
     return ServiceGraph.build(mesh, stages=stages, edges=edges, axis=axis, wire=wire)
 
 
+def train_stage_traits(ts_cfg: TrainStepConfig):
+    """Calibration traits of the decoupled train chain (`core.adapt`):
+    folding one token's gradient contribution costs a small fraction of
+    its forward and backward, and the gradient stream's wire bytes
+    amortise per token."""
+    traits = [StageTrait(REDUCE, cost_ratio=0.2, bytes_per_item=64.0)]
+    if ts_cfg.analytics_alpha > 0:
+        traits.append(StageTrait(ANALYTICS, cost_ratio=0.05, bytes_per_item=64.0))
+    return tuple(traits)
+
+
 def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
                          ts_cfg: TrainStepConfig, *, inplace: bool = False):
     """This rank's decoupled step ``(params, opt_state, row_batch) ->
@@ -343,4 +355,4 @@ def make_step(model, mesh, opt_cfg: OptConfig, ts_cfg: TrainStepConfig, *,
 
 __all__ = ["ANALYTICS", "REDUCE", "TrainStepConfig", "build_conventional_step",
            "build_data_parallel_step", "build_decoupled_step", "build_overlap_step",
-           "make_step", "train_service_graph", "value_and_grad"]
+           "make_step", "train_service_graph", "train_stage_traits", "value_and_grad"]

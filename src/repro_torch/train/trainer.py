@@ -17,7 +17,15 @@ step, which row 0 reads and every row takes from it. ``fail_at_step``
 raises `SimulatedFailure` on every row at that step, after the last
 write has committed.
 
-Not ported yet: adaptive service sizing (``adapt``, ROADMAP A9).
+Adaptive service sizing (``TrainerConfig.adapt``): in decoupled mode the
+trainer closes the measure -> plan -> regroup loop of `core.adapt` around
+the reduce (and analytics) groups. Each step's wall (the slowest row's,
+agreed over the world) and the step's per-row token counts feed an
+`AdaptiveGraph`; when the planner's hysteresis clears, the step is
+rebuilt on the new partition. Parameters and moments are replicated on
+the decoupled rows, so nothing migrates: the rebuild is the regroup. The
+first sample after every (re)build is skipped (`CompileGate`): the step
+updates in place, so it cannot be warmed.
 """
 from __future__ import annotations
 
@@ -27,11 +35,20 @@ import time
 
 import torch
 
+from repro_torch.core.adapt import AdaptiveGraph, AdaptPolicy, CompileGate, agreed_wall
 from repro_torch.data.pipeline import Pipeline, row_shard
 from repro_torch.io import checkpoint as ckpt
 from repro_torch.train import sharding
 from repro_torch.train.optimizer import OptConfig, init_opt_state
-from repro_torch.train.train_step import TrainStepConfig, make_step
+from repro_torch.train.train_step import (
+    ANALYTICS,
+    REDUCE,
+    TrainStepConfig,
+    build_decoupled_step,
+    make_step,
+    train_service_graph,
+    train_stage_traits,
+)
 from repro_torch.utils.treeutil import tree_leaves, tree_meta
 
 
@@ -43,7 +60,9 @@ class TrainerConfig:
     keep: int = 3
     log_every: int = 10
     fail_at_step: int | None = None  # test hook: raise to simulate a crash
-    adapt: object | None = None  # ROADMAP A9
+    # closed-loop service re-sizing (decoupled mode only): an AdaptPolicy
+    # switches it on; None keeps the static-alpha trainer
+    adapt: AdaptPolicy | None = None
 
 
 class SimulatedFailure(RuntimeError):
@@ -53,9 +72,6 @@ class SimulatedFailure(RuntimeError):
 class Trainer:
     def __init__(self, model, mesh, pipeline: Pipeline, opt_cfg: OptConfig,
                  ts_cfg: TrainStepConfig, tr_cfg: TrainerConfig):
-        if tr_cfg.adapt is not None:
-            raise NotImplementedError("adaptive service sizing is not ported yet: "
-                                      "ROADMAP A9 (core/adapt)")
         self.model = model
         self.mesh = mesh
         self.pipeline = pipeline
@@ -64,6 +80,8 @@ class Trainer:
         self.cfg = tr_cfg
         self.checkpointer = ckpt.AsyncCheckpointer(tr_cfg.ckpt_dir, keep=tr_cfg.keep)
         self.metrics_log: list[dict] = []
+        self.adapt_log: list[dict] = []  # regroup events of the adaptive loop
+        self.adaptive_graph: AdaptiveGraph | None = None  # the last adaptive run's loop
         self.resumed: dict | None = None  # {"step", "restore_s"} of the last resume
         self.moment_bytes = 0  # the moments this row held while it stepped
         self.step_fn = None
@@ -94,6 +112,19 @@ class Trainer:
             return value
         return int(self.mesh.broadcast(torch.tensor([value], dtype=torch.int64), 0)[0])
 
+    def _regroup(self, rows: dict[str, int], graph):
+        """Adopt the planner's row vector: the exact alphas, and the step
+        rebuilt on ``graph`` (the regrouped partition). The new step keeps
+        the old one's timings, so ``step_fn.timings`` covers every step."""
+        n = self.mesh.shape["data"]
+        updates = {"reduce_alpha": rows[REDUCE] / n}
+        if ANALYTICS in rows:
+            updates["analytics_alpha"] = rows[ANALYTICS] / n
+        self.ts_cfg = dataclasses.replace(self.ts_cfg, **updates)
+        step_fn = build_decoupled_step(self.model, self.opt_cfg, graph, self.ts_cfg, inplace=True)
+        step_fn.timings[:0] = self.step_fn.timings
+        return step_fn
+
     # -- the loop ------------------------------------------------------------
     def run(self, state: dict | None = None, resume: bool = True) -> dict:
         """Steps from ``state["step"]`` (or from the newest committed
@@ -111,8 +142,19 @@ class Trainer:
                 self.resumed = {"step": last, "restore_s": time.perf_counter() - t0}
                 if self.mesh.row == 0:
                     print(f"[trainer] resumed from step {last}", flush=True)
-        self.step_fn = make_step(self.model, self.mesh, self.opt_cfg, self.ts_cfg,
-                                 inplace=True)
+        adaptive = self.cfg.adapt is not None and self.ts_cfg.mode == "decoupled"
+        if adaptive:
+            ag = self.adaptive_graph = AdaptiveGraph(train_service_graph(self.mesh, self.ts_cfg),
+                                                     traits=train_stage_traits(self.ts_cfg),
+                                                     policy=self.cfg.adapt)
+            self.step_fn = build_decoupled_step(self.model, self.opt_cfg, ag.graph, self.ts_cfg,
+                                                inplace=True)
+        else:
+            self.step_fn = make_step(self.model, self.mesh, self.opt_cfg, self.ts_cfg,
+                                     inplace=True)
+        # the first call of a (re)built step pays first-use costs and
+        # updates in place, so it cannot be warmed: the gate skips its sample
+        gate = CompileGate()
         params, opt, step = state["params"], state["opt"], state["step"]
         plan = None
         if self.ts_cfg.mode == "overlap":  # keep only this row's parts of the moments
@@ -132,8 +174,26 @@ class Trainer:
                     raise SimulatedFailure(f"injected failure at step {step}")
                 batch = row_shard(self._batch_for(step), self.mesh.row, self.mesh.n_rows,
                                   self.model.device)
+                t_step = time.perf_counter()
                 params, opt, metrics = self.step_fn(params, opt, batch)
                 step += 1
+                if adaptive:
+                    self.mesh.sync()
+                    # the slowest row's wall: every rank plans on one sample
+                    wall = agreed_wall(self.mesh, time.perf_counter() - t_step)
+                    if gate.sample(wall):
+                        compute_rows = self.mesh.shape["data"] - self._service_rows()
+                        work = metrics["work_rows"].cpu().numpy()[:compute_rows]
+                        decision = ag.step(wall, work)
+                        if decision.regroup:
+                            ag.apply(decision)  # collective: new process groups
+                            self.step_fn = self._regroup(decision.rows, ag.graph)
+                            gate.rebuilt()
+                            event = {"step": step, "regroup": dict(decision.rows),
+                                     "predicted_speedup": decision.predicted_speedup}
+                            self.adapt_log.append(event)
+                            if self.mesh.row == 0:
+                                print(f"[trainer] {json.dumps(event)}", flush=True)
                 if step % self.cfg.log_every == 0 or step == self.cfg.total_steps:
                     row = {"step": step, "loss": float(metrics["loss"]),
                            "wall_s": time.time() - t0}

@@ -80,6 +80,8 @@ from torch_worlds import (
     N_ROWS,
     WC_CFG,
     cuda_fold_case,
+    cuda_adaptive_wordcount_case,
+    cuda_reshard_case,
     cuda_wordcount_case,
     data_parallel_case,
 )
@@ -1022,6 +1024,49 @@ def test_wordcount_world_on_the_card(cuda, granularity):
         launches = sum(r[mode]["launches"] for r in ranks)
         assert launches == histogram_launches(mode, cfg, N_ROWS, granularity_words=granularity)
         assert launches > 0
+
+
+def test_adaptive_wordcount_world_on_the_card(cuda):
+    """The adaptive word count in an 8-rank world on the card: it regroups
+    one reduce row to three, every superstep's histogram is `np.bincount`
+    of its corpus on every row, and the histogram kernel's launches,
+    summed over ranks, equal the schedule's, warmups included."""
+    import dataclasses
+
+    from repro_torch.apps.mapreduce import CorpusCfg, make_corpus
+    from torch_worlds import ADAPT_WC_CFG
+
+    ranks = spawn(cuda_adaptive_wordcount_case, N_ROWS, device="cuda", timeout_s=300)
+    report = ranks[0]["report"]
+    assert [r["rows"]["reduce"] for r in report] == [1, 1, 3, 3]
+    assert sum(r["launches"] for r in ranks) == ranks[0]["expected"] > 0
+    for t in range(len(report)):
+        cfg = dataclasses.replace(CorpusCfg(**ADAPT_WC_CFG), seed=t)
+        tokens, mask = make_corpus(cfg, cfg.n_docs_per_row * N_ROWS)
+        host = np.bincount(tokens[mask > 0], minlength=cfg.vocab).astype(np.float32)
+        for r in ranks:
+            assert r["report"] == report
+            np.testing.assert_array_equal(r["hist"][t], host)
+
+
+def test_reshard_state_of_a_pic_state_on_the_card(cuda):
+    """A PIC state on the card migrates from 6 compute rows to 4: each
+    rank's new row lies on the card and equals the host re-binning of the
+    gathered old rows; the comm rows hold zeros, no particle is lost."""
+    from repro_torch.apps.pic import _particle_repartition
+    from repro_torch.core.groups import GroupedMesh
+    from repro_torch.launch.mesh import Mesh
+
+    ranks = spawn(cuda_reshard_case, N_ROWS, device="cuda", timeout_s=300)
+    old = {k: np.stack([r["old"][k] for r in ranks])[:6] for k in "xvm"}
+    planning = Mesh(n_rows=N_ROWS, device="cpu")
+    want = _particle_repartition(4096, 1.0)(old, GroupedMesh.build_rows(planning, rows={"comm": 2}),
+                                            GroupedMesh.build_rows(planning, rows={"comm": 4}))
+    for r, rank in enumerate(ranks):
+        assert rank["device"].startswith("cuda")
+        for k in "xvm":
+            np.testing.assert_array_equal(rank["new"][k], want[k][r] if r < 4 else 0.0)
+    assert sum(rank["new"]["m"].sum() for rank in ranks) == old["m"].sum() > 0
 
 
 def test_wordcount_world_runs_on_the_card(cuda):

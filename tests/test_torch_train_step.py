@@ -29,8 +29,7 @@ from repro.train import optimizer as jopt
 from repro_torch.configs import get_smoke
 from repro_torch.models.model_zoo import build, synthetic_batch
 from repro_torch.train import optimizer as opt
-from repro_torch.train.train_step import TrainStepConfig, value_and_grad
-from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.train.train_step import value_and_grad
 from repro_torch.launch.mesh import Mesh, make_host_mesh, spawn
 from repro_torch.launch.train import main as launch_main
 from repro_torch.utils.convert import params_from_numpy
@@ -123,16 +122,18 @@ def test_model_loss_without_autograd_needs_no_checkpoint():
 
 
 def test_unported_modes_and_options_are_refused():
-    """What is still unported raises naming its ROADMAP item: adaptive
-    sizing (A9), a model axis (A8) and the reference's other families
-    (A12). Checkpoints and the conventional and overlap steps over many
-    rows are ported (tests/test_torch_trainer.py)."""
-    cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.float32)
-    model = build(cfg, device="cpu")
-    mesh = Mesh(n_rows=1, device="cpu")
+    """What is still unported raises naming its ROADMAP item: the fleet's
+    migration onto a mesh of another size (A9), a model axis (A8) and the
+    reference's other families (A12). Checkpoints, the conventional and
+    overlap steps over many rows and adaptive sizing are ported
+    (tests/test_torch_trainer.py)."""
+    from repro_torch.core.groups import GroupedMesh
+    from repro_torch.launch.elastic import reshard_state
+
     with pytest.raises(NotImplementedError, match="A9"):
-        Trainer(model, mesh, None, opt.OptConfig(), TrainStepConfig(),
-                TrainerConfig(adapt=object()))
+        reshard_state({"x": torch.zeros(4)},
+                      GroupedMesh.build_rows(Mesh(n_rows=8, device="cpu"), rows={"reduce": 2}),
+                      GroupedMesh.build_rows(Mesh(n_rows=4, device="cpu"), rows={"reduce": 1}))
     with pytest.raises(NotImplementedError, match="A8"):
         make_host_mesh(4, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):

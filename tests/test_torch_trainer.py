@@ -5,8 +5,12 @@ mesh of fake CPU devices; the reference's crash -> resume -> elastic
 sequence (decoupled on 8 rows crashing at step 5, then conventional on 4
 rows to step 8) against the reference's `Trainer`; and checkpoints that
 cross between overlap and conventional mode. The f32 tinyllama smoke
-config, the reference's parameters (`params_from_numpy`). One JAX
-subprocess, then the port's 8-row world and its 4-row world.
+config, the reference's parameters (`params_from_numpy`). And the
+reference's adaptive drill: the decoupled trainer with the adaptive loop
+on the f32 qwen2.5-3b smoke config, one reduce row of 8 to start, every
+step's wall a constant in both packages (the decisions then depend on the
+token counts alone). One JAX subprocess, then the port's 8-row world and
+its 4-row world.
 
 Tolerances:
   * one SGD step (lr 1: new params = params - gradient), 1e-5 absolute:
@@ -20,7 +24,9 @@ Tolerances:
   * losses 1e-5 relative (test_torch_train_step.py's);
   * checkpoints: what a trainer saved reads back bit for bit; a run that
     crosses modes at a checkpoint ends within the AdamW budget of one mode
-    run straight through.
+    run straight through;
+  * the adaptive trainer: its regroup log identical (step, rows), the
+    predicted speedup within 1e-12 relative; losses 1e-5 relative.
 """
 import dataclasses
 
@@ -35,6 +41,8 @@ from repro_torch.utils.treeutil import tree_flatten
 from torch_worlds import (
     ADAMW_LR,
     ADAMW_STEPS,
+    ADAPT_STEP_WALL,
+    ADAPT_TRAIN,
     CRASH,
     MOMENT_STEPS,
     N_ROWS,
@@ -137,6 +145,37 @@ with jax.set_mesh(mesh2):
 assert state["step"] == c["steps"]
 out["elastic/loss"] = np.asarray([r["loss"] for r in tr2.metrics_log])
 flat(state["params"], "elastic/final/")
+
+# the reference's adaptive drill (tests/test_dataflow.py): the decoupled
+# trainer with the adaptive loop on the qwen2.5-3b smoke config, 8 rows,
+# one reduce row to start, every step's wall a constant
+import time, types
+import repro.train.trainer as trmod
+from repro.core.adapt import AdaptPolicy
+qcfg = dataclasses.replace(get_smoke("qwen2.5-3b"), dtype=jnp.float32)
+qmodel = build(qcfg)
+flat(qmodel.init(jax.random.PRNGKey(0)), "q0/")
+clock = {{"t": 0.0}}
+
+def tick():
+    clock["t"] += {step_wall}
+    return clock["t"]
+
+trmod.time = types.SimpleNamespace(perf_counter=tick, time=time.time)
+a = {adapt!r}
+qpipe = Pipeline(DataConfig(vocab_size=qcfg.vocab_size, seq_len=a["seq"],
+                            global_batch=a["global_batch"]))
+with jax.set_mesh(mesh):
+    tr = Trainer(qmodel, mesh, qpipe, OptConfig(lr=a["lr"], warmup_steps=a["warmup"],
+                                                total_steps=a["total"]),
+                 TrainStepConfig(mode="decoupled", reduce_alpha=a["reduce_alpha"]),
+                 TrainerConfig(total_steps=a["steps"], ckpt_every=100, ckpt_dir={ckpt!r} + "_adapt",
+                               log_every=1, adapt=AdaptPolicy(**a["policy"])))
+    tr.run(resume=False)
+    tr.close()
+out["adapt/loss"] = np.asarray([r["loss"] for r in tr.metrics_log])
+out["adapt/log"] = np.asarray([[e["step"], e["regroup"]["reduce"], e["predicted_speedup"]]
+                               for e in tr.adapt_log], np.float64).reshape(-1, 3)
 np.savez({outputs!r}, **out)
 print("OK")
 """
@@ -151,13 +190,14 @@ def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("trainer")
     jax_path = str(tmp / "jax.npz")
     run_multidevice(JAX_TRAIN.format(outputs=jax_path, n=N_ROWS, steps=ADAMW_STEPS,
-                                     lr=ADAMW_LR, crash=CRASH,
+                                     lr=ADAMW_LR, crash=CRASH, adapt=ADAPT_TRAIN,
+                                     step_wall=ADAPT_STEP_WALL,
                                      ckpt=str(tmp / "jax_ckpt")),
                     n_devices=N_ROWS, timeout=600)
     jax_out = dict(np.load(jax_path))
     inputs = str(tmp / "inputs.npz")
     np.savez(inputs, **{k: v for k, v in jax_out.items()
-                        if k.startswith(("p0/", "batch/")) or k == "clip"})
+                        if k.startswith(("p0/", "q0/", "batch/")) or k == "clip"})
     ckpt_root = str(tmp / "port_ckpt")
     port = spawn(trainer_cases, N_ROWS, device="cpu", args=(inputs, ckpt_root), timeout_s=300)
     elastic = spawn(elastic_case, N_ROWS // 2, device="cpu", args=(inputs, ckpt_root),
@@ -267,3 +307,20 @@ def test_checkpoint_moments_cross_modes(world, name):
         for p in ("m", "v"):
             assert _maxdiff(_port(port[row], f"{then}/{p}/"), straight[p]) \
                 <= MOMENT_REL * _absmax(straight[p])
+
+
+def test_adaptive_trainer_matches_jax(world):
+    """The reference's regroup: one reduce row to three after step 3
+    (predicted speedup 1.2406...), the same on every row, and the losses
+    of all six steps, before and after it, within the loss budget."""
+    jax_out, port, _ = world
+    want = jax_out["adapt/log"]
+    assert want.shape == (1, 3) and list(want[0, :2]) == [3, 3]
+    assert abs(want[0, 2] - 1.2406182890164847) <= 1e-12 * want[0, 2]
+    for row in range(N_ROWS):
+        got = port[row]["adapt/log"]
+        np.testing.assert_array_equal(got[:, :2], want[:, :2])
+        np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=1e-12)
+        assert list(port[row]["adapt/steps"]) == list(range(1, ADAPT_TRAIN["steps"] + 1))
+        np.testing.assert_allclose(port[row]["adapt/loss"], jax_out["adapt/loss"], rtol=LOSS_REL)
+        assert int(port[row]["adapt/reduce_rows"]) == 3

@@ -149,6 +149,10 @@ CRASH = dict(seq=16, global_batch=8, lr=1e-3, warmup=2, total=20, steps=8, ckpt_
              fail_at=5)
 ADAMW_STEPS = 3
 ADAMW_LR = 1e-3
+# the reference's adaptive trainer drill (tests/test_dataflow.py), f32
+ADAPT_TRAIN = dict(seq=16, global_batch=8, lr=1e-3, warmup=2, total=20, steps=6,
+                   reduce_alpha=0.125, policy=dict(window=2, cooldown=1, speedup_threshold=1.05))
+ADAPT_STEP_WALL = 0.025
 MOMENT_STEPS = 2  # the checkpoint that crosses modes, then one more step
 
 
@@ -186,7 +190,8 @@ def trainer_cases(mesh, inputs_path: str, ckpt_root: str) -> dict:
     """In an 8-row world: one SGD step (lr 1) of the conventional and
     overlap steps; three AdamW steps of each with the clip the inputs name
     (and conventional without it); the decoupled trainer's crash at step
-    5; and checkpoints that cross between overlap and conventional mode."""
+    5; checkpoints that cross between overlap and conventional mode; and
+    the adaptive decoupled trainer (`ADAPT_TRAIN`, a constant step wall)."""
     import os
 
     from repro_torch.data.pipeline import DataConfig, Pipeline, row_shard
@@ -282,6 +287,49 @@ def trainer_cases(mesh, inputs_path: str, ckpt_root: str) -> dict:
                 saved = tr.restore(MOMENT_STEPS, state)
                 flat(saved["opt"]["m"], f"{key}/saved_m/")
                 flat(saved["opt"]["v"], f"{key}/saved_v/")
+
+    # the adaptive decoupled trainer on the reference's qwen2.5-3b smoke
+    # parameters, every step's wall a constant
+    import time
+    import types
+
+    import repro_torch.train.trainer as trmod
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.adapt import AdaptPolicy
+    from repro_torch.models.model_zoo import build
+    from repro_torch.utils.convert import params_from_numpy
+
+    a = ADAPT_TRAIN
+    qcfg = dataclasses.replace(get_smoke("qwen2.5-3b"), dtype=torch.float32)
+    qmodel = build(qcfg, device="cpu")
+    qparams = params_from_numpy(unflatten_params(inp, "q0/"), qcfg, "cpu",
+                                param_dtype=torch.float32)
+    clock = {"t": 0.0}
+
+    def tick():
+        clock["t"] += ADAPT_STEP_WALL
+        return clock["t"]
+
+    qopt = OptConfig(lr=a["lr"], warmup_steps=a["warmup"], total_steps=a["total"])
+    tr = Trainer(qmodel, mesh,
+                 Pipeline(DataConfig(vocab_size=qcfg.vocab_size, seq_len=a["seq"],
+                                     global_batch=a["global_batch"])),
+                 qopt, TrainStepConfig(mode="decoupled", reduce_alpha=a["reduce_alpha"]),
+                 TrainerConfig(total_steps=a["steps"], ckpt_every=100, log_every=1,
+                               ckpt_dir=os.path.join(ckpt_root, "adapt"),
+                               adapt=AdaptPolicy(**a["policy"])))
+    trmod.time = types.SimpleNamespace(perf_counter=tick, time=time.time)
+    try:
+        tr.run({"params": qparams, "opt": init_opt_state(qopt, qparams), "step": 0},
+               resume=False)
+    finally:
+        trmod.time = time
+        tr.close()
+    out["adapt/loss"] = np.array([r["loss"] for r in tr.metrics_log], np.float64)
+    out["adapt/steps"] = np.array([r["step"] for r in tr.metrics_log])
+    out["adapt/log"] = np.array([[e["step"], e["regroup"]["reduce"], e["predicted_speedup"]]
+                                 for e in tr.adapt_log], np.float64).reshape(-1, 3)
+    out["adapt/reduce_rows"] = np.int64(round(tr.ts_cfg.reduce_alpha * mesh.n_rows))
     return out
 
 
@@ -614,3 +662,185 @@ def iogroup_cases(mesh, inputs_path: str, sink_dir: str) -> dict:
     out["two/count"] = stream_to_io_group(x, io2, HostSink(os.path.join(sink_dir, "two")),
                                           granularity_elems=16)
     return {k: _np(v) for k, v in out.items()}
+
+
+# -- the adaptive control loop (core/adapt), its migration and apps ----------------------
+
+# the reference drills' settings: the word count at 8 rows (skew 0, 6
+# supersteps), PIC's drifting sheet (tests/test_dataflow.py), a constant
+# wall in both packages so that the decisions depend on the counters alone
+ADAPT_WC_CFG = dict(n_docs_per_row=2, words_per_doc=256, vocab=500, skew=0.0)
+ADAPT_WC_STEPS = 6
+ADAPT_PIC_CFG = dict(capacity=1024, n_particles_total=1024, n_steps=2, dt=0.1, skew=0.9,
+                     sheet_center0=0.25, drift=0.12, attract=2.0)
+ADAPT_PIC_STEPS = 4
+ADAPT_POLICY = dict(window=2, cooldown=1, speedup_threshold=1.05)
+CONST_WALL = 0.05
+# row r's local clock advances ROW_TICK[0] + r * ROW_TICK[1] a call, and
+# the planner's threshold sits between the word count's predicted speedups
+# at the slowest and the fastest row's wall (1.69509 at 1e-4 s, 1.69551 at
+# 0.049 s): on its own wall, row 0 would not regroup where row 7 would
+ROW_TICK = (1e-4, 0.007)
+WALL_THRESHOLD = 1.6953
+RESHARD_SHAPE = (4, 3)
+
+
+def _wc_report(report) -> list:
+    return [{k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in r.items()
+             if k != "histogram"} for r in report]
+
+
+def adapt_cases(mesh, inputs_path: str) -> dict:
+    """Every case of tests/test_torch_adapt.py in one 8-row world: the
+    adaptive word count at alpha0 0.125 and 0.25 (a constant wall; the
+    keyed-histogram calls counted), the static decoupled run of each
+    superstep's corpus, adaptive PIC (a constant wall), `reshard_state`
+    (re-deal, pass-through, errors), the word count under row-dependent
+    local clocks, and regroups back to an earlier partition."""
+    import types
+
+    import repro_torch.apps.mapreduce as mr
+    import repro_torch.apps.pic as pic
+    import repro_torch.core.adapt as adapt
+    from repro_torch.core.adapt import AdaptiveGraph, AdaptPolicy, ReplanDecision
+    from repro_torch.core.dataflow import ServiceGraph
+    from repro_torch.core.groups import GroupedMesh
+    from repro_torch.kernels.stream_reduce import ops as reduce_ops
+    from repro_torch.launch.elastic import reshard_state
+    from repro_torch.launch.mesh import Mesh
+
+    inp = dict(np.load(inputs_path))
+    out: dict = {}
+    calls = {"n": 0}
+    keyed = reduce_ops.keyed_histogram
+
+    def counted(*a, **kw):
+        calls["n"] += 1
+        return keyed(*a, **kw)
+
+    reduce_ops.keyed_histogram = counted
+    const = lambda fn, *a, mesh=None: (fn(*a), CONST_WALL)  # noqa: E731
+    mr.timed_call = pic.timed_call = const
+    cfg = mr.CorpusCfg(**ADAPT_WC_CFG)
+    for name, alpha0 in (("wc_0125", 0.125), ("wc_025", 0.25)):
+        calls["n"] = 0
+        report, ag = mr.run_wordcount_adaptive(mesh, cfg, supersteps=ADAPT_WC_STEPS,
+                                               alpha0=alpha0)
+        out[name] = {"report": _wc_report(report), "rows": ag.rows, "calls": calls["n"],
+                     "hist": np.stack([r["histogram"] for r in report]),
+                     "speedups": [d.predicted_speedup for d in ag.history],
+                     "expected_calls": mr.adaptive_histogram_launches(report, cfg, mesh.n_rows)}
+    out["wc_static"] = np.stack([
+        mr.run_wordcount(mesh, "decoupled", dataclasses.replace(cfg, seed=cfg.seed + t),
+                         alpha=0.25)[0].numpy() for t in range(ADAPT_WC_STEPS)])
+
+    pcfg = pic.PICCfg(**ADAPT_PIC_CFG)
+    stats: dict = {}
+    report, ag, state = pic.run_pic_adaptive(mesh, pcfg, alpha0=0.25, supersteps=ADAPT_PIC_STEPS,
+                                             policy=AdaptPolicy(**ADAPT_POLICY), stats=stats)
+    out["pic"] = {"report": report, "rows": ag.rows, "stats": stats,
+                  "speedups": [d.predicted_speedup for d in ag.history],
+                  "state": {k: t.numpy() for k, t in state.items()}}
+
+    # reshard_state: the default re-deal from 2 reduce rows to 3, a
+    # Python value passing through
+    old = GroupedMesh.build_rows(mesh, rows={"reduce": 2})
+    new = GroupedMesh.build_rows(mesh, rows={"reduce": 3})
+    buf = torch.from_numpy(inp["buf"][mesh.row])
+    got = reshard_state({"buf": buf, "scalar": 3.0}, old, new)
+    out["reshard"] = {"buf": got["buf"].numpy(), "scalar": got["scalar"]}
+    errors = {}
+    for case, call in (
+            ("bad_rows", lambda: reshard_state({"buf": buf}, old, new,
+                                               repartition=lambda t, o, n: {
+                                                   "buf": np.zeros((3,) + RESHARD_SHAPE)})),
+            ("rank1", lambda: reshard_state({"s": torch.tensor(1.0)}, old, new)),
+            ("axis_size", lambda: reshard_state(
+                {"buf": buf}, old, GroupedMesh.build_rows(Mesh(n_rows=4, device="cpu"),
+                                                          rows={"reduce": 1})))):
+        try:
+            call()
+            errors[case] = None
+        except Exception as e:  # noqa: BLE001 - the test holds the type and message
+            errors[case] = (type(e).__name__, str(e))
+    out["reshard_errors"] = errors
+
+    # row-dependent local clocks, the real timed_call: the agreed wall
+    mr.timed_call = adapt.timed_call
+    clock = {"t": 0.0}
+
+    def tick():
+        clock["t"] += ROW_TICK[0] + ROW_TICK[1] * mesh.row
+        return clock["t"]
+
+    samples = []
+    plain_step = AdaptiveGraph.step
+
+    def recorded(self, wall, work, stage_items=None):
+        samples.append((wall, np.asarray(work).tolist(), dict(stage_items)))
+        return plain_step(self, wall, work, stage_items)
+
+    adapt.time = types.SimpleNamespace(perf_counter=tick)
+    AdaptiveGraph.step = recorded
+    try:
+        report, ag = mr.run_wordcount_adaptive(
+            mesh, cfg, supersteps=ADAPT_WC_STEPS, alpha0=0.125,
+            policy=AdaptPolicy(window=2, cooldown=1, speedup_threshold=WALL_THRESHOLD))
+    finally:
+        adapt.time = __import__("time")
+        AdaptiveGraph.step = plain_step
+    out["walls"] = {"report": _wc_report(report), "rows": ag.rows, "samples": samples,
+                    "local": ROW_TICK[0] + ROW_TICK[1] * mesh.row}
+
+    # back and forth between two partitions: each graph's word count exact
+    g = ServiceGraph.build(mesh, stages={"reduce": 1 / 8}, edges=[("compute", "reduce")])
+    ag = AdaptiveGraph(g, traits=mr.wordcount_traits(), policy=AdaptPolicy(**ADAPT_POLICY))
+    corpus = mr.make_corpus(cfg, cfg.n_docs_per_row * mesh.n_rows)
+    back = []
+    for rows in (3, 1, 3, 2):
+        graph = ag.apply(ReplanDecision(True, {"reduce": rows}, 1.0, "replan"))
+        t, m = mr.row_docs(*corpus, mesh.row, graph.gmesh.compute.size, mesh.n_rows)
+        hist = mr.decoupled_wordcount(torch.from_numpy(t), torch.from_numpy(m), cfg.vocab, graph)
+        back.append((graph.gmesh.compute.size, hist.numpy()))
+    out["back"] = back
+    reduce_ops.keyed_histogram = keyed
+    return out
+
+
+def cuda_adaptive_wordcount_case(mesh) -> dict:
+    """The adaptive word count on the card (alpha0 1/8, a constant wall, so
+    it regroups as on the CPU), with this rank's keyed-histogram launches
+    over the whole run, warmups included."""
+    import repro_torch.apps.mapreduce as mr
+    from repro_torch.kernels.stream_reduce import histogram_kernel
+
+    mr.timed_call = lambda fn, *a, mesh=None: (fn(*a), CONST_WALL)
+    cfg = mr.CorpusCfg(**ADAPT_WC_CFG)
+    before = histogram_kernel.launches
+    report, ag = mr.run_wordcount_adaptive(mesh, cfg, supersteps=4, alpha0=0.125)
+    return {"launches": histogram_kernel.launches - before, "report": _wc_report(report),
+            "hist": np.stack([r["histogram"] for r in report]),
+            "expected": mr.adaptive_histogram_launches(report, cfg, mesh.n_rows)}
+
+
+def cuda_reshard_case(mesh) -> dict:
+    """`reshard_state` of a PIC state on the card, from 2 comm rows to 4 with
+    the particle re-binning: this rank's old and new rows, and where the new
+    one lies."""
+    from repro_torch.apps.pic import _particle_repartition
+    from repro_torch.core.groups import GroupedMesh
+    from repro_torch.launch.elastic import reshard_state
+
+    cap = 4096
+    rng = np.random.default_rng(11 + mesh.row)
+    m = (rng.uniform(size=cap) < (0.3 if mesh.row < 6 else 0.0)).astype(np.float32)
+    state = {"x": torch.from_numpy((rng.uniform(size=cap) * m).astype(np.float32)),
+             "v": torch.from_numpy(rng.normal(size=cap).astype(np.float32)),
+             "m": torch.from_numpy(m)}
+    state = {k: t.to(mesh.device) for k, t in state.items()}
+    old = GroupedMesh.build_rows(mesh, rows={"comm": 2})
+    new = GroupedMesh.build_rows(mesh, rows={"comm": 4})
+    got = reshard_state(state, old, new, repartition=_particle_repartition(cap, 1.0))
+    return {"old": {k: t.cpu().numpy() for k, t in state.items()},
+            "new": {k: t.cpu().numpy() for k, t in got.items()},
+            "device": str(got["x"].device)}
