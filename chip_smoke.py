@@ -88,6 +88,36 @@ failure exits non-zero and prints no result:
                verify forward and rollback, each ended by a
                synchronisation. (c) sampled mode: seed 3 twice gives identical
                streams, seed 4 others.
+6d. disagg  — disaggregated serving and the serving fleet
+               (`serve/disagg.py`, `checkpoint_bridge.py`, `fleet.py`). (a)
+               qwen2.5-3b in f32 (TF32 off) from --seed: `DisaggEngine`
+               (aligned, dense, 4 prefill rows, 4 decode slots) beside the
+               colocated aligned `Engine` (4 slots) on 4 requests of 64-512
+               prompt tokens, 16 new each, in lockstep: every decode tick's
+               logits, the streams and the slot caches bit for bit (else the
+               largest difference and the margin rule). (c) the same f32
+               model: a `FleetEngine` with checkpoint recovery (a snapshot
+               every 4 ticks, continuous, paged) on phase 6c's 12 requests,
+               a device loss right after the snapshot at tick 8: restored >=
+               1, every stream = the colocated continuous engine's under the
+               margin rule; the snapshot's bytes and save()'s blocking
+               seconds. (b) the bf16 weights through `serve_lm.serve`, the
+               user's `serve_lm --scenario bursty-multitenant --adapt
+               --paged --fail-at 36 --preempt-at 32` (8 rows, 2 prefill, 1
+               slot a row, the whole 56-tick scenario): every accepted
+               request finished, a device loss, a preemption and a regrow in
+               the fault log, staged >= 1 and retried >= 1, a replan, block
+               references = the live demand after every tick and none in use
+               after the drain, launches exact (flash = layers x prefill
+               calls, paged = layers x decode ticks, argmax = first tokens +
+               decode ticks); regroups, deferrals, TTFT p50/p99, tokens/s.
+               (d) `build_disagg_spmd_step` in a four-row gloo world of
+               tinyllama-1.1b (bf16, 2 prefill + 2 decode rows, 2 slots a
+               row, 512-token prompts, 4 ticks): the decode rows' tokens,
+               cursors and KV equal a one-process replay on the card bit for
+               bit, the stats the arithmetic, and `reshard_serving_state` 2
+               + 2 -> 1 + 3 inside the world keeps every kept slot's KV and
+               token bit for bit; the handoff's wire bytes and seconds.
 7. mamba    — mamba2-130m at full width and depth, random bf16 weights
                from --seed, through `make_engine` in aligned mode over
                the dense store (8 slots, max_len 16384): 16 prompts of
@@ -209,7 +239,8 @@ failure exits non-zero and prints no result:
 12. summary — a ``timing`` line, a ``{"kernels": [...]}`` line (the
                histogram's times are the fold's, the path's shape;
                ``launches_spec`` from phase 6c's run with the qwen1.5-0.5b
-               draft; the histogram's ``launches_adaptive`` from phase 9's
+               draft; ``launches_disagg`` from phase 6d's adaptive fleet
+               under faults; the histogram's ``launches_adaptive`` from phase 9's
                adaptive run, and chunk_accumulate's
                ``launches_train_by_run`` with phase 8's adaptive run), then
                the last line ``{"ok": true, "device": {...}}``.
@@ -2314,6 +2345,508 @@ def spec_phase(torch, np, model, params, smi: str, seed: int) -> dict:
     return {"launches": main_run["launches"], "parity": parity, "windows": windows}
 
 
+# -- phase 6d: disaggregated serving and the serving fleet ---------------------------
+
+# (a) the aligned handoff against the colocated engine, qwen2.5-3b in f32
+DISAGG_PARITY = dict(n_req=4, lo=64, hi=512, new_tokens=16, max_len=1024)
+# (b) the serving example's adaptive fleet under faults: `bursty-multitenant`
+# whole (56 ticks), the rag surge at tick 28; the ticks are picked from the
+# scenario's load (the CPU dry run keeps every decode slot live from tick 23
+# on, whatever walls the planner sees, with a queue of 9-21 requests at 32-36)
+FLEET_SCENARIO = "bursty-multitenant"
+FLEET_PREEMPT_AT = 32
+FLEET_FAIL_AT = 36
+# (c) checkpoint recovery: phase 6c's 12 requests through a 4-row fleet
+# (1 prefill row, 6 decode slots), a snapshot every 4 ticks, a device loss on
+# the tick after the snapshot at tick 8
+CKPT_FLEET = dict(mode="continuous", n_rows=4, prefill_rows=1, slots_per_row=2, max_len=96,
+                  prefill_chunk=16, min_rows=2, recovery="checkpoint", ckpt_cadence=4)
+CKPT_BLOCK = 8
+CKPT_SNAPSHOT_TICK = 8
+# (d) the SPMD step in a four-row world: tinyllama-1.1b (bf16), 2 prefill rows
+# and 2 decode rows, 2 slots a row, 4 ticks; 4 MiB stream elements
+SPMD_ARCH = "tinyllama-1.1b"
+SPMD_ROWS = 4
+SPMD_ALPHA = 0.5
+SPMD = dict(slots_per_row=2, max_prompt=512, max_len=640, chunk_elems=1 << 20, decode_steps=2)
+SPMD_TICKS = 4
+
+
+def disagg_requests(np, vocab: int, *, n_req: int, lo: int, hi: int, new_tokens: int,
+                    seed: int) -> list:
+    """Prompts of ``lo``-``hi`` tokens, ``new_tokens`` each."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=u, prompt=rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+                    .astype(np.int32), max_new_tokens=new_tokens) for u in range(n_req)]
+
+
+def disagg_aligned_parity(torch, np, model, params, reqs: list, *, max_len: int) -> dict:
+    """(a): `DisaggEngine` (aligned, dense store, one prefill row per request,
+    as many decode slots) against the colocated aligned `Engine` on the same
+    requests, ticked in lockstep: every decode tick's logits `torch.equal`,
+    the streams and the slot caches equal. Should the card break bit
+    identity, the largest difference is reported and every stream is held to
+    the colocated one up to its first step with a top-2 margin under
+    `SPEC_MARGIN` (`margin_rule`; the prefill's margin counts for step 0)."""
+    from repro_torch.serve import DisaggConfig, EngineConfig, make_engine
+
+    margins = {r.uid: {} for r in reqs}
+    by_prompt = {r.prompt.tobytes(): r.uid for r in reqs}
+    holder = {}
+
+    def decode(params_, cache, token):
+        out = model.decode_step(params_, cache, token)
+        live = [(i, r) for i, r in enumerate(holder["eng"].slots) if r is not None]
+        got = top2_margins(torch, out[0][[i for i, _ in live], -1])
+        for (_, r), m in zip(live, got):
+            margins[r.uid][len(r.out_tokens)] = m
+        return out
+
+    def prefill(params_, tokens, cache=None, length=None, *, impl=None):
+        out = model.prefill(params_, tokens, cache, length, impl=impl)
+        n = int(length) if length is not None else tokens.shape[1]
+        uid = by_prompt[tokens[0, :n].to(torch.int32).cpu().numpy().tobytes()]
+        margins[uid][-1] = top2_margins(torch, out[0][:, -1])[0]
+        return out
+
+    n = len(reqs)
+    eng = make_engine(dataclasses.replace(model, decode_step=decode, prefill=prefill), params,
+                      EngineConfig(max_batch=n, max_len=max_len))
+    holder["eng"] = eng
+    dis = make_engine(model, params, DisaggConfig(n_prefill_rows=n, decode_slots=n,
+                                                  max_len=max_len))
+    for r in reqs:
+        eng.submit(dataclasses.replace(r, out_tokens=[]))
+        dis.submit(dataclasses.replace(r, out_tokens=[]))
+    ticks, equal_ticks, max_diff = 0, 0, 0.0
+    while not (eng.idle() and dis.idle()):
+        eng.step()
+        dis.step()
+        ticks += 1
+        if eng.last_tick["decode_batch"]:
+            a, b = eng.last_logits, dis.last_logits
+            if torch.equal(a, b):
+                equal_ticks += 1
+            else:
+                max_diff = max(max_diff, (a.float() - b.float()).abs().max().item())
+        if ticks > 1000:
+            raise AssertionError("disagg parity: the engines did not drain")
+    decode_ticks = dis.stats["steps"]
+    streams = {r.uid: list(r.out_tokens) for r in eng.finished}
+    dstreams = {r.uid: list(r.out_tokens) for r in dis.finished}
+    caches = all(torch.equal(eng.cache[k], dis.cache[k]) for k in ("k", "v"))
+    identical = equal_ticks == decode_ticks and max_diff == 0.0 and streams == dstreams \
+        and caches
+    out = {"ticks": ticks, "decode_ticks": decode_ticks, "bit_identical_ticks": equal_ticks,
+           "logit_max_abs_diff": max_diff, "streams_equal": streams == dstreams,
+           "caches_equal": caches, "bit_identical": identical,
+           "handoffs": dis.stats["handoffs"],
+           "min_colocated_margin": min(min(m.values()) for m in margins.values())}
+    if not identical:
+        out["cut_by_margin_rule"] = margin_rule(dstreams, {"streams": streams,
+                                                           "margins": margins})
+    if len(dstreams) != len(reqs) or eng.tick != dis.tick:
+        raise AssertionError(f"disagg parity: {len(dstreams)} of {len(reqs)} finished, "
+                             f"ticks {eng.tick} / {dis.tick}")
+    return out
+
+
+def check_fleet_blocks(fe) -> int:
+    """A paged fleet's store after a tick: the slots' block references equal
+    the live block demand, and the private blocks in use do not exceed it
+    (prefix-cache hits share blocks). Returns 1 when checked."""
+    st = fe.eng.kv.stats
+    if st.get("kind") != "paged":
+        return 0
+    private = st["blocks_in_use"] - st["evictable_blocks"]
+    if st["ref_total"] - st["prefix_ref_total"] != st["live_block_demand"] or \
+            private > st["live_block_demand"]:
+        raise AssertionError(f"fleet: block accounting off at tick {fe.eng.tick}: {st}")
+    return 1
+
+
+def fleet_fault_run(torch, np, model, params, *, fail_at: int = FLEET_FAIL_AT,
+                    preempt_at: int = FLEET_PREEMPT_AT) -> dict:
+    """(b): `serve_lm.serve(scenario_name=FLEET_SCENARIO, adapt=True,
+    paged=True, fail_at=, preempt_at=)`, the user's ``serve_lm --scenario
+    bursty-multitenant --adapt --paged --fail-at --preempt-at``, with every
+    kernel count set to 0 just before and read just after. Checks: every
+    accepted request finishes; the fault log holds a device loss, a
+    preemption and a regrow; staged >= 1 and retried >= 1; at least one
+    replan; block references = the live demand after every tick and no
+    block in use after the drain; launches exact: flash = layers x prefill
+    calls, paged = layers x decode ticks with a live slot (``steps``),
+    argmax = first tokens sampled (``prefills``) + decode ticks."""
+    from repro_torch.examples import serve_lm
+
+    calls = []
+
+    def counted_prefill(*a, **kw):
+        calls.append(1)
+        return model.prefill(*a, **kw)
+
+    checked, walls, regroups = [], [], []
+
+    def on_tick(fe):
+        checked.append(check_fleet_blocks(fe))
+        rec = fe.report[-1]
+        walls.append(rec["wall_s"])
+        if rec["regrouped"]:
+            applied = [d for d in fe.controller.history if d.regroup][-1]
+            regroups.append({"tick": rec["tick"], "prefill_rows": rec["prefill_rows"],
+                             "decode_slots": rec["decode_slots"],
+                             "predicted_speedup": applied.predicted_speedup,
+                             "at": len(walls) - 1})
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for k in counters.values():
+        k.launches = 0
+    out = serve_lm.serve(dataclasses.replace(model, prefill=counted_prefill), params,
+                         scenario_name=FLEET_SCENARIO, adapt=True, paged=True, fail_at=fail_at,
+                         preempt_at=preempt_at, on_tick=on_tick)
+    # the planner's serving instance: the measured tick before and after
+    # each regroup (the policy's window of ticks on each side) beside the
+    # speedup it predicted; the loads on the two sides differ, as served
+    w = serve_lm.ADAPT["window"]
+    for g in regroups:
+        at = g.pop("at")
+        before, after = walls[max(0, at - w + 1):at + 1], walls[at + 1:at + 1 + w]
+        g.update(ms_before=1e3 * statistics.fmean(before),
+                 ms_after=1e3 * statistics.fmean(after) if after else None)
+    launches = {name: k.launches for name, k in counters.items()}
+    fe, st = out["engine"], out["engine"].stats
+    layers = model.cfg.n_layers
+    want = {"flash_attention": layers * len(calls), "paged_decode_attention": layers * st["steps"],
+            "argmax_last": st["prefills"] + st["steps"], "ssd_scan": 0, "chunk_accumulate": 0,
+            "histogram": 0}
+    kinds = [r["kind"] for r in fe.fault_log]
+    accepted = out["requests"] - fe.sched.rejected
+    finished = {r.uid for r in fe.finished}
+    kv = fe.eng.kv.stats
+    leaked = kv["blocks_in_use"] - kv["evictable_blocks"]
+    snap = fe.ledger.snapshot()
+    res = {"scenario": FLEET_SCENARIO, "fail_at": fail_at, "preempt_at": preempt_at,
+           "requests": out["requests"], "accepted": accepted, "finished": len(finished),
+           "ticks": fe.eng.tick, "decode_ticks": st["steps"], "prefills": st["prefills"],
+           "prefill_calls": len(calls), "handoffs": st["handoffs"],
+           "restores": st["restores"], "prefix_hit_tokens": st["prefix_hit_tokens"],
+           "prefill_skips": st["prefill_skips"], "tokens_out": st["tokens_out"],
+           "regroups": fe.regroups, "deferrals": fe.deferrals, "discarded": fe.discarded,
+           "replans": out["metrics"].get("fleet.replans", 0), "fault_log": list(fe.fault_log),
+           "recoveries": dict(fe.recoveries), "regrows": fe.regrows,
+           "rows": [fe.n_rows, fe.cfg.n_rows], "final_prefill_rows": fe.prefill_rows,
+           "ttft_p50": snap["ttft_p50"], "ttft_p99": snap["ttft_p99"],
+           "latency_p99": snap["latency_p99"], "seconds": out["seconds"],
+           "tokens_per_s": st["tokens_out"] / out["seconds"],
+           "ms_per_tick": out["seconds"] * 1e3 / fe.eng.tick,
+           "regroup_walls": regroups,
+           "block_checked_ticks": sum(checked), "blocks_in_use_after_drain": leaked,
+           "launches": launches, "launches_expected": want}
+    if accepted != len(finished) or len(fe.finished) != len(finished):
+        raise AssertionError(f"fleet: {len(finished)} of {accepted} accepted requests finished")
+    if not {"device_loss", "preempt", "regrow"} <= set(kinds):
+        raise AssertionError(f"fleet: fault log {kinds} lacks a loss, a preemption or a regrow")
+    if fe.recoveries["staged"] < 1 or fe.recoveries["retried"] < 1:
+        raise AssertionError(f"fleet: recoveries {fe.recoveries}: the faults met no live slot")
+    if res["replans"] < 1:
+        raise AssertionError("fleet: no replan decision was logged")
+    if leaked or not sum(checked):
+        raise AssertionError(f"fleet: {leaked} blocks in use after the drain "
+                             f"({sum(checked)} ticks checked)")
+    if launches != want or not calls:
+        raise AssertionError(f"fleet: launches {launches}, want {want}")
+    return res
+
+
+def fleet_checkpoint_run(torch, np, model, params, *, seed: int) -> dict:
+    """(c): f32, a `FleetEngine` with ``recovery="checkpoint"`` snapshotting
+    every `CKPT_CADENCE` ticks (continuous, paged) on phase 6c's 12
+    requests; a device loss on the tick after the snapshot at tick
+    `CKPT_SNAPSHOT_TICK`, when every slot is live. Checks: ``restored`` >= 1
+    and every stream equal to the colocated continuous engine's on the same
+    requests under `margin_rule`. Reports the snapshot's bytes and the
+    seconds `save()` blocked the tick."""
+    import tempfile
+
+    from repro_torch.serve import FleetConfig, KVSpec, make_engine
+    from repro_torch.serve.faults import FaultEvent
+
+    s = SPEC_PARITY
+    kv = KVSpec(kind="paged", block_size=CKPT_BLOCK)
+    reqs = spec_requests(np, model.cfg.vocab_size, n_req=s["n_req"],
+                         new_tokens=s["new_tokens"], seed=seed)
+    slots = (CKPT_FLEET["n_rows"] - CKPT_FLEET["prefill_rows"]) * CKPT_FLEET["slots_per_row"]
+    base = target_only_margins(torch, model, params, reqs, kv, max_batch=slots,
+                               max_len=CKPT_FLEET["max_len"])
+    with tempfile.TemporaryDirectory(prefix="serving_ckpt_") as tmp:
+        fe = make_engine(model, params, FleetConfig(**CKPT_FLEET, kv=kv, ckpt_dir=tmp))
+        for r in reqs:
+            fe.submit(dataclasses.replace(r, out_tokens=[]))
+        while fe.eng.tick < CKPT_SNAPSHOT_TICK:
+            fe.step()
+        live_at_save = [r.uid if r else None for r in fe.eng.slots]
+        fe.inject_fault(FaultEvent(fe.eng.tick + 1, "device_loss", rows=1))
+        t0 = time.perf_counter()
+        fe.drain()
+        drain_s = time.perf_counter() - t0
+        fe.ckpt.close()
+        log = list(fe.ckpt.log)
+    streams = {r.uid: list(r.out_tokens) for r in fe.finished}
+    cut = margin_rule(streams, base)
+    res = {"requests": len(reqs), "decode_slots": slots, "cadence": CKPT_FLEET["ckpt_cadence"],
+           "fault_tick": CKPT_SNAPSHOT_TICK + 1, "live_at_snapshot": live_at_save,
+           "fault_log": list(fe.fault_log), "recoveries": dict(fe.recoveries),
+           "ticks": fe.eng.tick, "identical_streams": sum(
+               streams.get(u) == v for u, v in base["streams"].items()),
+           "cut_by_margin_rule": cut, "saves": len(log),
+           "snapshot_bytes": [e["bytes"] for e in log],
+           "save_blocking_s": [e["snapshot_s"] + e["wait_s"] for e in log],
+           "write_s": [e.get("write_s") for e in log], "drain_s": drain_s}
+    if fe.recoveries["restored"] < 1:
+        raise AssertionError(f"fleet checkpoint: nothing restored: {res['fault_log']}")
+    return res
+
+
+def spmd_inputs(np, seed: int, vocab: int) -> dict:
+    """Per tick and row: right-padded prompts, true lengths (decode rows 0;
+    one prefill row idles at tick 2) and each decode row's slot for the
+    wave (-1 at tick 2 on row 1: no handoff; tick 3 overwrites slot 0)."""
+    rng = np.random.default_rng(seed)
+    n_dec = SPMD_ROWS - max(1, round(SPMD_ALPHA * SPMD_ROWS))
+    prompts = rng.integers(0, vocab, (SPMD_TICKS, SPMD_ROWS, SPMD["max_prompt"]))
+    plen = rng.integers(SPMD["max_prompt"] // 8, SPMD["max_prompt"] + 1,
+                        (SPMD_TICKS, SPMD_ROWS)).astype(np.int32)
+    plen[:, :n_dec] = 0
+    plen[2, SPMD_ROWS - 1] = 0
+    dst = np.array([[0, 0], [1, 1], [1, -1], [0, 0]], np.int32)
+    dst = np.concatenate([dst, np.full((SPMD_TICKS, SPMD_ROWS - n_dec), -1, np.int32)],
+                         axis=1)[:, :, None]
+    return {"prompts": prompts.astype(np.int64), "plen": plen, "dst": dst}
+
+
+def _slot_hashes(torch, cache: dict) -> list:
+    """sha256 of each slot's K and V bytes (bf16), in slot order."""
+    import hashlib
+
+    out = []
+    for s in range(cache["k"].shape[1]):
+        h = hashlib.sha256()
+        for key in ("k", "v"):
+            h.update(cache[key][:, s].contiguous().view(torch.int16).cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def disagg_spmd_rank(mesh, seed: int, inputs: dict) -> dict:
+    """One rank of phase 6d (d)'s four-row world (run by `spawn`): the SPMD
+    step for `SPMD_TICKS` ticks on this rank's row, each tick synchronised
+    and timed, the row's outputs, stats, tokens, cursor and slot hashes, its
+    `WireStats` over the ticks; then `reshard_serving_state` 2 + 2 -> 1 + 3
+    rows inside the world and the new row's hashes and tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.core.groups import GroupedMesh
+    from repro_torch.launch.mesh import WireStats
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serve.disagg import (
+        PREFILL,
+        build_disagg_spmd_step,
+        disagg_row_state,
+        init_disagg_state,
+        serving_mesh,
+    )
+    from repro_torch.serve.fleet import reshard_serving_state
+
+    dev = mesh.device
+    model = build(get(SPMD_ARCH), device=dev)
+    params = model.init(seed)
+    gmesh = serving_mesh(mesh, SPMD_ALPHA)
+    step, plan = build_disagg_spmd_step(model, gmesh, **SPMD)
+    spr = SPMD["slots_per_row"]
+    cache, tokens = init_disagg_state(model, gmesh, slots_per_row=spr, max_len=SPMD["max_len"])
+    rc, rt = disagg_row_state(cache, tokens, gmesh, slots_per_row=spr)
+    r = mesh.row
+    mesh.barrier()
+    mesh.stats = WireStats()
+    outs, stats, tick_s = [], [], []
+    for t in range(SPMD_TICKS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        rc, rt, o, s = step(params, torch.as_tensor(inputs["prompts"][t, r:r + 1], device=dev),
+                            torch.as_tensor(inputs["plen"][t, r:r + 1], device=dev),
+                            torch.as_tensor(inputs["dst"][t, r:r + 1], device=dev), rc, rt)
+        outs.append(o.cpu().numpy())
+        stats.append(s.cpu().numpy())
+        tick_s.append(time.perf_counter() - t0)
+    wire = mesh.stats.as_dict()
+    out = {"row": r, "outs": np.stack(outs), "stats": np.stack(stats), "tick_s": tick_s,
+           "tokens": rt.cpu().numpy(), "pos": rc["pos"].cpu().numpy(),
+           "hashes": _slot_hashes(torch, rc), "wire": wire, "n_chunks": plan.n_chunks,
+           "chunk_bytes": plan.element_bytes}
+    new = GroupedMesh.build_rows(mesh, rows={PREFILL: 1})
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    nc, nt = reshard_serving_state(rc, rt, gmesh, new, slots_per_row=spr)
+    torch.cuda.synchronize(dev)
+    out.update(reshard_s=time.perf_counter() - t0, reshard_hashes=_slot_hashes(torch, nc),
+               reshard_tokens=nt.cpu().numpy(), reshard_pos=nc["pos"].cpu().numpy())
+    return out
+
+
+def spmd_replay(torch, np, model, params, inputs: dict) -> dict:
+    """The SPMD ticks in one process on the card: per wave pair, the same
+    batch-1 length-masked prefill, `pack_cache` -> `plan.unpack`, the
+    migration into the decode row's slot, then `decode_steps` greedy steps
+    per decode row. Returns each decode row's outputs, tokens, cursor and
+    slot hashes."""
+    from repro_torch.core.operators import cache_stream_plan, migrate_cache_into_slot, \
+        pack_cache
+    from repro_torch.kernels.sample import sample_last
+
+    spr = SPMD["slots_per_row"]
+    n_dec = SPMD_ROWS - max(1, round(SPMD_ALPHA * SPMD_ROWS))
+    pre = list(range(n_dec, SPMD_ROWS))
+    plan = cache_stream_plan(model.init_cache(1, SPMD["max_prompt"]), SPMD["chunk_elems"])
+    rows = []
+    for _ in range(n_dec):
+        c = model.init_cache(spr, SPMD["max_len"])
+        rows.append({"cache": c, "tokens": torch.zeros((spr, 1), dtype=torch.int32,
+                                                       device=model.device), "outs": []})
+    for t in range(SPMD_TICKS):
+        for j, src in enumerate(pre[:n_dec]):  # one wave: prefill row j+n_dec -> decode row j
+            slot, n = int(inputs["dst"][t, j, 0]), int(inputs["plen"][t, src])
+            if slot < 0 or n <= 0:
+                continue
+            prompt = torch.as_tensor(inputs["prompts"][t, src:src + 1], device=model.device)
+            logits, c1 = model.prefill(params, prompt,
+                                       length=torch.tensor(n, dtype=torch.int32,
+                                                           device=model.device))
+            first = sample_last(logits)[0]
+            src_cache = plan.unpack(pack_cache(c1, plan))
+            src_cache["pos"] = torch.tensor(n, dtype=torch.int32, device=model.device)
+            migrate_cache_into_slot(rows[j]["cache"], src_cache, slot)
+            rows[j]["tokens"][slot, 0] = first
+        for row in rows:
+            toks, outs = row["tokens"], []
+            for _ in range(SPMD["decode_steps"]):
+                logits, row["cache"] = model.decode_step(params, row["cache"], toks)
+                toks = sample_last(logits)[:, None]
+                outs.append(toks[:, 0])
+            row["tokens"] = toks
+            row["outs"].append(torch.stack(outs, dim=1).cpu().numpy())
+    return {"outs": [np.stack(r["outs"]) for r in rows],
+            "tokens": [r["tokens"].cpu().numpy() for r in rows],
+            "pos": [int(r["cache"]["pos"]) for r in rows],
+            "hashes": [_slot_hashes(torch, r["cache"]) for r in rows]}
+
+
+def disagg_spmd_run(torch, np, seed: int, smi: str) -> dict:
+    """(d): the SPMD step in a four-row gloo world on this card against its
+    one-process replay (decode rows' tokens, cursors and KV hashes bit for
+    bit), the stats against the arithmetic, and the in-world reshard 2 + 2
+    -> 1 + 3 rows keeping every kept slot's KV and token bit for bit; the
+    handoff's wire bytes and seconds from `WireStats`."""
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.model_zoo import build
+
+    cfg = get(SPMD_ARCH)
+    inputs = spmd_inputs(np, seed, cfg.vocab_size)
+    t0 = time.perf_counter()
+    ranks = spawn(disagg_spmd_rank, SPMD_ROWS, args=(seed, inputs), timeout_s=600)
+    world_s = time.perf_counter() - t0
+    model = build(cfg)
+    params = model.init(seed)
+    rep = spmd_replay(torch, np, model, params, inputs)
+    del model, params
+    n_dec = SPMD_ROWS - max(1, round(SPMD_ALPHA * SPMD_ROWS))
+    spr = SPMD["slots_per_row"]
+    for j in range(n_dec):
+        got = ranks[j]
+        if not (np.array_equal(got["outs"][:, :, :], rep["outs"][j])
+                and np.array_equal(got["tokens"], rep["tokens"][j])
+                and int(got["pos"][0]) == rep["pos"][j] and got["hashes"] == rep["hashes"][j]):
+            raise AssertionError(f"spmd: decode row {j} differs from the one-process replay")
+    handoffs = [int(((inputs["dst"][t, :n_dec, 0] >= 0)
+                     & (inputs["plen"][t, n_dec:] > 0)).sum()) for t in range(SPMD_TICKS)]
+    emitted = n_dec * spr * SPMD["decode_steps"]
+    for j in range(n_dec):
+        want = np.array([[[h, emitted]] for h in handoffs], np.int32)
+        if not np.array_equal(ranks[j]["stats"], want):
+            raise AssertionError(f"spmd: stats {ranks[j]['stats'].tolist()} != {want.tolist()}")
+    old = [h for r in ranks[:n_dec] for h in r["hashes"]]
+    old_tok = np.concatenate([r["tokens"] for r in ranks[:n_dec]])
+    new = [h for r in ranks for h in r["reshard_hashes"]]
+    new_tok = np.concatenate([r["reshard_tokens"] for r in ranks])
+    kept = len(old)
+    new_pos = {int(r["reshard_pos"][0]) for r in ranks[:SPMD_ROWS - 1]}
+    if new[:kept] != old or not np.array_equal(new_tok[:kept], old_tok) or \
+            new_tok[kept:].any() or new_pos != {max(rep["pos"])}:
+        raise AssertionError("spmd: the in-world reshard lost a kept slot's KV or token")
+    producers = ranks[n_dec:]
+    line = {"phase": "disagg", "run": "spmd", "model": SPMD_ARCH, "dtype": "bf16",
+            "nvidia_smi": smi, "rows": SPMD_ROWS, "prefill_rows": SPMD_ROWS - n_dec,
+            **SPMD, "ticks": SPMD_TICKS, "handoffs_per_tick": handoffs,
+            "n_chunks": ranks[0]["n_chunks"], "chunk_bytes": ranks[0]["chunk_bytes"],
+            "replay_bit_identical": True, "stats_as_arithmetic": True,
+            "reshard_kept_bit_identical": kept,
+            "tick_s_by_rank": [r["tick_s"] for r in ranks],
+            "wire_by_rank": [{k: r["wire"][k] for k in ("sent_bytes", "recv_bytes", "d2h_bytes",
+                                                        "d2h_s", "h2d_bytes", "h2d_s", "wait_s",
+                                                        "collective_bytes", "collective_s")}
+                             for r in ranks],
+            "handoff_bytes_sent": sum(r["wire"]["sent_bytes"] for r in producers),
+            "reshard_s_by_rank": [r["reshard_s"] for r in ranks], "world_s": world_s}
+    emit(line)
+    return line
+
+
+def disagg_phase(torch, np, model, params, smi: str, seed: int) -> dict:
+    """Phase 6d: disaggregated serving and the serving fleet. (a) and (c) on
+    qwen2.5-3b in f32 (TF32 off) from ``seed``; (b) on ``params`` (bf16)
+    through `serve_lm.serve`; (d) a four-row world of tinyllama-1.1b.
+    Returns (b)'s launches (``launches_disagg``)."""
+    from repro_torch.models.model_zoo import build
+
+    part_s, t0 = {}, time.perf_counter()
+    f32 = build(dataclasses.replace(model.cfg, dtype=torch.float32))
+    f32_params = f32.init(seed)
+    p = DISAGG_PARITY
+    reqs = disagg_requests(np, model.cfg.vocab_size, n_req=p["n_req"], lo=p["lo"], hi=p["hi"],
+                           new_tokens=p["new_tokens"], seed=seed + 11)
+    par = disagg_aligned_parity(torch, np, f32, f32_params, reqs, max_len=p["max_len"])
+    emit({"phase": "disagg", "run": "aligned handoff vs colocated", "model": model.cfg.name,
+          "dtype": "f32", "nvidia_smi": smi, "requests": len(reqs),
+          "prompt_tokens": [int(r.prompt.shape[0]) for r in reqs], **par,
+          "seconds_run": time.perf_counter() - t0})
+    part_s["aligned_parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck = fleet_checkpoint_run(torch, np, f32, f32_params, seed=seed)
+    emit({"phase": "disagg", "run": "checkpoint recovery", "model": model.cfg.name,
+          "dtype": "f32", "nvidia_smi": smi, **ck})
+    part_s["checkpoint_recovery"] = time.perf_counter() - t0
+    del f32, f32_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fleet = fleet_fault_run(torch, np, model, params)
+    emit({"phase": "disagg", "run": "adaptive fleet under faults", "model": model.cfg.name,
+          "dtype": "bf16", "nvidia_smi": smi, **fleet})
+    part_s["fleet_faults"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    disagg_spmd_run(torch, np, seed, smi)
+    part_s["spmd_world"] = time.perf_counter() - t0
+    emit({"phase": "disagg", "run": "phase seconds", **part_s})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": fleet["launches"], "fleet": fleet, "parity": par, "checkpoint": ck}
+
+
 # -- phase 7: mamba2-130m in aligned mode ------------------------------------
 
 
@@ -3874,6 +4407,15 @@ def main(argv=None) -> int:
     # parity from --seed; the speed runs on the same bf16 weights)
     CLOCK.start("spec")
     spec = spec_phase(torch, np, qmodel, qparams, smi, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6d: disaggregated serving and the serving fleet, qwen2.5-3b at full
+    # width and depth (f32 parity and checkpoint recovery from --seed, the
+    # adaptive fleet under faults on the same bf16 weights), then the SPMD
+    # step in a four-row tinyllama-1.1b world on this card
+    CLOCK.start("disagg")
+    disagg = disagg_phase(torch, np, qmodel, qparams, smi, args.seed)
     del qparams
     # the arms' engines hold their params in reference cycles (the timed
     # step closures): collect them, so the mamba arm's peak is its own
@@ -3914,7 +4456,8 @@ def main(argv=None) -> int:
     # phase 12: summary; "launches" is the count from the run of the path
     # each kernel belongs to (the bf16 tinyllama arm for paged decode,
     # argmax and flash, the scenario phase's traced replay and the spec
-    # phase's run with the qwen1.5-0.5b draft beside it; the
+    # phase's run with the qwen1.5-0.5b draft and phase 6d's adaptive fleet
+    # under faults (launches_disagg) beside it; the
     # mamba arm for the SSD scan; the train phase's decoupled run, summed
     # over its four ranks, for chunk_accumulate, every train run's counts
     # beside it (launches_train_by_run, the adaptive run's too); the MapReduce
@@ -3946,6 +4489,7 @@ def main(argv=None) -> int:
         kern["launches_long_arm"] = long["launches"][name]
         kern["launches_scenario"] = scen["launches"][name]
         kern["launches_spec"] = spec["launches"][name]
+        kern["launches_disagg"] = disagg["launches"][name]
         kern["launches_mamba_arm"] = mamba["launches"][name]
         kern["launches_train"] = train["launches"][name]
         kern["launches_train_by_run"] = {run: counts[name]
@@ -3958,7 +4502,8 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "plain_device_ms", "library_device_ms", "launches_long_arm",
-            "launches_scenario", "launches_spec", "launches_mamba_arm", "launches_train", "launches_train_by_run",
+            "launches_scenario", "launches_spec", "launches_disagg", "launches_mamba_arm",
+            "launches_train", "launches_train_by_run",
             "launches_mapreduce", "launches_cg", "launches_pic")
     emit({"phase": "timing", "seconds_by_phase": CLOCK.totals,
           "total_s": time.perf_counter() - t_main})

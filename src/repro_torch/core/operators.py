@@ -1,5 +1,6 @@
 """Stream operators (the paper's `MPIStream_Attach` payload, Sec. III-A)
-and the KV-cache operators of the serving path: slot migration, the
+and the KV-cache operators of the serving path: the cache-migration
+stream operator of the prefill -> decode handoff, slot migration, the
 paged block pool's gather and fill, and the int8 row codec.
 
 A stream operator is a fold ``(acc, element, k) -> acc`` applied on the
@@ -30,6 +31,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.stream import StreamChunker
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.kernels.stream_reduce import ops as reduce_ops
 
@@ -149,14 +151,65 @@ def finalize_workload_stats(state) -> dict[str, torch.Tensor]:
             "median": med, "count": n}
 
 
-# -- KV-cache operators --------------------------------------------------------
+# -- KV-cache migration (disaggregated serving) --------------------------------
+#
+# `pack_kv` generalised from (key, count) pairs to a whole attention KV
+# cache: a finished prefill's cache is packed into granularity-S stream
+# elements, handed producer -> consumer through a `StreamChannel`,
+# re-assembled by `cache_migration_op` on the decode group, and written
+# into a free decode slot by `migrate_cache_into_slot`. The colocated
+# engine admits through the same slot write (a local migration with no
+# channel in between), which is what makes colocated and disaggregated
+# decode comparable bit for bit.
 
 
-def migrate_cache_into_slot(dst_cache: dict, src_cache: dict, slot: int) -> dict:
+def strip_cache_pos(cache: dict) -> dict:
+    """The cache without its scalar cursor (which is streamed apart)."""
+    return {k: v for k, v in cache.items() if k != "pos"}
+
+
+def cache_stream_plan(cache_like: Any, chunk_elems: int) -> StreamChunker:
+    """The static chunking plan of a per-request cache (shapes and dtypes
+    only: ``meta`` tensors will do). Elements travel as f32, which holds
+    the bf16, f32 and int32 leaves of a cache exactly, so a migration
+    keeps every value bit for bit."""
+    return StreamChunker.plan(strip_cache_pos(cache_like), chunk_elems)
+
+
+def pack_cache(cache: dict, plan: StreamChunker) -> torch.Tensor:
+    """cache -> (n_chunks, S) stream elements (``pos`` excluded)."""
+    return plan.pack(strip_cache_pos(cache))
+
+
+def cache_migration_op(plan: StreamChunker, *, device=None) -> StreamOperator:
+    """Re-assemble a streamed cache on the consumer group. The state is a
+    staging buffer with one row per stream element (on ``device``, cuda
+    unless named); chunk k lands in row k, in place, so after the fold
+    ``plan.unpack(state)`` gives the producer's cache back."""
+    dev = resolve_device(device)
+
+    def init():
+        return torch.zeros((plan.n_chunks, plan.chunk_elems), dtype=plan.dtype, device=dev)
+
+    def apply(state, elem, k):
+        state[int(k)] = elem.to(plan.dtype)
+        return state
+
+    return StreamOperator(name="cache_migration", init=init, apply=apply)
+
+
+def migrate_cache_into_slot(dst_cache: dict, src_cache: dict, slot: int, *,
+                            ok=None) -> dict:
     """Write a batch-1 cache ``(L, 1, s, d)`` into slot ``slot`` of a
     batched ``(L, B, S, d)`` cache, zero-extended to S so the previous
     occupant's KV never leaks. In place; the shared ``pos`` advances to
-    ``max(dst pos, src pos)``."""
+    ``max(dst pos, src pos)``.
+
+    ``ok`` (a bool or a 0-d tensor) masks the whole migration, as the
+    reference's does: with ``ok`` false the destination, ``pos``
+    included, is left untouched."""
+    if ok is not None and not bool(ok):
+        return dst_cache
     for key, src in src_cache.items():
         if key == "pos":
             continue

@@ -4,8 +4,9 @@ applied to an inference fleet); the counterpart of the reference's
 `examples/serve_lm.py`.
 
     python -m repro_torch.examples.serve_lm [--scenario NAME] [--continuous] [--paged]
-        [--spec [--spec-k K] [--draft NAME]] [--trace PATH] [--smoke] [--device cpu]
-        [--seed 0]
+        [--disagg] [--adapt] [--fail-at TICK] [--preempt-at TICK] [--fault-rows N]
+        [--preempt-duration TICKS] [--spec [--spec-k K] [--draft NAME]] [--trace PATH]
+        [--smoke] [--device cpu] [--seed 0]
 
 It serves qwen2.5-3b at full width with random bf16 weights from
 ``--seed`` on the card unless ``--device`` names another device;
@@ -28,9 +29,16 @@ At full width the draft is the full-width ``--draft`` config with random
 bf16 weights from ``--seed + 1``; with ``--smoke`` the engine builds the
 draft's reduced config itself, as the reference's does.
 
-The reference's ``--disagg`` and ``--adapt`` (ROADMAP A9), and
-``--fail-at`` / ``--preempt-at`` (the fleet's fault paths, A9), name
-engines that are not ported yet: they raise.
+``--disagg`` serves through the disaggregated engine
+(`serve/disagg.py`): a prefill group hands KV caches to the decode slot
+pool. ``--adapt`` (with ``--scenario``) closes the measure -> plan ->
+regroup loop of the serving fleet (`serve/fleet.py`): the prefill/decode
+split re-sizes against the live traffic mix. ``--fail-at TICK`` loses
+``--fault-rows`` rows without notice (the orphans are admitted again at
+their original arrival ticks), ``--preempt-at TICK`` preempts them with
+notice (their slots are staged to the host, and the rows return after
+``--preempt-duration`` ticks); fault flags need ``--scenario`` and serve
+through the fleet in continuous mode.
 """
 from __future__ import annotations
 
@@ -44,7 +52,16 @@ import torch
 from repro_torch.obs import export as obs_export
 from repro_torch.obs import registry as obs_registry
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serve import EngineConfig, KVSpec, Request, SpecConfig, make_engine
+from repro_torch.core.adapt import AdaptPolicy
+from repro_torch.serve import (
+    DisaggConfig,
+    EngineConfig,
+    FleetConfig,
+    KVSpec,
+    Request,
+    SpecConfig,
+    make_engine,
+)
 from repro_torch.serve.sched import FleetScheduler
 from repro_torch.serve.traffic import SCENARIOS, replay, scenario
 
@@ -56,13 +73,9 @@ TOKEN_BUDGET = 2000
 AGING = 0.05
 BLOCK_SIZE = 16
 DRAFT = "qwen1.5-0.5b"
-
-_NOT_PORTED = {
-    "disagg": "the disaggregated engine is not ported yet (ROADMAP A9)",
-    "adapt": "the adaptive fleet is not ported yet (ROADMAP A9)",
-    "fail_at": "fault injection needs the fleet engine, not ported yet (ROADMAP A9)",
-    "preempt_at": "fault injection needs the fleet engine, not ported yet (ROADMAP A9)",
-}
+DISAGG = dict(n_prefill_rows=2, decode_slots=4)
+FLEET = dict(n_rows=8, prefill_rows=2, slots_per_row=1, prefill_chunk=16)
+ADAPT = dict(window=4, cooldown=4, speedup_threshold=1.1, row_budget=5)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -84,19 +97,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--spec-k", type=int, default=4, metavar="K",
                     help="draft block length per verify step (with --spec)")
     ap.add_argument("--draft", default=DRAFT, help="zoo name of the draft model (with --spec)")
-    for flag in ("--disagg", "--adapt"):
-        ap.add_argument(flag, action="store_true", help="not ported yet (raises)")
-    for flag in ("--fail-at", "--preempt-at"):
-        ap.add_argument(flag, type=int, default=None, metavar="TICK",
-                        help="not ported yet (raises)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="serve through the prefill/decode-disaggregated engine")
+    ap.add_argument("--adapt", action="store_true",
+                    help="close the prefill/decode re-sizing loop (needs --scenario)")
+    ap.add_argument("--fail-at", type=int, default=None, metavar="TICK",
+                    help="lose --fault-rows rows WITHOUT notice at TICK (device loss)")
+    ap.add_argument("--preempt-at", type=int, default=None, metavar="TICK",
+                    help="preempt --fault-rows rows WITH notice at TICK (slots staged to "
+                         "the host; the rows return after --preempt-duration ticks)")
+    ap.add_argument("--fault-rows", type=int, default=1)
+    ap.add_argument("--preempt-duration", type=int, default=8)
     args = ap.parse_args(argv)
     faulted = args.fail_at is not None or args.preempt_at is not None
     if args.spec and (args.disagg or args.adapt or faulted):
         raise SystemExit("--spec composes with --paged/--scenario, not "
                          "--disagg/--adapt/fault flags")
-    for name, why in _NOT_PORTED.items():
-        if getattr(args, name) not in (None, False):
-            raise NotImplementedError(f"--{name.replace('_', '-')}: {why}")
+    if (args.adapt or faulted) and args.scenario is None:
+        raise SystemExit("--adapt / fault injection need --scenario")
     return args
 
 
@@ -139,7 +157,7 @@ def drive_legacy(eng, cfg, n_requests: int = 10, on_tick=None):
     return n_requests, analytics
 
 
-def drive_scenario(eng, cfg, sc, on_tick=None):
+def drive_scenario(eng, cfg, sc, on_tick=None, **fault_kw):
     analytics = []
 
     def tick(e):
@@ -147,31 +165,54 @@ def drive_scenario(eng, cfg, sc, on_tick=None):
         if on_tick is not None:
             on_tick(e)
 
-    pairs = replay(eng, sc, cfg.vocab_size, on_tick=tick)
+    pairs = replay(eng, sc, cfg.vocab_size, on_tick=tick, **fault_kw)
     return len(pairs), analytics
+
+
+def engine_config(*, batching: str, kv: KVSpec, spec: bool = False, spec_k: int = 4,
+                  draft_name: str = DRAFT, disagg: bool = False, adapt: bool = False,
+                  faulted: bool = False):
+    """(config, mode label): the reference example's engine for the flags."""
+    if spec:
+        return (SpecConfig(max_batch=MAX_BATCH, max_len=MAX_LEN, mode=batching, kv=kv,
+                           spec_k=spec_k, draft=draft_name), f"speculative k={spec_k}")
+    if adapt or faulted:
+        mode = ("adaptive-disagg" if adapt else "fleet") + ("+faults" if faulted else "")
+        return (FleetConfig(max_len=MAX_LEN, mode=batching, kv=kv,
+                            adapt=AdaptPolicy(**ADAPT) if adapt else None, **FLEET), mode)
+    if disagg:
+        return (DisaggConfig(max_len=MAX_LEN, mode=batching, kv=kv, **DISAGG),
+                "disaggregated")
+    return EngineConfig(max_batch=MAX_BATCH, max_len=MAX_LEN, mode=batching, kv=kv), "colocated"
 
 
 def serve(model, params, *, scenario_name: str | None = None, continuous: bool = False,
           paged: bool = False, trace: str | None = None, on_tick=None, spec: bool = False,
-          spec_k: int = 4, draft_name: str = DRAFT, draft=None) -> dict:
+          spec_k: int = 4, draft_name: str = DRAFT, draft=None, disagg: bool = False,
+          adapt: bool = False, fail_at: int | None = None, preempt_at: int | None = None,
+          fault_rows: int = 1, preempt_duration: int = 8) -> dict:
     """Build the engine the flags describe, drive it, and
     return what the example reports. ``on_tick(engine)`` runs after every
     tick (the caller's own sampling). The metrics registry is zeroed at
     the start, so its counts are this run's; with ``trace`` the tracer is
     on from before the engine is built until the trace is written.
     ``spec`` serves through `SpecEngine` with ``draft`` (a ``(model,
-    params)`` pair; None builds ``draft_name``'s reduced config)."""
+    params)`` pair; None builds ``draft_name``'s reduced config);
+    ``disagg`` through `DisaggEngine`; ``adapt`` or a fault
+    (``fail_at`` / ``preempt_at``, a scenario's tick) through the fleet."""
+    faulted = fail_at is not None or preempt_at is not None
+    if (adapt or faulted) and not scenario_name:
+        raise ValueError("adapt / fault injection need a scenario")
     sc = scenario(scenario_name) if scenario_name else None
     sched = FleetScheduler(sc.tenants, token_budget=TOKEN_BUDGET, aging=AGING) if sc else None
-    batching = "continuous" if (continuous or paged or spec) else "aligned"
+    batching = "continuous" if (continuous or paged or spec or faulted) else "aligned"
     kv = KVSpec(kind="paged", block_size=BLOCK_SIZE, prefix_cache=True) if paged else KVSpec()
-    mode = (f"speculative k={spec_k}" if spec else "colocated") + (
-        "" if batching == "aligned" else "+paged" if paged else "+continuous")
-    if spec:
-        engine_cfg = SpecConfig(max_batch=MAX_BATCH, max_len=MAX_LEN, mode=batching, kv=kv,
-                                spec_k=spec_k, draft=draft_name)
-    else:
-        engine_cfg = EngineConfig(max_batch=MAX_BATCH, max_len=MAX_LEN, mode=batching, kv=kv)
+    engine_cfg, mode = engine_config(batching=batching, kv=kv, spec=spec, spec_k=spec_k,
+                                     draft_name=draft_name, disagg=disagg, adapt=adapt,
+                                     faulted=faulted)
+    mode += "" if batching == "aligned" else "+paged" if paged else "+continuous"
+    fault_kw = dict(fail_at=fail_at, preempt_at=preempt_at, fault_rows=fault_rows,
+                    preempt_duration=preempt_duration) if faulted else {}
     obs_registry.reset()
     if trace:
         obs_trace.enable()
@@ -180,7 +221,7 @@ def serve(model, params, *, scenario_name: str | None = None, continuous: bool =
                           draft=draft if spec else None)
         t0 = time.perf_counter()
         if sc is not None:
-            n_requests, analytics = drive_scenario(eng, model.cfg, sc, on_tick)
+            n_requests, analytics = drive_scenario(eng, model.cfg, sc, on_tick, **fault_kw)
         else:
             n_requests, analytics = drive_legacy(eng, model.cfg, on_tick=on_tick)
         if model.device.type == "cuda":
@@ -191,6 +232,7 @@ def serve(model, params, *, scenario_name: str | None = None, continuous: bool =
     finally:
         tracer = obs_trace.disable() if trace else None
     out = {"engine": eng, "mode": mode, "scenario": sc, "requests": n_requests,
+           "paged": paged, "disagg": disagg, "adapt": adapt, "faulted": faulted,
            "analytics": analytics, "seconds": seconds,
            "device": (torch.cuda.get_device_name(model.device)
                       if model.device.type == "cuda" else "CPU"),
@@ -213,7 +255,11 @@ def report(out: dict) -> None:
     occ = np.mean([a["active_slots"] for a in analytics])
     print(f"mean slot occupancy {occ:.2f}, final queue depth "
           f"{analytics[-1]['queue_depth']}")
-    if eng.kv.kind == "paged":
+    if out["disagg"] and not out["adapt"]:
+        ttft = [r.first_token_tick - r.submitted_tick for r in eng.finished]
+        print(f"prefills handed off: {eng.stats['handoffs']}, "
+              f"mean TTFT {np.mean(ttft):.1f} ticks")
+    if out["paged"]:
         print(f"prefix cache: {eng.stats['prefix_hit_tokens']} hit tokens, "
               f"{eng.stats['prefill_skips']} prefill skips")
     if "verify_calls" in eng.stats:
@@ -223,6 +269,18 @@ def report(out: dict) -> None:
               f"{eng.draft_rows}/{eng.n_rows - eng.draft_rows}, "
               f"{eng.stats['tokens_out'] / verify_calls:.2f} tokens per verify step "
               f"(drafted {eng.stats['drafted']}, accepted {eng.stats['accepted']})")
+    if out["adapt"]:
+        print(f"regroups: {eng.regroups} (deferred {eng.deferrals}), final "
+              f"prefill rows {eng.prefill_rows}/{eng.cfg.n_rows}, "
+              f"decode slots {eng.decode_slots}")
+    if out["faulted"]:
+        finished = {r.uid for r in eng.finished}
+        rec = eng.recoveries
+        print(f"faults: {len(eng.fault_log)} events, recoveries "
+              f"staged={rec['staged']} restored={rec['restored']} "
+              f"retried={rec['retried']}, regrows={eng.regrows}, "
+              f"rows {eng.n_rows}/{eng.cfg.n_rows}, "
+              f"lost {out['requests'] - len(finished)}")
     if out["scenario"] is not None:
         snap = eng.ledger.snapshot()
         print(f"fleet: ttft p50/p99 = {snap['ttft_p50']:.0f}/{snap['ttft_p99']:.0f} "
@@ -247,7 +305,9 @@ def main(argv=None) -> dict:
         draft = build_draft(args.draft, device=args.device, seed=args.seed + 1)
     out = serve(model, params, scenario_name=args.scenario, continuous=args.continuous,
                 paged=args.paged, trace=args.trace, spec=args.spec, spec_k=args.spec_k,
-                draft_name=args.draft, draft=draft)
+                draft_name=args.draft, draft=draft, disagg=args.disagg, adapt=args.adapt,
+                fail_at=args.fail_at, preempt_at=args.preempt_at, fault_rows=args.fault_rows,
+                preempt_duration=args.preempt_duration)
     report(out)
     return out
 

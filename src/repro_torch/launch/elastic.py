@@ -14,9 +14,9 @@ Two paths:
   * the IN-MEMORY path (`reshard_state`): live row-partitioned state moves
     between two row partitions of the same world with no checkpoint round
     trip, the regroup leg of the adaptive loop (`core.adapt`).
-
-Not ported yet: `repack_block_pool`, whose only caller is the serving
-fleet (ROADMAP A9).
+    `repack_block_pool` is its paged-KV counterpart: it compacts a block
+    pool onto the slots that survive a serving regroup or fault
+    (`serve.fleet.reshard_paged_serving_state`).
 """
 from __future__ import annotations
 
@@ -99,10 +99,8 @@ def reshard_state(state: Any, old_gmesh, new_gmesh,
     A *row leaf* is a leaf that holds this rank's own row of a
     row-partitioned buffer: the reference's leaf whose leading dimension
     is the axis size, without that dimension (each rank holds one row of
-    the same shape and dtype). By default every tensor leaf is a row
-    leaf; ``is_row`` marks which are (a replicated tensor, or a Python
-    value, passes through untouched: replicated state needs no migration
-    when only the row partition moves).
+    the same shape and dtype). Every tensor leaf is a row leaf; any other
+    leaf (a Python value) passes through untouched.
 
     Each row leaf is gathered from every row to the host (one
     `Mesh.all_gather` a leaf), and the OLD compute rows' slices, stacked
@@ -121,14 +119,17 @@ def reshard_state(state: Any, old_gmesh, new_gmesh,
     item axis to re-deal, so it needs an explicit ``repartition``.
 
     The reference also takes meshes of different axis sizes (the fleet's
-    shrink onto a `healthy_mesh`); one gloo world has one size, so that
-    raises here."""
+    shrink onto a `healthy_mesh`). One gloo world has one size, so that
+    raises here; the serving reshards (`serve.fleet.reshard_serving_state`,
+    `reshard_paged_serving_state`) move the global slot layout between
+    planning meshes of any sizes on the host instead."""
     n_old = old_gmesh.axis_size
     n_new = new_gmesh.axis_size
     if n_old != n_new:
-        raise NotImplementedError(
-            f"reshard_state between axis sizes {n_old} and {n_new}: a gloo world has one "
-            f"size; the shrink onto a healthy mesh comes with the serving fleet (ROADMAP A9)")
+        raise ValueError(
+            f"reshard_state between axis sizes {n_old} and {n_new}: one gloo world has one "
+            f"size; a shrink onto fewer rows moves the global serving layout "
+            f"(serve.fleet.reshard_serving_state) instead")
     mesh = new_gmesh.mesh
     old_rows = old_gmesh.compute.size
     new_rows = new_gmesh.compute.size
@@ -183,4 +184,44 @@ def reshard_state(state: Any, old_gmesh, new_gmesh,
     return tree_unflatten(treedef, out)
 
 
-__all__ = ["healthy_mesh", "healthy_mesh_with_backoff", "reshard_state", "restore_for_mesh"]
+def repack_block_pool(k_pool, v_pool, tables, lens, *, keep, n_blocks=None):
+    """Compact a paged KV pool (`serve/kvstore.py`) onto a surviving slot
+    set: the paged counterpart of a dense slot migration.
+
+    ``keep`` lists the old slot indices that survive, in new-slot order.
+    Every block a kept table references is gathered once and renumbered
+    densely from 1 (block 0 stays the zero block), so blocks shared across
+    slots (prefix-cache blocks in several tables) stay shared, and the new
+    pool is exactly the live demand (``n_blocks`` leaves headroom).
+    Returns ``(k_pool, v_pool, tables, lens)``: pools on the old pool's
+    device, tables and lens on the host, ready to seed a re-sized store."""
+    tables = np.asarray(tables)
+    lens = np.asarray(lens)
+    mapping: dict[int, int] = {}
+    new_tables = np.full((len(keep), tables.shape[1]), -1, np.int32)
+    for r, src in enumerate(keep):
+        for c, b in enumerate(tables[src]):
+            b = int(b)
+            if b <= 0:
+                continue
+            if b not in mapping:
+                mapping[b] = len(mapping) + 1
+            new_tables[r, c] = mapping[b]
+    need = len(mapping) + 1
+    if n_blocks is None:
+        n_blocks = need
+    if n_blocks < need:
+        raise ValueError(f"n_blocks={n_blocks} < {need} live blocks")
+    order = sorted(mapping, key=mapping.get)
+    ln, _, bs, dk = k_pool.shape
+    new_k = k_pool.new_zeros((ln, n_blocks, bs, dk))
+    new_v = v_pool.new_zeros((ln, n_blocks, bs, v_pool.shape[-1]))
+    if order:
+        idx = torch.as_tensor(order, dtype=torch.long, device=k_pool.device)
+        new_k[:, 1:1 + len(order)] = k_pool.index_select(1, idx)
+        new_v[:, 1:1 + len(order)] = v_pool.index_select(1, idx)
+    return new_k, new_v, new_tables, lens[list(keep)].copy()
+
+
+__all__ = ["healthy_mesh", "healthy_mesh_with_backoff", "repack_block_pool", "reshard_state",
+           "restore_for_mesh"]

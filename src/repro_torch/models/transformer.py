@@ -284,7 +284,8 @@ def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length
     else:
         n = int(length)
         cache["pos"] = torch.full((), n, dtype=torch.int32, device=hidden.device)
-        last = hidden[:, n - 1 : n]
+        at = max(n - 1, 0)  # length 0 reads position 0, as the reference's clamped slice
+        last = hidden[:, at : at + 1]
     return lm_logits(cfg, params, last), cache
 
 

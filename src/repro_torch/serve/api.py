@@ -1,10 +1,8 @@
 """The serving-engine API of the port: `KVSpec`, `ServeConfig`, the
-`ServingEngine` protocol and the `make_engine` front door.
-
-The port has the colocated `Engine` in aligned and continuous mode and
-the speculative `SpecEngine`. The disaggregated and fleet engines are a
-later slice: `make_engine` raises for any other config, naming the
-ROADMAP item.
+`ServingEngine` protocol and the `make_engine` front door, which builds
+the colocated `Engine` (aligned and continuous mode), the speculative
+`SpecEngine`, the disaggregated `DisaggEngine` and the closed-loop
+`FleetEngine` from their configs.
 """
 from __future__ import annotations
 
@@ -102,29 +100,37 @@ class ServingEngine(Protocol):
 
 def make_engine(model, params, cfg: ServeConfig, sched=None, *, mesh=None, clock=None,
                 draft=None):
-    """Build the engine a config describes: `SpecConfig` gives the
-    speculative `SpecEngine` (``draft`` an optional ``(draft_model,
+    """Build the engine a config describes, the one entry point.
+
+    `FleetConfig` -> `FleetEngine` (the closed-loop disaggregated fleet;
+    ``mesh`` binds its ServiceGraph, ``clock`` prices its ticks),
+    `SpecConfig` -> `SpecEngine` (``draft`` an optional ``(draft_model,
     draft_params)`` pair, else the config's zoo draft is built; ``mesh``
-    lays out its ServiceGraph, ``clock`` prices its ticks), `EngineConfig`
-    (or a bare `ServeConfig`) the colocated `Engine`. Any other serving
-    config names an engine that is not ported yet and raises."""
+    and ``clock`` as the fleet's), `DisaggConfig` -> `DisaggEngine`,
+    `EngineConfig` (or a bare `ServeConfig`) -> the colocated `Engine`.
+    Any other config raises `TypeError`."""
+    from repro_torch.serve.disagg import DisaggConfig, DisaggEngine
     from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.fleet import FleetConfig, FleetEngine
     from repro_torch.serve.spec import SpecConfig, SpecEngine
 
+    if isinstance(cfg, FleetConfig):
+        if draft is not None:
+            raise ValueError("draft is a SpecConfig-only knob")
+        return FleetEngine(model, params, cfg, sched=sched, mesh=mesh, clock=clock)
     if isinstance(cfg, SpecConfig):  # before EngineConfig: SpecConfig extends it
         return SpecEngine(model, params, cfg, sched=sched, draft=draft, mesh=mesh,
                           clock=clock)
     if mesh is not None or clock is not None or draft is not None:
         raise ValueError("mesh/clock/draft are FleetConfig/SpecConfig-only knobs")
+    if isinstance(cfg, DisaggConfig):
+        return DisaggEngine(model, params, cfg, sched=sched)
     if isinstance(cfg, EngineConfig):
         return Engine(model, params, cfg, sched=sched)
     if type(cfg) is ServeConfig:
         shared = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
         return Engine(model, params, EngineConfig(**shared), sched=sched)
-    raise NotImplementedError(
-        f"{type(cfg).__name__}: the port has the colocated and speculative engines; the "
-        "disaggregated and fleet engines wait for ROADMAP A9"
-    )
+    raise TypeError(f"unknown serving config {type(cfg).__name__}")
 
 
 __all__ = ["KVSpec", "ServeConfig", "ServingEngine", "make_engine"]

@@ -1,6 +1,6 @@
 """Deterministic failure injection for the serving fleet (FaultFleet; a
-copy of the reference's `serve/faults.py`, draw for draw: the fleet
-that consumes the monitor is ROADMAP A9).
+copy of the reference's `serve/faults.py`, draw for draw; the port's
+`serve/fleet.py` consumes the monitor).
 
 The paper's decoupling results live at thousands of processes — a scale
 where device loss and preemption are routine, not exceptional. Raicu et

@@ -23,7 +23,8 @@ Speculative decoding (serve/spec.py) adds three operations to both
 stores: `absorb` of a decode step that wrote into the `view` (the
 draft's), `absorb_span` of a verify step's chunk, and `truncate` back to
 the accept point; `resize` re-sizes the slot pool without losing the
-moved slots' KV.
+moved slots' KV. `slot_cache` hands a slot out as a batch-1 dense cache
+(the disaggregated engine's staging of a preempted slot).
 """
 from __future__ import annotations
 
@@ -615,6 +616,20 @@ class PagedKVStore:
         """K/V data bytes (the f32 scale sidecar is reported apart)."""
         return (self.k_pool.numel() * self.k_pool.element_size()
                 + self.v_pool.numel() * self.v_pool.element_size())
+
+    def slot_cache(self, slot: int) -> dict:
+        """Slot ``slot`` as a batch-1 dense cache ``(L, 1, max_len, d)``
+        with its length as ``pos`` (a gather: new tensors, not views of the
+        pool); an int8 pool dequantizes on the way out."""
+        table1 = torch.as_tensor(self.tables[slot : slot + 1], device=self.device)
+        pos = torch.tensor(int(self.lens[slot]), dtype=torch.int32, device=self.device)
+        if self.quantized:
+            view = paged_gather_cache_int8(self.k_pool, self.v_pool, self.k_scale,
+                                           self.v_scale, table1, [int(self.lens[slot])],
+                                           dtype=self._cache_dtype)
+            return {"k": view["k"], "v": view["v"], "pos": pos}
+        return {"k": paged_gather(self.k_pool, table1), "v": paged_gather(self.v_pool, table1),
+                "pos": pos}
 
     def resize(self, new_slots: int, moves: Sequence[tuple[int, int]]) -> "PagedKVStore":
         """Re-size the slot pool by table moves ((dst, src) pairs): no KV

@@ -18,8 +18,9 @@ Scenarios are *declared* (tenants + processes + horizon), *generated*
 (a sorted list of `ArrivalEvent`s), and *materialized* into
 `serve.engine.Request`s when handed to an engine. `SCENARIOS` names the
 canonical ones the reference's tests and benchmarks share. Fault events
-need an engine with ``inject_fault`` (the fleet, ROADMAP A9): `replay`
-refuses them on the colocated engine.
+need an engine with ``inject_fault`` (`serve.fleet.FleetEngine`, or the
+speculative engine's pool shrink): `replay` refuses them on the
+colocated and disaggregated engines.
 """
 from __future__ import annotations
 

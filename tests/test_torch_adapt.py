@@ -355,10 +355,13 @@ def test_reshard_state_errors_match_jax(results, case):
 
 
 def test_reshard_state_refuses_another_axis_size(results):
+    """Inside the world, a mesh of another size is refused: one gloo world
+    has one size (a shrink onto fewer rows moves the global serving layout
+    between planning meshes instead, `serve.fleet.reshard_serving_state`)."""
     _, _, port, _ = results
     for rank in port:
         kind, msg = rank["reshard_errors"]["axis_size"]
-        assert kind == "NotImplementedError" and "ROADMAP A9" in msg
+        assert kind == "ValueError" and "one gloo world has one size" in msg
 
 
 # -- the planner, in one process -------------------------------------------------------

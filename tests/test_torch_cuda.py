@@ -41,6 +41,10 @@ Tolerances, with their reasons:
     where counts are small integers (every partial sum is exact), also
     added into an accumulator (``out=``), through the stream operators
     and in the word count;
+  * disaggregated serving: the aligned handoff's decode logits, streams
+    and slot caches equal the colocated engine's bit for bit (the chip
+    smoke's phase-6d helper, which falls back to the margin rule only if
+    the card breaks bit identity); the faulted fleet's launches exact;
   * the conventional and overlap steps in a two-row world on the card
     against the same world on the CPU, one SGD step (lr 1, so the new
     parameters differ by the gradients' difference): 1e-4 of the largest
@@ -1217,6 +1221,40 @@ def test_cuda_state_round_trips_through_a_checkpoint(cuda, tmp_path):
     assert all(t.is_cuda for t in got)
     assert all(torch.equal(a, b) for a, b in zip(got, before))
     assert back["step"] == 5 and back["opt"]["step"] == 5
+
+
+def test_aligned_disagg_equals_colocated_on_the_card(cuda):
+    """Phase 6d (a) at the smoke width, through the chip smoke's own
+    helper: the f32 qwen2.5 smoke model on the card, `DisaggEngine`
+    (aligned, dense) beside the colocated aligned `Engine` in lockstep:
+    every decode tick's logits, the streams and the slot caches bit for bit,
+    or, should the card break that, every stream held to the colocated one
+    by the margin rule (the helper raises on a stream that leaves it)."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_smoke("qwen2.5-3b"), dtype=torch.float32)
+    model = build(cfg, device="cuda")
+    params = _to(build(cfg, device="cpu").init(0), cuda)
+    reqs = cs.disagg_requests(np, cfg.vocab_size, n_req=4, lo=16, hi=64, new_tokens=8, seed=0)
+    flash0 = flash_attention_kernel.launches
+    out = cs.disagg_aligned_parity(torch, np, model, params, reqs, max_len=128)
+    assert out["handoffs"] == 4 and out["decode_ticks"] > 0
+    assert flash_attention_kernel.launches - flash0 == cfg.n_layers * 8  # 4 prefills a side
+    assert out["bit_identical"] or "cut_by_margin_rule" in out
+
+
+def test_faulted_fleet_drains_on_the_card_with_exact_launches(cuda):
+    """Phase 6d (b) at the smoke width: the serving example's adaptive fleet
+    over `bursty-multitenant` with a device loss at tick 36 and a
+    preemption at 32, on the card (the chip smoke's `fleet_fault_run`):
+    nothing lost, the faults met live slots, block references = the demand
+    every tick, and the launches exact (flash = layers x prefill calls,
+    paged = layers x decode ticks, argmax = first tokens + decode ticks)."""
+    cs = _chip_smoke()
+    cfg = get_smoke("qwen2.5-3b")
+    model = build(cfg, device="cuda")
+    res = cs.fleet_fault_run(torch, np, model, model.init(0))
+    assert res["recoveries"]["staged"] >= 1 and res["recoveries"]["retried"] >= 1
+    assert res["launches"]["paged_decode_attention"] == cfg.n_layers * res["decode_ticks"] > 0
 
 
 def _replay(model, params, *, trace_on=False):

@@ -237,19 +237,36 @@ def test_page_admission_budget_matches_reference(models):
 
 def test_make_engine_dispatch(models):
     """A bare `ServeConfig` builds the colocated engine in the reference's
-    default mode, aligned, over the dense store; a config of an engine not
-    ported yet raises naming its ROADMAP item."""
+    default mode, aligned, over the dense store; a `DisaggConfig` builds
+    `DisaggEngine`, a `FleetConfig` builds `FleetEngine` (with ``mesh`` and
+    ``clock``), and a config of no engine raises `TypeError`, as the
+    reference's `make_engine` does."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serve import DisaggConfig, DisaggEngine, FleetConfig, FleetEngine
+
     _, (tm, tp) = models
     e = make_engine(tm, tp, ServeConfig(max_len=32))
     assert e.cfg.max_batch == 8 and e.kv.kind == "dense" and e.cfg.mode == "aligned"
     assert ServeConfig().mode == JEngineConfig().mode == "aligned" and not e.kv.ragged
 
+    d = make_engine(tm, tp, DisaggConfig(mode="continuous", decode_slots=3))
+    assert isinstance(d, DisaggEngine) and len(d.slots) == 3 and d.kv.ragged
+    clock = lambda tick: 1e-3  # noqa: E731
+    f = make_engine(tm, tp, FleetConfig(n_rows=4, prefill_rows=1), mesh=Mesh(4, device="cpu"),
+                    clock=clock)
+    assert isinstance(f, FleetEngine) and f.clock is clock and f.decode_slots == 6
+    assert f.graph.gmesh.group("prefill").size == 1
+    with pytest.raises(ValueError, match="SpecConfig-only"):
+        make_engine(tm, tp, FleetConfig(), draft=(tm, tp))
+    with pytest.raises(ValueError, match="FleetConfig/SpecConfig-only"):
+        make_engine(tm, tp, DisaggConfig(), clock=clock)
+
     @dataclasses.dataclass
-    class DisaggConfig(ServeConfig):
+    class OtherConfig(ServeConfig):
         n_prefill_rows: int = 2
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_engine(tm, tp, DisaggConfig(mode="continuous"))
+    with pytest.raises(TypeError, match="OtherConfig"):
+        make_engine(tm, tp, OtherConfig(mode="continuous"))
     with pytest.raises(ValueError, match="continuous"):
         EngineConfig(mode="aligned", kv=KVSpec(kind="paged"))
 

@@ -3,7 +3,8 @@
 pure cases of `tests/test_faults.py` against the port, then seeded
 schedules and monitors of both packages side by side (the same events
 drawn, the same health polled tick by tick). The fleet that consumes the
-monitor is not ported yet (ROADMAP A9).
+monitor, with its recovery paths, is held against the reference's in
+tests/test_torch_fleet.py.
 """
 import dataclasses
 

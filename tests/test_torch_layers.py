@@ -190,7 +190,8 @@ def test_port_imports_neither_jax_nor_reference():
                     bad.append(f"{os.path.relpath(path, REPO)}: {m}")
     assert not bad, bad
     assert {"src/repro_torch/serve/spec.py", "src/repro_torch/utils/prng.py",
-            "chip_smoke.py"} <= seen
+            "src/repro_torch/serve/disagg.py", "src/repro_torch/serve/fleet.py",
+            "src/repro_torch/serve/checkpoint_bridge.py", "chip_smoke.py"} <= seen
 
 
 def test_importing_the_port_loads_no_jax():

@@ -122,15 +122,17 @@ def test_model_loss_without_autograd_needs_no_checkpoint():
 
 
 def test_unported_modes_and_options_are_refused():
-    """What is still unported raises naming its ROADMAP item: the fleet's
-    migration onto a mesh of another size (A9), a model axis (A8) and the
-    reference's other families (A12). Checkpoints, the conventional and
-    overlap steps over many rows and adaptive sizing are ported
+    """What is still unported raises naming its ROADMAP item: a model axis
+    (A8) and the reference's other families (A12). `reshard_state` between
+    meshes of different sizes is refused by design (one gloo world has one
+    size; the serving fleet moves its global layout on the host,
+    tests/test_torch_fleet.py). Checkpoints, the conventional and overlap
+    steps over many rows and adaptive sizing are ported
     (tests/test_torch_trainer.py)."""
     from repro_torch.core.groups import GroupedMesh
     from repro_torch.launch.elastic import reshard_state
 
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="one gloo world has one size"):
         reshard_state({"x": torch.zeros(4)},
                       GroupedMesh.build_rows(Mesh(n_rows=8, device="cpu"), rows={"reduce": 2}),
                       GroupedMesh.build_rows(Mesh(n_rows=4, device="cpu"), rows={"reduce": 1}))

@@ -844,3 +844,81 @@ def cuda_reshard_case(mesh) -> dict:
     return {"old": {k: t.cpu().numpy() for k, t in state.items()},
             "new": {k: t.cpu().numpy() for k, t in got.items()},
             "device": str(got["x"].device)}
+
+
+# -- the disaggregated SPMD serving step and the serving reshard -------------------------
+
+DISAGG_ROWS = 4
+DISAGG = dict(slots_per_row=2, max_prompt=16, max_len=32, chunk_elems=512, decode_steps=2)
+DISAGG_TICKS = 3
+# 2 prefill rows + 2 decode rows (one wave); 3 + 1 (three waves)
+DISAGG_ALPHAS = (0.5, 0.75)
+
+
+def disagg_cases(mesh, inputs_path: str) -> dict:
+    """Every world case of tests/test_torch_disagg.py in one 4-row world:
+    `build_disagg_spmd_step` for `DISAGG_TICKS` ticks at each alpha (this
+    rank's row of the outputs, stats, cache and tokens, and the wire's
+    bytes), then `reshard_serving_state` inside the world (2 + 2 -> 1 + 3
+    rows, all slots and with decode row 1 dead) and its refusal of a mesh
+    of another size."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.groups import GroupedMesh
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serve.disagg import (
+        PREFILL,
+        build_disagg_spmd_step,
+        disagg_row_state,
+        init_disagg_state,
+        serving_mesh,
+    )
+    from repro_torch.serve.fleet import reshard_serving_state
+    from repro_torch.utils.convert import params_from_numpy
+
+    inp = dict(np.load(inputs_path))
+    cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.float32)
+    model = build(cfg, device="cpu")
+    params = params_from_numpy(unflatten_params(inp, "p0/"), cfg, "cpu")
+    spr = DISAGG["slots_per_row"]
+    r = mesh.row
+    out: dict = {}
+    kept = None
+    for alpha in DISAGG_ALPHAS:
+        tag = f"a{alpha}"
+        gmesh = serving_mesh(mesh, alpha)
+        step, plan = build_disagg_spmd_step(model, gmesh, **DISAGG)
+        cache, tokens = init_disagg_state(model, gmesh, slots_per_row=spr,
+                                          max_len=DISAGG["max_len"])
+        rc, rt = disagg_row_state(cache, tokens, gmesh, slots_per_row=spr)
+        sent = mesh.stats.sent_bytes
+        for t in range(DISAGG_TICKS):
+            prompts = torch.from_numpy(inp[f"{tag}/prompts"][t, r:r + 1].astype(np.int64))
+            plen = torch.from_numpy(inp[f"{tag}/plen"][t, r:r + 1])
+            dst = torch.from_numpy(inp[f"{tag}/dst"][t, r:r + 1])
+            rc, rt, outs, stats = step(params, prompts, plen, dst, rc, rt)
+            out[f"{tag}/outs{t}"] = outs.numpy()
+            out[f"{tag}/stats{t}"] = stats.numpy()
+        out[f"{tag}/sent_bytes"] = np.int64(mesh.stats.sent_bytes - sent)
+        out[f"{tag}/n_chunks"] = np.int64(plan.n_chunks)
+        for k in ("k", "v"):
+            out[f"{tag}/{k}"] = _np(rc[k])
+        out[f"{tag}/pos"] = rc["pos"].numpy()
+        out[f"{tag}/tokens"] = rt.numpy()
+        if kept is None:
+            kept = (gmesh, rc, rt)
+    old, rc, rt = kept
+    new = GroupedMesh.build_rows(mesh, rows={PREFILL: 1})
+    for name, kw in (("all", {}), ("dead1", {"dead_rows": [1]})):
+        nc, nt = reshard_serving_state(rc, rt, old, new, slots_per_row=spr, **kw)
+        for k in ("k", "v"):
+            out[f"reshard_{name}/{k}"] = _np(nc[k])
+        out[f"reshard_{name}/pos"] = nc["pos"].numpy()
+        out[f"reshard_{name}/tokens"] = nt.numpy()
+    other = GroupedMesh.build_rows(Mesh(n_rows=3, device="cpu"), rows={PREFILL: 1})
+    try:
+        reshard_serving_state(rc, rt, old, other, slots_per_row=spr)
+        out["reshard_other_size"] = np.asarray("")
+    except ValueError as e:
+        out["reshard_other_size"] = np.asarray(str(e))
+    return out
