@@ -128,6 +128,31 @@ failure exits non-zero and prints no result:
                prefill call under `torch.profiler` (device time by
                kernel class: the SSD kernel's share of a call) and the
                profile phase's decode window on an aligned mamba engine.
+7b. moe     — the MoE family (`models/moe.py`) at full width and cut
+               depth, random weights from --seed, through `make_engine`
+               in continuous mode (paged store of 16-token blocks, prefix
+               cache), one model at a time: (a) mixtral-8x7b, 2 of 32
+               layers, f32 (TF32 off), 4 slots, 8 requests of 64-1,500
+               tokens, 16 new each: the first prefill call's logits within
+               1e-4 of their largest magnitude of the plain route's and the
+               first decode tick's within 1e-3 (`MOE_F32_DECODE_REL`), with
+               every expert choice identical, and
+               every stream the plain-route engine's under the margin
+               rule; (b) mixtral-8x7b, 8 layers, bf16, 8 slots, max_len
+               8,192: 16 requests of 64-2,048 tokens, two over one
+               3,000-token document and two of 5,000-6,000 (past the 4,096
+               window), 32 new each; (c) llama4-scout-17b-a16e, 4 of 48
+               layers (3 chunked-local, 1 global), bf16, 2 slots, max_len
+               16,384: three prompts of 9,000-14,000 tokens, two over one
+               8,000-token document, 16 new each. (b) and (c) hold the
+               first calls to 1/16 of the plain route's largest logit with
+               the kernel call's expert choices replayed (`RouteTape`), and
+               report the share of tokens whose own choice differs. Every
+               arm: launches exact (paged = layers x decode ticks, flash =
+               layers x prefill calls, argmax = ticks + admissions), prefix
+               hits, ms per prefill call, the median decode tick, tokens/s,
+               peak memory; (b) also one forward's aux_loss and
+               router_entropy.
    The kernels phase also holds chunk_accumulate against its plain
    version (bit for bit at the train phase's (2, 465,567,744) f32 fold
    and at a ragged S; 1e-6 at n = 7 and at 16 rows of bf16); the argmax
@@ -135,7 +160,13 @@ failure exits non-zero and prints no result:
    50,280)), at the spec path's verify targets and draft step ((20,
    151,936), (4, 151,936)) and at two admission rows (the last position of (1, 1024, V),
    V = 32,000 and 151,936), maxima planted at its split's edges, exact,
-   with host microseconds per call beside `torch.argmax`'s; and the keyed
+   with host microseconds per call beside `torch.argmax`'s (and at
+   llama4-scout's (2, 202,048) decode tick and (1, 1024, 202,048)
+   admission row); paged decode at phase 7b's shapes (mixtral-8x7b's 8
+   slots over 32/8 heads of 128, window 4,096; llama4-scout's 2 slots
+   over 40/8, windows 8,192 and 0, in a 16,384-position view) and flash
+   attention at (8, 1,024, 32/8, 128), window 4,096, and (1, 12,000,
+   40/8, 128), windows 8,192 and 0 (also in f32); and the keyed
    histogram (2^26 Zipf keys into 151,936 bins, the same keys with the
    bins permuted, 2^26 uniform keys with f32 and bf16 counts, 4,096 bins,
    and 2^24 keys at 58,112 / 58,113 bins, the plan's path boundary),
@@ -240,7 +271,7 @@ failure exits non-zero and prints no result:
                histogram's times are the fold's, the path's shape;
                ``launches_spec`` from phase 6c's run with the qwen1.5-0.5b
                draft; ``launches_disagg`` from phase 6d's adaptive fleet
-               under faults; the histogram's ``launches_adaptive`` from phase 9's
+               under faults; ``launches_moe`` from phase 7b's arm (b); the histogram's ``launches_adaptive`` from phase 9's
                adaptive run, and chunk_accumulate's
                ``launches_train_by_run`` with phase 8's adaptive run), then
                the last line ``{"ok": true, "device": {...}}``.
@@ -633,6 +664,72 @@ def check_paged_long(torch, np, seed: int) -> dict:
     return case
 
 
+# phase 7b's decode shapes: (case, query heads, KV heads, head dim, blocks
+# per table, cursors, windows). mixtral-8x7b's 8 slots over 32/8 heads of
+# 128 at its 8,192-position view (max_len 8,192), its 4,096 window biting
+# the slots past it; llama4-scout's 2 slots over 40/8 (a group of 5) at
+# 16,384 positions, its chunked-local 8,192 window and its global layer
+MOE_PAGED = [("mixtral-8x7b decode", 32, 8, 128, 512,
+              (5_900, 4_097, 2_047, 8_000, 1_000, 300, 6_000, 64), (4096,)),
+             ("llama4-scout decode", 40, 8, 128, 1024, (14_000, 9_000), (8192, 0))]
+
+
+def check_paged_moe(torch, np, seed: int) -> list:
+    """The MoE decode shapes: f32 at PAGED_F32_ATOL, then bf16 at PAGED_REL
+    with kernel, plain and bound times (4 pool copies against L2)."""
+    from repro_torch.kernels.paged_attention import ops
+
+    cases = []
+    for name, h, n_kv, hd, mb, cursors, windows in MOE_PAGED:
+        for window in windows:
+            shape = dict(h=h, n_kv=n_kv, hd=hd, mb=mb, cursors=cursors)
+            args, kw, _, _ = paged_case(torch, np, quantized=False, window=window, seed=seed,
+                                        dtype=torch.float32, **shape)
+            out = ops.paged_decode_attention(**args, **kw)
+            ref = ops.paged_decode_attention(**args, **kw, impl="ref",
+                                             dequant_dtype=torch.float32)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            case = {"phase": "kernels", "kernel": "paged_decode_attention", "case": name,
+                    "heads": [h, n_kv, hd], "cursors": list(cursors), "q": "f32", "pool": "f32",
+                    "window": window, "max_abs_err": err, "atol": PAGED_F32_ATOL,
+                    "finite": bool(torch.isfinite(out).all().item())}
+            emit(case)
+            if not case["finite"] or not err <= PAGED_F32_ATOL:
+                raise AssertionError(f"paged decode kernel disagrees at {name}: {case}")
+            del args, out, ref
+            args, kw, nbytes, flops = paged_case(torch, np, quantized=False, window=window,
+                                                 seed=seed, dtype=torch.bfloat16, **shape)
+            out = ops.paged_decode_attention(**args, **kw)
+            ref = ops.paged_decode_attention(**args, **kw, impl="ref",
+                                             dequant_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            rel = slot_rel_err(out, ref)
+            finite = bool(torch.isfinite(out).all().item())
+            copies = [dict(args, k_blocks=args["k_blocks"].clone(),
+                           v_blocks=args["v_blocks"].clone()) for _ in range(4)]
+            kern = [lambda a=a: ops.paged_decode_attention(**a, **kw) for a in copies]
+            plain = [lambda a=a: ops.paged_decode_attention(
+                **a, **kw, impl="ref", dequant_dtype=torch.bfloat16) for a in copies]
+            b_ms, b_by = bound_ms(nbytes, flops)
+            case = {"phase": "kernels", "kernel": "paged_decode_attention", "case": name,
+                    "heads": [h, n_kv, hd], "cursors": list(cursors), "q": "bf16",
+                    "pool": "bf16", "window": window,
+                    "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                    "max_slot_rel_err": rel, "rel_budget": PAGED_REL, "finite": finite,
+                    "kernel_ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain, 20),
+                    "kernel_device_ms": device_ms(torch, kern),
+                    "plain_device_ms": device_ms(torch, plain),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            emit(case)
+            if not finite or not rel <= PAGED_REL:
+                raise AssertionError(f"paged decode kernel disagrees at {name}: {case}")
+            cases.append(case)
+            del copies, kern, plain, args, out, ref
+            torch.cuda.empty_cache()
+    return cases
+
+
 def check_paged(torch, np, seed: int) -> dict:
     from repro_torch.kernels.paged_attention import ops
 
@@ -670,6 +767,7 @@ def check_paged(torch, np, seed: int) -> dict:
                 raise AssertionError(f"paged decode kernel disagrees with its plain version: {case}")
             cases.append(case)
     cases.append(check_paged_long(torch, np, seed))
+    cases += check_paged_moe(torch, np, seed)
     main = cases[0]  # bf16 pool, full layers: the main path's case
     return {"name": "paged_decode_attention", "route": "cuda", "source": PAGED_SRC,
             "replaces": PAGED_TPU, "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -689,7 +787,12 @@ ARGMAX_CASES = [("tinyllama-1.1b decode", 8, 1, 32_000),
                 ("spec draft step (4 slots)", 4, 1, 151_936),
                 ("mamba2-130m decode", 8, 1, 50_280),
                 ("tinyllama-1.1b admission", 1, 1024, 32_000),
-                ("qwen2.5-3b admission", 1, 1024, 151_936)]
+                ("qwen2.5-3b admission", 1, 1024, 151_936),
+                # phase 7b: llama4-scout's 202,048 vocabulary, its 2-slot
+                # decode tick and an admission row (mixtral's 32,000 is
+                # tinyllama's shape above)
+                ("llama4-scout decode", 2, 1, 202_048),
+                ("llama4-scout admission", 1, 1024, 202_048)]
 
 
 def host_us(torch, fn, calls: int = 1000) -> float:
@@ -810,7 +913,15 @@ FLASH_CASES = [
     # its 16-token bucket, and the target's packed short-bucket prefill
     ("qwen1.5-0.5b spec draft prefill", 1, 16, 16, 16, 64, 0, False, 20),
     ("qwen2.5-3b packed short-bucket prefill", 4, 128, 16, 2, 128, 0, False, 20),
+    # phase 7b: mixtral-8x7b's packed prefill (32/8 heads, window 4,096),
+    # llama4-scout's 40/8 heads (a group of 5) past its chunked-local
+    # 8,192 window and on its global layer
+    ("mixtral-8x7b packed prefill, window 4096", 8, 1024, 32, 8, 128, 4096, False, 20),
+    ("llama4-scout, window 8192", 1, 12_000, 40, 8, 128, 8192, True, 3),
+    ("llama4-scout global layer", 1, 12_000, 40, 8, 128, 0, True, 3),
 ]
+# the llama4-scout shape in f32 (TF32 off), held whole at FLASH_F32_ATOL
+MOE_FLASH_F32 = dict(b=1, s=12_000, h=40, n_kv=8, hd=128)
 
 
 def flash_inputs(torch, *, b, s, h, n_kv, hd, dtype, seed):
@@ -874,6 +985,21 @@ def check_flash_f32(torch, np, seed: int) -> None:
             emit(case)
             if not case["finite"] or not err <= FLASH_F32_ATOL:
                 raise AssertionError(f"flash kernel disagrees with its plain version: {case}")
+    for window in (8192, 0):
+        q, k, v = flash_inputs(torch, **MOE_FLASH_F32, dtype=torch.float32, seed=seed)
+        out = ops.mha(q, k, v, window=window)
+        ref = flash_plain(torch, ops, q, k, v, window, by_group=True)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        case = {"phase": "kernels", "kernel": "flash_attention", "dtype": "f32",
+                "case": "llama4-scout", "shape": [1, 12_000, 40, 8, 128], "window": window,
+                "max_abs_err": err, "atol": FLASH_F32_ATOL,
+                "finite": bool(torch.isfinite(out).all().item())}
+        emit(case)
+        if not case["finite"] or not err <= FLASH_F32_ATOL:
+            raise AssertionError(f"flash kernel disagrees with its plain version: {case}")
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
 
 
 def check_flash(torch, np, seed: int) -> dict:
@@ -1287,7 +1413,7 @@ def long_requests(np, cfg, *, seed: int) -> list:
 
 
 def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: int = 8,
-              max_len: int = 2048) -> dict:
+              max_len: int = 2048, budget: tuple | None = None, tape=None) -> dict:
     """Drain ``reqs`` through `make_engine` (continuous batching over
     ``kv``) with every kernel count set to 0 just before and read just
     after. Times each prefill call and each tick on the host clock, ended
@@ -1295,23 +1421,37 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
     the first decode tick's logits against the plain path (inside the
     run; its time is taken out of the run's times) and, after the run,
     the first prefill call's last-position logits against the plain
-    route."""
+    route. ``budget``: (decode, prefill) logit budgets as fractions of the
+    plain logits' largest magnitude; by default the model's absolute
+    `LOGIT_BUDGET` and `PREFILL_BUDGET`. An MoE model passes its
+    `RouteTape` (installed over `moe.route`): each plain check then takes
+    the kernel call's expert choices, and the line reports the share of
+    routed tokens whose own choice differs (``*_route_differ_share``)."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel as fk
     from repro_torch.kernels.paged_attention import paged_decode_attention_kernel as pk
     from repro_torch.serve import EngineConfig, make_engine
 
     cfg = model.cfg
+    relative = budget is not None
+    decode_budget, budget = budget or (LOGIT_BUDGET[cfg.name], PREFILL_BUDGET[cfg.name])
     first, first_prefill, prefill_ms, prefill_rows = {}, {}, [], []
     check_s = 0.0  # host time of the check inside the run, left out of its times
 
     def decode_and_check(params_, pview, token, *, impl=None):
         nonlocal check_s
+        if tape is not None and not first:
+            tape.record()
         out = model.decode_step_paged(params_, pview, token, impl=impl)
         if not first:  # hold the first decode tick against the plain path
             torch.cuda.synchronize()
             ts = time.perf_counter()
             launches = pk.launches
+            if tape is not None:
+                tape.replay(tape.stop())
             ref = model.decode_step_paged(params_, pview, token, impl="ref")
+            if tape is not None:
+                tape.stop()
+                first.update(decode_route_differ_share=tape.share())
             if pk.launches != launches:
                 raise AssertionError("the plain decode path launched the paged kernel")
             live = pview["pos"] < pview["tables"].shape[1] * kv.block_size
@@ -1328,6 +1468,8 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
         return out
 
     def timed_prefill(params_, tokens, cache=None, length=None, *, impl=None):
+        if tape is not None and not first_prefill:
+            tape.record()
         torch.cuda.synchronize()
         ts = time.perf_counter()
         out = model.prefill(params_, tokens, cache, length, impl=impl)
@@ -1335,7 +1477,8 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
         prefill_ms.append((time.perf_counter() - ts) * 1e3)
         prefill_rows.append(list(tokens.shape))
         if not first_prefill:  # kept for the check after the run
-            first_prefill.update(tokens=tokens, length=length, logits=out[0][:, -1].clone())
+            first_prefill.update(tokens=tokens, length=length, logits=out[0][:, -1].clone(),
+                                 routes=tape.stop() if tape is not None else None)
         return out
 
     engine = make_engine(dataclasses.replace(model, decode_step_paged=decode_and_check,
@@ -1379,9 +1522,10 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     # the first prefill call against the plain route, outside the timed run
-    budget = PREFILL_BUDGET[cfg.name]
     torch.cuda.synchronize()
     ts = time.perf_counter()
+    if tape is not None:
+        tape.replay(first_prefill["routes"])
     ref, _ = model.prefill(params, first_prefill["tokens"], None, first_prefill["length"],
                            impl="ref")
     torch.cuda.synchronize()
@@ -1391,6 +1535,11 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
     got, want = first_prefill["logits"].float(), ref[:, -1].float()
     best = want.max(-1).values
     picked = want.gather(-1, got.argmax(-1, keepdim=True))[:, 0]
+    route_check = {}
+    if tape is not None:
+        tape.stop()
+        route_check = {"prefill_route_differ_share": tape.share(),
+                       "prefill_routed_tokens": tape.tokens}
     prefill_check = {
         "prefill_logit_max_abs_err": (got - want).abs().max().item(),
         "prefill_logit_ref_max_abs": want.abs().max().item(),
@@ -1402,7 +1551,9 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
         "prefill_ref_top2_margin_min": (lambda t: (t[:, 0] - t[:, 1]).min().item())(
             want.topk(2, dim=-1).values),
     }
-    del ref, first_prefill["tokens"]
+    del ref, first_prefill["tokens"], first_prefill["routes"]
+    ref_max = {"decode": first.get("logit_ref_max_abs", 0.0) if relative else 1.0,
+               "prefill": prefill_check["prefill_logit_ref_max_abs"] if relative else 1.0}
 
     done = {r.uid: len(r.out_tokens) for r in engine.finished}
     prompt_tokens = int(sum(r.prompt.shape[0] for r in reqs))
@@ -1421,8 +1572,8 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
            "tokens_per_s": engine.stats["tokens_out"] / wall,
            "median_decode_tick_ms": float(np.median(decode_only_ms)) if decode_only_ms
            else None, "decode_only_ticks": len(decode_only_ms),
-           "peak_mem_gib": peak_gib, "logit_budget": LOGIT_BUDGET[cfg.name], **first,
-           **prefill_check,
+           "peak_mem_gib": peak_gib, "logit_budget": decode_budget,
+           "budget_relative_to_max_logit": relative, **first, **prefill_check, **route_check,
            "peak_blocks": engine.kv.stats["peak_blocks"]}
     emit(out)
     if len(done) != len(reqs) or any(done[r.uid] != r.max_new_tokens for r in reqs):
@@ -1433,12 +1584,12 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
     if paged_n != cfg.n_layers * decode_ticks:
         raise AssertionError(f"{arm}: paged kernel ran {paged_n} times, want "
                              f"{cfg.n_layers} x {decode_ticks} decode ticks")
-    if argmax_n < decode_ticks + engine.stats["prefills"]:
-        raise AssertionError(f"{arm}: argmax kernel ran {argmax_n} times, want >= "
+    if argmax_n != decode_ticks + engine.stats["prefills"]:
+        raise AssertionError(f"{arm}: argmax kernel ran {argmax_n} times, want "
                              f"{decode_ticks} ticks + {engine.stats['prefills']} admissions")
-    if not first.get("logit_max_abs_err", math.inf) <= LOGIT_BUDGET[cfg.name]:
+    if not first.get("logit_max_abs_err", math.inf) <= decode_budget * ref_max["decode"]:
         raise AssertionError(f"{arm}: first decode tick off the plain path: {first}")
-    if not prefill_check["prefill_logit_max_abs_err"] <= budget:
+    if not prefill_check["prefill_logit_max_abs_err"] <= budget * ref_max["prefill"]:
         raise AssertionError(f"{arm}: first prefill call off the plain route: {prefill_check}")
     if engine.last_logits is None or not bool(torch.isfinite(engine.last_logits).all()) \
             or not bool(torch.isfinite(got).all()):
@@ -3046,6 +3197,217 @@ def profile_prefill(torch, np, model, params, *, seed: int, s: int = 8192) -> di
     return out
 
 
+# -- phase 7b: the MoE family, through make_engine ---------------------------------
+
+# cuts of depth, full width (neither model fits one 80 GB card whole: 93.4
+# and 215.5 GB of bf16 weights): (a) mixtral-8x7b, 2 of 32 layers in f32
+# (~12.7 GB); (b) 8 of 32 in bf16 (~23.8 GB); (c) llama4-scout, 4 of 48
+# in bf16 (~21.8 GB): layers 0-2 chunked-local (window 8,192), layer 3
+# global, and 4.14 GB of embedding and head at the 202,048 vocabulary
+MOE_ARMS = {"a": ("mixtral-8x7b", 2), "b": ("mixtral-8x7b", 8), "c": ("llama4-scout-17b-a16e", 4)}
+# (a) f32, TF32 off: the first prefill call's logits against the plain
+# route within 1e-4 of their largest magnitude (the port's f32 budget
+# through a whole model: another summation order in attention), every
+# token's expert choice identical between the routes
+MOE_F32_REL = 1e-4
+# (a)'s first decode tick: 1e-3 of the largest logit. The engine's f32
+# model keeps K/V in a bf16 pool, and the two routes attend the step's own
+# K/V row differently, as the reference's two do: the kernel (like the
+# Pallas kernel) in q's f32, the plain version (like the reference's
+# ref.py) rounded to the pool's bf16 first. Under diffuse attention over
+# ~1,500 positions that row carries ~2.5 % of a layer-0 output, and its
+# rounding (2^-9) moves the output, and through the experts the logits,
+# by ~1e-4 relative (1.6e-4 measured on the card). A dropped or
+# extra live position moves the output by ~1/1,500 of v, ~2.5 % of it.
+MOE_F32_DECODE_REL = 1e-3
+# (b), (c) bf16: phase 6's prefill budget (0.25 on logits reaching ~4,
+# where one bf16 ulp is 0.03) as a fraction of the largest logit
+# magnitude, 1/16. The router's choice is a discontinuous function of its
+# input: a token whose top choices lie within the routes' bf16 difference
+# (~1e-3 of a router logit) flips, and its row then moves by the size of
+# an expert's output, which is not a kernel fault. So the plain check
+# takes the kernel call's expert choices (`RouteTape`), and the share of
+# tokens whose own choice differs is reported beside it.
+MOE_BF16_REL = 2.0 ** -4
+
+
+class RouteTape:
+    """Stands over `models.moe.route` while phase 7b runs. `record()` keeps
+    the routes of the calls that follow and `stop()` returns them;
+    `replay(routes)` hands them back in order instead of the calls' own,
+    so that a plain-route run takes the kernel run's expert choices, and
+    counts the routed tokens whose own choice (a round's expert, or
+    whether it was kept) differs."""
+
+    def __init__(self, real):
+        self.real, self.mode, self.routes, self.queue = real, None, [], []
+        self.differ = self.tokens = 0
+
+    def record(self) -> None:
+        self.mode, self.routes = "record", []
+
+    def replay(self, routes: list) -> None:
+        self.mode, self.queue, self.differ, self.tokens = "replay", list(routes), 0, 0
+
+    def stop(self) -> list:
+        if self.mode == "replay" and self.queue:
+            raise AssertionError(f"the plain run routed {len(self.queue)} calls fewer")
+        self.mode = None
+        return self.routes
+
+    def share(self) -> float:
+        return self.differ / max(self.tokens, 1)
+
+    def __call__(self, p, xg, cfg, dtype):
+        r = self.real(p, xg, cfg, dtype)
+        if self.mode == "record":
+            self.routes.append(r)
+        elif self.mode == "replay":
+            want = self.queue.pop(0)
+            self.differ += int(((r.choice != want.choice) | (r.keep != want.keep)).any(0).sum())
+            self.tokens += r.choice[0].numel()
+            return want
+        return r
+
+
+def moe_requests(np, vocab: int, *, lens: list, new_tokens: int, seed: int,
+                 shared: tuple = (), prefix: int = 0) -> list:
+    """One request per prompt length in ``lens``, ``new_tokens`` each; the
+    requests at the indices ``shared`` begin with one ``prefix``-token
+    document (their lengths include it)."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    doc = rng.integers(0, vocab, prefix)
+    reqs = []
+    for i, n in enumerate(lens):
+        head = doc if i in shared else doc[:0]
+        prompt = np.concatenate([head, rng.integers(0, vocab, n - len(head))])
+        reqs.append(Request(uid=i, prompt=prompt.astype(np.int32), max_new_tokens=new_tokens))
+    return reqs
+
+
+def plain_route_model(model):
+    """``model`` with its prefill and paged decode on the plain route."""
+    def prefill(params_, tokens, cache=None, length=None, *, impl=None):
+        return model.prefill(params_, tokens, cache, length, impl="ref")
+
+    def decode(params_, pview, token, *, impl=None):
+        return model.decode_step_paged(params_, pview, token, impl="ref")
+
+    return dataclasses.replace(model, prefill=prefill, decode_step_paged=decode)
+
+
+def moe_arm_model(torch, arm: str, seed: int, dtype=None):
+    """Arm ``arm``'s cut config, built on the card with random weights
+    from ``seed``."""
+    from repro_torch.configs import get
+    from repro_torch.models.model_zoo import build
+
+    name, layers = MOE_ARMS[arm]
+    cfg = dataclasses.replace(get(name), n_layers=layers, dtype=dtype or get(name).dtype)
+    model = build(cfg)
+    return model, model.init(seed)
+
+
+def moe_phase(torch, np, seed: int, smi: str) -> dict:
+    """Phase 7b: the MoE family at full width, cut depth, through
+    `make_engine` (continuous, paged store of 16-token blocks, prefix
+    cache), one model at a time, freed before the next. (a) f32
+    mixtral-8x7b: the plain-route engine's streams beside the kernel
+    engine's under the margin rule; (b) bf16 mixtral-8x7b; (c) bf16
+    llama4-scout. Each through `serve_arm`: exact launch counts, prefix
+    hits, times, the first calls against the plain route."""
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve import KVSpec
+
+    tape = RouteTape(moe.route)
+    moe.route = tape
+    lines, part_s = {}, {}
+    try:
+        # (a) f32, 2 layers: 8 requests of 64-1,500 tokens, 4 slots
+        t0 = time.perf_counter()
+        model, params = moe_arm_model(torch, "a", seed, torch.float32)
+        rng = np.random.default_rng(seed + 20)
+        reqs = moe_requests(np, model.cfg.vocab_size, new_tokens=16, seed=seed + 21,
+                            lens=[int(n) for n in rng.integers(64, 1501, 8)])
+        kv = KVSpec(kind="paged", block_size=16, prefix_cache=True)
+        served = [dataclasses.replace(r, out_tokens=[]) for r in reqs]
+        a = serve_arm(torch, np, model, params, kv=kv, arm="moe f32 mixtral-8x7b", reqs=served,
+                      max_batch=4, budget=(MOE_F32_DECODE_REL, MOE_F32_REL), tape=tape)
+        kernel_streams = {r.uid: list(r.out_tokens) for r in served}
+        plain = target_only_margins(torch, plain_route_model(model), params, reqs, kv,
+                                    max_batch=4, max_len=2048)
+        cut = margin_rule(kernel_streams, plain)
+        lines["a"] = a
+        emit({"phase": "moe", "run": "(a) streams against the plain-route engine",
+              "model": model.cfg.name, "dtype": "f32", "requests": len(reqs),
+              "streams_equal": kernel_streams == plain["streams"],
+              "cut_by_margin_rule": cut, "plain_ticks": plain["ticks"],
+              "min_plain_margin": min(min(m.values()) for m in plain["margins"].values())})
+        if a["decode_route_differ_share"] or a["prefill_route_differ_share"]:
+            raise AssertionError(f"moe (a): an expert choice differs between the routes "
+                                 f"in f32: {a}")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["a"] = time.perf_counter() - t0
+
+        # (b) bf16, 8 layers, 8 slots, max_len 8,192: 16 requests, the
+        # first 8 of 64-2,048 tokens (the first prefill call, held against
+        # the plain route whole, stays at a 2,048 bucket), then two over
+        # one 3,000-token document and two of 5,000-6,000 tokens
+        t0 = time.perf_counter()
+        model, params = moe_arm_model(torch, "b", seed)
+        rng = np.random.default_rng(seed + 22)
+        lens = [int(n) for n in rng.integers(64, 2049, 12)]
+        lens[8:8] = [int(rng.integers(3200, 3600)), int(rng.integers(5000, 6001))]
+        lens[11:11] = [int(rng.integers(3200, 3600)), int(rng.integers(5000, 6001))]
+        reqs = moe_requests(np, model.cfg.vocab_size, lens=lens, new_tokens=32,
+                            seed=seed + 23, shared=(8, 11), prefix=3000)
+        b = serve_arm(torch, np, model, params, arm="moe bf16 mixtral-8x7b", reqs=reqs,
+                      max_batch=8, max_len=8192, budget=(MOE_BF16_REL, MOE_BF16_REL), tape=tape,
+                      kv=KVSpec(kind="paged", block_size=16, prefix_cache=True,
+                                prefix_capacity=2 * (8192 // 16 + 1)))
+        _, aux, _, _ = transformer.forward_lm(
+            model.cfg, params, torch.as_tensor(reqs[0].prompt[None], device=model.device))
+        b["one_forward_aux"] = {k: v.item() for k, v in aux.items()}
+        emit({"phase": "moe", "run": "(b) one forward's aux", "tokens": int(len(reqs[0].prompt)),
+              **b["one_forward_aux"]})
+        lines["b"] = b
+        if b["prefix_hit_tokens"] <= 0:
+            raise AssertionError("moe (b): the shared document never hit the prefix cache")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["b"] = time.perf_counter() - t0
+
+        # (c) bf16 llama4-scout, 4 layers, 2 slots, max_len 16,384: three
+        # prompts of 9,000-14,000 tokens, the first and the third over one
+        # 8,000-token document
+        t0 = time.perf_counter()
+        model, params = moe_arm_model(torch, "c", seed)
+        reqs = moe_requests(np, model.cfg.vocab_size, lens=[12_500, 14_000, 9_000],
+                            new_tokens=16, seed=seed + 24, shared=(0, 2), prefix=8000)
+        c = serve_arm(torch, np, model, params, arm="moe bf16 llama4-scout-17b-a16e",
+                      reqs=reqs, max_batch=2, max_len=16384, tape=tape,
+                      budget=(MOE_BF16_REL, MOE_BF16_REL),
+                      kv=KVSpec(kind="paged", block_size=16, prefix_cache=True,
+                                prefix_capacity=2 * (16384 // 16 + 1)))
+        lines["c"] = c
+        if c["prefix_hit_tokens"] <= 0:
+            raise AssertionError("moe (c): the shared document never hit the prefix cache")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["c"] = time.perf_counter() - t0
+    finally:
+        moe.route = tape.real
+    emit({"phase": "moe", "run": "phase seconds", **part_s, "nvidia_smi": smi})
+    return {"lines": lines, "launches": lines["b"]["launches"],
+            "launches_by_arm": {k: v["launches"] for k, v in lines.items()}}
+
+
 # -- phase 8: training, in every step mode, with checkpoints ------------------------
 
 TRAIN_ROWS = 4
@@ -4436,6 +4798,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 7b: the MoE family at full width and cut depth, continuous mode
+    CLOCK.start("moe")
+    moe_lines = moe_phase(torch, np, args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # phase 8: training in every step mode, with checkpoints and a resume,
     # qwen1.5-0.5b at full width in a four-row world on this card
     CLOCK.start("train")
@@ -4457,7 +4825,8 @@ def main(argv=None) -> int:
     # each kernel belongs to (the bf16 tinyllama arm for paged decode,
     # argmax and flash, the scenario phase's traced replay and the spec
     # phase's run with the qwen1.5-0.5b draft and phase 6d's adaptive fleet
-    # under faults (launches_disagg) beside it; the
+    # under faults (launches_disagg) beside it, and phase 7b's bf16
+    # mixtral-8x7b arm (launches_moe; every MoE arm's by arm); the
     # mamba arm for the SSD scan; the train phase's decoupled run, summed
     # over its four ranks, for chunk_accumulate, every train run's counts
     # beside it (launches_train_by_run, the adaptive run's too); the MapReduce
@@ -4491,6 +4860,9 @@ def main(argv=None) -> int:
         kern["launches_spec"] = spec["launches"][name]
         kern["launches_disagg"] = disagg["launches"][name]
         kern["launches_mamba_arm"] = mamba["launches"][name]
+        kern["launches_moe"] = moe_lines["launches"][name]
+        kern["launches_moe_by_arm"] = {arm: counts[name] for arm, counts
+                                       in moe_lines["launches_by_arm"].items()}
         kern["launches_train"] = train["launches"][name]
         kern["launches_train_by_run"] = {run: counts[name]
                                          for run, counts in train["launches_by_run"].items()}
@@ -4503,7 +4875,7 @@ def main(argv=None) -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "plain_device_ms", "library_device_ms", "launches_long_arm",
             "launches_scenario", "launches_spec", "launches_disagg", "launches_mamba_arm",
-            "launches_train", "launches_train_by_run",
+            "launches_moe", "launches_moe_by_arm", "launches_train", "launches_train_by_run",
             "launches_mapreduce", "launches_cg", "launches_pic")
     emit({"phase": "timing", "seconds_by_phase": CLOCK.totals,
           "total_s": time.perf_counter() - t_main})

@@ -2,10 +2,11 @@
 ``torch.dtype``, plus the reference's input-shape grid (`ShapeCfg`,
 `SHAPES`) and its cells.
 
-Only the configs the port can run are registered (dense decoder LMs and
-the Mamba-2 SSM). `get(name)` returns the full config, `get_smoke(name)` the reduced
-variant the CPU tests use; the reference's other architectures (the MoE,
-hybrid, encoder-decoder and VLM families) raise naming ROADMAP A12.
+Only the configs the port can run are registered (dense decoder LMs, the
+MoE decoder LMs and the Mamba-2 SSM). `get(name)` returns the full
+config, `get_smoke(name)` the reduced variant the CPU tests use; the
+reference's other architectures (the hybrid, encoder-decoder and VLM
+families) raise naming ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -60,15 +61,18 @@ class ArchConfig:
     mlp_bias: bool = False
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
-    # MoE / hybrid / enc-dec / frontends (not ported: model_zoo raises)
+    # MoE
     n_experts: int = 0
     experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
+    shared_expert: bool = False
     # SSM (mamba2)
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_chunk: int = 256
+    # hybrid / enc-dec / frontends (not ported: model_zoo raises)
     hybrid: bool = False
     encoder_layers: int = 0
     frontend: str = ""
@@ -114,6 +118,9 @@ class ArchConfig:
             elif self.attn_kind == "swa":
                 out.append(self.window)
             elif self.attn_kind == "chunked_local":
+                # chunked-local as a sliding window of the chunk size, as
+                # the reference masks it (`layers.chunked_local_mask` is
+                # ported, and, as there, nothing calls it)
                 out.append(self.chunk_window)
             else:
                 out.append(0)
@@ -121,8 +128,8 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Analytical parameter count (embedding + layers), for 6ND: the
-        reference's formula for the families the port registers (dense and
-        SSM; the others return with ROADMAP A12)."""
+        reference's formula for the families the port registers (dense,
+        MoE and SSM; the others return with ROADMAP A12)."""
         d = self.d_model
         if self.family == "ssm":
             din, g_n = self.d_inner, self.ssm_state  # a single B/C group
@@ -132,13 +139,22 @@ class ArchConfig:
                          + 3 * self.ssm_heads)  # A, D, dt_bias
         else:
             attn = d * self.d_q + 2 * d * self.d_kv + self.d_q * d
-            per_layer = attn + (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
+            mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
+            if self.n_experts:  # every expert, the router, the shared expert
+                mlp = self.n_experts * mlp + d * self.n_experts + (
+                    mlp if self.shared_expert else 0)
+            per_layer = attn + mlp
         total = self.n_layers * (per_layer + 2 * d)  # + norms
         return int(total + self.vocab_size * d * (1 if self.tie_embeddings else 2))
 
     def active_param_count(self) -> int:
-        """Active parameters per token: every parameter, in a dense or SSM model."""
-        return self.param_count()
+        """Active parameters per token: every parameter, except the routed
+        experts a token does not use in an MoE model."""
+        if not self.n_experts:
+            return self.param_count()
+        mlp = (3 if self.mlp_kind == "swiglu" else 2) * self.d_model * self.d_ff
+        inactive = (self.n_experts - self.experts_per_token) * mlp
+        return int(self.param_count() - self.n_layers * inactive)
 
 
 # in the reference registry's order
@@ -147,6 +163,8 @@ REGISTRY: dict[str, str] = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
@@ -157,8 +175,6 @@ ARCH_NAMES = tuple(REGISTRY)
 NOT_PORTED: dict[str, str] = {
     "hymba-1.5b": "hybrid",
     "whisper-small": "encdec",
-    "mixtral-8x7b": "moe",
-    "llama4-scout-17b-a16e": "moe",
     "pixtral-12b": "vlm",
 }
 

@@ -1,4 +1,4 @@
-"""Shared neural-net layers, the subset the dense decoder LM needs.
+"""Shared neural-net layers, the subset the dense and MoE decoder LMs need.
 
 Plain functions on tensors, with the JAX package's layouts at every
 public function: `linear` weights are ``(d_in, d_out)``, attention
@@ -125,6 +125,18 @@ def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) ->
     ok = dist >= 0
     if window > 0:
         ok = ok & (dist < window)
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def chunked_local_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(q, k) additive f32 mask of llama4-style chunked local attention:
+    causal within the same chunk of ``chunk`` positions. As in the
+    reference, no model path calls it: `ArchConfig.layer_windows` masks a
+    chunked-local layer as a sliding window of the chunk size."""
+    same = torch.div(q_pos[:, None], chunk, rounding_mode="floor") == torch.div(
+        k_pos[None, :], chunk, rounding_mode="floor")
+    ok = same & (q_pos[:, None] >= k_pos[None, :])
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     return torch.where(ok, zero, NEG_INF)
 

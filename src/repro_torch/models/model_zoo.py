@@ -3,17 +3,20 @@
     model = build(cfg)                        # device: cuda unless device="cpu"
     params = model.init(seed)                 # or a torch.Generator
     loss, metrics = model.loss(params, batch)  # training (params from
-                                              # model.init(seed, param_dtype=torch.float32))
+                                              # model.init(seed, param_dtype=torch.float32));
+                                              # MoE: its value (MoE training is A8)
     logits, cache = model.prefill(params, tokens, length=...)   # impl="ref": plain route
     logits, cache = model.decode_step(params, cache, token)      # aligned mode
     logits, rows_k, rows_v = model.decode_step_paged(params, kernel_view, token)
     logits, cache = model.verify_step(params, cache, tokens, n_new)  # speculative verify
 
-The dense decoder family and the Mamba-2 SSM family are ported. An SSM
-model has no paged decode (``decode_step_paged`` is None): it serves in
-aligned mode only, and no ``verify_step`` (it is None), so it cannot
-serve speculatively. Other families raise `NotImplementedError` naming the
-ROADMAP item that ports them.
+The dense and MoE decoder families and the Mamba-2 SSM family are
+ported. An SSM model has no paged decode (``decode_step_paged`` is None):
+it serves in aligned mode only, and no ``verify_step`` (it is None), so
+it cannot serve speculatively. An MoE model's loss adds the router's
+load-balancing term, ``ce + 0.01 * aux_loss``, as the reference's does.
+Other families raise `NotImplementedError` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -28,7 +31,6 @@ from repro_torch.models import transformer
 Params = dict
 
 _NOT_PORTED = {
-    "moe": "ROADMAP A12 (models/moe.py)",
     "hybrid": "ROADMAP A12 (models/ssm.py hybrid layers)",
     "encdec": "ROADMAP A12 (models/encdec.py)",
     "vlm": "ROADMAP A12 (frontend-extended sequences)",
@@ -48,8 +50,9 @@ class Model:
     # (params, kernel_view, token, *, impl=None) -> (logits, rows_k, rows_v);
     # None for the ssm family
     decode_step_paged: Callable[..., tuple] | None
-    # (params, batch) -> (mean masked cross-entropy, {"ce": ...}); batch
-    # holds tokens/labels (B, S) int and mask (B, S) f32
+    # (params, batch) -> (mean masked cross-entropy, {"ce": ...}); MoE: (ce +
+    # 0.01 * aux_loss, {"ce", "aux_loss", "router_entropy"}); batch holds
+    # tokens/labels (B, S) int and mask (B, S) f32
     loss: Callable[..., tuple]
     # (params, cache, tokens (B, S), n_new (B,)) -> (logits (B, S, V), cache):
     # one batched forward scoring a speculative chunk (serve/spec.py);
@@ -58,8 +61,10 @@ class Model:
 
 
 def build(cfg, device=None) -> Model:
-    if cfg.family not in ("dense", "ssm") or (cfg.family == "ssm") != bool(cfg.ssm_state) \
-            or cfg.n_experts or cfg.hybrid or cfg.encoder_layers or cfg.frontend:
+    if cfg.family not in ("dense", "moe", "ssm") \
+            or (cfg.family == "ssm") != bool(cfg.ssm_state) \
+            or (cfg.family == "moe") != bool(cfg.n_experts) \
+            or cfg.hybrid or cfg.encoder_layers or cfg.frontend:
         where = _NOT_PORTED.get(cfg.family, "ROADMAP A12")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; see {where}"
@@ -75,9 +80,11 @@ def build(cfg, device=None) -> Model:
     def loss(params, batch):
         # the reference's own attention route: the flash kernel has no
         # backward in either package
-        hidden, _, _ = transformer.forward_lm(cfg, params, batch["tokens"], impl="ref")
+        hidden, aux, _, _ = transformer.forward_lm(cfg, params, batch["tokens"], impl="ref")
         ce = transformer.chunked_softmax_xent(cfg, params, hidden, batch["labels"],
                                               batch["mask"])
+        if aux:
+            return ce + 0.01 * aux["aux_loss"], {"ce": ce, **aux}
         return ce, {"ce": ce}
 
     def init_cache(batch_size: int, max_len: int) -> dict:
@@ -92,7 +99,7 @@ def build(cfg, device=None) -> Model:
         return transformer.decode_step_lm(cfg, params, cache, token)
 
     decode_step_paged = verify_step = None
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         def decode_step_paged(params, pview, token, *, impl=None):
             return transformer.decode_step_paged_lm(cfg, params, pview, token, impl=impl)
 

@@ -1,4 +1,5 @@
-"""Decoder-only LM backbone: the dense family and the Mamba-2 SSM family.
+"""Decoder-only LM backbone: the dense and MoE families and the Mamba-2
+SSM family.
 
 The reference scans over stacked layer parameters; the port keeps a list
 of per-layer parameter dicts and runs a Python loop (eager PyTorch, no
@@ -16,7 +17,9 @@ model's own jnp route: `layers.attention_plain` up to
 rounding of scores and probabilities, and ``impl="ref"`` gives the card
 a plain path to hold the kernel path against. An SSM layer's prefill
 scan takes the same ``impl`` (`ssm.mamba_block`): the hand-written SSD
-kernel on a CUDA tensor, the reference's `ssd_chunked` otherwise.
+kernel on a CUDA tensor, the reference's `ssd_chunked` otherwise. An
+MoE layer's feed-forward is `moe.apply_moe` (plain PyTorch, as the
+reference's is plain jnp) wherever a dense layer's is the MLP.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 from repro_torch.utils.treeutil import tree_leaves
 
 Params = dict
@@ -56,7 +59,10 @@ def _init_layer(cfg, gen: torch.Generator, device, dtype) -> Params:
         "wo": layers.init_linear(gen, cfg.d_q, d, cfg.mlp_bias, **kw),
     }
     p["norm2"] = layers.init_norm(d, cfg.norm_kind, device=device)
-    p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, cfg.mlp_bias, **kw)
+    if cfg.n_experts:
+        p["moe"] = moe.init_moe(gen, cfg, **kw)
+    else:
+        p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, cfg.mlp_bias, **kw)
     return p
 
 
@@ -116,34 +122,44 @@ def _attention_full(cfg, p, h, positions, window, dtype, impl=None):
     return out, k.reshape(b, s, cfg.d_kv), v.reshape(b, s, cfg.d_kv)
 
 
+def _ffn(cfg, p, h, dtype):
+    """A layer's feed-forward on its normed input -> (out, aux): the MoE
+    layer with its aux metrics, or the MLP with none."""
+    if cfg.n_experts:
+        return moe.apply_moe(p["moe"], h, cfg, dtype)
+    return layers.apply_mlp(p["mlp"], h, cfg.mlp_kind, dtype), {}
+
+
 def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl):
-    """One layer -> (x, (k, v) or None, SSM decode state or None)."""
+    """One layer -> (x, aux, (k, v) or None, SSM decode state or None)."""
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     if cfg.family == "ssm":
         if want_kv:
             y, sstate = ssm.mamba_block(p["mamba"], h, cfg, dtype, want_state=True, impl=impl)
-            return x + y, None, sstate
-        return x + ssm.mamba_block(p["mamba"], h, cfg, dtype, impl=impl), None, None
+            return x + y, {}, None, sstate
+        return x + ssm.mamba_block(p["mamba"], h, cfg, dtype, impl=impl), {}, None, None
     attn_out, kf, vf = _attention_full(cfg, p["attn"], h, positions, window, dtype, impl)
     x = x + attn_out
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-    x = x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
-    return x, ((kf, vf) if want_kv else None), None
+    out, aux = _ffn(cfg, p, h2, dtype)
+    return x + out, aux, ((kf, vf) if want_kv else None), None
 
 
 def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, want_kv: bool = False,
                impl: str | None = None):
-    """Returns (hidden (B,S,d) post-final-norm, per-layer [(k, v)] or
-    None, per-layer [{state, conv}] or None): k/v in the flattened
-    (B, S, d_kv) layout for the dense family, the SSM decode state after
-    the sequence for the ssm family (both only with ``want_kv``).
+    """Returns (hidden (B,S,d) post-final-norm, aux, per-layer [(k, v)]
+    or None, per-layer [{state, conv}] or None): aux is the mean over
+    layers of each MoE aux metric (``aux_loss``, ``router_entropy``; empty
+    for the other families); k/v in the flattened (B, S, d_kv) layout for
+    the attention families, the SSM decode state after the sequence for
+    the ssm family (both only with ``want_kv``).
     ``impl`` as in `_attention_full`, and for the SSD scan. While
     autograd records a gradient of the params, each layer runs under one
     `torch.utils.checkpoint` and is recomputed in the backward pass (the
     reference's ``jax.checkpoint`` over the layer scan), so a layer's
     activations live only while its gradient is taken."""
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(f"forward_lm ports the dense and ssm families, "
+    if cfg.family not in ("dense", "moe", "ssm"):
+        raise NotImplementedError(f"forward_lm ports the dense, moe and ssm families, "
                                   f"not {cfg.family!r}")
     if impl not in (None, "ref"):
         raise ValueError(f"unknown impl {impl!r} (use 'ref' or None)")
@@ -153,21 +169,24 @@ def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, want_kv: bool = Fal
     positions = torch.arange(s, device=x.device)
     if cfg.pos_kind == "sinusoidal":
         x = x + layers.sinusoidal_positions(s, cfg.d_model, x.device).to(dtype)[None]
-    kv, states = [], []
+    kv, states, auxes = [], [], []
     recompute = torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(params))
     for p, window in zip(params["layers"], cfg.layer_windows()):
         if recompute:
-            x, kvl, sstate = checkpoint(_layer_forward, cfg, p, x, positions, window, dtype,
-                                        want_kv, impl, use_reentrant=False)
+            x, aux, kvl, sstate = checkpoint(_layer_forward, cfg, p, x, positions, window,
+                                             dtype, want_kv, impl, use_reentrant=False)
         else:
-            x, kvl, sstate = _layer_forward(cfg, p, x, positions, window, dtype, want_kv, impl)
+            x, aux, kvl, sstate = _layer_forward(cfg, p, x, positions, window, dtype,
+                                                 want_kv, impl)
+        auxes.append(aux)
         if kvl is not None:
             kv.append(kvl)
         if sstate is not None:
             states.append(sstate)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    return x, (kv or None), (states or None)
+    aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]} if auxes else {}
+    return x, aux, (kv or None), (states or None)
 
 
 def unembed_table(cfg, params: Params) -> torch.Tensor:
@@ -256,7 +275,7 @@ def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length
     """
     if length is not None and cfg.family == "ssm":
         raise ValueError("length-masked prefill needs an attention-only cache")
-    hidden, kv, states = forward_lm(cfg, params, tokens, want_kv=True, impl=impl)
+    hidden, _, kv, states = forward_lm(cfg, params, tokens, want_kv=True, impl=impl)
     b, s = tokens.shape
     ragged = torch.is_tensor(length) and length.ndim == 1
     ar = torch.arange(s, device=hidden.device)
@@ -348,7 +367,7 @@ def decode_step_lm(cfg, params: Params, cache: dict, token: torch.Tensor):
         attn = layers.linear(p["attn"]["wo"], attn.reshape(b, 1, cfg.d_q), dtype)
         x = x + attn
         h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
+        x = x + _ffn(cfg, p, h2, dtype)[0]
     cache["pos"] = pos + 1
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     return lm_logits(cfg, params, x), cache
@@ -405,7 +424,7 @@ def verify_step_lm(cfg, params: Params, cache: dict, tokens: torch.Tensor,
         attn = layers.linear(p["attn"]["wo"], attn.reshape(b, s_chunk, cfg.d_q), dtype)
         x = x + attn
         h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
+        x = x + _ffn(cfg, p, h2, dtype)[0]
     cache["pos"] = pos + n_new.to(pos.dtype)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     return lm_logits(cfg, params, x), cache
@@ -425,8 +444,9 @@ def decode_step_paged_lm(cfg, params: Params, pview: dict, token: torch.Tensor,
     forwards to `paged_ops.paged_decode_attention` (None: the kernel on
     a CUDA tensor, the plain version on a CPU tensor).
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(f"paged decode ports the dense family, not {cfg.family!r}")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"paged decode ports the dense and moe families, "
+                                  f"not {cfg.family!r}")
     dtype = cfg.dtype
     x = layers.embed(params["embed"], token, dtype)  # (B,1,d)
     pos = pview["pos"]
@@ -464,7 +484,7 @@ def decode_step_paged_lm(cfg, params: Params, pview: dict, token: torch.Tensor,
         attn = layers.linear(p["attn"]["wo"], attn.reshape(b, 1, cfg.d_q), dtype)
         x = x + attn
         h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
+        x = x + _ffn(cfg, p, h2, dtype)[0]
         rows_k[li] = kn
         rows_v[li] = vn
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)

@@ -269,6 +269,25 @@ def test_paged_kernel_group_of_12_across_splits(cuda, pool):
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("rep", [4, 5], ids=["mixtral-4x128", "llama4-5x128"])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_paged_kernel_moe_groups_across_splits(cuda, pool, rep):
+    """The MoE configs' groups over 8 KV heads of 128: mixtral-8x7b's 4 and
+    llama4-scout's 5 (an odd group) query heads a KV head, the walk split
+    in spans around the cursors, full and windowed."""
+    t, scales = _split_case(13 + rep, pool, n_kv=8, rep=rep, hd=128)
+    t = [x.to(cuda) for x in t]
+    for window in (0, 7, 20):
+        kw = dict(n_kv=8, window=window, scale=128 ** -0.5,
+                  **{k: v.to(cuda) for k, v in scales.items()})
+        got = paged_decode_attention(*t, **kw)
+        want = paged_decode_attention(*t, **kw, impl="ref", dequant_dtype=t[0].dtype)
+        torch.cuda.synchronize()
+        tol = 2e-2 if pool == "bf16" else 2e-5
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        assert torch.count_nonzero(got[4]) == 0
+
+
 def test_paged_kernel_long_walk(cuda):
     """The long arm's decode shape, narrowed: 2 slots of 15,000 and 9,500
     positions in 16-token blocks at the default split (bf16 pool, f32
@@ -294,11 +313,12 @@ def test_paged_kernel_long_walk(cuda):
 
 
 # flash attention: (head dim, KV heads, group) covering every head dim the
-# shipped configs use and groups 1, 8 and 12 (group 1 at head dim 64: the
-# qwen1.5-0.5b spec draft's MHA); lengths are not multiples of the
-# kernel's 64-row and 64-key tiles
+# shipped configs use and groups 1, 4, 5, 8 and 12 (group 1 at head dim 64:
+# the qwen1.5-0.5b spec draft's MHA; 4 and 5 over 8 KV heads of 128: the
+# MoE configs'); lengths are not multiples of the kernel's 64-row and
+# 64-key tiles
 FLASH_GEOMETRIES = [(16, 2, 1), (16, 2, 4), (32, 1, 8), (64, 4, 8), (128, 2, 8), (128, 4, 12),
-                    (64, 16, 1)]
+                    (64, 16, 1), (128, 8, 4), (128, 8, 5)]
 
 
 def _flash_inputs(seed, b, sq, sk, n_kv, rep, hd, dtype, device):
@@ -359,7 +379,7 @@ def test_flash_kernel_reads_strided_views(cuda):
 # heads, group); lengths not multiples of its 128-row and 128-key tiles,
 # windows across tile edges, starcoder2-15b's group of 12 and the
 # qwen1.5-0.5b spec draft's group of 1
-WGMMA_GEOMETRIES = [(64, 2, 8), (128, 2, 8), (128, 1, 12), (64, 16, 1)]
+WGMMA_GEOMETRIES = [(64, 2, 8), (128, 2, 8), (128, 1, 12), (64, 16, 1), (128, 8, 5)]
 
 
 @pytest.mark.parametrize("window", [0, 129])
@@ -390,6 +410,20 @@ def test_flash_wgmma_body_shapes_and_masks(cuda, hd, sq, sk, causal, window):
     want = mha(q, k, v, causal=causal, window=window, scale=0.3, impl="ref").transpose(1, 2)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("window", [8192, 0])
+def test_flash_kernel_llama4_window_bites(cuda, window):
+    """llama4-scout's 40 query heads over 8 KV heads of 128 at 9,000 tokens,
+    past its 8,192-token chunked-local window and without one (its global
+    layer), bf16; the plain version one KV group at a time."""
+    q, k, v = _flash_inputs(window + 3, 1, 9000, 9000, 8, 5, 128, torch.bfloat16, cuda)
+    got = mha(q, k, v, window=window)
+    for g in range(8):
+        want = mha(q[:, :, 5 * g:5 * g + 5], k[:, :, g:g + 1], v[:, :, g:g + 1],
+                   window=window, impl="ref")
+        torch.testing.assert_close(got[:, :, 5 * g:5 * g + 5].float(), want.float(),
+                                   atol=2e-2, rtol=2e-2)
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):
@@ -615,13 +649,14 @@ def _plant_argmax_rows(last, span, splits):
     return want
 
 
-# each arm's vocabulary and an odd one (rows not 16-byte aligned), at the
-# batch sizes of admission, the long arm, the 8-slot arms and a wide batch;
-# S > 1 reads the last position of (B, S, V), rows strided by S x V
+# each arm's vocabulary (llama4-scout's 202,048 the largest) and an odd one
+# (rows not 16-byte aligned), at the batch sizes of admission, the long
+# arm, the 8-slot arms and a wide batch; S > 1 reads the last position of
+# (B, S, V), rows strided by S x V
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("s", [1, 3])
 @pytest.mark.parametrize("b", [1, 2, 8, 64])
-@pytest.mark.parametrize("vocab", [32_000, 50_280, 151_936, 32_001])
+@pytest.mark.parametrize("vocab", [32_000, 50_280, 151_936, 32_001, 202_048])
 def test_argmax_kernel_at_split_edges(cuda, vocab, b, s, dtype):
     gen = torch.Generator(device=cuda).manual_seed(vocab + 7 * b + s)
     x = torch.randn((b, s, vocab), generator=gen, device=cuda).to(dtype)

@@ -215,7 +215,7 @@ def test_prefill_and_ten_decode_steps_match_reference(lm):
     jl, jcache, _ = jt.prefill_lm(jc, jp, jnp.asarray(toks), jt.init_cache(jc, 2, 64))
     tl, tcache = tt.prefill_lm(tc, tp, torch.from_numpy(toks).long(),
                                tt.init_cache(tc, 2, 64, device="cpu"))
-    hidden, kv, states = tt.forward_lm(tc, tp, torch.from_numpy(toks).long(), want_kv=True)
+    hidden, _, kv, states = tt.forward_lm(tc, tp, torch.from_numpy(toks).long(), want_kv=True)
     assert kv is None and len(states) == tc.n_layers
     _close(tt.lm_logits(tc, tp, hidden[:, -1:]), jl)
     for step in range(11):

@@ -140,7 +140,7 @@ def test_unported_modes_and_options_are_refused():
         make_host_mesh(4, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         launch_main(["--smoke", "--device", "cpu", "--model", "2"])
-    for name in ("mixtral-8x7b", "hymba-1.5b", "whisper-small", "pixtral-12b"):
+    for name in ("hymba-1.5b", "whisper-small", "pixtral-12b"):
         with pytest.raises(NotImplementedError, match="A12"):
             get_smoke(name)
 

@@ -255,7 +255,7 @@ def test_model_zoo_device_and_families():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build(tc)  # the default device is cuda: no quiet CPU fallback
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        build(dataclasses.replace(tc, family="moe", n_experts=4), device="cpu")
+        build(dataclasses.replace(tc, family="hybrid", hybrid=True), device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["init_lm", "init_cache", "params_from_numpy"])
