@@ -43,7 +43,8 @@ failure exits non-zero and prints no result:
 6b. scenario — the serving user's path, `python -m
                repro_torch.examples.serve_lm --scenario bursty-prefix --paged
                --trace PATH`, through the example's own `serve_lm.serve`
-               on the same qwen2.5-3b weights: 145 requests of three
+               on the same qwen2.5-3b weights, the scenario cut to its
+               first 40 arrival ticks: 68 requests of three
                tenants through `FleetScheduler` (WFQ,
                token budget 2000, aging 0.05) into the paged engine (4
                slots, max_len 160, prefix cache) with the tracer on: a
@@ -82,11 +83,10 @@ failure exits non-zero and prints no result:
                with the noised draft, through the multi-tenant scheduler
                and the shared prefix cache: the stores checked every
                tick and after the drain, prefix hits, launch counts; then
-               for each draft a fresh engine of 4 slots at a fixed
-               load: 8 spec ticks on the host clock (the pair's also 8
-               profiled as in phase 5) and 8 with ms per draft step,
-               verify forward and rollback, each ended by a
-               synchronisation. (c) sampled mode: seed 3 twice gives identical
+               for the qwen1.5-0.5b draft a fresh engine of 4 slots at a
+               fixed load: 8 spec ticks on the host clock, 8 profiled as
+               in phase 5 and 8 with ms per draft step, verify forward
+               and rollback, each ended by a synchronisation. (c) sampled mode: seed 3 twice gives identical
                streams, seed 4 others.
 6d. disagg  — disaggregated serving and the serving fleet
                (`serve/disagg.py`, `checkpoint_bridge.py`, `fleet.py`). (a)
@@ -153,6 +153,28 @@ failure exits non-zero and prints no result:
                hits, ms per prefill call, the median decode tick, tokens/s,
                peak memory; (b) also one forward's aux_loss and
                router_entropy.
+7c. families — the last model families at full width and depth, random
+               weights from --seed, one model at a time: (a) pixtral-12b
+               bf16: 4 image prompts (256 patch embeddings, N(0, 0.02^2),
+               before 768-2,048 text tokens) through `model.prefill(patches=)`,
+               migrated into a 4-slot aligned cache, 32 `decode_step` ticks;
+               then 8 text requests of 64-2,048 tokens, 32 new each,
+               through `make_engine` in continuous mode (paged store of
+               16-token blocks, prefix cache); (b) hymba-1.5b bf16 through
+               `make_engine` in aligned mode: 8 slots, 16 prompts of
+               500-8,000 tokens (all but the shortest past the 1,024-token
+               window), 64 new each, flash and the SSD scan in every layer
+               of every prefill; (c) whisper-small bf16: 8 requests of 1,500
+               frames and a 16-token prompt through `model.prefill(frames=)`
+               (flash in the 12 encoder layers and in both attentions of the
+               12 decoder layers), 128 new tokens; each with exact launch
+               counts, ms per prefill call, prefill tokens/s, the median
+               decode tick, tokens/s, peak memory and the first calls
+               against the plain route (1/16 of the largest logit); (d) f32
+               (TF32 off, f32 caches): pixtral-12b at 2 layers, hymba-1.5b
+               and whisper-small whole, 2 requests each: the first prefill
+               call's and the first decode tick's logits within 1e-4 of the
+               plain route's largest, 16 greedy tokens under the margin rule.
    The kernels phase also holds chunk_accumulate against its plain
    version (bit for bit at the train phase's (2, 465,567,744) f32 fold
    and at a ragged S; 1e-6 at n = 7 and at 16 rows of bf16); the argmax
@@ -162,11 +184,16 @@ failure exits non-zero and prints no result:
    V = 32,000 and 151,936), maxima planted at its split's edges, exact,
    with host microseconds per call beside `torch.argmax`'s (and at
    llama4-scout's (2, 202,048) decode tick and (1, 1024, 202,048)
-   admission row); paged decode at phase 7b's shapes (mixtral-8x7b's 8
+   admission row), at (8, 32,001), (8, 51,865) and (4, 131,072) (phase
+   7c's decode ticks); paged decode at phase 7b's shapes (mixtral-8x7b's 8
    slots over 32/8 heads of 128, window 4,096; llama4-scout's 2 slots
    over 40/8, windows 8,192 and 0, in a 16,384-position view) and flash
    attention at (8, 1,024, 32/8, 128), window 4,096, and (1, 12,000,
-   40/8, 128), windows 8,192 and 0 (also in f32); and the keyed
+   40/8, 128), windows 8,192 and 0 (also in f32), hymba-1.5b's (1, 8,192,
+   25/5, 64) past its 1,024 window and whisper-small's non-causal (8,
+   1,500, 12/12, 64) encoder and (8, 16 x 1,500) cross-attention (also in
+   f32); the SSD scan at hymba-1.5b's (1, 8,192, 50 x 64), state 16 (and in
+   f32 at S=1000); and the keyed
    histogram (2^26 Zipf keys into 151,936 bins, the same keys with the
    bins permuted, 2^26 uniform keys with f32 and bf16 counts, 4,096 bins,
    and 2^24 keys at 58,112 / 58,113 bins, the plan's path boundary),
@@ -271,7 +298,8 @@ failure exits non-zero and prints no result:
                histogram's times are the fold's, the path's shape;
                ``launches_spec`` from phase 6c's run with the qwen1.5-0.5b
                draft; ``launches_disagg`` from phase 6d's adaptive fleet
-               under faults; ``launches_moe`` from phase 7b's arm (b); the histogram's ``launches_adaptive`` from phase 9's
+               under faults; ``launches_moe`` from phase 7b's arm (b);
+               ``launches_families`` from phase 7c's arms (a)-(c); the histogram's ``launches_adaptive`` from phase 9's
                adaptive run, and chunk_accumulate's
                ``launches_train_by_run`` with phase 8's adaptive run), then
                the last line ``{"ok": true, "device": {...}}``.
@@ -352,6 +380,14 @@ PREFILL_BUDGET = {"tinyllama-1.1b": 0.125, "qwen2.5-3b": 0.25}
 # tail positions that shift the last chunk's prefix sums by an ulp of
 # |cum| move the final state by ~3e-4 at A = -16.
 SSD_F32_ATOL = 1e-4
+# ... except at hymba-1.5b's widths (50 heads of 64 over a state of 16),
+# held to 1e-4 of the largest |y| (and of the largest state element): with
+# N = 16 the inputs' C.B has 8x the variance it has at N = 128, y reaches
+# ~7, and f32's error scales with it. Measured on the card (NVIDIA H100
+# 80GB HBM3, 700.00 W): 1.5e-4 at max |y| 7.24, i.e. 2.1e-5 of it, where
+# mamba's widths give 6.0e-5 at 2.19 (2.7e-5); each f32 case also reports
+# both sides' error against the recurrence in f64 (`ssd_f64`).
+SSD_F32_SCALED = ("hymba-1.5b widths, model's dt",)
 # SSD scan, bf16 cases: per output row (one position and head), max
 # |kernel - plain| over the rms of the plain row. Both take the same bf16
 # inputs and round y once: at most one bf16 ulp of an element apart (2^-7
@@ -792,7 +828,13 @@ ARGMAX_CASES = [("tinyllama-1.1b decode", 8, 1, 32_000),
                 # decode tick and an admission row (mixtral's 32,000 is
                 # tinyllama's shape above)
                 ("llama4-scout decode", 2, 1, 202_048),
-                ("llama4-scout admission", 1, 1024, 202_048)]
+                ("llama4-scout admission", 1, 1024, 202_048),
+                # phase 7c: the decode ticks of its 8-row arms over
+                # hymba-1.5b's and whisper-small's odd vocabularies (rows
+                # not 16-byte aligned) and pixtral-12b's 4-slot image ticks
+                ("hymba-1.5b decode", 8, 1, 32_001),
+                ("whisper-small decode", 8, 1, 51_865),
+                ("pixtral-12b image decode", 4, 1, 131_072)]
 
 
 def host_us(torch, fn, calls: int = 1000) -> float:
@@ -919,37 +961,51 @@ FLASH_CASES = [
     ("mixtral-8x7b packed prefill, window 4096", 8, 1024, 32, 8, 128, 4096, False, 20),
     ("llama4-scout, window 8192", 1, 12_000, 40, 8, 128, 8192, True, 3),
     ("llama4-scout global layer", 1, 12_000, 40, 8, 128, 0, True, 3),
+    # phase 7c: hymba-1.5b's 25/5 heads of 64 past its 1,024-token window
+    ("hymba-1.5b, window 1024", 1, 8192, 25, 5, 64, 1024, False, 5),
+]
+# non-causal flash at phase 7c's whisper-small shapes (12/12 heads of 64
+# over its 1,500 encoder frames, no multiple of the tiles): name, batch,
+# query length, key length, query heads, KV heads, head dim, iterations
+FLASH_NONCAUSAL_CASES = [
+    ("whisper-small encoder self-attention", 8, 1500, 1500, 12, 12, 64, 20),
+    ("whisper-small cross-attention, 16-token prompt", 8, 16, 1500, 12, 12, 64, 20),
 ]
 # the llama4-scout shape in f32 (TF32 off), held whole at FLASH_F32_ATOL
 MOE_FLASH_F32 = dict(b=1, s=12_000, h=40, n_kv=8, hd=128)
 
 
-def flash_inputs(torch, *, b, s, h, n_kv, hd, dtype, seed):
-    """Model-layout (B, S, H, d) q and (B, S, Kv, d) k, v, N(0, 1)."""
+def flash_inputs(torch, *, b, s, h, n_kv, hd, dtype, seed, sk=None):
+    """Model-layout (B, S, H, d) q and (B, Sk, Kv, d) k, v (Sk = S unless
+    given), N(0, 1)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    sk = s if sk is None else sk
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    return randn(b, s, h, hd), randn(b, s, n_kv, hd), randn(b, s, n_kv, hd)
+    return randn(b, s, h, hd), randn(b, sk, n_kv, hd), randn(b, sk, n_kv, hd)
 
 
-def flash_plain(torch, ops, q, k, v, window: int, by_group: bool):
+def flash_plain(torch, ops, q, k, v, window: int, by_group: bool, causal: bool = True):
     """The plain version (`impl="ref"`), whole or one batch row and KV
     group at a time."""
     if not by_group:
-        return ops.mha(q, k, v, window=window, impl="ref")
+        return ops.mha(q, k, v, causal=causal, window=window, impl="ref")
     n_kv = k.shape[2]
     rep = q.shape[2] // n_kv
     return torch.cat([torch.cat([ops.mha(q[i:i + 1, :, g * rep:(g + 1) * rep],
                                          k[i:i + 1, :, g:g + 1], v[i:i + 1, :, g:g + 1],
-                                         window=window, impl="ref")
+                                         causal=causal, window=window, impl="ref")
                                  for g in range(n_kv)], dim=2)
                       for i in range(q.shape[0])])
 
 
-def live_pairs(np, sq: int, sk: int, window: int) -> int:
-    """Causal (and windowed) live (query, key) pairs, start-aligned."""
+def live_pairs(np, sq: int, sk: int, window: int, causal: bool = True) -> int:
+    """Live (query, key) pairs, start-aligned: every pair when not causal,
+    else the causal (and windowed) ones."""
+    if not causal:
+        return sq * sk
     qp = np.arange(sq)
     hi = np.minimum(qp, sk - 1)
     lo = np.maximum(0, qp - window + 1) if window > 0 else np.zeros_like(qp)
@@ -964,27 +1020,41 @@ def row_rel_err(out, ref) -> float:
     return (d / rms).max().item()
 
 
+# phase 7c's shapes in f32: (name, batch, query length, key length, query
+# heads, KV heads, head dim, window, causal)
+FAMILY_FLASH_F32 = [
+    ("whisper-small encoder", 2, 1500, 1500, 12, 12, 64, 0, False),
+    ("whisper-small cross-attention", 2, 16, 1500, 12, 12, 64, 0, False),
+    ("hymba-1.5b, window 1024", 1, 4096, 4096, 25, 5, 64, 1024, True),
+]
+
+
 def check_flash_f32(torch, np, seed: int) -> None:
     """The kernel's logic at f32 precision: S=1000 (not a multiple of the
     64-row and 64-key tiles), windows 0 and 256, groups of 8 (hd 64 and
     hd 128: qwen2.5-3b, the f32 spec parity run's target and draft), 12
-    (hd 128) and 1 (hd 64: the qwen1.5-0.5b draft's MHA)."""
+    (hd 128) and 1 (hd 64: the qwen1.5-0.5b draft's MHA); phase 7c's
+    non-causal whisper shapes and hymba's group of 5."""
     from repro_torch.kernels.flash_attention import ops
 
-    for h, n_kv, hd in ((32, 4, 64), (48, 4, 128), (16, 2, 128), (16, 16, 64)):
-        for window in (0, 256):
-            q, k, v = flash_inputs(torch, b=2, s=1000, h=h, n_kv=n_kv, hd=hd,
-                                   dtype=torch.float32, seed=seed)
-            out = ops.mha(q, k, v, window=window)
-            ref = ops.mha(q, k, v, window=window, impl="ref")
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            case = {"phase": "kernels", "kernel": "flash_attention", "dtype": "f32",
-                    "shape": [2, 1000, h, n_kv, hd], "window": window, "max_abs_err": err,
-                    "atol": FLASH_F32_ATOL, "finite": bool(torch.isfinite(out).all().item())}
-            emit(case)
-            if not case["finite"] or not err <= FLASH_F32_ATOL:
-                raise AssertionError(f"flash kernel disagrees with its plain version: {case}")
+    geometries = [(f"S=1000, {h}/{n_kv} x {hd}", 2, 1000, 1000, h, n_kv, hd, window, True)
+                  for h, n_kv, hd in ((32, 4, 64), (48, 4, 128), (16, 2, 128), (16, 16, 64))
+                  for window in (0, 256)]
+    for name, b, sq, sk, h, n_kv, hd, window, causal in geometries + FAMILY_FLASH_F32:
+        q, k, v = flash_inputs(torch, b=b, s=sq, sk=sk, h=h, n_kv=n_kv, hd=hd,
+                               dtype=torch.float32, seed=seed)
+        out = ops.mha(q, k, v, causal=causal, window=window)
+        ref = ops.mha(q, k, v, causal=causal, window=window, impl="ref")
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        case = {"phase": "kernels", "kernel": "flash_attention", "dtype": "f32", "case": name,
+                "shape": [b, sq, sk, h, n_kv, hd], "window": window, "causal": causal,
+                "max_abs_err": err, "atol": FLASH_F32_ATOL,
+                "finite": bool(torch.isfinite(out).all().item())}
+        emit(case)
+        if not case["finite"] or not err <= FLASH_F32_ATOL:
+            raise AssertionError(f"flash kernel disagrees with its plain version: {case}")
+        del q, k, v, out, ref
     for window in (8192, 0):
         q, k, v = flash_inputs(torch, **MOE_FLASH_F32, dtype=torch.float32, seed=seed)
         out = ops.mha(q, k, v, window=window)
@@ -1002,60 +1072,73 @@ def check_flash_f32(torch, np, seed: int) -> None:
         torch.cuda.empty_cache()
 
 
-def check_flash(torch, np, seed: int) -> dict:
+def flash_case(torch, np, *, name: str, b: int, sq: int, sk: int, h: int, n_kv: int,
+               hd: int, window: int, causal: bool, by_group: bool, iters: int,
+               seed: int) -> dict:
+    """One bf16 shape: the kernel against its plain version (`FLASH_REL`),
+    both timed, the bound, and SDPA where one call computes the same
+    function (no window). Returns the emitted case line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops
 
+    q, k, v = flash_inputs(torch, b=b, s=sq, sk=sk, h=h, n_kv=n_kv, hd=hd,
+                           dtype=torch.bfloat16, seed=seed)
+    out = ops.mha(q, k, v, causal=causal, window=window)
+    ref = flash_plain(torch, ops, q, k, v, window, by_group, causal)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = row_rel_err(out, ref)
+    finite = bool(torch.isfinite(out).all().item())
+    del out, ref
+    torch.cuda.empty_cache()
+    pairs = live_pairs(np, sq, sk, window, causal)
+    flops = 4.0 * b * h * hd * pairs
+    b_ms, b_by = bound_ms((2 * b * sq * h * hd + 2 * b * sk * n_kv * hd) * 2, flops)
+    kern = [lambda: ops.mha(q, k, v, causal=causal, window=window)]
+    case = {"phase": "kernels", "kernel": "flash_attention", "case": name, "dtype": "bf16",
+            "shape": [b, sq, h, n_kv, hd] if sq == sk else [b, sq, sk, h, n_kv, hd],
+            "causal": causal, "window": window, "live_pairs": pairs,
+            "max_abs_err": err, "max_row_rel_err": rel, "rel_budget": FLASH_REL,
+            "finite": finite, "kernel_ms": cuda_ms(torch, kern, iters, warmup=1),
+            "kernel_device_ms": device_ms(torch, kern, iters),
+            "bound_ms": b_ms, "bound_by": b_by}
+    case["kernel_tflops"] = flops / case["kernel_ms"] / 1e9
+    if by_group:
+        case.update(plain_ms=None, plain_device_ms=None,
+                    plain_null_reason="all heads' S x S f32 scores do not fit one call; "
+                                      "the check ran it one batch row and KV group "
+                                      "at a time")
+    else:
+        plain = [lambda: ops.mha(q, k, v, causal=causal, window=window, impl="ref")]
+        case.update(plain_ms=cuda_ms(torch, plain, iters, warmup=1),
+                    plain_device_ms=device_ms(torch, plain, iters))
+    if window == 0:
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = [lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                      enable_gqa=True)]
+        case.update(library_ms=cuda_ms(torch, lib, iters, warmup=1),
+                    library_device_ms=device_ms(torch, lib, iters))
+    else:
+        case.update(library_ms=None, library_device_ms=None,
+                    library_null_reason="no single library call takes a sliding window "
+                                        "without an S x S mask")
+    emit(case)
+    if not finite or not rel <= FLASH_REL:
+        raise AssertionError(f"flash kernel disagrees with its plain version: {case}")
+    del q, k, v, kern
+    torch.cuda.empty_cache()
+    return case
+
+
+def check_flash(torch, np, seed: int) -> dict:
     check_flash_f32(torch, np, seed)
-    cases = []
-    for name, b, s, h, n_kv, hd, window, by_group, iters in FLASH_CASES:
-        q, k, v = flash_inputs(torch, b=b, s=s, h=h, n_kv=n_kv, hd=hd, dtype=torch.bfloat16,
-                               seed=seed)
-        out = ops.mha(q, k, v, window=window)
-        ref = flash_plain(torch, ops, q, k, v, window, by_group)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        rel = row_rel_err(out, ref)
-        finite = bool(torch.isfinite(out).all().item())
-        del out, ref
-        torch.cuda.empty_cache()
-        pairs = live_pairs(np, s, s, window)
-        flops = 4.0 * b * h * hd * pairs
-        b_ms, b_by = bound_ms((2 * b * s * h * hd + 2 * b * s * n_kv * hd) * 2, flops)
-        kern = [lambda: ops.mha(q, k, v, window=window)]
-        case = {"phase": "kernels", "kernel": "flash_attention", "case": name, "dtype": "bf16",
-                "shape": [b, s, h, n_kv, hd], "window": window, "live_pairs": pairs,
-                "max_abs_err": err, "max_row_rel_err": rel, "rel_budget": FLASH_REL,
-                "finite": finite, "kernel_ms": cuda_ms(torch, kern, iters, warmup=1),
-                "kernel_device_ms": device_ms(torch, kern, iters),
-                "bound_ms": b_ms, "bound_by": b_by}
-        case["kernel_tflops"] = flops / case["kernel_ms"] / 1e9
-        if by_group:
-            case.update(plain_ms=None, plain_device_ms=None,
-                        plain_null_reason="all heads' S x S f32 scores do not fit one call; "
-                                          "the check ran it one batch row and KV group "
-                                          "at a time")
-        else:
-            plain = [lambda: ops.mha(q, k, v, window=window, impl="ref")]
-            case.update(plain_ms=cuda_ms(torch, plain, iters, warmup=1),
-                        plain_device_ms=device_ms(torch, plain, iters))
-        if window == 0:
-            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            lib = [lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                          enable_gqa=True)]
-            case.update(library_ms=cuda_ms(torch, lib, iters, warmup=1),
-                        library_device_ms=device_ms(torch, lib, iters))
-        else:
-            case.update(library_ms=None, library_device_ms=None,
-                        library_null_reason="no single library call takes a sliding window "
-                                            "without an S x S mask")
-        emit(case)
-        if not finite or not rel <= FLASH_REL:
-            raise AssertionError(f"flash kernel disagrees with its plain version: {case}")
-        cases.append(case)
-        del q, k, v, kern
-        torch.cuda.empty_cache()
+    cases = [flash_case(torch, np, name=name, b=b, sq=s, sk=s, h=h, n_kv=n_kv, hd=hd,
+                        window=window, causal=True, by_group=by_group, iters=iters, seed=seed)
+             for name, b, s, h, n_kv, hd, window, by_group, iters in FLASH_CASES]
+    cases += [flash_case(torch, np, name=name, b=b, sq=sq, sk=sk, h=h, n_kv=n_kv, hd=hd,
+                         window=0, causal=False, by_group=False, iters=iters, seed=seed)
+              for name, b, sq, sk, h, n_kv, hd, iters in FLASH_NONCAUSAL_CASES]
     main = cases[0]  # the tinyllama serve arm's packed prefill: the launches' shape
     return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
             "replaces": FLASH_TPU, "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -1089,6 +1172,21 @@ def ssd_inputs(torch, *, b, s, h, p, n, dtype, seed, a=None, dt_range=None):
     return x.reshape(b, s, h, p), dt, A, bm, cm
 
 
+def ssd_f64(torch, x, dt, A, Bm, Cm):
+    """The SSD recurrence position by position in f64 (h <- exp(dt A) h +
+    dt x B^T, y = h C), which the chunked form equals exactly: -> (y,
+    final state)."""
+    b, s, h, p = x.shape
+    st = torch.zeros((b, h, p, Bm.shape[-1]), dtype=torch.float64, device=x.device)
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].double()
+        st = (torch.exp(dtt * A.double())[..., None, None] * st
+              + torch.einsum("bh,bhp,bn->bhpn", dtt, x[:, t].double(), Bm[:, t].double()))
+        ys.append(torch.einsum("bhpn,bn->bhp", st, Cm[:, t].double()))
+    return torch.stack(ys, 1), st
+
+
 def ssd_work(*, b, s, h, p, n, q, elem) -> tuple[float, float]:
     """(bytes, flops) of one scan: x, B, C, dt and A read once, y and the
     final state written once; the chunked form's operations, C B^T once
@@ -1099,10 +1197,13 @@ def ssd_work(*, b, s, h, p, n, q, elem) -> tuple[float, float]:
     return nbytes, flops
 
 
-# the scan at mamba2-130m's widths: (case, sequence length, timing iterations)
-SSD_CASES = [("the mamba arm's shortest prompts", 2048, 40),
-             ("mamba2-130m prefill, 8192 tokens", 8192, 20),
-             ("the mamba arm's largest prompt", 16000, 10)]
+# the scan at mamba2-130m's widths (24 heads of 64, state 128) and at
+# hymba-1.5b's (50 heads of 64, state 16): (case, sequence length, timing
+# iterations, heads, head dim, state)
+SSD_CASES = [("the mamba arm's shortest prompts", 2048, 40, 24, 64, 128),
+             ("mamba2-130m prefill, 8192 tokens", 8192, 20, 24, 64, 128),
+             ("the mamba arm's largest prompt", 16000, 10, 24, 64, 128),
+             ("hymba-1.5b prefill, 8192 tokens", 8192, 20, 50, 64, 16)]
 # the scan's CUDA launches, by the stage their kernel's name carries
 SSD_STAGES = ("chunk_state", "state_pass", "chunk_out")
 
@@ -1123,30 +1224,42 @@ def ssd_device_split(by_kernel: dict) -> dict:
 def check_ssd(torch, np, seed: int) -> dict:
     from repro_torch.kernels.ssd_scan import ops
 
-    h, p, n, q = 24, 64, 128, 256
+    q = 256
     # f32: the kernel's logic at S=1000 (three whole chunks and a ragged
     # tail): the reference test's dt, the model's dt, and A = -16, dt ~ 1,
-    # where the masked exponent differences reach +4,000 (exp overflows)
+    # where the masked exponent differences reach +4,000 (exp overflows);
+    # then the model's dt at hymba-1.5b's widths
     s_f32 = 1000
-    for name, kw in (("model's dt", {}), ("reference test's dt", dict(dt_range=(0.01, 0.2))),
-                     ("A=-16, dt~1", dict(a=16.0, dt_range=(0.9, 1.1)))):
+    for name, (h, p, n), kw in (
+            ("model's dt", (24, 64, 128), {}),
+            ("reference test's dt", (24, 64, 128), dict(dt_range=(0.01, 0.2))),
+            ("A=-16, dt~1", (24, 64, 128), dict(a=16.0, dt_range=(0.9, 1.1))),
+            ("hymba-1.5b widths, model's dt", (50, 64, 16), {})):
         args = ssd_inputs(torch, b=1, s=s_f32, h=h, p=p, n=n, dtype=torch.float32, seed=seed,
                           **kw)
         y, fin = ops.ssd(*args, chunk=q)
         ry, rfin = ops.ssd(*args, chunk=q, impl="ref")
+        y64, fin64 = ssd_f64(torch, *args)
         torch.cuda.synchronize()
         err, state_err = (y - ry).abs().max().item(), (fin - rfin).abs().max().item()
         y_max, state_max = ry.abs().max().item(), rfin.abs().max().item()
+        scaled = name in SSD_F32_SCALED
         case = {"phase": "kernels", "kernel": "ssd_scan", "dtype": "f32", "inputs": name,
                 "shape": [1, s_f32, h, p, n, q], "max_abs_err": err,
                 "state_max_abs_err": state_err, "y_max_abs": y_max, "state_max_abs": state_max,
-                "atol": SSD_F32_ATOL,
+                "kernel_vs_f64": (y.double() - y64).abs().max().item(),
+                "plain_vs_f64": (ry.double() - y64).abs().max().item(),
+                "state_kernel_vs_f64": (fin.double() - fin64).abs().max().item(),
+                "state_plain_vs_f64": (rfin.double() - fin64).abs().max().item(),
+                "atol": SSD_F32_ATOL, "atol_scaled_by_max_abs": scaled,
                 "finite": bool(torch.isfinite(y).all() and torch.isfinite(fin).all())}
         emit(case)
-        if not case["finite"] or not max(err, state_err) <= SSD_F32_ATOL:
+        y_tol = SSD_F32_ATOL * (max(1.0, y_max) if scaled else 1.0)
+        state_tol = SSD_F32_ATOL * (max(1.0, state_max) if scaled else 1.0)
+        if not case["finite"] or not (err <= y_tol and state_err <= state_tol):
             raise AssertionError(f"SSD kernel disagrees with its plain version: {case}")
     cases = []
-    for name, s_len, iters in SSD_CASES:
+    for name, s_len, iters, h, p, n in SSD_CASES:
         args = ssd_inputs(torch, b=1, s=s_len, h=h, p=p, n=n, dtype=torch.bfloat16, seed=seed)
         y, fin = ops.ssd(*args, chunk=q)
         ry, rfin = ops.ssd(*args, chunk=q, impl="ref")
@@ -1181,7 +1294,7 @@ def check_ssd(torch, np, seed: int) -> dict:
         cases.append(case)
         del args, kern, plain
         torch.cuda.empty_cache()
-    main = next(c for c in cases if c["shape"][1] == 8192)
+    main = cases[1]  # the mamba arm's 8,192-token prefill
     return {"name": "ssd_scan", "route": "cuda", "source": SSD_SRC, "replaces": SSD_TPU,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
@@ -1375,6 +1488,14 @@ def kernel_counters() -> dict:
             "histogram": histogram_kernel}
 
 
+def zero_counters() -> dict:
+    """Every kernel wrapper of the port, its launch count set to 0."""
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    return counters
+
+
 def short_requests(np, cfg, *, n_req: int, seed: int) -> list:
     """The tinyllama arm's traffic: prompts of 64..1024 tokens, half behind
     a shared 256-token prefix, 64 new tokens each."""
@@ -1508,9 +1629,7 @@ def serve_arm(torch, np, model, params, *, kv, reqs: list, arm: str, max_batch: 
     engine.step = timed_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = kernel_counters()
-    for k in counters.values():
-        k.launches = 0
+    counters = zero_counters()
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
@@ -1685,7 +1804,22 @@ def profile_window(torch, run_ticks, ticks: int) -> dict:
 # -- phase 6b: traffic scenarios through the serving example -----------------
 
 SCENARIO = "bursty-prefix"
+# phase 6b replays `SCENARIO` cut to its first 40 arrival ticks (68 of its
+# 145 requests, the three tenants and the rag surge kept), twice (traced,
+# untraced): the whole 56-tick scenario took ~12 s a replay on the card
+SCENARIO_HORIZON = 40
 FIFO_SCENARIO = "single-fifo"
+
+
+def cut_scenario(horizon: int) -> str:
+    """Register `SCENARIO` cut to its first ``horizon`` arrival ticks in the
+    port's scenario table, under its own name, and return the name."""
+    from repro_torch.serve import traffic
+
+    name = f"{SCENARIO}-{horizon}"
+    traffic.SCENARIOS[name] = lambda: dataclasses.replace(
+        traffic.scenario(SCENARIO), name=name, horizon=horizon)
+    return name
 
 
 class DequeShim:
@@ -1757,9 +1891,10 @@ def tracer_emit_ms(events, repeats: int = 21) -> float:
 
 
 def scenario_replay(torch, model, params, *, trace: str | None) -> dict:
-    """One replay of `SCENARIO` through `examples.serve_lm.serve` (the
-    paged engine under the multi-tenant scheduler, the example's
-    settings), with every kernel count set to 0 just before and read just
+    """One replay of `SCENARIO` cut to `SCENARIO_HORIZON` arrival ticks
+    through `examples.serve_lm.serve` (the paged engine under the
+    multi-tenant scheduler, the example's settings), with every kernel
+    count set to 0 just before and read just
     after. A per-tick hook hashes each decode tick's logits on the host
     (so no logits are held) and its host time is left out of the run's
     time; prefill calls are counted through the model."""
@@ -1791,7 +1926,8 @@ def scenario_replay(torch, model, params, *, trace: str | None) -> dict:
     for k in counters.values():
         k.launches = 0
     out = serve_lm.serve(dataclasses.replace(model, prefill=counted_prefill), params,
-                         scenario_name=SCENARIO, paged=True, trace=trace, on_tick=on_tick)
+                         scenario_name=cut_scenario(SCENARIO_HORIZON), paged=True, trace=trace,
+                         on_tick=on_tick)
     launches = {name: k.launches for name, k in counters.items()}
     eng = out["engine"]
     wall = out["seconds"] - hook_s
@@ -1837,7 +1973,8 @@ def scenario_phase(torch, np, model, params, smi: str) -> dict:
     snap = on["ledger"]
     n = on["launches"]
     emit_ms = tracer_emit_ms(list(tr["tracer"].events))
-    line = {"phase": "scenario", "run": "traced", "scenario": SCENARIO, "model": cfg.name,
+    line = {"phase": "scenario", "run": "traced", "scenario": SCENARIO,
+            "horizon": SCENARIO_HORIZON, "model": cfg.name,
             "nvidia_smi": smi, "requests": requests, "accepted": accepted,
             "ticks": eng.tick, "decode_ticks": on["decode_ticks"],
             "prefill_calls": on["prefill_calls"], "cold_admissions": eng.stats["prefills"],
@@ -2341,8 +2478,7 @@ def spec_scenario_run(torch, model, params, draft) -> dict:
     from repro_torch.examples import serve_lm
     from repro_torch.serve import traffic
 
-    traffic.SCENARIOS[SPEC_SCENARIO] = lambda: dataclasses.replace(
-        traffic.scenario(SCENARIO), name=SPEC_SCENARIO, horizon=SPEC_SCENARIO_HORIZON)
+    cut_scenario(SPEC_SCENARIO_HORIZON)
     calls = {"target": 0, "draft": 0}
 
     def counted(m, who):
@@ -2457,7 +2593,7 @@ def spec_phase(torch, np, model, params, smi: str, seed: int) -> dict:
     the example's requests (their streams reported, not checked: bf16);
     the first ticks of `bursty-prefix` with the noised draft through the
     multi-tenant scheduler (`spec_scenario_run`); a window of spec ticks at
-    a fixed load for each draft, the pair's profiled. Returns the launches
+    a fixed load for the pair, profiled. Returns the launches
     of the reference pair's run, the user's ``serve_lm --spec --paged``."""
     from repro_torch.configs import get
     from repro_torch.models.model_zoo import build
@@ -2485,8 +2621,7 @@ def spec_phase(torch, np, model, params, smi: str, seed: int) -> dict:
     spec_scenario_run(torch, model, params, noised)
     part_s["bursty_prefix_run"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    windows = [spec_window(torch, np, model, params, pair, seed=seed + 9, profile=True),
-               spec_window(torch, np, model, params, noised, seed=seed + 9, profile=False)]
+    windows = [spec_window(torch, np, model, params, pair, seed=seed + 9, profile=True)]
     part_s["windows"] = time.perf_counter() - t0
     emit({"phase": "spec", "run": "phase seconds", **part_s})
     main_run = runs["spec legacy, qwen1.5-0.5b draft"]
@@ -3012,8 +3147,9 @@ def mamba_requests(np, cfg, *, n_req: int, seed: int) -> list:
                     max_new_tokens=64) for i in range(n_req)]
 
 
-def mamba_arm(torch, np, model, params, *, reqs: list, max_batch: int = 8,
-              max_len: int = 16384) -> dict:
+def aligned_arm(torch, np, model, params, *, reqs: list, arm: str = "mamba",
+                max_batch: int = 8, max_len: int = 16384,
+                budget: float = MAMBA_LOGIT_BUDGET, relative: bool = False) -> dict:
     """Drain ``reqs`` through `make_engine` in aligned mode over the dense
     store, with every kernel count set to 0 just before and read just
     after. Times each prefill call and each tick on the host clock, ended
@@ -3021,7 +3157,13 @@ def mamba_arm(torch, np, model, params, *, reqs: list, max_batch: int = 8,
     the run, holds the first prefill call's last-position logits, and the
     first decode tick's logits of slot 0 (whose cache that prefill made),
     against the plain route: request 0 prefilled with ``impl="ref"``,
-    then one decode step on that cache with the run's token."""
+    migrated into a one-slot cache at the run's shared cursor, then one
+    decode step on it with the run's token. ``budget``: absolute, or a
+    fraction of the plain logits' largest magnitude with ``relative``.
+    Launches exact: the SSD scan in every SSM layer and flash in every
+    attention layer of each prefill call, no paged decode, the argmax
+    once per admission and tick."""
+    from repro_torch.core.operators import migrate_cache_into_slot
     from repro_torch.serve import EngineConfig, make_engine
 
     cfg = model.cfg
@@ -3039,9 +3181,10 @@ def mamba_arm(torch, np, model, params, *, reqs: list, max_batch: int = 8,
         return out
 
     def decode(params_, cache, token):
+        pos = cache["pos"].clone()
         out = model.decode_step(params_, cache, token)
         if not first_decode:
-            first_decode.update(token=token[:1].clone(), logits=out[0][:1, -1].clone())
+            first_decode.update(token=token[:1].clone(), logits=out[0][:1, -1].clone(), pos=pos)
         return out
 
     engine = make_engine(dataclasses.replace(model, prefill=timed_prefill, decode_step=decode),
@@ -3069,9 +3212,7 @@ def mamba_arm(torch, np, model, params, *, reqs: list, max_batch: int = 8,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start_gib = torch.cuda.memory_allocated() / 2**30  # weights and the slot cache
-    counters = kernel_counters()
-    for k in counters.values():
-        k.launches = 0
+    counters = zero_counters()
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
@@ -3080,16 +3221,19 @@ def mamba_arm(torch, np, model, params, *, reqs: list, max_batch: int = 8,
     launches = {name: k.launches for name, k in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    # the plain route for request 0: prefill, then slot 0's first decode step
+    # the plain route for request 0: prefill, then slot 0's first decode
+    # step at the run's shared cursor
     torch.cuda.synchronize()
     ts = time.perf_counter()
-    ref_logits, ref_cache = model.prefill(params, first_prefill["tokens"], impl="ref")
+    ref_logits, ref_cache1 = model.prefill(params, first_prefill["tokens"], impl="ref")
     torch.cuda.synchronize()
     ref_ms = (time.perf_counter() - ts) * 1e3
+    ref_cache = migrate_cache_into_slot(model.init_cache(1, max_len), ref_cache1, 0)
+    ref_cache["pos"] = first_decode["pos"]
     ref_dec, _ = model.decode_step(params, ref_cache, first_decode["token"])
     torch.cuda.synchronize()
-    if counters["ssd_scan"].launches != launches["ssd_scan"]:
-        raise AssertionError("the plain prefill route launched the SSD kernel")
+    if any(k.launches != launches[name] for name, k in counters.items()):
+        raise AssertionError("the plain prefill route launched a kernel")
     got_p, want_p = first_prefill["logits"].float(), ref_logits[:, -1].float()
     got_d, want_d = first_decode["logits"].float(), ref_dec[:, -1].float()
     check = {
@@ -3097,16 +3241,16 @@ def mamba_arm(torch, np, model, params, *, reqs: list, max_batch: int = 8,
         "prefill_logit_ref_max_abs": want_p.abs().max().item(),
         "decode_logit_max_abs_err": (got_d - want_d).abs().max().item(),
         "decode_logit_ref_max_abs": want_d.abs().max().item(),
-        "logit_budget": MAMBA_LOGIT_BUDGET,
+        "logit_budget": budget, "budget_relative_to_max_logit": relative,
         "first_prefill_plain_route_ms": ref_ms,
         "greedy_agree": [bool(got_p.argmax(-1).eq(want_p.argmax(-1)).all()),
                          bool(got_d.argmax(-1).eq(want_d.argmax(-1)).all())],
     }
-    del ref_cache, first_prefill["tokens"]
+    del ref_cache, ref_cache1, first_prefill["tokens"]
 
     done = {r.uid: len(r.out_tokens) for r in engine.finished}
     prompt_tokens = int(sum(r.prompt.shape[0] for r in reqs))
-    out = {"phase": "serve", "arm": "mamba", "model": cfg.name, "mode": "aligned",
+    out = {"phase": "serve", "arm": arm, "model": cfg.name, "mode": "aligned",
            "requests": len(reqs), "prompt_tokens": prompt_tokens,
            "prompt_lens": [int(r.prompt.shape[0]) for r in reqs],
            "prompts_multiple_of_chunk": sum(int(r.prompt.shape[0]) % cfg.ssm_chunk == 0
@@ -3117,7 +3261,8 @@ def mamba_arm(torch, np, model, params, *, reqs: list, max_batch: int = 8,
            "prefill_ms": prefill_ms,
            "prefill_tokens_per_s": prompt_tokens / (sum(prefill_ms) / 1e3),
            "ttft_s": [ttft_s.get(r.uid) for r in reqs],
-           "ssd_launches": launches["ssd_scan"], "argmax_launches": launches["argmax_last"],
+           "ssd_launches": launches["ssd_scan"], "flash_launches": launches["flash_attention"],
+           "argmax_launches": launches["argmax_last"],
            "launches": launches, "wall_s": wall,
            "tokens_per_s": engine.stats["tokens_out"] / wall,
            "median_decode_tick_ms": float(np.median(decode_only_ms)) if decode_only_ms
@@ -3125,20 +3270,21 @@ def mamba_arm(torch, np, model, params, *, reqs: list, max_batch: int = 8,
            "peak_mem_gib": peak_gib, "mem_at_start_gib": start_gib, **check}
     emit(out)
     if len(done) != len(reqs) or any(done[r.uid] != r.max_new_tokens for r in reqs):
-        raise AssertionError(f"mamba: not every request finished with its tokens: {done}")
-    if launches["ssd_scan"] != cfg.n_layers * len(prefill_ms) or not prefill_ms:
-        raise AssertionError(f"mamba: SSD kernel ran {launches['ssd_scan']} times, want "
-                             f"{cfg.n_layers} x {len(prefill_ms)} prefill calls")
-    if launches["argmax_last"] < decode_ticks + engine.stats["prefills"]:
-        raise AssertionError(f"mamba: argmax kernel ran {launches['argmax_last']} times, want "
-                             f">= {decode_ticks} ticks + {engine.stats['prefills']} admissions")
-    if launches["paged_decode_attention"] or launches["flash_attention"]:
-        raise AssertionError(f"mamba: an attention kernel ran in an SSM model: {launches}")
-    if not max(check["prefill_logit_max_abs_err"],
-               check["decode_logit_max_abs_err"]) <= MAMBA_LOGIT_BUDGET:
-        raise AssertionError(f"mamba: logits off the plain route: {check}")
+        raise AssertionError(f"{arm}: not every request finished with its tokens: {done}")
+    calls = len(prefill_ms)
+    want = {"ssd_scan": cfg.n_layers * calls if cfg.family == "ssm" or cfg.hybrid else 0,
+            "flash_attention": cfg.n_layers * calls if cfg.family != "ssm" else 0,
+            "paged_decode_attention": 0,
+            "argmax_last": decode_ticks + engine.stats["prefills"]}
+    if not calls or any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{arm}: launches {launches}, want {want} ({calls} prefill calls, "
+                             f"{decode_ticks} ticks, {engine.stats['prefills']} admissions)")
+    for part in ("prefill", "decode"):
+        scale = check[f"{part}_logit_ref_max_abs"] if relative else 1.0
+        if not check[f"{part}_logit_max_abs_err"] <= budget * scale:
+            raise AssertionError(f"{arm}: {part} logits off the plain route: {check}")
     if engine.last_logits is None or not bool(torch.isfinite(engine.last_logits).all()):
-        raise AssertionError("mamba: non-finite logits")
+        raise AssertionError(f"{arm}: non-finite logits")
     return out
 
 
@@ -3406,6 +3552,386 @@ def moe_phase(torch, np, seed: int, smi: str) -> dict:
     emit({"phase": "moe", "run": "phase seconds", **part_s, "nvidia_smi": smi})
     return {"lines": lines, "launches": lines["b"]["launches"],
             "launches_by_arm": {k: v["launches"] for k, v in lines.items()}}
+
+
+# -- phase 7c: the last model families (pixtral-12b, hymba-1.5b, whisper-small) ---
+
+# bf16 arms: the first calls, kernel route vs the plain route
+# (`impl="ref"`), within 1/16 of the plain logits' largest magnitude:
+# phase 6's qwen2.5-3b prefill budget (0.25 on logits reaching ~4 over 36
+# layers) as a fraction of the largest logit, for pixtral-12b's 40 layers,
+# hymba-1.5b's 32 (its SSD scan beside flash in every layer) and
+# whisper-small's 12 + 12 (flash in the encoder and in both decoder
+# attentions). The plain route rounds scores and probabilities to bf16
+# where the kernels keep f32; a wrong mask, head or chunk moves logits by
+# O(1) of their largest magnitude.
+FAMILY_BF16_REL = 2.0 ** -4
+# (d) f32, TF32 off: the first prefill call's logits and the first decode
+# tick's within 1e-4 of their largest magnitude of the plain route's (phase
+# 7b (a)'s f32 prefill budget: another summation order in attention and
+# in the scan, through a whole model); the greedy streams of
+# `FAMILY_F32_TICKS` ticks equal under the margin rule (`SPEC_MARGIN`).
+# The caches are f32 too: with the models' default bf16 caches (K/V, the
+# conv window, whisper's cross-attention cache) an f32 value that differs
+# by ~1e-6 between the routes now and then rounds to another bf16 value,
+# 2^-8 of it apart, and hymba-1.5b's first tick then moved 3.1e-4 of the
+# largest logit over 32 layers (measured on the card, NVIDIA H100 80GB
+# HBM3, 700.00 W; its prefill logits: 1.1e-5). The served bf16 caches are
+# arms (a)-(c)'s, at their bf16 budget.
+FAMILY_F32_REL = 1e-4
+FAMILY_F32_TICKS = 16
+# (a) pixtral-12b: image prompts (256 patch embeddings before 768-2,048
+# text tokens) through `model.prefill(patches=)` and aligned decode ticks;
+# then text requests through the continuous paged engine
+PIXTRAL_IMAGES = dict(n_req=4, lo=768, hi=2048, ticks=32)
+PIXTRAL_TEXT = dict(n_req=8, lo=64, hi=2048, new_tokens=32, max_len=2080)
+# (b) hymba-1.5b through `make_engine` in aligned mode: 16 prompts of
+# 500-8,000 tokens (all but the shortest past the 1,024-token window), 64
+# new tokens each, 8 slots; two waves of 64 ticks keep the shared cursor
+# under 8,000 + 128
+HYMBA_ARM = dict(n_req=16, lo=500, hi=8000, new_tokens=64, max_batch=8, max_len=8192)
+# (c) whisper-small: 8 requests of 1,500 frames (30 s of audio at the
+# stub's frame rate), a 16-token prompt, 128 new tokens (16 + 128 within
+# the decoder's 448-token horizon)
+WHISPER_ARM = dict(batch=8, frames=1500, prompt=16, new_tokens=128)
+# (d): pixtral-12b at 2 of its 40 layers (the f32 embedding and head alone
+# are 5.4 GB), hymba-1.5b and whisper-small whole; 2 requests each
+FAMILY_F32 = {"pixtral-12b": dict(layers=2, text=1000),
+              "hymba-1.5b": dict(layers=None, text=3000),
+              "whisper-small": dict(layers=None, text=16)}
+
+
+def frontend_input(torch, cfg, batch: int, seed: int, n: int | None = None):
+    """(B, n, d) f32 frontend embeddings N(0, 0.02^2) on the card (n: the
+    config's frontend tokens unless given)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((batch, n or cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+                       device="cuda") * 0.02
+
+
+def family_model(torch, name: str, seed: int, *, layers: int | None = None, dtype=None):
+    """The full config of ``name`` (depth cut to ``layers`` if given),
+    built on the card with random weights from ``seed``."""
+    from repro_torch.configs import get
+    from repro_torch.models.model_zoo import build
+
+    cfg = get(name)
+    cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, dtype=dtype or cfg.dtype)
+    model = build(cfg)
+    return model, model.init(seed)
+
+
+def family_launches(cfg) -> dict:
+    """Flash and SSD launches of one prefill call of ``cfg``'s model."""
+    attn = cfg.encoder_layers + 2 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
+    return {"flash_attention": attn, "ssd_scan": cfg.n_layers if cfg.hybrid else 0}
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, max |want|) of two logit tensors."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item(), want.abs().max().item()
+
+
+def pixtral_images(torch, np, model, params, *, seed: int, n_req: int, lo: int, hi: int,
+                   ticks: int) -> dict:
+    """Image prompts through `model.prefill(patches=)`, one call each,
+    migrated into an aligned cache of ``n_req`` slots as the aligned engine
+    migrates a prompt (`migrate_cache_into_slot`: the shared cursor at the
+    longest), each first token and every tick's tokens from the argmax
+    kernel, ``ticks`` `decode_step` ticks; every kernel count set to 0
+    just before and read just after. Then the same prompts on the plain
+    route into a second aligned cache and one decode tick on it with the
+    run's first tokens: the first call's logits and the first tick's
+    against them (`FAMILY_BF16_REL`)."""
+    from repro_torch.core.operators import migrate_cache_into_slot
+    from repro_torch.kernels.sample import sample_last
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.integers(lo, hi + 1, n_req)]
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)), device="cuda")
+               for n in lens]
+    patches = [frontend_input(torch, cfg, 1, seed + i) for i in range(n_req)]
+    max_len = max(lens) + cfg.n_frontend_tokens + ticks
+
+    def prefill_all(impl, times: list | None = None):
+        cache, logits = model.init_cache(n_req, max_len), []
+        for i, (toks, p) in enumerate(zip(prompts, patches)):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out, cache1 = model.prefill(params, toks, patches=p, impl=impl)
+            torch.cuda.synchronize()
+            if times is not None:
+                times.append((time.perf_counter() - ts) * 1e3)
+            migrate_cache_into_slot(cache, cache1, i)
+            logits.append(out)
+        return cache, torch.cat(logits)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    prefill_ms, tick_ms = [], []
+    cache, first_logits = prefill_all(None, prefill_ms)
+    tokens = torch.stack([sample_last(first_logits[i:i + 1])[0] for i in range(n_req)])[:, None]
+    first_tokens, first_tick = tokens.clone(), None
+    for _ in range(ticks):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, tokens)
+        tokens = sample_last(logits)[:, None]
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - ts) * 1e3)
+        if first_tick is None:
+            first_tick = logits[:, -1].clone()
+    launches = {name: k.launches for name, k in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(logits).all())
+    del cache
+
+    ts = time.perf_counter()
+    ref_cache, ref_logits = prefill_all("ref")
+    ref_tick, _ = model.decode_step(params, ref_cache, first_tokens)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - ts
+    if any(k.launches != launches[name] for name, k in counters.items()):
+        raise AssertionError("pixtral images: the plain route launched a kernel")
+    del ref_cache
+    p_err, p_max = rel_err(first_logits[:, -1], ref_logits[:, -1])
+    d_err, d_max = rel_err(first_tick, ref_tick[:, -1])
+    tokens_in = sum(lens) + n_req * cfg.n_frontend_tokens
+    out = {"phase": "families", "run": "(a) pixtral-12b image prompts", "model": cfg.name,
+           "dtype": "bf16", "requests": n_req, "text_tokens": lens,
+           "patches": cfg.n_frontend_tokens, "prefill_calls": n_req, "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": tokens_in / (sum(prefill_ms) / 1e3),
+           "decode_ticks": ticks, "median_decode_tick_ms": float(np.median(tick_ms)),
+           "tokens_per_s": n_req * ticks / (sum(tick_ms) / 1e3), "peak_mem_gib": peak_gib,
+           "launches": launches, "prefill_logit_max_abs_err": p_err,
+           "prefill_logit_ref_max_abs": p_max, "decode_logit_max_abs_err": d_err,
+           "decode_logit_ref_max_abs": d_max, "logit_budget": FAMILY_BF16_REL,
+           "budget_relative_to_max_logit": True, "plain_route_check_s": plain_s}
+    emit(out)
+    want = {"flash_attention": cfg.n_layers * n_req, "argmax_last": n_req + ticks,
+            "paged_decode_attention": 0, "ssd_scan": 0}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"pixtral images: launches {launches}, want {want}")
+    if not finite or not p_err <= FAMILY_BF16_REL * p_max or not d_err <= FAMILY_BF16_REL * d_max:
+        raise AssertionError(f"pixtral images: logits off the plain route: {out}")
+    return out
+
+
+def whisper_arm(torch, np, model, params, *, seed: int, batch: int, frames: int, prompt: int,
+                new_tokens: int) -> dict:
+    """``batch`` requests of ``frames`` frame embeddings and a ``prompt``-token
+    prompt through `model.prefill(frames=)` (one call: the encoder, the
+    cross-attention cache, the teacher-forced decoder) and ``new_tokens``
+    - 1 `decode_step` ticks, every token from the argmax kernel; every
+    kernel count set to 0 just before and read just after. Then the plain
+    route's prefill and one decode tick on its cache with the run's first
+    tokens: the first call's and the first tick's logits against them."""
+    from repro_torch.kernels.sample import sample_last
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt)), device="cuda")
+    mem = frontend_input(torch, cfg, batch, seed, n=frames)
+    max_len = prompt + new_tokens - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    ts = time.perf_counter()
+    logits, cache = model.prefill(params, toks, model.init_cache(batch, max_len, frames),
+                                  frames=mem)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - ts) * 1e3
+    first_logits = logits[:, -1].clone()
+    tokens = sample_last(logits)[:, None]
+    first_tokens, first_tick, tick_ms = tokens.clone(), None, []
+    for _ in range(new_tokens - 1):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, tokens)
+        tokens = sample_last(logits)[:, None]
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - ts) * 1e3)
+        if first_tick is None:
+            first_tick = logits[:, -1].clone()
+    launches = {name: k.launches for name, k in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(logits).all())
+    pos = int(cache["pos"])
+    del cache
+
+    ref_logits, ref_cache = model.prefill(params, toks, model.init_cache(batch, max_len, frames),
+                                          frames=mem, impl="ref")
+    ref_tick, _ = model.decode_step(params, ref_cache, first_tokens)
+    torch.cuda.synchronize()
+    if any(k.launches != launches[name] for name, k in counters.items()):
+        raise AssertionError("whisper: the plain route launched a kernel")
+    del ref_cache
+    p_err, p_max = rel_err(first_logits, ref_logits[:, -1])
+    d_err, d_max = rel_err(first_tick, ref_tick[:, -1])
+    out = {"phase": "families", "run": "(c) whisper-small", "model": cfg.name, "dtype": "bf16",
+           "requests": batch, "frames": frames, "prompt_tokens": prompt,
+           "new_tokens": new_tokens, "prefill_calls": 1, "prefill_ms": [prefill_ms],
+           "prefill_tokens_per_s": batch * (frames + prompt) / (prefill_ms / 1e3),
+           "prefill_tokens_counted": "frames + prompt tokens",
+           "decode_ticks": len(tick_ms), "median_decode_tick_ms": float(np.median(tick_ms)),
+           "tokens_per_s": batch * len(tick_ms) / (sum(tick_ms) / 1e3),
+           "peak_mem_gib": peak_gib, "final_pos": pos, "launches": launches,
+           "prefill_logit_max_abs_err": p_err, "prefill_logit_ref_max_abs": p_max,
+           "decode_logit_max_abs_err": d_err, "decode_logit_ref_max_abs": d_max,
+           "logit_budget": FAMILY_BF16_REL, "budget_relative_to_max_logit": True}
+    emit(out)
+    want = {**family_launches(cfg), "argmax_last": 1 + len(tick_ms), "paged_decode_attention": 0}
+    if any(launches[k] != n for k, n in want.items()) or pos != max_len:
+        raise AssertionError(f"whisper: launches {launches}, want {want}; pos {pos}")
+    if not finite or not p_err <= FAMILY_BF16_REL * p_max or not d_err <= FAMILY_BF16_REL * d_max:
+        raise AssertionError(f"whisper: logits off the plain route: {out}")
+    return out
+
+
+def f32_cache(torch, model, batch: int, max_len: int) -> dict:
+    """A zeroed cache of ``model`` on its device with every leaf in f32."""
+    from repro_torch.models import encdec, transformer
+
+    cfg = model.cfg
+    if cfg.family == "encdec":
+        return encdec.init_encdec_cache(cfg, batch, max_len, cfg.n_frontend_tokens,
+                                        torch.float32, model.device)
+    return transformer.init_cache(cfg, batch, max_len, torch.float32, model.device)
+
+
+def greedy_f32(torch, model, params, toks, inputs: dict, max_len: int, impl, ticks: int):
+    """One prefill on route ``impl`` into an f32 cache and ``ticks`` greedy
+    decode ticks -> (logits (B, ticks + 1, V): the prefill's last
+    position, then each tick's; the prefill's flash and SSD launches)."""
+    counters = zero_counters()
+    logits, cache = model.prefill(params, toks, f32_cache(torch, model, toks.shape[0], max_len),
+                                  impl=impl, **inputs)
+    launches = {k: counters[k].launches for k in ("flash_attention", "ssd_scan")}
+    out = [logits[:, -1]]
+    for _ in range(ticks):
+        logits, cache = model.decode_step(params, cache, out[-1].argmax(-1)[:, None])
+        out.append(logits[:, -1])
+    return torch.stack(out, 1).float(), launches
+
+
+def family_f32_check(torch, np, name: str, seed: int, *, layers, text: int) -> dict:
+    """(d): ``name`` in f32 (TF32 off, f32 caches) at full width, 2
+    requests: the first prefill call on the kernel route against the
+    plain route, the first decode tick likewise (each within `FAMILY_F32_REL` of the plain
+    logits' largest magnitude), and `FAMILY_F32_TICKS` greedy tokens of
+    each route held under the margin rule; the kernel route launches flash
+    in every attention layer (and hymba's SSD scan in every layer), the
+    plain route nothing."""
+    model, params = family_model(torch, name, seed, layers=layers, dtype=torch.float32)
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, text)), device="cuda")
+    inputs, max_len = {}, text + FAMILY_F32_TICKS
+    if cfg.frontend == "vision":
+        inputs["patches"] = frontend_input(torch, cfg, 2, seed)
+        max_len += cfg.n_frontend_tokens
+    elif cfg.frontend == "audio":
+        inputs["frames"] = frontend_input(torch, cfg, 2, seed)
+    got, launched = greedy_f32(torch, model, params, toks, inputs, max_len, None,
+                               FAMILY_F32_TICKS)
+    want, plain_launched = greedy_f32(torch, model, params, toks, inputs, max_len, "ref",
+                                      FAMILY_F32_TICKS)
+    streams = {r: got[r].argmax(-1).tolist() for r in range(2)}
+    base = {"streams": {r: want[r].argmax(-1).tolist() for r in range(2)},
+            "margins": {r: dict(enumerate(top2_margins(torch, want[r]))) for r in range(2)}}
+    cut = margin_rule(streams, base)
+    p_err, p_max = rel_err(got[:, 0], want[:, 0])
+    same_first = streams[0][0] == base["streams"][0][0] and streams[1][0] == base["streams"][1][0]
+    d_err, d_max = rel_err(got[:, 1], want[:, 1]) if same_first else (None, None)
+    out = {"phase": "families", "run": f"(d) f32 {name}", "model": cfg.name, "dtype": "f32",
+           "layers": cfg.n_layers, "requests": 2, "text_tokens": text,
+           "frontend_tokens": cfg.n_frontend_tokens if cfg.frontend else 0,
+           "prefill_logit_max_abs_err": p_err, "prefill_logit_ref_max_abs": p_max,
+           "decode_logit_max_abs_err": d_err, "decode_logit_ref_max_abs": d_max,
+           "logit_budget": FAMILY_F32_REL, "budget_relative_to_max_logit": True,
+           "streams_equal": streams == base["streams"], "cut_by_margin_rule": cut,
+           "min_plain_margin": min(min(m.values()) for m in base["margins"].values()),
+           "kernel_route_launches": launched, "plain_route_launches": plain_launched}
+    emit(out)
+    if launched != family_launches(cfg) or any(plain_launched.values()):
+        raise AssertionError(f"f32 {name}: launches {launched} (plain {plain_launched}), "
+                             f"want {family_launches(cfg)}")
+    if not p_err <= FAMILY_F32_REL * p_max or (same_first and not d_err <= FAMILY_F32_REL * d_max):
+        raise AssertionError(f"f32 {name}: logits off the plain route: {out}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"f32 {name}: non-finite logits")
+    return out
+
+
+def families_phase(torch, np, seed: int, smi: str) -> dict:
+    """Phase 7c: pixtral-12b, hymba-1.5b and whisper-small at full width and
+    depth, random weights from ``seed``, one model at a time, freed before
+    the next. (a) pixtral bf16: image prompts (`pixtral_images`), then
+    text requests through `make_engine` in continuous mode (paged store of
+    16-token blocks, prefix cache; `serve_arm`); (b) hymba bf16 through
+    `make_engine` in aligned mode (`aligned_arm`); (c) whisper bf16
+    (`whisper_arm`); (d) the f32 checks (`family_f32_check`)."""
+    from repro_torch.serve import KVSpec, Request
+
+    lines, launches, part_s = {}, {}, {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model, params = family_model(torch, "pixtral-12b", seed)
+    images = pixtral_images(torch, np, model, params, seed=seed + 30, **PIXTRAL_IMAGES)
+    txt = PIXTRAL_TEXT
+    rng = np.random.default_rng(seed + 31)
+    reqs = [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab_size, int(n)).astype(np.int32),
+                    max_new_tokens=txt["new_tokens"])
+            for i, n in enumerate(rng.integers(txt["lo"], txt["hi"] + 1, txt["n_req"]))]
+    text = serve_arm(torch, np, model, params, arm="families (a) pixtral-12b text", reqs=reqs,
+                     max_batch=txt["n_req"], max_len=txt["max_len"],
+                     budget=(FAMILY_BF16_REL, FAMILY_BF16_REL),
+                     kv=KVSpec(kind="paged", block_size=16, prefix_cache=True))
+    lines["a"] = {"images": images, "text": text}
+    launches["a"] = {k: images["launches"][k] + text["launches"][k] for k in text["launches"]}
+    del model, params
+    free()
+    part_s["a"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model, params = family_model(torch, "hymba-1.5b", seed)
+    hy = HYMBA_ARM
+    rng = np.random.default_rng(seed + 32)
+    reqs = [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab_size, int(n)).astype(np.int32),
+                    max_new_tokens=hy["new_tokens"])
+            for i, n in enumerate(rng.integers(hy["lo"], hy["hi"] + 1, hy["n_req"]))]
+    lines["b"] = aligned_arm(torch, np, model, params, reqs=reqs, arm="families (b) hymba-1.5b",
+                             max_batch=hy["max_batch"], max_len=hy["max_len"],
+                             budget=FAMILY_BF16_REL, relative=True)
+    launches["b"] = lines["b"]["launches"]
+    del model, params
+    free()
+    part_s["b"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model, params = family_model(torch, "whisper-small", seed)
+    lines["c"] = whisper_arm(torch, np, model, params, seed=seed + 33, **WHISPER_ARM)
+    launches["c"] = lines["c"]["launches"]
+    del model, params
+    free()
+    part_s["c"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    lines["d"] = {}
+    for i, (name, kw) in enumerate(FAMILY_F32.items()):
+        lines["d"][name] = family_f32_check(torch, np, name, seed + 34 + i, **kw)
+        free()
+    part_s["d"] = time.perf_counter() - t0
+    emit({"phase": "families", "run": "phase seconds", **part_s, "nvidia_smi": smi})
+    return {"lines": lines, "launches_by_arm": launches,
+            "launches": {k: sum(arm[k] for arm in launches.values()) for k in launches["a"]}}
 
 
 # -- phase 8: training, in every step mode, with checkpoints ------------------------
@@ -4790,7 +5316,7 @@ def main(argv=None) -> int:
     mcfg = get("mamba2-130m")
     mmodel = build(mcfg)
     mparams = mmodel.init(args.seed)
-    mamba = mamba_arm(torch, np, mmodel, mparams,
+    mamba = aligned_arm(torch, np, mmodel, mparams,
                       reqs=mamba_requests(np, mcfg, n_req=16, seed=args.seed + 4))
     profile_prefill(torch, np, mmodel, mparams, seed=args.seed + 5)
     profile_decode(torch, np, mmodel, mparams, seed=args.seed + 6, mode="aligned")
@@ -4801,6 +5327,13 @@ def main(argv=None) -> int:
     # phase 7b: the MoE family at full width and cut depth, continuous mode
     CLOCK.start("moe")
     moe_lines = moe_phase(torch, np, args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 7c: the last model families (VLM, hybrid, encoder-decoder) at
+    # full width and depth
+    CLOCK.start("families")
+    families = families_phase(torch, np, args.seed, smi)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4826,7 +5359,8 @@ def main(argv=None) -> int:
     # argmax and flash, the scenario phase's traced replay and the spec
     # phase's run with the qwen1.5-0.5b draft and phase 6d's adaptive fleet
     # under faults (launches_disagg) beside it, and phase 7b's bf16
-    # mixtral-8x7b arm (launches_moe; every MoE arm's by arm); the
+    # mixtral-8x7b arm (launches_moe; every MoE arm's by arm), and phase 7c's
+    # arms (a)-(c) summed (launches_families; each arm's by arm); the
     # mamba arm for the SSD scan; the train phase's decoupled run, summed
     # over its four ranks, for chunk_accumulate, every train run's counts
     # beside it (launches_train_by_run, the adaptive run's too); the MapReduce
@@ -4863,6 +5397,9 @@ def main(argv=None) -> int:
         kern["launches_moe"] = moe_lines["launches"][name]
         kern["launches_moe_by_arm"] = {arm: counts[name] for arm, counts
                                        in moe_lines["launches_by_arm"].items()}
+        kern["launches_families"] = families["launches"][name]
+        kern["launches_families_by_arm"] = {arm: counts[name] for arm, counts
+                                            in families["launches_by_arm"].items()}
         kern["launches_train"] = train["launches"][name]
         kern["launches_train_by_run"] = {run: counts[name]
                                          for run, counts in train["launches_by_run"].items()}
@@ -4875,7 +5412,8 @@ def main(argv=None) -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "plain_device_ms", "library_device_ms", "launches_long_arm",
             "launches_scenario", "launches_spec", "launches_disagg", "launches_mamba_arm",
-            "launches_moe", "launches_moe_by_arm", "launches_train", "launches_train_by_run",
+            "launches_moe", "launches_moe_by_arm", "launches_families",
+            "launches_families_by_arm", "launches_train", "launches_train_by_run",
             "launches_mapreduce", "launches_cg", "launches_pic")
     emit({"phase": "timing", "seconds_by_phase": CLOCK.totals,
           "total_s": time.perf_counter() - t_main})

@@ -2,11 +2,11 @@
 ``torch.dtype``, plus the reference's input-shape grid (`ShapeCfg`,
 `SHAPES`) and its cells.
 
-Only the configs the port can run are registered (dense decoder LMs, the
-MoE decoder LMs and the Mamba-2 SSM). `get(name)` returns the full
-config, `get_smoke(name)` the reduced variant the CPU tests use; the
-reference's other architectures (the hybrid, encoder-decoder and VLM
-families) raise naming ROADMAP A12.
+Every architecture of the reference is registered, in its registry's
+order: the dense, MoE and Mamba-2 SSM decoder LMs, the hybrid
+(attention beside Mamba-2), the VLM (patch embeddings before the text)
+and the encoder-decoder. `get(name)` returns the full config,
+`get_smoke(name)` the reduced variant the CPU tests use.
 """
 from __future__ import annotations
 
@@ -66,17 +66,20 @@ class ArchConfig:
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
     shared_expert: bool = False
-    # SSM (mamba2)
+    # SSM (mamba2 / hymba)
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_chunk: int = 256
-    # hybrid / enc-dec / frontends (not ported: model_zoo raises)
+    # hybrid (hymba): parallel attention and SSM heads in every layer
     hybrid: bool = False
+    # encoder-decoder (whisper)
     encoder_layers: int = 0
-    frontend: str = ""
-    n_frontend_tokens: int = 0
+    cross_attention: bool = False
+    # modality frontend stubs
+    frontend: str = ""  # "" | "audio" | "vision"
+    n_frontend_tokens: int = 0  # precomputed frame/patch embeddings
     # numerics
     dtype: torch.dtype = torch.bfloat16
     supports_long_context: bool = False
@@ -128,23 +131,28 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Analytical parameter count (embedding + layers), for 6ND: the
-        reference's formula for the families the port registers (dense,
-        MoE and SSM; the others return with ROADMAP A12)."""
+        reference's formula."""
         d = self.d_model
-        if self.family == "ssm":
+        attn = d * self.d_q + 2 * d * self.d_kv + self.d_q * d
+        mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
+        if self.n_experts:  # every expert, the router, the shared expert
+            mlp = self.n_experts * mlp + d * self.n_experts + (mlp if self.shared_expert else 0)
+        ssm = 0
+        if self.ssm_state:
             din, g_n = self.d_inner, self.ssm_state  # a single B/C group
-            per_layer = (d * (2 * din + 2 * g_n + self.ssm_heads)  # in_proj [z, x, B, C, dt]
-                         + self.ssm_conv * (din + 2 * g_n)  # conv
-                         + din * d  # out_proj
-                         + 3 * self.ssm_heads)  # A, D, dt_bias
+            ssm = (d * (2 * din + 2 * g_n + self.ssm_heads)  # in_proj [z, x, B, C, dt]
+                   + self.ssm_conv * (din + 2 * g_n)  # conv
+                   + din * d  # out_proj
+                   + 3 * self.ssm_heads)  # A, D, dt_bias
+        if self.hybrid:
+            per_layer = attn + ssm + mlp
+        elif self.family == "ssm":
+            per_layer = ssm
         else:
-            attn = d * self.d_q + 2 * d * self.d_kv + self.d_q * d
-            mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
-            if self.n_experts:  # every expert, the router, the shared expert
-                mlp = self.n_experts * mlp + d * self.n_experts + (
-                    mlp if self.shared_expert else 0)
             per_layer = attn + mlp
         total = self.n_layers * (per_layer + 2 * d)  # + norms
+        if self.encoder_layers:  # encoder layers, and each decoder layer's cross-attention
+            total += self.encoder_layers * (attn + mlp + 2 * d) + self.n_layers * (attn + d)
         return int(total + self.vocab_size * d * (1 if self.tie_embeddings else 2))
 
     def active_param_count(self) -> int:
@@ -159,30 +167,22 @@ class ArchConfig:
 
 # in the reference registry's order
 REGISTRY: dict[str, str] = {
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "whisper-small": "repro_torch.configs.whisper_small",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 
 ARCH_NAMES = tuple(REGISTRY)
 
-# the reference's architectures whose family the port cannot build yet
-NOT_PORTED: dict[str, str] = {
-    "hymba-1.5b": "hybrid",
-    "whisper-small": "encdec",
-    "pixtral-12b": "vlm",
-}
-
-
 def _module(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"{name}: the {NOT_PORTED[name]!r} family is not ported "
-                                  f"yet; see ROADMAP A12")
     return importlib.import_module(REGISTRY[name])
 
 
@@ -195,8 +195,8 @@ def get_smoke(name: str) -> ArchConfig:
 
 
 def cells(include_skips: bool = False) -> list[tuple[str, str, str]]:
-    """Every (arch, shape, skip reason) of the port's registry over the
-    shape grid, with the reference's skip reasons; skipped cells only
+    """Every (arch, shape, skip reason) of the registry over the shape
+    grid, with the reference's skip reasons; skipped cells only
     when asked."""
     out = []
     for a in ARCH_NAMES:

@@ -4,12 +4,13 @@ reference's `data/pipeline.py`).
 The batch of a step is a pure function of ``(seed, step)``, drawn with
 numpy exactly as the reference draws it, so both packages see the same
 tokens from the same seed. Batches are dicts of CPU tensors (tokens and
-labels int32, mask f32); `row_shard` cuts one mesh row's rows out of
-a global batch and moves them to that row's device. In decoupled mode
-`padded_for_groups` lays the global batch over the compute rows and gives
-the service rows zero-masked shards (the same total workload, Sec. IV-A).
-The reference's audio/vision frontend inputs are not ported (ROADMAP A12):
-`build_for_arch` refuses an architecture that has a frontend.
+labels int32, mask f32; for an architecture with an audio or vision
+frontend also its f32 ``frames`` / ``patches`` (B, n_frontend_tokens,
+d_model), N(0, 0.02^2), drawn after the tokens); `row_shard` cuts one
+mesh row's rows out of a global batch and moves them to that row's
+device. In decoupled mode `padded_for_groups` lays the global batch over
+the compute rows and gives the service rows zero-masked shards (the same
+total workload, Sec. IV-A).
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ class DataConfig:
     seed: int = 0
     kind: str = "synthetic"  # synthetic | zipf
     skew: float = 0.0  # >0: variable document lengths (mask tails)
+    frontend: str = ""  # "" | audio | vision
+    n_frontend_tokens: int = 0
+    d_model: int = 0
 
 
 class Pipeline:
@@ -54,9 +58,14 @@ class Pipeline:
             lengths = np.maximum((w / w.max() * s).astype(np.int64), 8)
             for i, length in enumerate(lengths):
                 mask[i, length:] = 0.0
-        return {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
-                "labels": torch.from_numpy(toks[:, 1:].astype(np.int32)),
-                "mask": torch.from_numpy(mask)}
+        out = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+               "labels": torch.from_numpy(toks[:, 1:].astype(np.int32)),
+               "mask": torch.from_numpy(mask)}
+        if cfg.frontend:
+            key = {"audio": "frames", "vision": "patches"}[cfg.frontend]
+            emb = rng.standard_normal((b, cfg.n_frontend_tokens, cfg.d_model))
+            out[key] = torch.from_numpy(emb.astype(np.float32) * 0.02)
+        return out
 
     def padded_for_groups(self, step: int, compute_rows: int, total_rows: int) -> dict:
         """The global batch laid out for a grouped mesh: it fills the
@@ -73,11 +82,11 @@ class Pipeline:
 
 def build_for_arch(arch_cfg, shape_cfg, seed: int = 0, skew: float = 0.0) -> Pipeline:
     """The synthetic pipeline of one (architecture, shape) cell."""
-    if arch_cfg.frontend:
-        raise NotImplementedError(f"{arch_cfg.name}: {arch_cfg.frontend} frontend inputs are "
-                                  f"not ported yet; see ROADMAP A12")
     return Pipeline(DataConfig(vocab_size=arch_cfg.vocab_size, seq_len=shape_cfg.seq_len,
-                               global_batch=shape_cfg.global_batch, seed=seed, skew=skew))
+                               global_batch=shape_cfg.global_batch, seed=seed, skew=skew,
+                               frontend=arch_cfg.frontend,
+                               n_frontend_tokens=arch_cfg.n_frontend_tokens,
+                               d_model=arch_cfg.d_model))
 
 
 def row_shard(batch: dict, row: int, n_rows: int, device=None) -> dict:

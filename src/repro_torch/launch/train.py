@@ -55,7 +55,9 @@ def train_rank(mesh, args: argparse.Namespace) -> dict:
     model = build(cfg, device=mesh.device)
     mode = args.mode or ("decoupled" if args.decouple == "reduce" else "conventional")
     pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                               global_batch=args.batch, kind="zipf", skew=0.4))
+                               global_batch=args.batch, kind="zipf", skew=0.4,
+                               frontend=cfg.frontend,
+                               n_frontend_tokens=cfg.n_frontend_tokens, d_model=cfg.d_model))
     trainer = Trainer(model, mesh, pipe,
                       OptConfig(lr=1e-3, warmup_steps=10, total_steps=args.steps),
                       TrainStepConfig(mode=mode, reduce_alpha=args.alpha,

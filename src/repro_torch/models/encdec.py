@@ -1,0 +1,255 @@
+"""Encoder-decoder backbone (whisper-small) of the port: the reference's
+`models/encdec.py`, op for op, with a Python loop over per-layer
+parameter dicts where the reference scans stacked ones.
+
+The conv/mel frontend is a stub, as in the reference: callers pass
+precomputed frame embeddings ``frames`` (B, n_frames, d). The encoder is a
+bidirectional self-attention stack; each decoder layer runs causal
+self-attention, cross-attention over the encoder memory and the MLP.
+Decode keeps the flattened ``(L, B, S, d_kv)`` self-attention cache of
+`transformer` plus a static cross-attention cache ``xk``/``xv`` (L, B,
+n_frames, d_kv), stored in the cache dtype (bf16 by default, in an f32
+model too, as the reference stores it).
+
+Attention over a whole sequence (the encoder's, the decoder's causal
+self-attention and its cross-attention in `decode_train`) launches the
+hand-written flash kernel on a CUDA tensor (`kernels.flash_attention.mha`,
+non-causal for the encoder and the cross-attention). On a CPU tensor, or
+with ``impl="ref"``, it takes the reference's jnp route:
+`layers.attention_plain` (the causal self-attention above
+`transformer.BLOCKWISE_THRESHOLD` tokens `layers.attention_blockwise`).
+The decode step is plain PyTorch, as the reference's is plain jnp.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import layers
+from repro_torch.models.transformer import (
+    BLOCKWISE_THRESHOLD,
+    KV_BLOCK,
+    chunked_softmax_xent,
+    init_attn,
+    lm_logits,
+)
+from repro_torch.utils.treeutil import tree_leaves
+
+Params = dict
+
+
+def init_encdec(cfg, gen: torch.Generator, device=None, *, param_dtype=None) -> Params:
+    """Random encoder-decoder parameters from ``gen``: the reference's tree
+    (``enc_layers`` and ``dec_layers`` as lists of per-layer dicts), shapes
+    and scales, stored as `transformer.init_lm` stores an LM's."""
+    device = resolve_device(device)
+    kw = dict(dtype=cfg.dtype if param_dtype is None else param_dtype, device=device)
+    d = cfg.d_model
+
+    def norm():
+        return layers.init_norm(d, cfg.norm_kind, device=device)
+
+    def mlp():
+        return layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, cfg.mlp_bias, **kw)
+
+    enc = [{"norm1": norm(), "attn": init_attn(cfg, gen, **kw), "norm2": norm(), "mlp": mlp()}
+           for _ in range(cfg.encoder_layers)]
+    dec = [{"norm1": norm(), "attn": init_attn(cfg, gen, **kw), "norm_x": norm(),
+            "xattn": init_attn(cfg, gen, **kw), "norm2": norm(), "mlp": mlp()}
+           for _ in range(cfg.n_layers)]
+    return {
+        "embed": layers.init_embedding(gen, cfg.vocab_size, d, **kw),
+        "enc_layers": enc,
+        "dec_layers": dec,
+        "enc_norm": norm(),
+        "final_norm": norm(),
+        "lm_head": layers.init_embedding(gen, cfg.vocab_size, d, **kw),
+    }
+
+
+def _check_impl(impl) -> None:
+    if impl not in (None, "ref"):
+        raise ValueError(f"unknown impl {impl!r} (use 'ref' or None)")
+
+
+def _recompute(params) -> bool:
+    """Whether autograd records a gradient of the params: each layer then
+    runs under one `torch.utils.checkpoint` (the reference's
+    ``jax.checkpoint`` over its layer scan)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(params))
+
+
+def _run(fn, recompute: bool, *args):
+    return checkpoint(fn, *args, use_reentrant=False) if recompute else fn(*args)
+
+
+def _mha(cfg, p, hq, hkv, dtype, impl=None):
+    """Non-causal attention of ``hq`` (B, Sq, d) over ``hkv`` (B, Sk, d):
+    the encoder's self-attention and the decoder's cross-attention."""
+    b, sq, _ = hq.shape
+    sk = hkv.shape[1]
+    hd = cfg.resolved_head_dim
+    scale = 1.0 / math.sqrt(hd)
+    q = layers.linear(p["wq"], hq, dtype).reshape(b, sq, cfg.n_heads, hd)
+    k = layers.linear(p["wk"], hkv, dtype).reshape(b, sk, cfg.n_kv_heads, hd)
+    v = layers.linear(p["wv"], hkv, dtype).reshape(b, sk, cfg.n_kv_heads, hd)
+    if impl is None and q.is_cuda:
+        out = flash_ops.mha(q, k, v, causal=False, scale=scale)
+    else:
+        zero_mask = torch.zeros((sq, sk), dtype=torch.float32, device=q.device)
+        out = layers.attention_plain(q, k, v, zero_mask, scale)
+    return layers.linear(p["wo"], out.reshape(b, sq, cfg.d_q), dtype)
+
+
+def _enc_layer(cfg, p, x, dtype, impl):
+    h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+    x = x + _mha(cfg, p["attn"], h, h, dtype, impl)
+    h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+    return x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
+
+
+def encode(cfg, params: Params, frames: torch.Tensor | None, *, impl: str | None = None):
+    """frames: (B, n_frames, d) precomputed frontend embeddings -> the
+    encoder memory (B, n_frames, d) in ``cfg.dtype``."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the encoder needs frames=(B, n_frames, d_model) "
+                         "frame embeddings (the audio frontend is a stub)")
+    _check_impl(impl)
+    dtype = cfg.dtype
+    x = frames.to(dtype)
+    s = x.shape[1]
+    x = x + layers.sinusoidal_positions(s, cfg.d_model, x.device).to(dtype)[None]
+    recompute = _recompute(params)
+    for p in params["enc_layers"]:
+        x = _run(_enc_layer, recompute, cfg, p, x, dtype, impl)
+    return layers.apply_norm(params["enc_norm"], x, cfg.norm_kind, cfg.norm_eps)
+
+
+def _causal_self_attn(cfg, p, h, pos, dtype, impl=None):
+    """Causal decoder self-attention -> (out, k_flat, v_flat), so that a
+    prefill can fill the cache: the flash kernel on a CUDA tensor, else
+    plain attention (streaming-softmax blocks past
+    `BLOCKWISE_THRESHOLD`)."""
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    scale = 1.0 / math.sqrt(hd)
+    q = layers.linear(p["wq"], h, dtype).reshape(b, s, cfg.n_heads, hd)
+    k = layers.linear(p["wk"], h, dtype).reshape(b, s, cfg.n_kv_heads, hd)
+    v = layers.linear(p["wv"], h, dtype).reshape(b, s, cfg.n_kv_heads, hd)
+    if impl is None and q.is_cuda:
+        out = flash_ops.mha(q, k, v, causal=True, scale=scale)
+    elif s > BLOCKWISE_THRESHOLD:
+        out = layers.attention_blockwise(q, k, v, pos, pos, 0, scale, kv_block=KV_BLOCK)
+    else:
+        out = layers.attention_plain(q, k, v, layers.causal_window_mask(pos, pos, 0), scale)
+    out = layers.linear(p["wo"], out.reshape(b, s, cfg.d_q), dtype)
+    return out, k.reshape(b, s, cfg.d_kv), v.reshape(b, s, cfg.d_kv)
+
+
+def _dec_layer(cfg, p, x, memory, pos, dtype, impl):
+    h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+    attn, kf, vf = _causal_self_attn(cfg, p["attn"], h, pos, dtype, impl)
+    x = x + attn
+    hx = layers.apply_norm(p["norm_x"], x, cfg.norm_kind, cfg.norm_eps)
+    x = x + _mha(cfg, p["xattn"], hx, memory, dtype, impl)
+    h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+    return x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype), kf, vf
+
+
+def decode_train(cfg, params: Params, tokens: torch.Tensor, memory: torch.Tensor,
+                 want_kv: bool = False, *, impl: str | None = None):
+    """Teacher-forced decoder pass -> (hidden (B, S, d) post-final-norm,
+    per-layer [(k, v)] in the flattened (B, S, d_kv) layout with
+    ``want_kv``, else None)."""
+    _check_impl(impl)
+    dtype = cfg.dtype
+    x = layers.embed(params["embed"], tokens, dtype)
+    s = x.shape[1]
+    x = x + layers.sinusoidal_positions(s, cfg.d_model, x.device).to(dtype)[None]
+    pos = torch.arange(s, device=x.device)
+    recompute = _recompute(params)
+    kv = []
+    for p in params["dec_layers"]:
+        x, kf, vf = _run(_dec_layer, recompute, cfg, p, x, memory, pos, dtype, impl)
+        if want_kv:
+            kv.append((kf, vf))
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return x, (kv if want_kv else None)
+
+
+def encdec_loss(cfg, params, frames, tokens, labels, mask, *, impl: str | None = None):
+    memory = encode(cfg, params, frames, impl=impl)
+    hidden, _ = decode_train(cfg, params, tokens, memory, impl=impl)
+    return chunked_softmax_xent(cfg, params, hidden, labels, mask)
+
+
+# -- decode with caches -----------------------------------------------------------
+
+def init_encdec_cache(cfg, batch: int, max_len: int, n_frames: int, dtype=torch.bfloat16,
+                      device=None) -> dict:
+    """A zeroed cache on ``device`` (cuda unless the caller names another):
+    the decoder's self-attention k/v (L, B, max_len, d_kv) and the
+    cross-attention xk/xv (L, B, n_frames, d_kv), all in ``dtype``."""
+    device = resolve_device(device)
+    ln = cfg.n_layers
+
+    def zeros(s):
+        return torch.zeros((ln, batch, s, cfg.d_kv), dtype=dtype, device=device)
+
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+            "k": zeros(max_len), "v": zeros(max_len), "xk": zeros(n_frames),
+            "xv": zeros(n_frames)}
+
+
+def prime_cross_cache(cfg, params, memory: torch.Tensor, cache: dict) -> dict:
+    """Compute the cross-attention K/V once per request batch, in the
+    cache's dtype; the cache's ``xk``/``xv`` are replaced (their frame
+    count follows ``memory``)."""
+    dtype = cfg.dtype
+    b, sk, _ = memory.shape
+    xk, xv = [], []
+    for p in params["dec_layers"]:
+        xk.append(layers.linear(p["xattn"]["wk"], memory, dtype).reshape(b, sk, cfg.d_kv))
+        xv.append(layers.linear(p["xattn"]["wv"], memory, dtype).reshape(b, sk, cfg.d_kv))
+    cache["xk"] = torch.stack(xk).to(cache["xk"].dtype)
+    cache["xv"] = torch.stack(xv).to(cache["xv"].dtype)
+    return cache
+
+
+def decode_step_encdec(cfg, params: Params, cache: dict, token: torch.Tensor):
+    """token: (B, 1) int. Returns (logits (B, 1, V), cache), the cache
+    updated in place: every slot writes its self-attention K/V at the
+    shared cursor ``pos`` (a write past the cache's end lands on its last
+    row, as the reference's clamped `dynamic_update_slice` does) and
+    attends its prefix, then the whole cross-attention cache."""
+    dtype = cfg.dtype
+    x = layers.embed(params["embed"], token, dtype)
+    b = x.shape[0]
+    pos = cache["pos"]
+    x = x + layers.sinusoidal_at(pos, cfg.d_model).to(dtype)[None, None]
+    hd = cfg.resolved_head_dim
+    scale = 1.0 / math.sqrt(hd)
+    n_frames = cache["xk"].shape[2]
+    for li, p in enumerate(params["dec_layers"]):
+        h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+        q = layers.linear(p["attn"]["wq"], h, dtype).reshape(b, 1, cfg.n_heads, hd)
+        kc, vc = cache["k"][li], cache["v"][li]
+        at = min(int(pos), kc.shape[1] - 1)
+        kc[:, at] = layers.linear(p["attn"]["wk"], h, dtype).reshape(b, cfg.d_kv).to(kc.dtype)
+        vc[:, at] = layers.linear(p["attn"]["wv"], h, dtype).reshape(b, cfg.d_kv).to(vc.dtype)
+        attn = layers.attention_decode(q, kc, vc, cfg.n_kv_heads, pos + 1, 0, scale)
+        x = x + layers.linear(p["attn"]["wo"], attn.reshape(b, 1, cfg.d_q), dtype)
+        hx = layers.apply_norm(p["norm_x"], x, cfg.norm_kind, cfg.norm_eps)
+        qx = layers.linear(p["xattn"]["wq"], hx, dtype).reshape(b, 1, cfg.n_heads, hd)
+        xattn = layers.attention_decode(qx, cache["xk"][li], cache["xv"][li], cfg.n_kv_heads,
+                                        n_frames, 0, scale)
+        x = x + layers.linear(p["xattn"]["wo"], xattn.reshape(b, 1, cfg.d_q), dtype)
+        h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+        x = x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
+    cache["pos"] = pos + 1
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return lm_logits(cfg, params, x), cache

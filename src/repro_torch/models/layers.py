@@ -1,4 +1,5 @@
-"""Shared neural-net layers, the subset the dense and MoE decoder LMs need.
+"""Shared neural-net layers of every model family (the reference's
+`models/layers.py`, whole).
 
 Plain functions on tensors, with the JAX package's layouts at every
 public function: `linear` weights are ``(d_in, d_out)``, attention

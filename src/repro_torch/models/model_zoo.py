@@ -1,22 +1,29 @@
-"""Model zoo: one interface over the architectures the port can run.
+"""Model zoo: one interface over every architecture of the reference.
 
     model = build(cfg)                        # device: cuda unless device="cpu"
     params = model.init(seed)                 # or a torch.Generator
     loss, metrics = model.loss(params, batch)  # training (params from
-                                              # model.init(seed, param_dtype=torch.float32));
-                                              # MoE: its value (MoE training is A8)
+                                              # model.init(seed, param_dtype=torch.float32))
     logits, cache = model.prefill(params, tokens, length=...)   # impl="ref": plain route
+    logits, cache = model.prefill(params, tokens, patches=p)     # VLM: image prompts
+    logits, cache = model.prefill(params, tokens, frames=f)      # encoder-decoder
     logits, cache = model.decode_step(params, cache, token)      # aligned mode
     logits, rows_k, rows_v = model.decode_step_paged(params, kernel_view, token)
     logits, cache = model.verify_step(params, cache, tokens, n_new)  # speculative verify
 
-The dense and MoE decoder families and the Mamba-2 SSM family are
-ported. An SSM model has no paged decode (``decode_step_paged`` is None):
-it serves in aligned mode only, and no ``verify_step`` (it is None), so
-it cannot serve speculatively. An MoE model's loss adds the router's
-load-balancing term, ``ce + 0.01 * aux_loss``, as the reference's does.
-Other families raise `NotImplementedError` naming the ROADMAP item that
-ports them.
+``batch`` holds tokens/labels (B, S) int and mask (B, S) f32, plus
+``frames`` / ``patches`` (B, n_frontend_tokens, d) for the stubbed
+audio / vision frontends.
+
+Family gates, as in the reference: the paged decode and the verify step
+exist for the attention-only decoder LMs (dense, MoE, VLM); the SSM and
+hybrid families (recurrent state) and the encoder-decoder (cross caches)
+have neither, so they serve in aligned mode only and not speculatively.
+An MoE model's loss adds the router's load-balancing term, ``ce + 0.01 *
+aux_loss``; a VLM's loss drops the frontend positions before the
+cross-entropy. Training the MoE, hybrid, VLM and encoder-decoder
+families on the rank world is ROADMAP A8 (`train.train_step.make_step`
+refuses them); their loss values and gradients are ported.
 """
 from __future__ import annotations
 
@@ -26,15 +33,9 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 Params = dict
-
-_NOT_PORTED = {
-    "hybrid": "ROADMAP A12 (models/ssm.py hybrid layers)",
-    "encdec": "ROADMAP A12 (models/encdec.py)",
-    "vlm": "ROADMAP A12 (frontend-extended sequences)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,45 +43,66 @@ class Model:
     cfg: Any
     device: torch.device
     init: Callable[..., Params]
-    # (params, tokens, cache=None, length=None, *, impl=None) -> (logits, cache)
+    # (params, tokens, cache=None, length=None, *, impl=None, [patches= | frames=])
+    # -> (logits, cache)
     prefill: Callable[..., tuple]
     init_cache: Callable[..., dict]
     # (params, cache, token) -> (logits, cache): the shared-cursor decode
     decode_step: Callable[..., tuple]
     # (params, kernel_view, token, *, impl=None) -> (logits, rows_k, rows_v);
-    # None for the ssm family
+    # None for the ssm, hybrid and encdec families
     decode_step_paged: Callable[..., tuple] | None
     # (params, batch) -> (mean masked cross-entropy, {"ce": ...}); MoE: (ce +
-    # 0.01 * aux_loss, {"ce", "aux_loss", "router_entropy"}); batch holds
-    # tokens/labels (B, S) int and mask (B, S) f32
+    # 0.01 * aux_loss, {"ce", "aux_loss", "router_entropy"})
     loss: Callable[..., tuple]
     # (params, cache, tokens (B, S), n_new (B,)) -> (logits (B, S, V), cache):
     # one batched forward scoring a speculative chunk (serve/spec.py);
-    # None for the ssm family
+    # None where decode_step_paged is
     verify_step: Callable[..., tuple] | None = None
 
 
-def build(cfg, device=None) -> Model:
-    if cfg.family not in ("dense", "moe", "ssm") \
-            or (cfg.family == "ssm") != bool(cfg.ssm_state) \
-            or (cfg.family == "moe") != bool(cfg.n_experts) \
-            or cfg.hybrid or cfg.encoder_layers or cfg.frontend:
-        where = _NOT_PORTED.get(cfg.family, "ROADMAP A12")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; see {where}"
-        )
-    dev = resolve_device(device)
+def frontend_key(cfg) -> str | None:
+    """The batch and prefill key of a config's frontend input."""
+    return {"audio": "frames", "vision": "patches"}.get(cfg.frontend) if cfg.frontend else None
 
+
+def _frontend_input(cfg, inputs: dict):
+    """The frontend embeddings among a prefill's keyword ``inputs`` (None
+    when absent); a key the config does not take is a TypeError."""
+    key = frontend_key(cfg)
+    extra = set(inputs) - {key}
+    if extra:
+        raise TypeError(f"{cfg.name}: prefill takes no {sorted(extra)} "
+                        f"(its frontend input is {key!r})")
+    return inputs.get(key)
+
+
+def _seeded_init(fn, cfg, dev):
     def init(seed: int | torch.Generator = 0, *, param_dtype=None) -> Params:
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return transformer.init_lm(cfg, gen, dev, param_dtype=param_dtype)
+        return fn(cfg, gen, dev, param_dtype=param_dtype)
 
+    return init
+
+
+def build(cfg, device=None) -> Model:
+    dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return _build_encdec(cfg, dev)
+    return _build_lm(cfg, dev)
+
+
+def _build_lm(cfg, dev) -> Model:
     def loss(params, batch):
         # the reference's own attention route: the flash kernel has no
         # backward in either package
-        hidden, aux, _, _ = transformer.forward_lm(cfg, params, batch["tokens"], impl="ref")
+        extra = batch.get(frontend_key(cfg))
+        hidden, aux, _, _ = transformer.forward_lm(cfg, params, batch["tokens"],
+                                                   extra_embeds=extra, impl="ref")
+        if extra is not None:  # frontend positions carry no next-token loss
+            hidden = hidden[:, extra.shape[1]:]
         ce = transformer.chunked_softmax_xent(cfg, params, hidden, batch["labels"],
                                               batch["mask"])
         if aux:
@@ -90,32 +112,77 @@ def build(cfg, device=None) -> Model:
     def init_cache(batch_size: int, max_len: int) -> dict:
         return transformer.init_cache(cfg, batch_size, max_len, device=dev)
 
-    def prefill(params, tokens, cache=None, length=None, *, impl=None):
-        if cache is None:
-            cache = init_cache(tokens.shape[0], tokens.shape[1])
-        return transformer.prefill_lm(cfg, params, tokens, cache, length=length, impl=impl)
+    def prefill(params, tokens, cache=None, length=None, *, impl=None, **inputs):
+        extra = _frontend_input(cfg, inputs)
+        if cache is None:  # frontend tokens occupy cache slots too
+            n_extra = extra.shape[1] if extra is not None else 0
+            cache = init_cache(tokens.shape[0], tokens.shape[1] + n_extra)
+        return transformer.prefill_lm(cfg, params, tokens, cache, extra_embeds=extra,
+                                      length=length, impl=impl)
 
     def decode_step(params, cache, token):
         return transformer.decode_step_lm(cfg, params, cache, token)
 
     decode_step_paged = verify_step = None
-    if cfg.family != "ssm":
+    if cfg.family != "ssm" and not cfg.hybrid:
         def decode_step_paged(params, pview, token, *, impl=None):
             return transformer.decode_step_paged_lm(cfg, params, pview, token, impl=impl)
 
         def verify_step(params, cache, tokens, n_new):
             return transformer.verify_step_lm(cfg, params, cache, tokens, n_new)
 
-    return Model(cfg, dev, init, prefill, init_cache, decode_step, decode_step_paged, loss,
-                 verify_step)
+    return Model(cfg, dev, _seeded_init(transformer.init_lm, cfg, dev), prefill, init_cache,
+                 decode_step, decode_step_paged, loss, verify_step)
+
+
+def _build_encdec(cfg, dev) -> Model:
+    def loss(params, batch):
+        ce = encdec.encdec_loss(cfg, params, batch.get("frames"), batch["tokens"],
+                                batch["labels"], batch["mask"], impl="ref")
+        return ce, {"ce": ce}
+
+    def init_cache(batch_size: int, max_len: int, n_frames: int | None = None) -> dict:
+        return encdec.init_encdec_cache(cfg, batch_size, max_len,
+                                        n_frames or cfg.n_frontend_tokens, device=dev)
+
+    def prefill(params, tokens, cache=None, length=None, *, impl=None, frames=None):
+        """Encode ``frames``, prime the cross-attention cache, and run the
+        teacher-forced decoder over ``tokens`` into the self-attention
+        cache (64 positions of room past the prompt when the cache is
+        made here, as in the reference)."""
+        if length is not None:
+            raise ValueError("length-masked prefill needs a decoder-only attention model")
+        if cache is None:
+            cache = init_cache(tokens.shape[0], tokens.shape[1] + 64)
+        memory = encdec.encode(cfg, params, frames, impl=impl)
+        cache = encdec.prime_cross_cache(cfg, params, memory, cache)
+        hidden, kv = encdec.decode_train(cfg, params, tokens, memory, want_kv=True, impl=impl)
+        s = tokens.shape[1]
+        for li, (kf, vf) in enumerate(kv):
+            cache["k"][li, :, :s] = kf.to(cache["k"].dtype)
+            cache["v"][li, :, :s] = vf.to(cache["v"].dtype)
+        cache["pos"] = torch.full((), s, dtype=torch.int32, device=hidden.device)
+        return transformer.lm_logits(cfg, params, hidden[:, -1:]), cache
+
+    def decode_step(params, cache, token):
+        return encdec.decode_step_encdec(cfg, params, cache, token)
+
+    return Model(cfg, dev, _seeded_init(encdec.init_encdec, cfg, dev), prefill, init_cache,
+                 decode_step, None, loss)
 
 
 def synthetic_batch(cfg, batch: int, seq: int, seed: int = 0, device=None) -> dict:
     """Random batch with the right structure (smoke tests, examples):
-    uniform token ids and labels, an all-ones mask. The draws differ from
-    the reference's `jax.random` ones."""
+    uniform token ids and labels, an all-ones mask, and for a frontend
+    config its embeddings, N(0, 0.02^2). The draws differ from the
+    reference's `jax.random` ones."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     ids = torch.randint(0, cfg.vocab_size, (2, batch, seq), generator=gen, dtype=torch.int32)
-    return {"tokens": ids[0].to(dev), "labels": ids[1].to(dev),
-            "mask": torch.ones((batch, seq), dtype=torch.float32, device=dev)}
+    out = {"tokens": ids[0].to(dev), "labels": ids[1].to(dev),
+           "mask": torch.ones((batch, seq), dtype=torch.float32, device=dev)}
+    key = frontend_key(cfg)
+    if key:
+        out[key] = (torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
+                    * 0.02).to(dev)
+    return out

@@ -1,12 +1,15 @@
-"""Decoder-only LM backbone: the dense and MoE families and the Mamba-2
-SSM family.
+"""Decoder-only LM backbone: the dense and MoE families, the Mamba-2 SSM
+family, the hybrid (attention and a Mamba-2 block side by side in every
+layer, their outputs averaged) and the VLM (frontend embeddings before
+the text: ``extra_embeds``).
 
 The reference scans over stacked layer parameters; the port keeps a list
 of per-layer parameter dicts and runs a Python loop (eager PyTorch, no
 ``jit`` counterpart). Caches keep the reference's layout: ``k``/``v`` are
 ``(L, B, S, n_kv * head_dim)``, an SSM cache holds ``ssm_state``
 ``(L, B, H, P, N)`` f32 and ``ssm_conv`` ``(L, B, conv - 1, d_inner +
-2N)``, and ``pos`` is a scalar or ``(B,)`` int32 tensor.
+2N)`` (a hybrid cache holds all four), and ``pos`` is a scalar or
+``(B,)`` int32 tensor.
 
 Prefill attention (`_attention_full`) on a CUDA tensor launches the
 hand-written flash kernel (`kernels.flash_attention.mha`) at every prompt
@@ -17,8 +20,9 @@ model's own jnp route: `layers.attention_plain` up to
 rounding of scores and probabilities, and ``impl="ref"`` gives the card
 a plain path to hold the kernel path against. An SSM layer's prefill
 scan takes the same ``impl`` (`ssm.mamba_block`): the hand-written SSD
-kernel on a CUDA tensor, the reference's `ssd_chunked` otherwise. An
-MoE layer's feed-forward is `moe.apply_moe` (plain PyTorch, as the
+kernel on a CUDA tensor, the reference's `ssd_chunked` otherwise (a
+hybrid layer runs both, on the same normed input). An MoE layer's
+feed-forward is `moe.apply_moe` (plain PyTorch, as the
 reference's is plain jnp) wherever a dense layer's is the MLP.
 """
 from __future__ import annotations
@@ -45,6 +49,18 @@ XENT_CHUNK = 256  # positions per chunk of `chunked_softmax_xent`, as in the ref
 # init
 # ---------------------------------------------------------------------------
 
+def init_attn(cfg, gen: torch.Generator, **kw) -> Params:
+    """An attention block's projections (the reference's `_init_attn`):
+    biased q/k/v with ``qkv_bias``, a biased output with ``mlp_bias``."""
+    d = cfg.d_model
+    return {
+        "wq": layers.init_linear(gen, d, cfg.d_q, cfg.qkv_bias, **kw),
+        "wk": layers.init_linear(gen, d, cfg.d_kv, cfg.qkv_bias, **kw),
+        "wv": layers.init_linear(gen, d, cfg.d_kv, cfg.qkv_bias, **kw),
+        "wo": layers.init_linear(gen, cfg.d_q, d, cfg.mlp_bias, **kw),
+    }
+
+
 def _init_layer(cfg, gen: torch.Generator, device, dtype) -> Params:
     kw = dict(dtype=dtype, device=device)
     d = cfg.d_model
@@ -52,12 +68,9 @@ def _init_layer(cfg, gen: torch.Generator, device, dtype) -> Params:
     if cfg.family == "ssm":
         p["mamba"] = ssm.init_mamba_block(gen, cfg, **kw)
         return p
-    p["attn"] = {
-        "wq": layers.init_linear(gen, d, cfg.d_q, cfg.qkv_bias, **kw),
-        "wk": layers.init_linear(gen, d, cfg.d_kv, cfg.qkv_bias, **kw),
-        "wv": layers.init_linear(gen, d, cfg.d_kv, cfg.qkv_bias, **kw),
-        "wo": layers.init_linear(gen, cfg.d_q, d, cfg.mlp_bias, **kw),
-    }
+    p["attn"] = init_attn(cfg, gen, **kw)
+    if cfg.hybrid:
+        p["mamba"] = ssm.init_mamba_block(gen, cfg, **kw)
     p["norm2"] = layers.init_norm(d, cfg.norm_kind, device=device)
     if cfg.n_experts:
         p["moe"] = moe.init_moe(gen, cfg, **kw)
@@ -130,41 +143,55 @@ def _ffn(cfg, p, h, dtype):
     return layers.apply_mlp(p["mlp"], h, cfg.mlp_kind, dtype), {}
 
 
+def _mamba(cfg, p, h, dtype, want_kv: bool, impl):
+    """A layer's Mamba-2 block on its normed input -> (out, SSM decode
+    state after the sequence or None)."""
+    if want_kv:
+        return ssm.mamba_block(p["mamba"], h, cfg, dtype, want_state=True, impl=impl)
+    return ssm.mamba_block(p["mamba"], h, cfg, dtype, impl=impl), None
+
+
 def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl):
     """One layer -> (x, aux, (k, v) or None, SSM decode state or None)."""
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     if cfg.family == "ssm":
-        if want_kv:
-            y, sstate = ssm.mamba_block(p["mamba"], h, cfg, dtype, want_state=True, impl=impl)
-            return x + y, {}, None, sstate
-        return x + ssm.mamba_block(p["mamba"], h, cfg, dtype, impl=impl), {}, None, None
+        y, sstate = _mamba(cfg, p, h, dtype, want_kv, impl)
+        return x + y, {}, None, sstate
     attn_out, kf, vf = _attention_full(cfg, p["attn"], h, positions, window, dtype, impl)
+    sstate = None
+    if cfg.hybrid:  # both paths read the same h; averaged as they come
+        ssm_out, sstate = _mamba(cfg, p, h, dtype, want_kv, impl)
+        attn_out = (attn_out + ssm_out) * 0.5
     x = x + attn_out
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
     out, aux = _ffn(cfg, p, h2, dtype)
-    return x + out, aux, ((kf, vf) if want_kv else None), None
+    return x + out, aux, ((kf, vf) if want_kv else None), sstate
 
 
-def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, want_kv: bool = False,
-               impl: str | None = None):
+def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, extra_embeds=None,
+               want_kv: bool = False, impl: str | None = None):
     """Returns (hidden (B,S,d) post-final-norm, aux, per-layer [(k, v)]
     or None, per-layer [{state, conv}] or None): aux is the mean over
     layers of each MoE aux metric (``aux_loss``, ``router_entropy``; empty
     for the other families); k/v in the flattened (B, S, d_kv) layout for
     the attention families, the SSM decode state after the sequence for
-    the ssm family (both only with ``want_kv``).
+    the ssm and hybrid families (both only with ``want_kv``).
+    ``extra_embeds`` (B, n_frontend_tokens, d) (VLM patch embeddings) are
+    prepended to the token embeddings, so S counts them too and positions
+    run over both; callers account for the longer sequence.
     ``impl`` as in `_attention_full`, and for the SSD scan. While
     autograd records a gradient of the params, each layer runs under one
     `torch.utils.checkpoint` and is recomputed in the backward pass (the
     reference's ``jax.checkpoint`` over the layer scan), so a layer's
     activations live only while its gradient is taken."""
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(f"forward_lm ports the dense, moe and ssm families, "
-                                  f"not {cfg.family!r}")
+    if cfg.family == "encdec":
+        raise ValueError("an encoder-decoder model runs models.encdec, not forward_lm")
     if impl not in (None, "ref"):
         raise ValueError(f"unknown impl {impl!r} (use 'ref' or None)")
     dtype = cfg.dtype
     x = layers.embed(params["embed"], tokens, dtype)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(dtype), x], dim=1)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     if cfg.pos_kind == "sinusoidal":
@@ -237,9 +264,9 @@ def chunked_softmax_xent(cfg, params: Params, hidden: torch.Tensor, labels: torc
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
     """A zeroed cache on ``device`` (cuda unless the caller names
-    another; `resolve_device`): k/v in ``dtype`` for the dense family;
-    for the ssm family the f32 recurrent state and the conv window in
-    ``dtype``."""
+    another; `resolve_device`): k/v in ``dtype`` for the attention
+    families; for the ssm and hybrid families the f32 recurrent state and
+    the conv window in ``dtype``."""
     device = resolve_device(device)
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
     ln = cfg.n_layers
@@ -247,7 +274,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None)
         shape = (ln, batch, max_len, cfg.d_kv)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
-    else:
+    if cfg.family == "ssm" or cfg.hybrid:
         h, hd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
         conv_ch = cfg.d_inner + 2 * n
         cache["ssm_state"] = torch.zeros((ln, batch, h, hd, n), dtype=torch.float32,
@@ -257,8 +284,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None)
     return cache
 
 
-def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length=None,
-               impl: str | None = None):
+def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, extra_embeds=None,
+               length=None, impl: str | None = None):
     """Run the full-sequence forward, fill the cache, return the
     last-token logits (B, 1, V) and the cache.
 
@@ -267,16 +294,21 @@ def prefill_lm(cfg, params: Params, tokens: torch.Tensor, cache: dict, *, length
     and KV at or past ``length`` is zeroed. A ``(B,)`` tensor ``length``
     packs independently ragged prompts (continuous-batching admission),
     each masked at and read from its own length, with ``cache["pos"]``
-    left as the (B,) vector. An SSM cache takes no ``length`` (its
-    recurrent state would have consumed the padding): the SSM state
-    after the sequence comes from the chunked scan's final state. The
-    cache is written in place (the reference rebinds it). ``impl`` as in
-    `_attention_full`.
+    left as the (B,) vector. An SSM or hybrid cache takes no ``length``
+    (its recurrent state would have consumed the padding): the SSM state
+    after the sequence comes from the chunked scan's final state.
+    ``extra_embeds`` (VLM patches) go before the tokens (`forward_lm`):
+    the cache then holds tokens + frontend positions, and takes no
+    ``length``. The cache is written in place (the reference rebinds
+    it). ``impl`` as in `_attention_full`.
     """
-    if length is not None and cfg.family == "ssm":
+    if length is not None and extra_embeds is not None:
+        raise ValueError("length-masked prefill does not support extra_embeds")
+    if length is not None and (cfg.family == "ssm" or cfg.hybrid):
         raise ValueError("length-masked prefill needs an attention-only cache")
-    hidden, _, kv, states = forward_lm(cfg, params, tokens, want_kv=True, impl=impl)
-    b, s = tokens.shape
+    hidden, _, kv, states = forward_lm(cfg, params, tokens, extra_embeds=extra_embeds,
+                                       want_kv=True, impl=impl)
+    b, s = hidden.shape[:2]
     ragged = torch.is_tensor(length) and length.ndim == 1
     ar = torch.arange(s, device=hidden.device)
     if ragged:
@@ -319,13 +351,14 @@ def decode_step_lm(cfg, params: Params, cache: dict, token: torch.Tensor):
     vector of per-slot cursors (each slot writes its token at its own
     length, and a cursor at or past the cache length writes nothing). An
     SSM layer advances its recurrent state and conv window
-    (`ssm.mamba_decode`).
+    (`ssm.mamba_decode`); a hybrid layer advances both its K/V and them,
+    and averages the two paths' outputs as its prefill does.
     """
     dtype = cfg.dtype
     x = layers.embed(params["embed"], token, dtype)  # (B,1,d)
     pos = cache["pos"]
     ragged = pos.ndim == 1
-    if ragged and cfg.family == "ssm":
+    if ragged and (cfg.family == "ssm" or cfg.hybrid):
         raise ValueError("ragged decode needs an attention-only cache")
     if cfg.pos_kind == "sinusoidal":
         emb = layers.sinusoidal_at(pos, cfg.d_model).to(dtype)
@@ -333,15 +366,18 @@ def decode_step_lm(cfg, params: Params, cache: dict, token: torch.Tensor):
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd) if hd else 1.0
+    def mamba_step(li, p, h):
+        y, mc = ssm.mamba_decode(
+            p["mamba"], h, {"state": cache["ssm_state"][li], "conv": cache["ssm_conv"][li]},
+            cfg, dtype)
+        cache["ssm_state"][li] = mc["state"]
+        cache["ssm_conv"][li] = mc["conv"]
+        return y
+
     for li, (p, window) in enumerate(zip(params["layers"], cfg.layer_windows())):
         h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
         if cfg.family == "ssm":
-            y, mc = ssm.mamba_decode(
-                p["mamba"], h, {"state": cache["ssm_state"][li], "conv": cache["ssm_conv"][li]},
-                cfg, dtype)
-            x = x + y
-            cache["ssm_state"][li] = mc["state"]
-            cache["ssm_conv"][li] = mc["conv"]
+            x = x + mamba_step(li, p, h)
             continue
         q = layers.linear(p["attn"]["wq"], h, dtype).reshape(b, 1, cfg.n_heads, hd)
         kn = layers.linear(p["attn"]["wk"], h, dtype).reshape(b, 1, cfg.n_kv_heads, hd)
@@ -365,6 +401,8 @@ def decode_step_lm(cfg, params: Params, cache: dict, token: torch.Tensor):
             vc[:, at] = vn
         attn = layers.attention_decode(q, kc, vc, cfg.n_kv_heads, pos + 1, window, scale)
         attn = layers.linear(p["attn"]["wo"], attn.reshape(b, 1, cfg.d_q), dtype)
+        if cfg.hybrid:
+            attn = (attn + mamba_step(li, p, h)) * 0.5
         x = x + attn
         h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
         x = x + _ffn(cfg, p, h2, dtype)[0]
@@ -442,11 +480,12 @@ def decode_step_paged_lm(cfg, params: Params, pview: dict, token: torch.Tensor,
     returned K/V rows. Returns ``(logits (B,1,V), rows_k (L,B,d_kv),
     rows_v)``; the store scatters the rows with `absorb_rows`. ``impl``
     forwards to `paged_ops.paged_decode_attention` (None: the kernel on
-    a CUDA tensor, the plain version on a CPU tensor).
+    a CUDA tensor, the plain version on a CPU tensor). Attention-only
+    decoder LMs (`model_zoo` leaves `decode_step_paged` unset for the
+    ssm, hybrid and encoder-decoder families).
     """
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"paged decode ports the dense and moe families, "
-                                  f"not {cfg.family!r}")
+    if cfg.family in ("ssm", "encdec") or cfg.hybrid:
+        raise ValueError("paged decode needs an attention-only cache")
     dtype = cfg.dtype
     x = layers.embed(params["embed"], token, dtype)  # (B,1,d)
     pos = pview["pos"]

@@ -30,8 +30,10 @@ Each rank runs the step on its own row's shard of the batch
 and token counts and divides once by the global count, so a row whose
 shard is wholly masked adds nothing (never a mean of means). Not ported:
 the reference's ``runtime_skip=False``, ``zero1=False``, FSDP (``fsdp``,
-``fsdp_threshold``) and MoE training (``make_step`` refuses an MoE
-model; its loss value is ported, `models.model_zoo`): ROADMAP A8.
+``fsdp_threshold``) and the training of the MoE, hybrid, VLM and
+encoder-decoder families (``make_step`` refuses them; their loss values
+and gradients are ported, `models.model_zoo`, `value_and_grad`):
+ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -342,10 +344,14 @@ def make_step(model, mesh, opt_cfg: OptConfig, ts_cfg: TrainStepConfig, *,
     one-row conventional step runs in a world (`launch.mesh.spawn`); in
     overlap mode the optimizer state holds this row's parts of the
     moments (`train.sharding.shard_opt_state`)."""
-    if model.cfg.n_experts:
-        raise NotImplementedError(f"{model.cfg.name}: MoE training (the gradient through the "
+    cfg = model.cfg
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: MoE training (the gradient through the "
                                   f"router and the experts, expert parallelism) is not "
                                   f"ported yet; see ROADMAP A8")
+    if cfg.hybrid or cfg.frontend or cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name}: training the {cfg.family!r} family on the "
+                                  f"rank world is not ported yet; see ROADMAP A8")
     if ts_cfg.mode == "conventional":
         if mesh.n_rows == 1:
             return build_conventional_step(model, opt_cfg, inplace=inplace)

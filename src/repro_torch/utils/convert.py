@@ -3,7 +3,9 @@
 `params_from_numpy` takes the JAX parameter pytree after the caller has
 turned every leaf into a numpy array (``jax.tree.map(np.asarray, p)``;
 bf16 leaves arrive as ``ml_dtypes.bfloat16``). It unstacks the scanned
-``(L, ...)`` layer leaves into the port's per-layer dicts and stores the
+``(L, ...)`` layer leaves (``layers``; an encoder-decoder's
+``enc_layers`` and ``dec_layers``) into the port's per-layer lists of
+dicts and stores the
 tensors as the port keeps them: matmul weights, biases and embedding
 tables in ``cfg.dtype``; norm scales and biases, and the SSM's own
 parameters (`F32_LEAVES`), in f32 as the reference stores and uses
@@ -28,7 +30,8 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-# Mamba-2 leaves the reference keeps and computes in f32 (`models/ssm.py`):
+# Mamba-2 leaves the reference keeps and computes in f32 (`models/ssm.py`;
+# a hybrid layer's ``mamba`` dict too):
 # rounding A_log to bf16 moves A = -exp(A_log) by up to ~0.5 %, and the
 # decay compounds that over every position
 F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "conv_w", "conv_b"})
@@ -42,19 +45,26 @@ def _convert(tree, dtype, device, keep_f32: bool = False):
     return t.to(torch.float32 if keep_f32 else dtype)
 
 
+def _stacked(cfg) -> dict[str, int]:
+    """The scanned layer stacks of the reference's tree -> their depth."""
+    if cfg.family == "encdec":
+        return {"enc_layers": cfg.encoder_layers, "dec_layers": cfg.n_layers}
+    return {"layers": cfg.n_layers}
+
+
 def params_from_numpy(tree: dict, cfg, device, *, param_dtype=None) -> dict:
-    """The reference's LM parameter tree (numpy leaves, layers stacked
-    on a leading L axis) -> the port's parameters on ``device``. Matmul
+    """The reference's parameter tree (numpy leaves, layers stacked on a
+    leading L axis) -> the port's parameters on ``device``. Matmul
     leaves are stored in ``param_dtype``, by default ``cfg.dtype`` (the
     serving path); training passes ``torch.float32`` to keep the
     reference's f32 leaves as they are."""
     device = resolve_device(device)
     dtype = cfg.dtype if param_dtype is None else param_dtype
-    stacked = tree["layers"]
-    per_layer = [_index(stacked, i) for i in range(cfg.n_layers)]
+    stacks = _stacked(cfg)
     out = {k: _convert(v, dtype, device, "norm" in k)
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_convert(p, dtype, device) for p in per_layer]
+           for k, v in tree.items() if k not in stacks}
+    for key, depth in stacks.items():
+        out[key] = [_convert(_index(tree[key], i), dtype, device) for i in range(depth)]
     return out
 
 

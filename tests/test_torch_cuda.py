@@ -28,7 +28,14 @@ Tolerances, with their reasons:
     the same bf16 inputs and round y once, so they differ by at most one
     bf16 ulp of an element (2^-7 of it, up to ~4x the row's rms); the
     kernel's tensor-core body takes each f32 operand as two bf16 terms
-    (2^-17 of it); the f32 final state keeps 1e-4;
+    (2^-17 of it); the f32 final state keeps 1e-4; at hymba-1.5b's
+    widths (50 heads of 64, state 16) f32 is held to 1e-4 of the largest
+    |y| and state element: C.B there has 8x its variance at state 128, y
+    reaches ~7, and f32's error grows with it (both sides within ~1e-4 of
+    an f64 recurrence, chip_smoke's `ssd_f64`);
+  * each new family's f32 smoke model on the card: the kernel route's
+    logits within 1e-4 of the plain route's largest, prefill and four
+    decode ticks, the same greedy tokens;
   * engine: identical token streams and admissions in f32, logits 1e-4;
     the speculative engine's f32 streams equal the target-only engine's
     up to the first step with a top-2 margin under 1e-3 (bf16 K/V rows may
@@ -426,6 +433,34 @@ def test_flash_kernel_llama4_window_bites(cuda, window):
                                    atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sq", [1500, 16, 1], ids=["encoder", "cross-16", "cross-1"])
+def test_flash_kernel_whisper_non_causal(cuda, sq, dtype):
+    """whisper-small's attention over its 1,500 encoder frames (12/12 heads
+    of 64; 1,500 is no multiple of the tiles): the encoder's bidirectional
+    self-attention (Sq = Sk) and the decoder's cross-attention (Sq = a
+    16-token prompt, or one token, against Sk = 1,500), non-causal."""
+    q, k, v = _flash_inputs(sq + 7, 2, sq, 1500, 12, 1, 64, dtype, cuda)
+    got = mha(q, k, v, causal=False)
+    want = mha(q, k, v, causal=False, impl="ref")
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [1024, 0])
+def test_flash_kernel_hymba_group_of_5(cuda, window, dtype):
+    """hymba-1.5b's 25 query heads over 5 KV heads of 64 at 3,000 tokens,
+    past its 1,024-token window and without one (its global layers)."""
+    q, k, v = _flash_inputs(window + 11, 1, 3000, 3000, 5, 5, 64, dtype, cuda)
+    got = mha(q, k, v, window=window)
+    want = mha(q, k, v, window=window, impl="ref")
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):
     q, k, v = _flash_inputs(0, 1, 16, 16, 2, 2, 64, torch.float32, cuda)
     with pytest.raises(ValueError, match="head dim 48"):
@@ -488,6 +523,30 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
     torch.testing.assert_close(fin, want_fin, atol=1e-4, rtol=1e-4)
     if dtype == torch.float32:
         torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    else:
+        assert _row_rel_err(y, want_y) <= 1 / 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s", [(1, 2000), (2, 700)])
+def test_ssd_kernel_at_hymba_widths(cuda, b, s, dtype):
+    """hymba-1.5b's scan: 50 heads of 64 over a state of 16, chunk 256, at a
+    ragged S past several chunks and at two batch rows. With N = 16 these
+    inputs' C.B has 8x its variance at N = 128 and y reaches ~7, and f32's
+    error grows with it (1.5e-4 at max |y| 7.24 on the card, 2.1e-5 of
+    it; mamba's widths: 2.7e-5), so f32 is held to 1e-4 of the largest
+    |y| and of the largest state element; bf16 as above."""
+    args = _ssd_inputs(s + 50, b, s, 50, 64, 16, dtype, cuda)
+    before = ssd_scan_kernel.launches
+    y, fin = ssd(*args, chunk=256)
+    assert ssd_scan_kernel.launches == before + 1
+    want_y, want_fin = ssd(*args, chunk=256, impl="ref")
+    torch.cuda.synchronize()
+    assert y.shape == (b, s, 50, 64) and y.dtype == dtype
+    state_scale = max(1.0, want_fin.abs().max().item())
+    assert (fin - want_fin).abs().max().item() <= 1e-4 * state_scale
+    if dtype == torch.float32:
+        assert (y - want_y).abs().max().item() <= 1e-4 * max(1.0, want_y.abs().max().item())
     else:
         assert _row_rel_err(y, want_y) <= 1 / 16
 
@@ -649,14 +708,15 @@ def _plant_argmax_rows(last, span, splits):
     return want
 
 
-# each arm's vocabulary (llama4-scout's 202,048 the largest) and an odd one
-# (rows not 16-byte aligned), at the batch sizes of admission, the long
-# arm, the 8-slot arms and a wide batch; S > 1 reads the last position of
-# (B, S, V), rows strided by S x V
+# each arm's vocabulary (llama4-scout's 202,048 the largest; pixtral-12b's
+# 131,072) and the odd ones (rows not 16-byte aligned: hymba-1.5b's
+# 32,001, whisper-small's 51,865), at the batch sizes of admission, the
+# long arm, the 8-slot arms and a wide batch; S > 1 reads the last
+# position of (B, S, V), rows strided by S x V
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("s", [1, 3])
 @pytest.mark.parametrize("b", [1, 2, 8, 64])
-@pytest.mark.parametrize("vocab", [32_000, 50_280, 151_936, 32_001, 202_048])
+@pytest.mark.parametrize("vocab", [32_000, 50_280, 151_936, 32_001, 202_048, 51_865, 131_072])
 def test_argmax_kernel_at_split_edges(cuda, vocab, b, s, dtype):
     gen = torch.Generator(device=cuda).manual_seed(vocab + 7 * b + s)
     x = torch.randn((b, s, vocab), generator=gen, device=cuda).to(dtype)
@@ -837,6 +897,52 @@ def test_aligned_mamba_engine_on_gpu_matches_cpu(cuda):
     assert gticks == cticks
     assert {r.uid: r.out_tokens for r in ge.finished} == \
            {r.uid: r.out_tokens for r in ce.finished}
+
+
+FAMILY_LAUNCHES = {  # per prefill call: (flash, SSD scan)
+    "hymba-1.5b": lambda cfg: (cfg.n_layers, cfg.n_layers),
+    "pixtral-12b": lambda cfg: (cfg.n_layers, 0),
+    "whisper-small": lambda cfg: (cfg.encoder_layers + 2 * cfg.n_layers, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_LAUNCHES))
+def test_family_on_the_card_kernel_route_matches_plain(cuda, name):
+    """Each family's f32 smoke model on the card: a prefill (pixtral: 16
+    patch embeddings before the text; whisper: 32 frames) through the
+    kernels (flash in every attention layer, the encoder's and the
+    cross-attention's included; hymba's SSD scan in every layer) against
+    the plain route (``impl="ref"``, no launch) within 1e-4 of the largest
+    logit; then four greedy decode ticks on each route's cache, the same
+    tokens, logits within 1e-4 of the largest (the decode step is plain
+    PyTorch on both)."""
+    cfg = dataclasses.replace(get_smoke(name), dtype=torch.float32)
+    model = build(cfg, device="cuda")
+    params = _to(build(cfg, device="cpu").init(0), cuda)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40))).to(cuda)
+    kw = {}
+    if cfg.frontend:
+        key = {"audio": "frames", "vision": "patches"}[cfg.frontend]
+        kw[key] = torch.from_numpy((rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model)) * 0.02).astype(np.float32)).to(cuda)
+    n = 40 + (cfg.n_frontend_tokens if cfg.frontend == "vision" else 0) + 8
+    runs = []
+    for impl in (None, "ref"):
+        flash0, ssd0 = flash_attention_kernel.launches, ssd_scan_kernel.launches
+        logits, cache = model.prefill(params, toks, model.init_cache(2, n), impl=impl, **kw)
+        launches = (flash_attention_kernel.launches - flash0, ssd_scan_kernel.launches - ssd0)
+        out = [logits[:, -1]]
+        for _ in range(4):
+            logits, cache = model.decode_step(params, cache, out[-1].argmax(-1)[:, None])
+            out.append(logits[:, -1])
+        runs.append((torch.stack(out, 1), launches))
+    (got, launched), (want, plain_launched) = runs
+    torch.cuda.synchronize()
+    assert launched == FAMILY_LAUNCHES[name](cfg) and plain_launched == (0, 0)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
 @pytest.mark.parametrize("n,s,dtype", [(2, 1 << 20, torch.float32), (2, 1_000_003, torch.float32),

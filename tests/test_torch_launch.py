@@ -49,14 +49,18 @@ def test_param_counts_match_the_reference(name):
 
 
 def test_unported_architectures_name_their_roadmap_item():
-    ported = set(configs.ARCH_NAMES)
+    """Every architecture of the reference is ported: the registry is the
+    reference's, in its order, and `build_for_arch` takes a frontend
+    (its batches carry the frontend embeddings after the tokens)."""
+    assert configs.ARCH_NAMES == jconfigs.ARCH_NAMES
     for name in jconfigs.ARCH_NAMES:
-        if name not in ported:
-            with pytest.raises(NotImplementedError, match="A12"):
-                configs.get(name)
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_for_arch(dataclasses.replace(configs.get("qwen1.5-0.5b"), frontend="vision"),
-                       configs.SHAPES["train_4k"])
+        assert configs.get(name).name == jconfigs.get(name).name
+    shape = configs.ShapeCfg("tiny", 16, 4, "train")
+    cfg = dataclasses.replace(configs.get_smoke("qwen1.5-0.5b"), frontend="vision",
+                              n_frontend_tokens=3)
+    batch = build_for_arch(cfg, shape).global_batch(0)
+    assert sorted(batch) == ["labels", "mask", "patches", "tokens"]
+    assert tuple(batch["patches"].shape) == (4, 3, cfg.d_model)
 
 
 @pytest.mark.parametrize("name,shape,skew", [("qwen1.5-0.5b", "train_4k", 0.0),

@@ -249,8 +249,8 @@ def test_model_zoo_builds_ssm(lm):
     assert logits.shape == (1, 1, tc.vocab_size) and cache["ssm_conv"].dtype == torch.bfloat16
     logits, cache = model.decode_step(tp, cache, torch.zeros((1, 1), dtype=torch.long))
     assert int(cache["pos"]) == 10 and bool(torch.isfinite(logits).all())
-    with pytest.raises(NotImplementedError, match="A12"):
-        build(dataclasses.replace(tc, hybrid=True), device="cpu")
+    hybrid = build(get_smoke("hymba-1.5b"), device="cpu")  # attention beside the SSM
+    assert hybrid.decode_step_paged is None and hybrid.verify_step is None
 
 
 def _requests(cfg, seed=11):

@@ -122,8 +122,9 @@ def test_model_loss_without_autograd_needs_no_checkpoint():
 
 
 def test_unported_modes_and_options_are_refused():
-    """What is still unported raises naming its ROADMAP item: a model axis
-    (A8) and the reference's other families (A12). `reshard_state` between
+    """What is still unported raises naming its ROADMAP item: a model axis,
+    and training the hybrid, VLM and encoder-decoder families (A8; their
+    models build). `reshard_state` between
     meshes of different sizes is refused by design (one gloo world has one
     size; the serving fleet moves its global layout on the host,
     tests/test_torch_fleet.py). Checkpoints, the conventional and overlap
@@ -131,6 +132,8 @@ def test_unported_modes_and_options_are_refused():
     (tests/test_torch_trainer.py)."""
     from repro_torch.core.groups import GroupedMesh
     from repro_torch.launch.elastic import reshard_state
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import TrainStepConfig, make_step
 
     with pytest.raises(ValueError, match="one gloo world has one size"):
         reshard_state({"x": torch.zeros(4)},
@@ -141,8 +144,9 @@ def test_unported_modes_and_options_are_refused():
     with pytest.raises(NotImplementedError, match="A8"):
         launch_main(["--smoke", "--device", "cpu", "--model", "2"])
     for name in ("hymba-1.5b", "whisper-small", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            get_smoke(name)
+        model = build(get_smoke(name), device="cpu")
+        with pytest.raises(NotImplementedError, match="A8"):
+            make_step(model, Mesh(n_rows=1, device="cpu"), OptConfig(), TrainStepConfig())
 
 
 JAX_TRAIN = """
