@@ -84,8 +84,8 @@ failure exits non-zero and prints no result:
                and the shared prefix cache: the stores checked every
                tick and after the drain, prefix hits, launch counts; then
                for the qwen1.5-0.5b draft a fresh engine of 4 slots at a
-               fixed load: 8 spec ticks on the host clock, 8 profiled as
-               in phase 5 and 8 with ms per draft step, verify forward
+               fixed load: 4 spec ticks on the host clock, 4 profiled as
+               in phase 5 and 4 with ms per draft step, verify forward
                and rollback, each ended by a synchronisation. (c) sampled mode: seed 3 twice gives identical
                streams, seed 4 others.
 6d. disagg  — disaggregated serving and the serving fleet
@@ -176,8 +176,10 @@ failure exits non-zero and prints no result:
                call's and the first decode tick's logits within 1e-4 of the
                plain route's largest, 16 greedy tokens under the margin rule.
    The kernels phase also holds chunk_accumulate against its plain
-   version (bit for bit at the train phase's (2, 465,567,744) f32 fold
-   and at a ragged S; 1e-6 at n = 7 and at 16 rows of bf16); the argmax
+   version (bit for bit at the train phases' f32 folds, summed into the
+   accumulator's row as the stream channel calls it: phase 8's (2,
+   310,378,496) and phase 8b's mixtral (2, 1,715,470,336); and at a ragged
+   S; 1e-6 at n = 7 and at 16 rows of bf16); the argmax
    at each serve arm's decode shape ((8, 32,000), (2, 151,936), (8,
    50,280)), at the spec path's verify targets and draft step ((20,
    151,936), (4, 151,936)) and at two admission rows (the last position of (1, 1024, V),
@@ -198,36 +200,73 @@ failure exits non-zero and prints no result:
    bins permuted, 2^26 uniform keys with f32 and bf16 counts, 4,096 bins,
    and 2^24 keys at 58,112 / 58,113 bins, the plan's path boundary),
    exact at counts of 1.
-8. train    — qwen1.5-0.5b at full width and depth, random f32 weights
+8. train    — qwen1.5-0.5b at full width, 12 of its 24 layers (cut for
+               the smoke's time since phase 8b), random f32 weights
                from --seed, through `Trainer` in a four-row gloo world on
                this card (`launch.mesh.spawn`; the wire is host loopback),
-               3 AdamW steps of 2,048-token sequences in each run:
-               decoupled mode (three compute rows and one reducer, 6
+               AdamW steps of 2,048-token sequences:
+               3 in decoupled mode (three compute rows and one reducer, 6
                sequences, the reducer folding each wave of 16 MiB gradient
                chunks with chunk_accumulate: launches checked, waves x
                steps), checkpointing at steps 2 and 3 into a temporary
                directory (row 0 reads step 3 back, bit for bit against the
                live state); a fresh trainer in overlap mode resuming from
                step 2 and taking step 3 (its loss against the decoupled
-               run's step 3); then the data-parallel conventional step and
-               the ZeRO-1 overlap step on 8 sequences (chunk_accumulate
-               launched 0 times). Per run and step the loss and the
+               run's step 3); then 2 steps each of the data-parallel
+               conventional step and the ZeRO-1 overlap step on 8
+               sequences (chunk_accumulate launched 0 times). Per run and step the loss and the
                slowest rank's time; per rank the phases, wire and staging
                bytes and seconds, peak device and host memory, moment bytes
                held, checkpoint bytes and seconds. Then the decoupled
                trainer under the adaptive loop (`TrainerConfig.adapt`,
-               window 2, cooldown 1, threshold 1.05) for 5 steps from the
-               same initial state: its regroups, chunk_accumulate
+               window 2, cooldown 1, threshold 1.05) for 4 steps from the
+               same initial state, and step 5's loss by one forward on
+               the parameters it leaves: its regroups, chunk_accumulate
                launches against the schedule (every compute row's
                gradient folded once a step, whatever the partition), its
                losses bit for bit the static decoupled run's up to the
-               first regroup and within `OVERLAP_LOSS_REL` after it (the
-               static run carried on by one more step, so a regroup after
-               step 3 has step 5's loss hold the update made on the new
-               partition), the seconds of the steps on the new partition.
+               first regroup and within `OVERLAP_LOSS_REL` until an update
+               on a new partition; after a regroup after step 3, step 4's
+               and step 5's losses bit for bit those of a decoupled step
+               built on the new partition from the state the static run's
+               step 3 left (step 5's loss holds the update made there;
+               its distance to the static run carried on by one step,
+               another summation order, reported), the seconds of the
+               steps on the new partition.
                Then one SGD step (lr 1) of each mode in the world held
                against the conventional step in one process in f32 (1e-4
-               of the largest gradient), and reported in bf16.
+               of the largest gradient).
+8b. train_families — the MoE, VLM, hybrid and encoder-decoder families
+               training at full width and cut depth in a two-row gloo
+               world on this card (`launch.mesh.spawn`), one model at a
+               time, random f32 weights from --seed, AdamW through
+               `make_step` in place on the pipeline's batches (Zipf
+               tokens, skewed lengths, the frontend's embeddings) laid
+               out as `Trainer` lays them out; decoupled mode with
+               reduce_alpha 1/2 (one compute row holding the whole global
+               batch, one reducer folding each step's single wave of
+               16 MiB chunks with chunk_accumulate). (a) mixtral-8x7b, 1
+               of 32 layers, f32 compute: 2 sequences of 1,536 tokens, 2
+               overlap (ZeRO-1) steps, one sequence a row (the second
+               routing group of 1,024 tokens straddles the rows), then 2
+               decoupled steps from the same weights: step 1's loss,
+               aux_loss and router_entropy within 1e-5 relative
+               (`MOE_ROUTING_REL`, TF32 off), step 2's loss within
+               `OVERLAP_LOSS_REL`; (b) pixtral-12b, 1 of 40 layers: 256
+               patch embeddings before 1,024 text tokens, 2 decoupled
+               steps; (c) hymba-1.5b, 8 of 32 layers: 2,048-token
+               sequences (past its 1,024 window), 2 decoupled and 2
+               conventional steps; (d) whisper-small whole: 1,500 frames
+               and 256 decoder tokens, 2 decoupled and 2 overlap steps,
+               then one step with runtime_skip=False against the default
+               decoupled step (bit for bit on every row) and one with
+               zero1=False against the ZeRO-1 step (`ZERO1_ATOL`), from the
+               same weights. Every run: finite losses the rows agree on,
+               chunk_accumulate launched once a decoupled step on the
+               reducer and never elsewhere, per step the slowest rank's
+               phases, per rank the wire and staging bytes and seconds,
+               peak device memory (allocated and reserved), the host's
+               peak and the moment bytes held.
 9. mapreduce — the paper's word-count MapReduce (Sec. IV-B) in an
                eight-row gloo world on this card (`launch.mesh.spawn`;
                the wire is host loopback): 16,384 documents of 4,096 word
@@ -250,7 +289,7 @@ failure exits non-zero and prints no result:
                against its plain version bit for bit, both timed beside
                `torch.bincount` and the bound), and the quickstart's
                workload statistics. Then `run_wordcount_adaptive` over
-               4 balanced corpora (skew 0: every slot a word; 8,192
+               2 balanced corpora (skew 0: every slot a word; 8,192
                documents of 4,096 slots, so that every bin stays under
                2^24; seeds --seed + t) from alpha0 1/2, the planner's own allocation for a
                balanced load at this size (fig12's check (a), the no-op
@@ -301,7 +340,8 @@ failure exits non-zero and prints no result:
                under faults; ``launches_moe`` from phase 7b's arm (b);
                ``launches_families`` from phase 7c's arms (a)-(c); the histogram's ``launches_adaptive`` from phase 9's
                adaptive run, and chunk_accumulate's
-               ``launches_train_by_run`` with phase 8's adaptive run), then
+               ``launches_train_by_run`` with phase 8's adaptive run, and
+               ``launches_train_families`` from phase 8b's runs), then
                the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, the script
@@ -1303,38 +1343,44 @@ def check_ssd(torch, np, seed: int) -> dict:
             "library_device_ms": None}
 
 
-# the stream channel's call at the train phase's widths: the reducer folds
-# qwen1.5-0.5b's 463,987,712 f32 gradients, packed into 111 wire chunks of
-# 16 MiB (465,567,744 values), stacked on its accumulator; then a ragged S,
-# and n > 2 in f32 and bf16. (case, n, S, dtype, timing iterations)
-ACC_CASES = [("train fold: accumulator + one wave", 2, 465_567_744, "f32", 10),
-             ("ragged S", 2, 1_000_003, "f32", 20),
-             ("7 rows", 7, 2_500_000, "f32", 20),
-             ("16 rows, bf16 input", 16, 4_194_304, "bf16", 20)]
+# the stream channel's call at the train phases' widths: the reducer folds
+# phase 8's qwen1.5-0.5b (12 layers) 309,785,600 f32 gradients, packed into
+# 74 wire chunks of 16 MiB (310,378,496 values), and phase 8b's mixtral-8x7b
+# (1 layer) 1,713,418,240 into 409 (1,715,470,336), each wave staged below
+# its accumulator and summed back into the accumulator's row (``out=``);
+# then a ragged S, and n > 2 in f32 and bf16. (case, n, S, dtype, timing
+# iterations, into the first row)
+ACC_CASES = [("train fold: accumulator + one wave, in place", 2, 310_378_496, "f32", 10, True),
+             ("phase 8b mixtral-8x7b fold, in place", 2, 1_715_470_336, "f32", 3, True),
+             ("ragged S", 2, 1_000_003, "f32", 20, False),
+             ("7 rows", 7, 2_500_000, "f32", 20, False),
+             ("16 rows, bf16 input", 16, 4_194_304, "bf16", 20, False)]
 
 
 def check_accumulate(torch, np, seed: int) -> dict:
     from repro_torch.kernels.stream_reduce import ops
 
     cases = []
-    for name, n, s, dt, iters in ACC_CASES:
+    for name, n, s, dt, iters, inplace in ACC_CASES:
         dtype = torch.float32 if dt == "f32" else torch.bfloat16
         gen = torch.Generator(device="cuda").manual_seed(seed + n)
         x = torch.randn((n, s), generator=gen, device="cuda").to(dtype)
-        out = ops.accumulate(x)
+        # the plain version and the scale first: an in-place call overwrites row 0
         ref = ops.accumulate(x, impl="ref")
+        scale = x.float().abs().sum(0).max().item()
+        exact = not (n == 2 and dt == "f32") or bool(torch.equal(ref, x[0] + x[1]))
+        out = ops.accumulate(x, out=x[0]) if inplace else ops.accumulate(x)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        scale = x.float().abs().sum(0).max().item()
-        exact = bool(torch.equal(out, ref))
-        if n == 2 and dt == "f32":
-            exact = exact and bool(torch.equal(out, x[0] + x[1]))
+        exact = exact and bool(torch.equal(out, ref))
         nbytes = n * s * x.element_size() + s * 4
         b_ms, b_by = bound_ms(nbytes, float((n - 1) * s), F32_FLOPS)
-        kern, plain = [lambda: ops.accumulate(x)], [lambda: ops.accumulate(x, impl="ref")]
+        kern = [lambda: ops.accumulate(x, out=x[0])] if inplace else [lambda: ops.accumulate(x)]
+        plain = [lambda: ops.accumulate(x, impl="ref")]
         lib = [lambda: torch.sum(x, 0, dtype=torch.float32)]
         case = {"phase": "kernels", "kernel": "chunk_accumulate", "case": name,
-                "shape": [n, s], "dtype": dt, "max_abs_err": err, "bit_identical": exact,
+                "shape": [n, s], "dtype": dt, "into_row_0": inplace, "max_abs_err": err,
+                "bit_identical": exact,
                 "col_abs_sum_max": scale, "rel_budget": ACC_REL,
                 "finite": bool(torch.isfinite(out).all()),
                 "kernel_ms": cuda_ms(torch, kern, iters, warmup=2),
@@ -2084,7 +2130,7 @@ SPEC_ACCEPT_BAND = (0.3, 0.95)
 SPEC_MARGIN = 1e-3
 # fig17's parity settings: every rollback meets a partial block
 SPEC_PARITY = dict(max_batch=4, max_len=96, block_size=8, n_req=12, new_tokens=14)
-SPEC_PROFILE_TICKS = 8
+SPEC_PROFILE_TICKS = 4
 SPEC_DRAFT = "qwen1.5-0.5b"  # the reference's pair for qwen2.5-3b
 # the multi-tenant spec replay: `SCENARIO`'s traffic cut to its first 24
 # arrival ticks (25 requests of its 145: chat, rag and background, shared
@@ -3404,8 +3450,8 @@ class RouteTape:
     def share(self) -> float:
         return self.differ / max(self.tokens, 1)
 
-    def __call__(self, p, xg, cfg, dtype):
-        r = self.real(p, xg, cfg, dtype)
+    def __call__(self, p, xg, cfg, dtype, **kw):
+        r = self.real(p, xg, cfg, dtype, **kw)
         if self.mode == "record":
             self.routes.append(r)
         elif self.mode == "replay":
@@ -3937,18 +3983,24 @@ def families_phase(torch, np, seed: int, smi: str) -> dict:
 # -- phase 8: training, in every step mode, with checkpoints ------------------------
 
 TRAIN_ROWS = 4
+# qwen1.5-0.5b at full width, 12 of its 24 layers (cut from its full depth
+# for the smoke's time when phase 8b came: every run's wire, checkpoint and
+# forward scale with it)
+TRAIN_LAYERS = 12
 TRAIN_STEPS = 3
 TRAIN_CHUNK_BYTES = 16 << 20
 TRAIN_SEQ = 2048
 DECOUPLED_BATCH = 6  # two sequences for each of the three compute rows
 DATA_PARALLEL_BATCH = 8  # two sequences for each of the four rows
+DATA_PARALLEL_STEPS = 2  # the conventional and overlap runs (COMPARE_STEP is their last)
 TRAIN_CKPT_EVERY = 2  # the decoupled run saves at steps 2 and 3 (the last)
 RESUME_STEP = 2
 # the decoupled trainer under the adaptive loop (`TrainerConfig.adapt`):
-# 5 steps from the same initial state; the first sample after a (re)build
-# is skipped, so the planner's first chance is after step 3, and step 5's
-# loss follows the update step 4 made on the new partition
-ADAPT_TRAIN_STEPS = 5
+# 4 steps from the same initial state; the first sample after a (re)build
+# is skipped, so the planner's first chance is after step 3, and step 4
+# updates on the new partition. Step 5's loss, taken by one forward on the
+# parameters the run left (`next_loss`), is the first to follow that update
+ADAPT_TRAIN_STEPS = 4
 ADAPT_POLICY = dict(window=2, cooldown=1, speedup_threshold=1.05)
 # the step the modes are compared at: step 1 carries each run's first-call
 # costs, and the decoupled run's step 3 shares the host with the write of
@@ -3980,12 +4032,12 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
     qwen1.5-0.5b's full width: 3 AdamW steps through `Trainer` in
     decoupled mode, saving at steps 2 and 3; a fresh overlap `Trainer`
     resuming from step 2 (step 3's commit marker removed, as a crash
-    before it would leave it) and taking step 3; 3 steps each of the
+    before it would leave it) and taking step 3; 2 steps each of the
     conventional and the overlap step on 8 sequences; each run with this
     rank's kernel counts set to 0 just before and read just after, and row
     0 reading the files of its last step back against the live state, so
     every checkpoint written is read. Then one SGD step of each mode
-    against the conventional step in one process, in f32 and bf16."""
+    against the conventional step in one process, in f32."""
     import shutil
 
     import torch
@@ -4003,7 +4055,7 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
         make_step,
     )
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    from repro_torch.utils.treeutil import tree_leaves
+    from repro_torch.utils.treeutil import tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4013,7 +4065,7 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
         mem.append((where, torch.cuda.memory_allocated() / 2 ** 30,
                     torch.cuda.memory_reserved() / 2 ** 30))
 
-    cfg = get("qwen1.5-0.5b")
+    cfg = dataclasses.replace(get("qwen1.5-0.5b"), n_layers=TRAIN_LAYERS)
     model = build(cfg)
     adamw = OptConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
     decoupled_cfg = TrainStepConfig(mode="decoupled", reduce_alpha=0.25,
@@ -4096,10 +4148,14 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
     snap("adamw state")
     out["params"] = sum(p.numel() for p in tree_leaves(state["params"]))
     drive("decoupled", trainer, state, resume=False)
-    # what the adaptive run's steps 4 and 5 are held to: the static run
-    # carried on by its own step once more (in place, after its counts and
-    # timings were read; the overlap run below resumes from the files), its
-    # logged loss, and step 5's loss on the parameters it left
+    # the state step 3 left, from which the adaptive run's update on a new
+    # partition is taken again after that run (below)
+    at_step3 = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                        {"params": state["params"], "opt": state["opt"]})
+    # the adaptive run's losses on the old partition are held to the
+    # static run carried on by its own step once more (in place, after its
+    # counts and timings were read; the overlap run below resumes from the
+    # files): its logged loss, and step 5's loss on the parameters it left
     _, _, metrics = trainer.step_fn(state["params"], state["opt"], decoupled_batch(TRAIN_STEPS))
     out["static_next_losses"] = [float(metrics["loss"]),
                                  next_loss(state["params"], TRAIN_STEPS + 1)]
@@ -4124,7 +4180,7 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
     for mode in ("conventional", "overlap"):
         d = os.path.join(ckpt_root, mode)
         trainer = Trainer(model, mesh, pipe8, adamw, TrainStepConfig(mode=mode),
-                          TrainerConfig(total_steps=TRAIN_STEPS, log_every=1, keep=1,
+                          TrainerConfig(total_steps=DATA_PARALLEL_STEPS, log_every=1, keep=1,
                                         ckpt_dir=d))
         state = trainer.init_state(seed)
         drive(mode, trainer, state, resume=False)
@@ -4144,11 +4200,28 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
                                     adapt=AdaptPolicy(**ADAPT_POLICY)))
     state = trainer.init_state(seed)
     run = drive("decoupled_adaptive", trainer, state, resume=False)
+    run["next_loss"] = next_loss(state["params"], ADAPT_TRAIN_STEPS)
     run["adapt_log"] = trainer.adapt_log
     run["decisions"] = [(d.reason, d.predicted_speedup)
                         for d in trainer.adaptive_graph.history]
-    run["reduce_rows_final"] = round(trainer.ts_cfg.reduce_alpha * TRAIN_ROWS)
+    run["reduce_rows_final"] = reduce_rows = round(trainer.ts_cfg.reduce_alpha * TRAIN_ROWS)
     del state, trainer
+    # what a regroup after step 3 is held to: step 4 taken again from the
+    # state step 3 left by a decoupled step built on the new partition, its
+    # loss and step 5's loss on the parameters it leaves (the same sums in
+    # the same order, so bit for bit the adaptive run's)
+    out["repartitioned_losses"] = None
+    if run["adapt_log"] and run["adapt_log"][0]["step"] == TRAIN_STEPS:
+        step = make_step(model, mesh, adamw,
+                         dataclasses.replace(decoupled_cfg, reduce_alpha=reduce_rows / TRAIN_ROWS),
+                         inplace=True)
+        batch = row_shard(pipe6.padded_for_groups(TRAIN_STEPS, TRAIN_ROWS - reduce_rows,
+                                                  TRAIN_ROWS), mesh.row, TRAIN_ROWS, model.device)
+        _, _, metrics = step(at_step3["params"], at_step3["opt"], batch)
+        out["repartitioned_losses"] = [float(metrics["loss"]),
+                                       next_loss(at_step3["params"], TRAIN_STEPS + 1)]
+        del step, batch, metrics
+    del at_step3
     gc.collect()
     torch.cuda.empty_cache()
     if mesh.row == 0:
@@ -4160,7 +4233,7 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
     # same global batch (the decoupled layout: 6 real sequences of 8)
     sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
                     weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
-    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    for name, dtype in (("f32", torch.float32),):
         pmodel = build(dataclasses.replace(cfg, dtype=dtype))
         params = pmodel.init(seed, param_dtype=torch.float32)
         batch = row_shard(pipe6.padded_for_groups(0, TRAIN_ROWS - 1, TRAIN_ROWS), mesh.row,
@@ -4259,6 +4332,7 @@ def train_run_line(name: str, mode: str, ranks: list, smi: str, **extra) -> dict
                  "per_step": [{k: t[k] for k in phase_keys + WIRE_KEYS} for t in run["timings"]]}
                 for r, run in zip(ranks, runs)]
     line = {"phase": "train", "run": name, "mode": mode, "model": "qwen1.5-0.5b",
+            "layers": TRAIN_LAYERS,
             "params": ranks[0]["params"], "rows": TRAIN_ROWS, "seq_len": TRAIN_SEQ,
             "steps": steps, "launches": launches, "per_rank": per_rank,
             "ckpt": runs[0]["ckpt"], "resumed": runs[0]["resumed"],
@@ -4285,11 +4359,15 @@ def adaptive_train_line(ranks: list, dec: dict, smi: str) -> dict:
     same on every rank), the reduce rows of each step, chunk_accumulate's
     launches against the schedule (each step folds every compute row's
     gradient once, one launch a wave), its losses against the static
-    decoupled run's bit for bit up to the first regroup and within
-    `OVERLAP_LOSS_REL` after it (steps 4 and 5 against the static run
-    carried on by one more step: with a regroup after step 3, step 5's
-    loss holds the one update made on the new partition), and the seconds
-    of the steps on the new partition."""
+    decoupled run's (carried on by one more step): bit for bit up to the
+    first regroup, within `OVERLAP_LOSS_REL` on every set of parameters
+    that no update on a new partition made; after a regroup (after step 3), step 4's loss
+    and step 5's loss on the run's last parameters bit for bit those of a
+    decoupled step built on the new partition from the state step 3 left
+    (step 5's loss holds the update made on the new partition, and a
+    regroup that no such loss follows fails; its distance to the static
+    run's, a different summation order, is reported), and the seconds of
+    the steps on the new partition."""
     runs = [r["runs"]["decoupled_adaptive"] for r in ranks]
     log = runs[0]["adapt_log"]
     if any(run["adapt_log"] != log for run in runs):
@@ -4302,18 +4380,22 @@ def adaptive_train_line(ranks: list, dec: dict, smi: str) -> dict:
     expected = sum(TRAIN_ROWS - r for r in by_step)
     first = log[0]["step"] if log else ADAPT_TRAIN_STEPS
     static = [x["loss"] for x in dec["steps"]] + ranks[0]["static_next_losses"]
-    losses = [x["loss"] for x in runs[0]["log"]]
+    losses = [x["loss"] for x in runs[0]["log"]] + [runs[0]["next_loss"]]
     # a regroup after step `first`: step first + 1 updates on the new
     # partition, and step first + 2's loss is the first to follow it
-    after_update = list(range(first + 2, ADAPT_TRAIN_STEPS + 1)) if log else []
+    after_update = list(range(first + 2, ADAPT_TRAIN_STEPS + 2)) if log else []
+    repartitioned = ranks[0]["repartitioned_losses"]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, static)]
     same = [a == b for a, b in zip(losses, static)]
+    # the losses on parameters that no update on a new partition made
+    held_to_static = first + 1 if log else len(losses)
     line = train_run_line("decoupled_adaptive", "decoupled", ranks, smi,
                           policy=ADAPT_POLICY, adapt_log=log, reduce_rows_by_step=by_step,
                           chunk_accumulate_expected=expected,
                           static_losses=static, loss_rel_to_static=rel,
                           bit_identical_to_static=same, first_regroup_step=first if log else None,
-                          loss_budget_after_regroup=OVERLAP_LOSS_REL,
+                          loss_budget=OVERLAP_LOSS_REL, steps_held_to_static=held_to_static,
+                          repartitioned_losses=repartitioned,
                           steps_after_a_regrouped_update=after_update)
     emit({"phase": "train", "run": "decoupled_adaptive summary", "adapt_log": log,
           "decisions": runs[0]["decisions"],
@@ -4325,13 +4407,21 @@ def adaptive_train_line(ranks: list, dec: dict, smi: str) -> dict:
         raise AssertionError(f"train adaptive: chunk_accumulate launched "
                              f"{line['launches']['chunk_accumulate']} times, the schedule "
                              f"{by_step} says {expected}")
-    if len(losses) != ADAPT_TRAIN_STEPS or len(static) != ADAPT_TRAIN_STEPS:
-        raise AssertionError(f"train adaptive: {len(losses)} steps and {len(static)} static "
-                             f"losses, want {ADAPT_TRAIN_STEPS}")
+    if len(losses) != ADAPT_TRAIN_STEPS + 1 or len(static) != ADAPT_TRAIN_STEPS + 1:
+        raise AssertionError(f"train adaptive: {len(losses)} losses and {len(static)} static "
+                             f"losses, want {ADAPT_TRAIN_STEPS} steps' and step "
+                             f"{ADAPT_TRAIN_STEPS + 1}'s")
+    if log and not after_update:
+        raise AssertionError(f"train adaptive: the regroup after step {first} is followed by "
+                             f"no loss of an update made on the new partition")
+    if log and (first != TRAIN_STEPS or losses[first:] != repartitioned):
+        raise AssertionError(f"train adaptive: losses {losses[first:]} after the regroup after "
+                             f"step {first} are not the new partition's step from step "
+                             f"{TRAIN_STEPS}'s state: {repartitioned}")
     if not all(same[:min(first, TRAIN_STEPS)]):
         raise AssertionError(f"train adaptive: losses before the first regroup differ from the "
                              f"static run's: {losses} against {static}")
-    if not all(r <= OVERLAP_LOSS_REL for r in rel):
+    if not all(r <= OVERLAP_LOSS_REL for r in rel[:held_to_static]):
         raise AssertionError(f"train adaptive: losses {losses} off the static run's {static}: "
                              f"{rel}, budget {OVERLAP_LOSS_REL}")
     return line
@@ -4395,8 +4485,8 @@ def train_phase(torch, np, seed: int, smi: str) -> dict:
                              f"{launches['decoupled']['chunk_accumulate']} times, want {expected}")
     if reducer["launches"]["chunk_accumulate"] != expected:
         raise AssertionError("train: a compute row folded a wave")
-    if len(dec["steps"]) != TRAIN_STEPS or len(conv["steps"]) != TRAIN_STEPS \
-            or len(over["steps"]) != TRAIN_STEPS:
+    if len(dec["steps"]) != TRAIN_STEPS or len(conv["steps"]) != DATA_PARALLEL_STEPS \
+            or len(over["steps"]) != DATA_PARALLEL_STEPS:
         raise AssertionError("train: a run did not take its steps")
     if any(line["steps"][COMPARE_STEP - 1]["after_save"] for line in by_mode.values()):
         raise AssertionError(f"train: a run saved before step {COMPARE_STEP}, the step the "
@@ -4417,6 +4507,262 @@ def train_phase(torch, np, seed: int, smi: str) -> dict:
             raise AssertionError(f"train: the {mode} step is off the conventional step in one "
                                  f"process: {parity[f'parity_f32_{mode}']}")
     return {"launches": launches["decoupled"], "launches_by_run": launches}
+
+
+# -- phase 8b: training the MoE, VLM, hybrid and encoder-decoder families ------------
+
+FAMILY_TRAIN_ROWS = 2
+# (arm, config, layers (None: whole), text tokens a sequence, global batch,
+# [(run, mode, steps)], compute dtype): full width, cut depth, f32 weights.
+# mixtral's overlap run goes first: a rank's first f32 forward and backward
+# pays ~10 s of one-time set-up on the card (the overlap run's step 1
+# against its step 2), which the overlap run's two ranks pay at once
+FAMILY_TRAIN = [
+    ("a", "mixtral-8x7b", 1, 1536, 2, [("overlap", "overlap", 2),
+                                       ("decoupled", "decoupled", 2)], "f32"),
+    ("b", "pixtral-12b", 1, 1024, 2, [("decoupled", "decoupled", 2)], None),
+    ("c", "hymba-1.5b", 8, 2048, 2, [("decoupled", "decoupled", 2),
+                                     ("conventional", "conventional", 2)], None),
+    ("d", "whisper-small", None, 256, 2, [("decoupled", "decoupled", 2),
+                                          ("overlap", "overlap", 2)], None),
+]
+# (a): mixtral's decoupled step (one compute row holding the whole global
+# batch) against its overlap step (one sequence a row, the second routing
+# group of 1,024 tokens straddling the rows), f32 with TF32 off: step 1's
+# loss, aux_loss and router_entropy from the same parameters and tokens
+# in the same groups and slots, the rows' sums added in another order
+MOE_ROUTING_REL = 1e-5
+# (d): the zero1=False step against the ZeRO-1 step, the same per-element
+# AdamW arithmetic on whole tensors or on the flat part (same norm); bit
+# for bit expected, 1e-7 of a parameter allowed
+ZERO1_ATOL = 1e-7
+
+
+def family_train_rank(mesh, seed: int) -> dict:
+    """One rank of phase 8b's two-row world (run by `spawn`): each arm of
+    `FAMILY_TRAIN` one after another, each run from the arm's parameters
+    drawn from ``seed`` (f32) through `make_step` in place, the batches of
+    the reference's pipeline (Zipf tokens, skewed lengths, the frontend's
+    embeddings) as the trainer lays them out, with this rank's kernel
+    counts set to 0 just before and read just after each run; then, on
+    whisper-small, one step each with ``runtime_skip=False`` and
+    ``zero1=False`` from the same parameters, against the first step of
+    the default decoupled and overlap runs. Each model freed before the
+    next."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import DataConfig, Pipeline, row_shard
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train import sharding
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainStepConfig, make_step
+    from repro_torch.utils.treeutil import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    adamw = OptConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    out = {"row": mesh.row, "arms": {}}
+
+    def step_cfg(mode: str, **kw):
+        return TrainStepConfig(mode=mode, reduce_alpha=0.5, wire_chunk_bytes=TRAIN_CHUNK_BYTES,
+                               **kw)
+
+    def batch_of(pipe, mode: str, index: int) -> dict:
+        """This row's part of batch ``index`` as `Trainer` lays it out."""
+        b = pipe.padded_for_groups(index, 1, mesh.n_rows) if mode == "decoupled" else \
+            pipe.global_batch(index)
+        return row_shard(b, mesh.row, mesh.n_rows, mesh.device)
+
+    def fresh(model, ts):
+        params = model.init(seed, param_dtype=torch.float32)
+        opt = init_opt_state(adamw, params)
+        if ts.mode == "overlap" and ts.zero1:
+            opt = sharding.shard_opt_state(sharding.zero1_plan(params, mesh.n_rows, mesh.row),
+                                           opt)
+        return params, opt
+
+    def drive(model, pipe, ts, steps: int, keep_first: bool = False):
+        """``steps`` steps of ``ts`` from the arm's parameters: (this rank's
+        record of the run, a copy of the parameters after step 1 with
+        ``keep_first``, else None)."""
+        params, opt = fresh(model, ts)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        moment_bytes = sum(t.numel() * t.element_size() for k in sharding.MOMENTS
+                           if k in opt for t in tree_leaves(opt[k]))
+        step = make_step(model, mesh, adamw, ts, inplace=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        metrics, first = [], None
+        t0 = time.perf_counter()
+        for i in range(steps):
+            params, opt, m = step(params, opt, batch_of(pipe, ts.mode, i))
+            metrics.append({k: float(v) for k, v in m.items() if k != "work_rows"})
+            if keep_first and i == 0:
+                first = [p.clone() for p in tree_leaves(params)]
+        torch.cuda.synchronize()
+        run = {"wall_s": time.perf_counter() - t0, "metrics": metrics,
+               "timings": list(step.timings),
+               "launches": {k: fn.launches for k, fn in counters.items()},
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+               "host_peak_gib": _host_peak_gib(), "moment_bytes": moment_bytes,
+               "params": n_params,
+               "finite": all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))}
+        del params, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.barrier()
+        return run, first
+
+    def one_step(model, pipe, ts):
+        """One step of ``ts`` from the arm's parameters (new tensors):
+        (the new parameters, the launches)."""
+        params, opt = fresh(model, ts)
+        for fn in counters.values():
+            fn.launches = 0
+        new, _, _ = make_step(model, mesh, adamw, ts)(params, opt, batch_of(pipe, ts.mode, 0))
+        torch.cuda.synchronize()
+        del params, opt
+        return new, counters["chunk_accumulate"].launches
+
+    for arm, name, layers, seq, batch, runs, dtype in FAMILY_TRAIN:
+        cfg = get(name)
+        cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                                  dtype=torch.float32 if dtype == "f32" else cfg.dtype)
+        model = build(cfg)
+        pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                   seed=seed, kind="zipf", skew=0.4, frontend=cfg.frontend,
+                                   n_frontend_tokens=cfg.n_frontend_tokens,
+                                   d_model=cfg.d_model))
+        rec, firsts = {"runs": {}}, {}
+        options = name == "whisper-small"
+        for run, mode, steps in runs:
+            rec["runs"][run], firsts[mode] = drive(model, pipe, step_cfg(mode), steps,
+                                                   keep_first=options)
+        if options:
+            noskip, noskip_launches = one_step(model, pipe, step_cfg("decoupled",
+                                                                     runtime_skip=False))
+            same = all(torch.equal(a, b) for a, b in zip(firsts["decoupled"],
+                                                        tree_leaves(noskip)))
+            del noskip
+            whole, _ = one_step(model, pipe, step_cfg("overlap", zero1=False))
+            diff = max((a - b).abs().max().item()
+                       for a, b in zip(firsts["overlap"], tree_leaves(whole)))
+            del whole
+            rec["options"] = {"runtime_skip_off_bit_identical": same,
+                              "chunk_accumulate_runtime_skip_off": noskip_launches,
+                              "zero1_off_max_abs_diff": diff}
+            mesh.barrier()
+        del firsts
+        out["arms"][arm] = rec
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    return out
+
+
+FAMILY_PHASES = {"decoupled": PHASES_BY_MODE["decoupled"],
+                 "conventional": PHASES_BY_MODE["conventional"],
+                 "overlap": PHASES_BY_MODE["overlap"]}
+
+
+def family_run_line(arm: str, name: str, layers, seq: int, batch: int, run: str, mode: str,
+                    ranks: list, smi: str) -> dict:
+    """One JSON line of a phase-8b run and its checks: finite losses the
+    rows agree on; chunk_accumulate launched waves x f32 groups x steps
+    on the reducer in decoupled mode (one compute row: one wave; every
+    gradient leaf f32: one group), 0 in the others."""
+    runs = [r["arms"][arm]["runs"][run] for r in ranks]
+    keys = FAMILY_PHASES[mode]
+    steps = [{"step": i + 1, **runs[0]["metrics"][i],
+              "wall_s": max(sum(r["timings"][i][k] for k in keys) for r in runs),
+              "phases_s": {k: max(r["timings"][i][k] for r in runs) for k in keys}}
+             for i in range(len(runs[0]["metrics"]))]
+    launches = [r["launches"]["chunk_accumulate"] for r in runs]
+    expected = [0, len(steps)] if mode == "decoupled" else [0, 0]
+    line = {"phase": "train_families", "arm": arm, "model": name, "layers": layers,
+            "run": run, "mode": mode, "rows": FAMILY_TRAIN_ROWS, "seq_len": seq,
+            "global_batch": batch, "params": runs[0]["params"], "steps": steps,
+            "chunk_accumulate_by_row": launches, "chunk_accumulate_expected_by_row": expected,
+            "per_rank": [{"row": r["row"], "wall_s": run_["wall_s"], "peak_gib": run_["peak_gib"],
+                          "peak_reserved_gib": run_["peak_reserved_gib"],
+                          "host_peak_gib": run_["host_peak_gib"],
+                          "moment_bytes": run_["moment_bytes"],
+                          "wire": {k: sum(t[k] for t in run_["timings"]) for k in WIRE_KEYS}}
+                         for r, run_ in zip(ranks, runs)],
+            "wire_chunk_bytes": TRAIN_CHUNK_BYTES, "nvidia_smi": smi}
+    emit(line)
+    losses = [s["loss"] for s in steps]
+    if not all(math.isfinite(x) for x in losses) or not all(r["finite"] for r in runs):
+        raise AssertionError(f"train_families {name} {run}: non-finite losses or parameters: "
+                             f"{losses}")
+    if any([m["loss"] for m in r["metrics"]] != losses for r in runs):
+        raise AssertionError(f"train_families {name} {run}: the rows disagree on the loss")
+    if launches != expected:
+        raise AssertionError(f"train_families {name} {run}: chunk_accumulate launched "
+                             f"{launches} times by row, want {expected}")
+    return line
+
+
+def family_train_phase(torch, np, seed: int, smi: str) -> dict:
+    """Phase 8b: the two-row world on the card (every kernel already built
+    by the parent), one line per arm and run, and the checks."""
+    from repro_torch.launch.mesh import spawn
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gib = torch.cuda.memory_reserved() / 2 ** 30
+    t0 = time.perf_counter()
+    ranks = spawn(family_train_rank, FAMILY_TRAIN_ROWS, device="cuda", args=(seed,),
+                  timeout_s=900)
+    world_s = time.perf_counter() - t0
+    lines, total = {}, collections.Counter()
+    for arm, name, layers, seq, batch, runs, _ in FAMILY_TRAIN:
+        for run, mode, _ in runs:
+            line = family_run_line(arm, name, layers, seq, batch, run, mode, ranks, smi)
+            lines[(arm, run)] = line
+            total["chunk_accumulate"] += sum(line["chunk_accumulate_by_row"])
+    dec, over = lines[("a", "decoupled")]["steps"], lines[("a", "overlap")]["steps"]
+    routing = {k: abs(over[0][k] - dec[0][k]) / abs(dec[0][k])
+               for k in ("loss", "aux_loss", "router_entropy")}
+    step2 = abs(over[1]["loss"] - dec[1]["loss"]) / abs(dec[1]["loss"])
+    options = [r["arms"]["d"]["options"] for r in ranks]
+    option_launches = [o["chunk_accumulate_runtime_skip_off"] for o in options]
+    total["chunk_accumulate"] += sum(option_launches)
+    summary = {"phase": "train_families_summary", "world_s": world_s,
+               "parent_reserved_gib": parent_gib,
+               "mixtral_step1_rel": routing, "mixtral_step1_budget": MOE_ROUTING_REL,
+               "mixtral_step2_loss_rel": step2, "mixtral_step2_budget": OVERLAP_LOSS_REL,
+               "whisper_runtime_skip_off_bit_identical": [o["runtime_skip_off_bit_identical"]
+                                                          for o in options],
+               "whisper_zero1_off_max_abs_diff": [o["zero1_off_max_abs_diff"] for o in options],
+               "zero1_off_budget": ZERO1_ATOL,
+               "whisper_option_chunk_accumulate_by_row": option_launches,
+               "chunk_accumulate": total["chunk_accumulate"], "nvidia_smi": smi}
+    emit(summary)
+    if not all(r <= MOE_ROUTING_REL for r in routing.values()):
+        raise AssertionError(f"train_families: mixtral's overlap step 1 is off its decoupled "
+                             f"step 1: {routing}, budget {MOE_ROUTING_REL}")
+    if not step2 <= OVERLAP_LOSS_REL:
+        raise AssertionError(f"train_families: mixtral's step-2 losses differ by {step2}")
+    if not all(o["runtime_skip_off_bit_identical"] for o in options):
+        raise AssertionError("train_families: whisper's runtime_skip=False step differs from "
+                             "the default step")
+    if option_launches != [0, 1]:  # one wave of one f32 group, on the reducer
+        raise AssertionError(f"train_families: whisper's runtime_skip=False step launched "
+                             f"chunk_accumulate {option_launches} times by row")
+    if not all(o["zero1_off_max_abs_diff"] <= ZERO1_ATOL for o in options):
+        raise AssertionError(f"train_families: whisper's zero1=False step is off the ZeRO-1 "
+                             f"step: {[o['zero1_off_max_abs_diff'] for o in options]}")
+    launches = dict.fromkeys(kernel_counters(), 0)
+    launches.update(total)
+    return {"launches": launches, "seconds": world_s}
 
 
 # -- phase 9: the paper's decoupled MapReduce --------------------------------------
@@ -4442,7 +4788,7 @@ MR_FOLD_ELEMENTS = 256  # elements of compute row 0's stream timed on a reduce r
 # leave the last row a third full, and plan 1.133x), so the no-op path at
 # this scale is the optimum's: "already optimal" at every wall
 # (`scripts/torch_adapt_plan.py` replays these verdicts on the host)
-MR_ADAPT_STEPS = 4
+MR_ADAPT_STEPS = 2  # the warmup's sample, then the planner's first decision
 MR_ADAPT_ALPHA0 = 0.5
 # half the static runs' documents: at skew 0 every slot is a valid word, and
 # at 2^26 words Zipf(1.4)'s hottest bin passes 2^24 (~21.6M), where no f32
@@ -5342,6 +5688,11 @@ def main(argv=None) -> int:
     CLOCK.start("train")
     train = train_phase(torch, np, args.seed + 8, smi)
 
+    # phase 8b: training the MoE, VLM, hybrid and encoder-decoder families at
+    # full width and cut depth in a two-row world on this card
+    CLOCK.start("train_families")
+    train_families = family_train_phase(torch, np, args.seed, smi)
+
     # phase 9: the paper's decoupled MapReduce in an eight-row world on this card
     CLOCK.start("mapreduce")
     mapreduce = mapreduce_phase(torch, np, args.seed, smi)
@@ -5403,6 +5754,7 @@ def main(argv=None) -> int:
         kern["launches_train"] = train["launches"][name]
         kern["launches_train_by_run"] = {run: counts[name]
                                          for run, counts in train["launches_by_run"].items()}
+        kern["launches_train_families"] = train_families["launches"][name]
         kern["launches_mapreduce"] = mapreduce["launches"][name]
         kern["launches_cg"] = cg["launches"][name]
         kern["launches_pic"] = pic["launches"][name]
@@ -5414,7 +5766,7 @@ def main(argv=None) -> int:
             "launches_scenario", "launches_spec", "launches_disagg", "launches_mamba_arm",
             "launches_moe", "launches_moe_by_arm", "launches_families",
             "launches_families_by_arm", "launches_train", "launches_train_by_run",
-            "launches_mapreduce", "launches_cg", "launches_pic")
+            "launches_train_families", "launches_mapreduce", "launches_cg", "launches_pic")
     emit({"phase": "timing", "seconds_by_phase": CLOCK.totals,
           "total_s": time.perf_counter() - t_main})
     emit({"kernels": [{k: kern[k] for k in keys + ("isolated_2p26", "launches_adaptive")

@@ -273,7 +273,7 @@ class StreamChannel:
         packer = wirelib.WirePacker.plan(payload, chunk_bytes)
         generic = combine is not None
         dev = self.mesh.device
-        acc = acc_bufs = packed = None
+        acc = acc_bufs = packed = pairs = None
         for wave in wave_ids:
             role, peer = self._role(wave)
             if role == "send":
@@ -287,10 +287,7 @@ class StreamChannel:
             if generic and acc is None:
                 acc = self._idle_result(payload, acc_init)
             elif not generic and acc_bufs is None:
-                start = packer.zeros(dev) if acc_init is None else packer.pack(acc_init)
-                # codec groups decode to f32: accumulate in f32, round once in unpack
-                acc_bufs = [b.float() if codec.applies(g.dtype) else b
-                            for g, b in zip(packer.groups, start)]
+                pairs, acc_bufs = self._accumulators(packer, acc_init, codec, wave_fold)
             staged_all = []
             for i, g in enumerate(packer.groups):
                 encode, decode = self._encoder(codec, g.dtype)
@@ -301,7 +298,7 @@ class StreamChannel:
                     for k, chunk in chunks:
                         acc_bufs[i][k] += chunk.to(acc_bufs[i].dtype)
                     continue
-                staged = None
+                staged = None if generic or pairs[i] is None else pairs[i][1]
                 for k, chunk in chunks:
                     if staged is None:
                         staged = torch.empty((g.n_chunks, g.chunk_elems), dtype=chunk.dtype,
@@ -309,8 +306,10 @@ class StreamChannel:
                     staged[k] = chunk
                 if generic:
                     staged_all.append(staged)
+                elif pairs[i] is not None:
+                    self._fold_pair(pairs[i])
                 else:
-                    acc_bufs[i] = self._fold_wave(acc_bufs[i], staged, g, wave_fold)
+                    acc_bufs[i] = self._fold_wave(acc_bufs[i], staged)
             if generic:
                 acc = combine(acc, packer.unpack(staged_all), True)
         del packed
@@ -318,16 +317,51 @@ class StreamChannel:
             return self._idle_result(payload, acc_init)
         return acc if generic else packer.unpack(acc_bufs)
 
-    def _fold_wave(self, acc_buf, staged, g, wave_fold):
-        """One wave's staged chunks into the accumulator (timed, synchronised)."""
+    def _accumulators(self, packer, acc_init, codec, wave_fold):
+        """The default-sum fold's accumulators, one a packer group, from
+        ``acc_init`` or zeros (f32 for a codec group, which decodes to f32:
+        rounded once in unpack). For the "kernel" fold an f32 group's
+        accumulator is row 0 of a (2, n_chunks, chunk_elems) stack whose
+        row 1 stages each wave: the operand `chunk_accumulate` reads, its
+        sum written back into row 0, so the fold copies nothing (at full
+        width the gradient is GBs). -> (the stacks or None, by group; the
+        accumulators)."""
+        start = None if acc_init is None else packer.pack(acc_init)
+        pairs, bufs = [], []
+        for i, g in enumerate(packer.groups):
+            shape = (g.n_chunks, g.chunk_elems)
+            dtype = torch.float32 if codec.applies(g.dtype) else g.dtype
+            pair = None
+            if wave_fold == "kernel" and g.dtype == torch.float32:
+                pair = torch.empty((2,) + shape, dtype=torch.float32, device=self.mesh.device)
+                buf = pair[0]
+            else:
+                buf = torch.empty(shape, dtype=dtype, device=self.mesh.device)
+            if start is None:
+                buf.zero_()
+            else:
+                buf.copy_(start[i])
+            pairs.append(pair)
+            bufs.append(buf)
+        return pairs, bufs
+
+    def _fold_pair(self, pair) -> None:
+        """One f32 wave with the `chunk_accumulate` kernel: ``pair`` is the
+        (2, n_chunks, chunk_elems) stack of accumulator and staged wave, and
+        the sum goes back into the accumulator's row (timed, synchronised)."""
         self.mesh.sync()
         t0 = time.perf_counter()
-        if wave_fold == "kernel" and g.dtype == torch.float32:
-            flat = reduce_ops.accumulate(torch.stack([acc_buf.reshape(-1),
-                                                      staged.reshape(-1)]))
-            out = flat.reshape(g.n_chunks, g.chunk_elems)
-        else:
-            out = acc_buf + staged.to(acc_buf.dtype)
+        reduce_ops.accumulate(pair.reshape(2, -1), out=pair[0].reshape(-1))
+        self.mesh.sync()
+        self.mesh.stats.fold_s += time.perf_counter() - t0
+
+    def _fold_wave(self, acc_buf, staged):
+        """One wave's staged chunks into the accumulator with a plain add
+        (timed, synchronised): the "add" fold, and "kernel"'s for a
+        non-f32 group."""
+        self.mesh.sync()
+        t0 = time.perf_counter()
+        out = acc_buf + staged.to(acc_buf.dtype)
         self.mesh.sync()
         self.mesh.stats.fold_s += time.perf_counter() - t0
         return out

@@ -284,10 +284,13 @@ class WirePacker:
         leaves, _ = tree_flatten(payload)
         out = []
         for g in self.groups:
-            flat = torch.cat([leaves[i].reshape(-1).to(g.dtype) for i in g.leaf_idx])
-            pad = g.n_chunks * g.chunk_elems - g.total
-            if pad:
-                flat = torch.cat([flat, flat.new_zeros((pad,))])
+            parts = [leaves[i].reshape(-1).to(g.dtype) for i in g.leaf_idx]
+            # one buffer of whole chunks, written once (a payload is GBs at
+            # full width)
+            flat = torch.empty((g.n_chunks * g.chunk_elems,), dtype=g.dtype,
+                               device=parts[0].device)
+            torch.cat(parts, out=flat[:g.total])
+            flat[g.total:].zero_()
             out.append(flat.reshape(g.n_chunks, g.chunk_elems))
         return tuple(out)
 

@@ -93,6 +93,20 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// `out` may be a row of `x` (f32 in: the stream channel folds each wave into
+// its accumulator's row of one (2, S) stack), although both pointers are
+// __restrict__. The in-place sum stays exact because a column is read and
+// written by one thread only, which reads all n rows of its columns before
+// it writes them: every store depends on the loads of its own columns, and
+// the loads the qualifiers let the compiler move ahead of a store (or serve
+// through the read-only cache) are of columns no thread has written. The
+// qualifiers stay for speed: dropping them made the in-place fold 5-7 %
+// slower on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/torch_accumulate_alias_ab.py). A redesign that
+// splits a column's rows across threads, or stages rows through shared
+// memory, must keep this order or refuse the alias (`out=` in
+// stream_reduce.py accepts an overlap only as a whole f32 row).
+
 // vectorised columns [0, n_vec * kN): each thread sums its columns over k
 template <typename T>
 __global__ void __launch_bounds__(kThreads) accumulate_vec_kernel(

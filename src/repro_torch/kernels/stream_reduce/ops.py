@@ -21,12 +21,14 @@ def _check_impl(impl):
         raise ValueError(f"unknown impl {impl!r} (use 'ref' or None)")
 
 
-def accumulate(elements: torch.Tensor, *, impl: str | None = None) -> torch.Tensor:
-    """(n, S) -> (S,) f32 column sum (the reducer group's chunk fold)."""
+def accumulate(elements: torch.Tensor, *, out: torch.Tensor | None = None,
+               impl: str | None = None) -> torch.Tensor:
+    """(n, S) -> (S,) f32 column sum (the reducer group's chunk fold),
+    into ``out`` (which may be a row of ``elements``) where given."""
     _check_impl(impl)
     if impl is None and elements.is_cuda:
-        return chunk_accumulate_kernel(elements)
-    return chunk_accumulate_ref(elements)
+        return chunk_accumulate_kernel(elements, out=out)
+    return chunk_accumulate_ref(elements, out=out)
 
 
 def keyed_histogram(keys: torch.Tensor, counts: torch.Tensor, n_bins: int, *,

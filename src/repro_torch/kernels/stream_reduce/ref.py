@@ -14,9 +14,13 @@ from __future__ import annotations
 import torch
 
 
-def chunk_accumulate_ref(elements: torch.Tensor) -> torch.Tensor:
-    """(n, S) any float -> (S,) f32: out[j] = sum_k elements[k, j]."""
-    return elements.float().sum(0)
+def chunk_accumulate_ref(elements: torch.Tensor, *,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """(n, S) any float -> (S,) f32: out[j] = sum_k elements[k, j], written
+    into ``out`` (an (S,) f32 tensor, which may be a row of ``elements``)
+    where one is given."""
+    total = elements.float().sum(0)
+    return total if out is None else out.copy_(total)
 
 
 def histogram_ref(keys: torch.Tensor, counts: torch.Tensor, n_bins: int, *,

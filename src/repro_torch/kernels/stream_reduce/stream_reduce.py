@@ -51,8 +51,15 @@ def _lib():
     return lib
 
 
-def chunk_accumulate_kernel(elements: torch.Tensor) -> torch.Tensor:
-    """Column sum of a contiguous (n, S) f32/bf16 buffer -> (S,) f32."""
+def chunk_accumulate_kernel(elements: torch.Tensor, *,
+                            out: torch.Tensor | None = None) -> torch.Tensor:
+    """Column sum of a contiguous (n, S) f32/bf16 buffer -> (S,) f32,
+    written into ``out`` where one is given: a contiguous (S,) f32 tensor
+    on the same device, which may be a row of f32 ``elements`` (each
+    thread reads every row of its own columns before it writes their sums,
+    and no thread reads another's columns, so the stream channel's fold
+    sums accumulator and wave into the accumulator's row without a copy);
+    any other overlap is refused."""
     runtime.require_cuda("chunk_accumulate_kernel", elements)
     if elements.ndim != 2 or elements.dtype not in _CODE:
         raise TypeError(f"want (n, S) f32/bf16, got {tuple(elements.shape)} {elements.dtype}")
@@ -62,7 +69,17 @@ def chunk_accumulate_kernel(elements: torch.Tensor) -> torch.Tensor:
     if n >= 2 ** 31:
         raise ValueError(f"{n} rows is past the kernel's int row count")
     elements = elements.contiguous()
-    out = torch.empty((s,), dtype=torch.float32, device=elements.device)
+    if out is None:
+        out = torch.empty((s,), dtype=torch.float32, device=elements.device)
+    elif out.dtype != torch.float32 or tuple(out.shape) != (s,) or not out.is_contiguous() \
+            or out.device != elements.device:
+        raise ValueError(f"out must be a contiguous ({s},) float32 tensor on "
+                         f"{elements.device}, got {tuple(out.shape)} {out.dtype} on {out.device}")
+    else:
+        off = out.data_ptr() - elements.data_ptr()
+        if -4 * s < off < elements.numel() * elements.element_size() \
+                and (elements.dtype != torch.float32 or off % (4 * s)):
+            raise ValueError("out may overlap elements only as one of its f32 rows")
     rc = _lib().chunk_accumulate(elements.data_ptr(), s, n, _CODE[elements.dtype],
                                  out.data_ptr(), runtime.stream_handle(elements))
     runtime.check(rc, "chunk_accumulate_kernel")

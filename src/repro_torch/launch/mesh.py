@@ -198,9 +198,12 @@ class Mesh:
         dim 0 in row order, over ``group`` (the whole world when None)."""
         t0 = time.perf_counter()
         host = self._to_host(t)
-        parts = [self._host_buffer(t.shape, t.dtype) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, host, group=group)
-        out = self._from_host(torch.cat(parts), t.dtype)
+        n = dist.get_world_size(group)
+        # the rows' parts land in one host buffer (pinned when staging for
+        # the card), which goes to the device as it is
+        gathered = self._host_buffer((n,) + tuple(t.shape), t.dtype)
+        dist.all_gather(list(gathered.unbind(0)), host, group=group)
+        out = self._from_host(gathered.reshape((-1,) + tuple(t.shape[1:])), t.dtype)
         self._collective(host, t0)
         return out
 

@@ -6,11 +6,14 @@
 Spawns a world of ``--data`` rows (`launch.mesh.spawn`: one process per
 row, every row on the one device ``--device`` names, the card by
 default), and each row runs a `Trainer` in the chosen step mode over the
-reference's data (Zipf tokens, skewed document lengths) with its
-optimizer settings. ``--smoke`` picks the architecture's reduced config
-and leaves the device as it is. The trainer saves a checkpoint halfway and
-at the end into ``--ckpt-dir``, and resumes from the newest one there.
-``--model`` must be 1: model-parallel training is not ported (ROADMAP A8).
+reference's data (Zipf tokens, skewed document lengths; the frontend
+embeddings of an audio or vision architecture) with its optimizer
+settings. ``--arch`` takes every architecture of the registry: dense,
+MoE, SSM, hybrid, VLM and encoder-decoder. ``--smoke`` picks the
+architecture's reduced config and leaves the device as it is. The
+trainer saves a checkpoint halfway and at the end into ``--ckpt-dir``,
+and resumes from the newest one there. ``--model`` must be 1:
+model-parallel training is not ported (ROADMAP A8).
 """
 from __future__ import annotations
 

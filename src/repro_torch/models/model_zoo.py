@@ -21,9 +21,9 @@ hybrid families (recurrent state) and the encoder-decoder (cross caches)
 have neither, so they serve in aligned mode only and not speculatively.
 An MoE model's loss adds the router's load-balancing term, ``ce + 0.01 *
 aux_loss``; a VLM's loss drops the frontend positions before the
-cross-entropy. Training the MoE, hybrid, VLM and encoder-decoder
-families on the rank world is ROADMAP A8 (`train.train_step.make_step`
-refuses them); their loss values and gradients are ported.
+cross-entropy. Every family trains on the rank world
+(`train.train_step.make_step`); an MoE model's data-parallel steps pass
+``route_world`` so that its shard routes as part of the global batch.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, moe, transformer
 
 Params = dict
 
@@ -53,12 +53,19 @@ class Model:
     # None for the ssm, hybrid and encdec families
     decode_step_paged: Callable[..., tuple] | None
     # (params, batch) -> (mean masked cross-entropy, {"ce": ...}); MoE: (ce +
-    # 0.01 * aux_loss, {"ce", "aux_loss", "router_entropy"})
+    # 0.01 * aux_loss, {"ce", "aux_loss", "router_entropy"}); an LM's also
+    # takes route_world= (`moe.RouteWorld`): `world_metrics` are then the
+    # world's, and "aux_share" carries this row's gradient
     loss: Callable[..., tuple]
     # (params, cache, tokens (B, S), n_new (B,)) -> (logits (B, S, V), cache):
     # one batched forward scoring a speculative chunk (serve/spec.py);
     # None where decode_step_paged is
     verify_step: Callable[..., tuple] | None = None
+    # the names of the metrics `loss` returns, sorted
+    metrics: tuple[str, ...] = ("ce",)
+    # those that `loss(..., route_world=)` computes for the world's global
+    # batch; empty where the loss has nothing to route over a world
+    world_metrics: tuple[str, ...] = ()
 
 
 def frontend_key(cfg) -> str | None:
@@ -95,12 +102,13 @@ def build(cfg, device=None) -> Model:
 
 
 def _build_lm(cfg, dev) -> Model:
-    def loss(params, batch):
+    def loss(params, batch, *, route_world=None):
         # the reference's own attention route: the flash kernel has no
         # backward in either package
         extra = batch.get(frontend_key(cfg))
         hidden, aux, _, _ = transformer.forward_lm(cfg, params, batch["tokens"],
-                                                   extra_embeds=extra, impl="ref")
+                                                   extra_embeds=extra, impl="ref",
+                                                   route_world=route_world)
         if extra is not None:  # frontend positions carry no next-token loss
             hidden = hidden[:, extra.shape[1]:]
         ce = transformer.chunked_softmax_xent(cfg, params, hidden, batch["labels"],
@@ -131,8 +139,10 @@ def _build_lm(cfg, dev) -> Model:
         def verify_step(params, cache, tokens, n_new):
             return transformer.verify_step_lm(cfg, params, cache, tokens, n_new)
 
+    world_metrics = moe.AUX_METRICS if cfg.n_experts else ()
     return Model(cfg, dev, _seeded_init(transformer.init_lm, cfg, dev), prefill, init_cache,
-                 decode_step, decode_step_paged, loss, verify_step)
+                 decode_step, decode_step_paged, loss, verify_step,
+                 metrics=tuple(sorted(("ce",) + world_metrics)), world_metrics=world_metrics)
 
 
 def _build_encdec(cfg, dev) -> Model:

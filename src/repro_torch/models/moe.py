@@ -19,7 +19,23 @@ it was kept), the dispatch is a scatter of the kept tokens into their
 ``(group, expert, slot)`` rows and the combine a gather of those rows:
 the same tokens land in the same slots and are dropped alike, and the
 expert products are batched matmuls over the experts (plain PyTorch, as
-the reference's are plain jnp outside any kernel).
+the reference's are plain jnp outside any kernel). The gradient of the
+loss ``ce + 0.01 * aux_loss`` flows as the reference's does: through the
+router's softmax into the combine weights and ``me``, through the
+scatter and gather into the tokens and the expert ``bmm``s; the ragged
+tail and ``ce`` (a count) give the router none, and a dropped token's
+spare row is never read, so it gets no gradient either.
+
+Routing over a world (`RouteWorld`): the reference's conventional and
+overlap train steps are one program over the global batch, so a group
+of ``min(DEFAULT_GROUP, B_global * S)`` tokens may straddle the shards
+of two data-parallel rows, its capacity slots are counted in global
+token order, and ``aux_loss`` is taken over the global batch. With a
+world, each row routes its own shard as that part of the global token
+stream: per top-k round one all-gather of every row's per-(group,
+expert) choice counts gives each row its slot offsets, and one
+all-reduce of the routed tokens' probability sums, routed counts and
+entropies gives the global ``me``, ``ce`` and ``router_entropy``.
 """
 from __future__ import annotations
 
@@ -33,6 +49,9 @@ from repro_torch.models import layers
 Params = dict
 
 DEFAULT_GROUP = 1024
+# the metrics `apply_moe` reports (a layer mean in the model's loss); with a
+# `RouteWorld` both are the global batch's
+AUX_METRICS = ("aux_loss", "router_entropy")
 
 
 def init_moe(gen: torch.Generator, cfg, *, dtype=torch.bfloat16, device=None) -> Params:
@@ -59,6 +78,56 @@ def _capacity(group: int, n_experts: int, k: int, factor: float) -> int:
     return max(4, min(group, c))
 
 
+class RouteWorld:
+    """The data-parallel rows whose equal shards, in row order, make one
+    global batch (the conventional and overlap train steps): `apply_moe`
+    routes each row's tokens as their part of the global token stream.
+    ``mesh`` gives ``n_rows``, ``row``, ``all_gather`` and ``all_reduce``
+    (`launch.mesh.Mesh`). A world serves one forward pass and its
+    recompute: every exchange is stashed under its layer and name, so a
+    checkpointed layer recomputed in the backward pass runs no collective
+    again."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self._stash: dict = {}
+        self._started = False
+
+    def start(self) -> None:
+        """Mark the one forward pass this world serves (`forward_lm`)."""
+        if self._started:
+            raise RuntimeError("a RouteWorld serves one forward pass (and its recompute)")
+        self._started = True
+
+    def at(self, layer: int) -> "LayerWorld":
+        return LayerWorld(self, layer)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerWorld:
+    """One layer's view of a `RouteWorld`."""
+
+    world: RouteWorld
+    layer: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.world.mesh.n_rows
+
+    @property
+    def row(self) -> int:
+        return self.world.mesh.row
+
+    def exchanged(self, name, fn):
+        """``fn()`` (a collective) the first time this layer asks for
+        ``name``; its stashed result after."""
+        key = (self.layer, name)
+        stash = self.world._stash
+        if key not in stash:
+            stash[key] = fn()
+        return stash[key]
+
+
 @dataclasses.dataclass
 class Route:
     """The routing of ``g`` groups of ``t`` tokens. ``choice``, ``slot``
@@ -74,11 +143,16 @@ class Route:
     capacity: int
 
 
-def route(p: Params, xg: torch.Tensor, cfg, dtype) -> Route:
+def route(p: Params, xg: torch.Tensor, cfg, dtype, *, present=None, exchange=None) -> Route:
     """Route ``xg`` ``(g, t, d)``: the reference's iterative top-k over
     ``log(p + 1e-9)`` with the experts already chosen masked to -inf
     (ties to the first index), each round's slots counted from the fill
-    the earlier rounds left."""
+    the earlier rounds left. ``present`` ``(g, t)`` marks the positions
+    that hold this row's tokens (the others neither count nor keep a
+    slot); ``exchange(round, counts)`` maps the round's ``(g, E)`` choice
+    counts to the counts of the tokens before this row's in each group
+    and the groups' totals (by default 0 and ``counts``: the groups are
+    this row's alone)."""
     g, t, _ = xg.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = _capacity(t, e, k, cfg.moe_capacity_factor)
@@ -87,13 +161,21 @@ def route(p: Params, xg: torch.Tensor, cfg, dtype) -> Route:
     used = torch.zeros((g, t, e), dtype=torch.bool, device=xg.device)
     fill = torch.zeros((g, e), dtype=torch.long, device=xg.device)
     choices, slots, keeps = [], [], []
-    for _ in range(k):
+    for i in range(k):
         choice = torch.where(used, -torch.inf, gate_in).argmax(-1)  # (g, t)
         onehot = F.one_hot(choice, e)  # (g, t, e)
-        before = torch.cumsum(onehot, dim=1) - onehot + fill[:, None, :]
-        slot = torch.gather(before, -1, choice[..., None])[..., 0]
+        if present is not None:
+            onehot = onehot * present[..., None]
+        counts = onehot.sum(1)  # (g, e)
+        before, total = (0, counts) if exchange is None else exchange(i, counts)
+        slot = torch.cumsum(onehot, dim=1) - onehot + (fill + before)[:, None, :]
+        slot = torch.gather(slot, -1, choice[..., None])[..., 0]
         keep = slot < cap
-        fill = fill + (onehot * keep[..., None]).sum(1)
+        if present is not None:
+            keep = keep & present
+        # the round's tokens take the slots from ``fill`` on in token order,
+        # so the first cap - fill of them are kept
+        fill = fill + torch.minimum(torch.clamp_min(cap - fill, 0), total)
         used = used | onehot.bool()
         choices.append(choice)
         slots.append(slot)
@@ -108,18 +190,67 @@ def _experts(p: Params, xe: torch.Tensor, dtype) -> torch.Tensor:
     return torch.bmm(h, p["w_down"].to(dtype))
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg, dtype=torch.bfloat16):
+def _world_layout(world: LayerWorld, n_tok: int) -> tuple[int, int, int, int, int]:
+    """This row's place in the global token stream of ``world``: (group
+    size t, global groups, first group this row's routed tokens touch,
+    their offset in it, routed tokens of this row). Shards are equal and
+    in row order; tokens past the last whole global group are the tail."""
+    n_glob = world.n_rows * n_tok
+    t = min(DEFAULT_GROUP, n_glob)
+    g_glob = n_glob // t
+    start = world.row * n_tok
+    routed = max(0, min(n_tok, g_glob * t - start))
+    if not routed:  # this row's tokens are all in the tail
+        return t, g_glob, g_glob, 0, 0
+    return t, g_glob, start // t, start % t, routed
+
+
+def _count_exchange(world: LayerWorld, g0: int, g1: int, g_glob: int):
+    """`route`'s ``exchange`` over a world: per round one all-gather of
+    every row's choice counts by global group and expert."""
+
+    def exchange(i: int, counts: torch.Tensor):
+        def gather():
+            buf = counts.new_zeros((g_glob, counts.shape[1]))
+            buf[g0:g1] = counts
+            return world.world.mesh.all_gather(buf[None])  # (rows, groups, E)
+
+        every = world.exchanged(("counts", i), gather)
+        return every[:world.row].sum(0)[g0:g1], every.sum(0)[g0:g1]
+
+    return exchange
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg, dtype=torch.bfloat16,
+              world: LayerWorld | None = None):
     """x: (B, S, d) -> (out (B, S, d) in ``dtype``, {aux_loss, router_entropy}),
     the reference's Switch-style load-balancing loss and routing entropy
-    (f32 scalars)."""
+    (f32 scalars). With ``world`` (`RouteWorld.at`), ``x`` is this row's
+    shard of the global batch: it routes as part of the global token
+    stream, ``aux_loss`` and ``router_entropy`` are the global batch's
+    (no gradient), and ``aux_share`` is this row's differentiable share
+    of ``aux_loss``, ``E * sum(probsum_row / N * ce_global)`` over the N
+    routed tokens of the world, so that the rows' shares sum to it."""
     bsz, s, d = x.shape
     e = cfg.n_experts
     tokens = x.reshape(-1, d)
     n_tok = tokens.shape[0]
-    t = min(DEFAULT_GROUP, n_tok)
-    g = n_tok // t
-    xg = tokens[: g * t].reshape(g, t, d)
-    r = route(p, xg, cfg, dtype)
+    if world is None:
+        t = min(DEFAULT_GROUP, n_tok)
+        g, lead, present, exchange = n_tok // t, 0, None, None
+        n_routed = g * t
+        xg = tokens[:n_routed].reshape(g, t, d)
+    else:
+        t, g_glob, g0, lead, n_routed = _world_layout(world, n_tok)
+        g = -(-(lead + n_routed) // t)  # the groups this row's routed tokens touch
+        # this row's routed tokens at their places in those groups, the
+        # other rows' places empty
+        xg = F.pad(tokens[:n_routed], (0, 0, lead, g * t - lead - n_routed)).reshape(g, t, d)
+        present = torch.zeros(g * t, dtype=torch.bool, device=x.device)
+        present[lead:lead + n_routed] = True
+        present = present.reshape(g, t)
+        exchange = _count_exchange(world, g0, g0 + g, g_glob)
+    r = route(p, xg, cfg, dtype, present=present, exchange=exchange)
     k, cap = r.choice.shape[0], r.capacity
 
     # dispatch: each kept (round, group, token) to its (group, expert, slot)
@@ -142,18 +273,31 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, dtype=torch.bfloat16):
     out = w[0] * ye[rows[0]].float()
     for i in range(1, k):
         out = out + w[i] * ye[rows[i]].float()
-    out = out.to(dtype)
-    if g * t < n_tok:  # the ragged tail: expert 0, densely, unweighted
+    out = out.to(dtype)[lead:lead + n_routed]
+    if n_routed < n_tok:  # the ragged tail: expert 0, densely, unweighted
         tail = _experts({k_: p[k_][:1] for k_ in ("w_gate", "w_up", "w_down")},
-                        tokens[g * t:].to(dtype)[None], dtype)[0]
+                        tokens[n_routed:].to(dtype)[None], dtype)[0]
         out = torch.cat([out, tail])
     y = out.reshape(bsz, s, d)
     if cfg.shared_expert:
         y = y + layers.apply_mlp(p["shared"], x, "swiglu", dtype)
 
-    me = r.probs.mean(dim=(0, 1))  # (E,)
     routed = (F.one_hot(r.choice, e) * r.keep[..., None]).amax(0)  # (g, t, E)
-    ce = routed.float().mean(dim=(0, 1))
-    aux_loss = e * torch.sum(me * ce)
-    entropy = -torch.sum(r.probs * torch.log(r.probs + 1e-9), dim=-1).mean()
-    return y, {"aux_loss": aux_loss, "router_entropy": entropy}
+    entropy = -torch.sum(r.probs * torch.log(r.probs + 1e-9), dim=-1)  # (g, t)
+    if world is None:
+        me = r.probs.mean(dim=(0, 1))  # (E,)
+        ce = routed.float().mean(dim=(0, 1))
+        aux_loss = e * torch.sum(me * ce)
+        return y, {"aux_loss": aux_loss, "router_entropy": entropy.mean()}
+    # the global batch's me, ce and entropy: sums over every row's routed
+    # tokens (``present`` masks the empty places), over the N of the world
+    probsum = (r.probs * present[..., None]).sum(dim=(0, 1))
+    with torch.no_grad():  # the recompute, which skips the collective, saves the same
+        local = torch.cat([probsum, routed.float().sum(dim=(0, 1)),
+                           (entropy * present).sum()[None]])
+    sums = world.exchanged("aux", lambda: world.world.mesh.all_reduce(local))
+    n = g_glob * t
+    ce = sums[e:2 * e] / n
+    return y, {"aux_loss": e * torch.sum(sums[:e] / n * ce),
+               "router_entropy": sums[2 * e] / n,
+               "aux_share": e * torch.sum(probsum / n * ce)}

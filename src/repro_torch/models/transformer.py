@@ -135,11 +135,12 @@ def _attention_full(cfg, p, h, positions, window, dtype, impl=None):
     return out, k.reshape(b, s, cfg.d_kv), v.reshape(b, s, cfg.d_kv)
 
 
-def _ffn(cfg, p, h, dtype):
+def _ffn(cfg, p, h, dtype, world=None):
     """A layer's feed-forward on its normed input -> (out, aux): the MoE
-    layer with its aux metrics, or the MLP with none."""
+    layer with its aux metrics (routed over ``world``, a
+    `moe.LayerWorld`, when given), or the MLP with none."""
     if cfg.n_experts:
-        return moe.apply_moe(p["moe"], h, cfg, dtype)
+        return moe.apply_moe(p["moe"], h, cfg, dtype, world=world)
     return layers.apply_mlp(p["mlp"], h, cfg.mlp_kind, dtype), {}
 
 
@@ -151,7 +152,7 @@ def _mamba(cfg, p, h, dtype, want_kv: bool, impl):
     return ssm.mamba_block(p["mamba"], h, cfg, dtype, impl=impl), None
 
 
-def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl):
+def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl, world=None):
     """One layer -> (x, aux, (k, v) or None, SSM decode state or None)."""
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     if cfg.family == "ssm":
@@ -164,12 +165,12 @@ def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl):
         attn_out = (attn_out + ssm_out) * 0.5
     x = x + attn_out
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-    out, aux = _ffn(cfg, p, h2, dtype)
+    out, aux = _ffn(cfg, p, h2, dtype, world)
     return x + out, aux, ((kf, vf) if want_kv else None), sstate
 
 
 def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, extra_embeds=None,
-               want_kv: bool = False, impl: str | None = None):
+               want_kv: bool = False, impl: str | None = None, route_world=None):
     """Returns (hidden (B,S,d) post-final-norm, aux, per-layer [(k, v)]
     or None, per-layer [{state, conv}] or None): aux is the mean over
     layers of each MoE aux metric (``aux_loss``, ``router_entropy``; empty
@@ -183,7 +184,11 @@ def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, extra_embeds=None,
     autograd records a gradient of the params, each layer runs under one
     `torch.utils.checkpoint` and is recomputed in the backward pass (the
     reference's ``jax.checkpoint`` over the layer scan), so a layer's
-    activations live only while its gradient is taken."""
+    activations live only while its gradient is taken. ``route_world``
+    (`moe.RouteWorld`): ``tokens`` is this row's shard of a world's global
+    batch, and every MoE layer routes over the world (aux then also holds
+    ``aux_share``, `moe.apply_moe`); the recompute reads the exchanges the
+    forward stashed."""
     if cfg.family == "encdec":
         raise ValueError("an encoder-decoder model runs models.encdec, not forward_lm")
     if impl not in (None, "ref"):
@@ -199,13 +204,16 @@ def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, extra_embeds=None,
     kv, states, auxes = [], [], []
     recompute = torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(params))
-    for p, window in zip(params["layers"], cfg.layer_windows()):
+    if route_world is not None:
+        route_world.start()
+    for li, (p, window) in enumerate(zip(params["layers"], cfg.layer_windows())):
+        world = None if route_world is None else route_world.at(li)
         if recompute:
             x, aux, kvl, sstate = checkpoint(_layer_forward, cfg, p, x, positions, window,
-                                             dtype, want_kv, impl, use_reentrant=False)
+                                             dtype, want_kv, impl, world, use_reentrant=False)
         else:
             x, aux, kvl, sstate = _layer_forward(cfg, p, x, positions, window, dtype,
-                                                 want_kv, impl)
+                                                 want_kv, impl, world)
         auxes.append(aux)
         if kvl is not None:
             kv.append(kvl)

@@ -5,7 +5,10 @@ Scalars (the learning rate, the bias corrections) are computed in f32 as
 the reference computes them, and the leaf updates in f32. With
 ``inplace=True`` `apply_updates` writes the new parameters and moments
 into the given tensors, so a full-width step holds no second copy of
-them; the reference's functional form (new trees) is the default.
+them, and updates a leaf of more than `UPDATE_SLICE` elements slice by
+slice (the same elementwise arithmetic), so that its temporaries stay a
+few slices' worth; the reference's functional form (new trees) is the
+default.
 """
 from __future__ import annotations
 
@@ -30,6 +33,12 @@ class OptConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_ratio: float = 0.1
+
+
+# elements of one slice of an in-place update (256 MiB of f32): at full
+# width a leaf (an MoE layer's stacked experts, a ZeRO-1 part) is GBs, and
+# AdamW's temporaries are several times a leaf
+UPDATE_SLICE = 1 << 26
 
 
 def _f32(x) -> torch.Tensor:
@@ -67,14 +76,14 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float,
-                        norm: torch.Tensor | None = None) -> tuple[Any, torch.Tensor]:
-    """``grads`` scaled so that their global norm is at most ``max_norm``.
-    ``norm``: the global norm when ``grads`` is one part of the gradient
-    (a ZeRO-1 shard); by default that of ``grads``."""
+def clip_scale(grads: Any, max_norm: float,
+               norm: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the factor that brings the global norm to at most ``max_norm``, the
+    norm). ``norm``: the global norm when ``grads`` is one part of the
+    gradient (a ZeRO-1 shard); by default that of ``grads``."""
     norm = global_norm(grads) if norm is None else norm
-    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), norm
+    return torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0), norm
+
 
 
 @torch.no_grad()
@@ -87,8 +96,9 @@ def apply_updates(cfg: OptConfig, params: Any, grads: Any, state: dict, *,
     gradient's norm, ``grad_norm``, which the caller gathers."""
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)
-    if cfg.grad_clip > 0:
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
+    # the clip scales each gradient piece as it is used (no scaled copy of
+    # the whole gradient)
+    scale = clip_scale(grads, cfg.grad_clip, grad_norm)[0] if cfg.grad_clip > 0 else None
 
     def put(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
         return old.copy_(new) if inplace else new
@@ -101,6 +111,16 @@ def apply_updates(cfg: OptConfig, params: Any, grads: Any, state: dict, *,
             raise ValueError("apply_updates: trees differ in structure from params")
         return leaves
 
+    def pieces(*leaves):
+        """The leaves whole, or, for a large in-place update, as matching
+        slices of their flat views (written in place, so the leaves hold
+        the result)."""
+        n = leaves[0].numel()
+        if not inplace or n <= UPDATE_SLICE or not all(t.is_contiguous() for t in leaves):
+            return [leaves]
+        flat = [t.view(-1) for t in leaves]
+        return [tuple(t[i:i + UPDATE_SLICE] for t in flat) for i in range(0, n, UPDATE_SLICE)]
+
     g_leaves = leaves_of(grads)
     if cfg.kind == "adamw":
         b1, b2 = cfg.beta1, cfg.beta2
@@ -108,34 +128,44 @@ def apply_updates(cfg: OptConfig, params: Any, grads: Any, state: dict, *,
         bc2 = (1.0 - _f32(b2) ** step).item()
         m_leaves, v_leaves = leaves_of(state["m"]), leaves_of(state["v"])
         new_p, new_m, new_v = [], [], []
-        for p, g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
-            g = g.float()
-            pf = p.float()
-            m_new = b1 * m + (1 - b1) * g
-            v_new = b2 * v + (1 - b2) * g * g
-            step_dir = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
-            p_new = pf - lr * (step_dir + cfg.weight_decay * pf)
-            new_p.append(put(p, p_new.to(p.dtype)))
-            new_m.append(put(m, m_new))
-            new_v.append(put(v, v_new))
+        for leaves in zip(p_leaves, g_leaves, m_leaves, v_leaves):
+            parts = pieces(*leaves)
+            for p, g, m, v in parts:
+                g = (g if scale is None else g * scale).float()
+                pf = p.float()
+                m_new = b1 * m + (1 - b1) * g
+                v_new = b2 * v + (1 - b2) * g * g
+                step_dir = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+                p_new = pf - lr * (step_dir + cfg.weight_decay * pf)
+                out = put(p, p_new.to(p.dtype)), put(m, m_new), put(v, v_new)
+            if len(parts) > 1:
+                out = leaves[0], leaves[2], leaves[3]
+            new_p.append(out[0])
+            new_m.append(out[1])
+            new_v.append(out[2])
         return tree_unflatten(treedef, new_p), {
             "step": step, "m": tree_unflatten(treedef, new_m),
             "v": tree_unflatten(treedef, new_v)}
 
     if cfg.kind == "sgdm":
         new_p, new_m = [], []
-        for p, g, m in zip(p_leaves, g_leaves, leaves_of(state["m"])):
-            g = g.float()
-            pf = p.float()
-            m_new = cfg.beta1 * m + g
-            p_new = pf - lr * (m_new + cfg.weight_decay * pf)
-            new_p.append(put(p, p_new.to(p.dtype)))
-            new_m.append(put(m, m_new))
+        for leaves in zip(p_leaves, g_leaves, leaves_of(state["m"])):
+            parts = pieces(*leaves)
+            for p, g, m in parts:
+                g = (g if scale is None else g * scale).float()
+                pf = p.float()
+                m_new = cfg.beta1 * m + g
+                p_new = pf - lr * (m_new + cfg.weight_decay * pf)
+                out = put(p, p_new.to(p.dtype)), put(m, m_new)
+            if len(parts) > 1:
+                out = leaves[0], leaves[2]
+            new_p.append(out[0])
+            new_m.append(out[1])
         return tree_unflatten(treedef, new_p), {"step": step,
                                                 "m": tree_unflatten(treedef, new_m)}
 
     raise ValueError(cfg.kind)
 
 
-__all__ = ["OptConfig", "apply_updates", "clip_by_global_norm", "global_norm",
-           "init_opt_state", "schedule_lr"]
+__all__ = ["OptConfig", "apply_updates", "clip_scale", "global_norm", "init_opt_state",
+           "schedule_lr"]

@@ -13,8 +13,10 @@ port of the reference's `train/train_step.py`).
                 size); the reducer folds them as they arrive, completes
                 the small intra-group sum and broadcasts the reduced
                 gradient back; every row applies the same update. Service
-                rows skip forward and backward (the reference's default,
-                ``runtime_skip``, is the only form here). With
+                rows skip forward and backward (``runtime_skip``, the
+                reference's default); with ``runtime_skip=False`` they run
+                both on their zero-masked shards and discard the gradient,
+                as the reference's branch without ``lax.cond`` does. With
                 ``analytics_alpha > 0`` the reducer streams the reduced
                 gradient on to an analytics group, which computes its
                 norm and abs-max off the update's path.
@@ -22,18 +24,28 @@ port of the reference's `train/train_step.py`).
   overlap       ZeRO-1 (`train.sharding`): the rows reduce-scatter the
                 flat gradient, clip with the global norm, update their own
                 part of the parameters and moments, and all-gather the
-                parameters. The reference gets the same collectives from
+                parameters. With ``zero1=False`` every row keeps whole
+                moments (the reference's replicated moment specs): the
+                reduced parts are all-gathered into the whole gradient and
+                every row updates everything, with the same per-element
+                arithmetic. The reference gets the same collectives from
                 GSPMD sharding constraints.
 
 Each rank runs the step on its own row's shard of the batch
 (`data.pipeline.row_shard`). Every mode sums the rows' local loss sums
 and token counts and divides once by the global count, so a row whose
-shard is wholly masked adds nothing (never a mean of means). Not ported:
-the reference's ``runtime_skip=False``, ``zero1=False``, FSDP (``fsdp``,
-``fsdp_threshold``) and the training of the MoE, hybrid, VLM and
-encoder-decoder families (``make_step`` refuses them; their loss values
-and gradients are ported, `models.model_zoo`, `value_and_grad`):
-ROADMAP A8.
+shard is wholly masked adds nothing (never a mean of means).
+
+Every family trains. An MoE model's conventional and overlap steps are,
+in the reference, one program over the global batch, so a routing group
+may straddle two rows' shards and ``aux_loss`` is the global batch's:
+there each row's forward routes over the world (`models.moe.RouteWorld`),
+and its loss sum is its cross-entropy sum plus ``0.01 * aux_share *
+N``, N the global token count, so that the rows' gradients sum to the
+reference's; ``aux_loss`` and ``router_entropy`` are reported as the
+world computed them. The decoupled step is per row in the reference too
+(``shard_map``): each compute row routes its own shard. Not ported:
+FSDP and the model axis (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -46,6 +58,7 @@ from repro_torch.core.adapt import StageTrait
 from repro_torch.core.dataflow import COMPUTE, ServiceGraph, work_vector
 from repro_torch.core.decouple import group_psum
 from repro_torch.core.wire import WireSpec
+from repro_torch.models import moe
 from repro_torch.train import sharding
 from repro_torch.train.optimizer import OptConfig, apply_updates
 from repro_torch.utils.treeutil import (
@@ -72,6 +85,8 @@ class TrainStepConfig:
     # wire granularity of the gradient stream in bytes; None keeps the
     # whole-payload fold per wave
     wire_chunk_bytes: int | None = None
+    zero1: bool = True  # overlap mode: moments in parts (False: whole on every row)
+    runtime_skip: bool = True  # decoupled mode: service rows skip forward and backward
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -98,13 +113,20 @@ def build_conventional_step(model, opt_cfg: OptConfig, *, inplace: bool = False)
     return step
 
 
-def _loss_sum(model):
+def _loss_sum(model, world=None, mask_total: float = 0.0):
     """``model.loss`` as a local sum (mean x token count), so that the
-    rows' sums combine into the global mean."""
+    rows' sums combine into the global mean. With a `moe.RouteWorld`, the
+    row's cross-entropy sum plus ``0.01 * aux_share * mask_total`` (the
+    global token count): the world's sum of those, over ``mask_total``,
+    is the global loss ``ce + 0.01 * aux_loss``, gradient included."""
 
     def loss_sum(params, batch):
-        loss_mean, metrics = model.loss(params, batch)
-        return loss_mean * batch["mask"].sum(), metrics
+        if world is None:
+            loss_mean, metrics = model.loss(params, batch)
+            return loss_mean * batch["mask"].sum(), metrics
+        _, metrics = model.loss(params, batch, route_world=world)
+        share = metrics.pop("aux_share")
+        return metrics["ce"] * batch["mask"].sum() + 0.01 * mask_total * share, metrics
 
     return loss_sum
 
@@ -130,23 +152,33 @@ class _Laps:
         return self.t
 
 
-def _row_gradient(model, params, batch):
-    """This row's gradient of its local loss sum, and the row's [loss sum,
+def _row_gradient(model, params, batch, mesh):
+    """This row's gradient of its local loss sum, the row's [loss sum,
     token count, token-weighted metrics] for one world sum
-    (`_world_means`)."""
-    loss_tot, metrics, grads = value_and_grad(_loss_sum(model), params, batch)
+    (`_world_means`), and the metrics the world already computed (a model
+    with `world_metrics` routes over ``mesh``: `_loss_sum`), each row
+    holding the same value, reported as it is."""
+    world, mask_total = None, 0.0
+    if model.world_metrics:
+        world = moe.RouteWorld(mesh)
+        mask_total = float(mesh.all_reduce(batch["mask"].sum().reshape(1).float())[0])
+    loss_tot, metrics, grads = value_and_grad(_loss_sum(model, world, mask_total), params,
+                                              batch)
     cnt = batch["mask"].sum().float()
+    fixed = {k: float(metrics.pop(k)) for k in model.world_metrics}
     names = sorted(metrics)
     vec = torch.stack([loss_tot.float(), cnt] + [metrics[k].float() * cnt for k in names])
-    return grads, names, vec.cpu()
+    return grads, (names, fixed), vec.cpu()
 
 
-def _world_means(mesh, names, vec) -> tuple[float, dict]:
+def _world_means(mesh, keys, vec) -> tuple[float, dict]:
     """The global token count (at least 1), and the loss and metrics as
-    means over every row's tokens."""
+    means over every row's tokens; ``keys``: (the names of the metrics in
+    ``vec``, the world's own metrics, taken as they are)."""
+    names, fixed = keys
     sums = mesh.all_reduce(vec)
     total = max(float(sums[1]), 1.0)
-    out = {"loss": float(sums[0]) / total}
+    out = {"loss": float(sums[0]) / total, **fixed}
     out.update({k: float(sums[2 + i]) / total for i, k in enumerate(names)})
     return total, out
 
@@ -161,12 +193,12 @@ def build_data_parallel_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool =
 
     def step(params, opt_state, batch):
         laps = _Laps(mesh)
-        grads, names, vec = _row_gradient(model, params, batch)
+        grads, keys, vec = _row_gradient(model, params, batch, mesh)
         spec = spec_of(grads)
         flat = flatten(grads)
         del grads
         laps("fwd_bwd")
-        total, out = _world_means(mesh, names, vec)
+        total, out = _world_means(mesh, keys, vec)
         flat = mesh.all_reduce(flat).div_(total)
         laps("all_reduce")
         new_params, new_state = apply_updates(opt_cfg, params, unflatten(spec, flat),
@@ -180,33 +212,47 @@ def build_data_parallel_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool =
     return step
 
 
-def build_overlap_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool = False):
+def build_overlap_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool = False,
+                       zero1: bool = True):
     """ZeRO-1 over the rows of a world (`train.sharding`): the step takes
     and returns the optimizer state as this row's parts of the moments
     (`sharding.shard_opt_state`). Each row's gradient is reduce-scattered
     into the rows' parts; the clip takes the global norm from an
     all-reduce of every part's sum of squares; each row updates its part
     of the parameters and moments; the rows all-gather the parameters.
-    ``step.timings`` gets seconds in forward and backward, the
-    reduce-scatter (and the scalars' all-reduce), the sharded update (the
-    norm's all-reduce included) and the all-gather, and the call's
-    `WireStats` deltas."""
+    With ``zero1=False`` the state holds whole moments: the rows
+    all-gather the reduced parts into the whole gradient instead, and
+    every row updates all of the parameters and moments (the same
+    per-element arithmetic, the same norm). ``step.timings`` gets seconds
+    in forward and backward, the reduce-scatter (and the scalars'
+    all-reduce), the update (the norm's all-reduce included) and the
+    all-gather, and the call's `WireStats` deltas."""
     timings: list[dict] = []
 
     def step(params, opt_state, batch):
         laps = _Laps(mesh)
         plan = sharding.zero1_plan(params, mesh.n_rows, mesh.row)
-        grads, names, vec = _row_gradient(model, params, batch)
+        grads, keys, vec = _row_gradient(model, params, batch, mesh)
         flat = sharding.flat_padded(plan, grads)
         del grads
         laps("fwd_bwd")
-        total, out = _world_means(mesh, names, vec)
+        total, out = _world_means(mesh, keys, vec)
         g = mesh.reduce_scatter(flat).div_(total)
         del flat
         laps("reduce_scatter")
         norm = None
         if opt_cfg.grad_clip > 0:
             norm = torch.sqrt(mesh.all_reduce(torch.sum(g * g).reshape(1))[0])
+        if not zero1:
+            whole = sharding.gather(plan, mesh, g)
+            del g
+            laps("all_gather")
+            full, new_state = apply_updates(opt_cfg, params, whole, opt_state,
+                                            inplace=inplace, grad_norm=norm)
+            del whole
+            laps("update")
+            timings.append(laps.done())
+            return full, new_state, out
         part, new_state = apply_updates(opt_cfg, sharding.shard_of(plan, params), g,
                                         opt_state, inplace=inplace, grad_norm=norm)
         del g
@@ -273,9 +319,17 @@ def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
             loss_tot, metrics, grads = value_and_grad(loss_sum, params, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
             loss_tot = float(loss_tot)
-        else:
+        elif ts_cfg.runtime_skip:
             grads = tree_meta(params)  # this row sends nothing
-            loss_tot, metrics, cnt = 0.0, {"ce": 0.0}, 0.0
+            # zeros for each metric a compute row's loss reports
+            loss_tot, metrics, cnt = 0.0, dict.fromkeys(model.metrics, 0.0), 0.0
+        else:
+            # the reference without its cond: a service row runs forward and
+            # backward on its (zero-masked) shard; its loss sum and count
+            # enter the world's sums, its gradient and metrics are dropped
+            loss_tot, _, grads = value_and_grad(loss_sum, params, batch)
+            loss_tot, metrics = float(loss_tot), dict.fromkeys(model.metrics, 0.0)
+            grads = tree_meta(params)  # this row sends nothing
         lap("fwd_bwd")
 
         # the decoupled reduce: raw gradients in, the folded sum out on the
@@ -342,22 +396,14 @@ def make_step(model, mesh, opt_cfg: OptConfig, ts_cfg: TrainStepConfig, *,
     counterpart of the reference's `make_jitted_step`). ``inplace``: the
     update writes into the given params and moments. Every mode but a
     one-row conventional step runs in a world (`launch.mesh.spawn`); in
-    overlap mode the optimizer state holds this row's parts of the
-    moments (`train.sharding.shard_opt_state`)."""
-    cfg = model.cfg
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE training (the gradient through the "
-                                  f"router and the experts, expert parallelism) is not "
-                                  f"ported yet; see ROADMAP A8")
-    if cfg.hybrid or cfg.frontend or cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: training the {cfg.family!r} family on the "
-                                  f"rank world is not ported yet; see ROADMAP A8")
+    overlap mode with ``zero1`` (the default) the optimizer state holds
+    this row's parts of the moments (`train.sharding.shard_opt_state`)."""
     if ts_cfg.mode == "conventional":
         if mesh.n_rows == 1:
             return build_conventional_step(model, opt_cfg, inplace=inplace)
         return build_data_parallel_step(model, opt_cfg, mesh, inplace=inplace)
     if ts_cfg.mode == "overlap":
-        return build_overlap_step(model, opt_cfg, mesh, inplace=inplace)
+        return build_overlap_step(model, opt_cfg, mesh, inplace=inplace, zero1=ts_cfg.zero1)
     if ts_cfg.mode == "decoupled":
         return build_decoupled_step(model, opt_cfg, train_service_graph(mesh, ts_cfg),
                                     ts_cfg, inplace=inplace)

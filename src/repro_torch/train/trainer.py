@@ -10,8 +10,8 @@ state and a resumed run sees the batches it would have seen.
 
 Checkpoints (`io.checkpoint`): every ``ckpt_every`` steps and at the last
 step, row 0 writes ``{"params", "opt", "step"}`` asynchronously; the
-files hold whole moment trees whatever the mode (overlap mode gathers its
-parts first), so any mode on any row count resumes from them
+files hold whole moment trees whatever the mode (ZeRO-1 overlap gathers
+its parts first), so any mode on any row count resumes from them
 (`launch.elastic`). ``run(resume=True)`` restores the newest committed
 step, which row 0 reads and every row takes from it. ``fail_at_step``
 raises `SimulatedFailure` on every row at that step, after the last
@@ -157,7 +157,7 @@ class Trainer:
         gate = CompileGate()
         params, opt, step = state["params"], state["opt"], state["step"]
         plan = None
-        if self.ts_cfg.mode == "overlap":  # keep only this row's parts of the moments
+        if self.ts_cfg.mode == "overlap" and self.ts_cfg.zero1:  # only this row's moment parts
             plan = sharding.zero1_plan(params, self.mesh.n_rows, self.mesh.row)
             opt = state["opt"] = sharding.shard_opt_state(plan, opt)
         self.moment_bytes = sum(t.numel() * t.element_size() for k in sharding.MOMENTS

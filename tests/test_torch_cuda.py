@@ -57,7 +57,12 @@ Tolerances, with their reasons:
     parameters differ by the gradients' difference): 1e-4 of the largest
     gradient element, the chip smoke's `TRAIN_PARITY_REL` (f32 with TF32
     off; other GEMM blockings sum in another order); checkpoints of CUDA
-    tensors: bit for bit.
+    tensors: bit for bit;
+  * an MoE step in a two-row world on the card, decoupled (one compute
+    row holding the global batch) against overlap (one sequence a row,
+    routed over the world): the loss, aux_loss and router_entropy within
+    1e-5 relative (f32, TF32 off; the same tokens in the same routing
+    groups and slots, the rows' sums added in another order).
 """
 import dataclasses
 import os
@@ -95,6 +100,7 @@ from torch_worlds import (
     cuda_reshard_case,
     cuda_wordcount_case,
     data_parallel_case,
+    moe_two_row_case,
 )
 
 pytestmark = pytest.mark.gpu
@@ -965,6 +971,25 @@ def test_chunk_accumulate_kernel_matches_plain(cuda, n, s, dtype):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("s", [1 << 20, 1_000_003])
+def test_chunk_accumulate_kernel_sums_into_a_row_of_its_input(cuda, s):
+    """The stream channel's fold: ``out`` is the accumulator's row of the
+    (2, S) stack, the sum written back over it, bit for bit acc + wave."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    pair = torch.randn((2, s), generator=gen, device=cuda)
+    want = pair[0] + pair[1]
+    before = chunk_accumulate_kernel.launches
+    got = accumulate(pair, out=pair[0])
+    torch.cuda.synchronize()
+    assert chunk_accumulate_kernel.launches == before + 1
+    assert got.data_ptr() == pair.data_ptr() and torch.equal(pair[0], want)
+    with pytest.raises(ValueError, match="out must be"):
+        accumulate(pair, out=torch.empty(s - 1, device=cuda))
+    # a column's sum may land only on that column of a row
+    with pytest.raises(ValueError, match="overlap"):
+        accumulate(pair, out=pair.view(-1)[1:s + 1])
+
+
 def test_chunk_accumulate_kernel_takes_an_unaligned_view(cuda):
     x = torch.randn((2, 4097), device=cuda)[:, 1:]  # rows not 16-byte aligned
     got = accumulate(x)
@@ -1337,6 +1362,18 @@ def test_data_parallel_steps_on_the_card_match_cpu(cuda):
                        for a, b in zip(gpu[row][mode], cpu[0][mode]))
             assert diff <= TRAIN_PARITY_REL * gmax, (mode, row, diff / gmax)
         assert gpu[0][mode + "/loss"] == pytest.approx(cpu[0][mode + "/loss"], rel=1e-5)
+
+
+def test_moe_step_on_the_card_decoupled_equals_overlap(cuda):
+    """Phase 8b (a) of the chip smoke at the smoke config's widths: the
+    global batch's routing and aux_loss whether one row holds it or two
+    rows route their shards over the world."""
+    rows = spawn(moe_two_row_case, 2, device="cuda", timeout_s=300)
+    assert rows[0]["device"].startswith("cuda")
+    for row in rows:
+        for k, want in row["decoupled"].items():
+            assert row["overlap"][k] == pytest.approx(want, rel=1e-5), k
+    assert rows[0]["overlap"] == rows[1]["overlap"]
 
 
 def test_cuda_state_round_trips_through_a_checkpoint(cuda, tmp_path):

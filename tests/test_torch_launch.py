@@ -128,15 +128,19 @@ def _env():
 
 def test_launcher_and_example_run_end_to_end(tmp_path):
     """`python -m repro_torch.launch.train --smoke --device cpu` in each
-    step mode (4 rows, 4 steps, all at once) and the training example,
-    each in a subprocess: exit 0, the launcher's last word, the committed
-    checkpoint of the last step; a second launch resumes from it."""
+    step mode (4 rows, 4 steps, all at once), once more for the MoE
+    family (``--arch mixtral-8x7b``, conventional: its shards route as one
+    global batch), and the training example, each in a subprocess: exit
+    0, the launcher's last word, the committed checkpoint of the last
+    step; a second launch resumes from it."""
     procs = {}
-    for mode in MODES:
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--smoke", "--device", "cpu",
-               "--data", "4", "--steps", str(LAUNCH_STEPS), "--seq", "32", "--batch", "8",
-               "--mode", mode, "--ckpt-dir", str(tmp_path / mode)]
-        procs[mode] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+    runs = [(mode, "tinyllama-1.1b", mode) for mode in MODES] + [
+        ("mixtral", "mixtral-8x7b", "conventional")]
+    for name, arch, mode in runs:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
+               "--device", "cpu", "--data", "4", "--steps", str(LAUNCH_STEPS), "--seq", "32",
+               "--batch", "8", "--mode", mode, "--ckpt-dir", str(tmp_path / name)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                        text=True, env=_env(), cwd=REPO)
     procs["example"] = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.examples.train_lm", "--device", "cpu",
@@ -146,10 +150,10 @@ def test_launcher_and_example_run_end_to_end(tmp_path):
     outs = {k: p.communicate(timeout=240) for k, p in procs.items()}
     for name, p in procs.items():
         assert p.returncode == 0, (name, outs[name][1][-3000:])
-    for mode in MODES:
-        lines = outs[mode][0].strip().splitlines()
+    for name, _, _ in runs:
+        lines = outs[name][0].strip().splitlines()
         assert lines[-1] == f"done at step {LAUNCH_STEPS}", lines
-        step_dir = tmp_path / mode / f"step_{LAUNCH_STEPS:08d}"
+        step_dir = tmp_path / name / f"step_{LAUNCH_STEPS:08d}"
         assert (step_dir / "COMMIT").exists()
     assert "over 3 steps" in outs["example"][0]
     again = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",

@@ -10,13 +10,20 @@ The reference's dispatch and combine tensors are read from its own
 on `repro.models.moe.jnp` for the test; nothing in the JAX package
 changes); the port's come from its `moe.route`.
 
+The gradient of ``ce + 0.01 * aux_loss`` against `jax.grad` (through
+the router's softmax, the combine weights, the index dispatch, the
+expert products, the ragged tail and ``me``), and `apply_moe` routed
+over the rows of a world (`RouteWorld`; the rows are threads sharing one
+process here) against the reference's on the global batch.
+
 Tolerances, each relative to the largest magnitude of the tensor held
 (random expert weights at 1/sqrt(E) make the MoE's output reach several
 hundred at d_model 128):
 - f32: the dispatch identical, the combine weights within 1e-6
   absolute (probabilities from the same f32 softmax), the MoE's output
   within 1e-5 of its largest magnitude, the aux metrics within 1e-6
-  relative; logits through a whole model within 1e-4 of their largest
+  relative; the loss's gradient within 1e-5 of its largest element (the
+  budget of tests/test_torch_train_step.py); logits through a whole model within 1e-4 of their largest
   magnitude (the budget of tests/test_torch_transformer.py: ATen's and
   XLA's CPU matmuls sum in another order), K/V within 1e-4.
 - bf16: the dispatch identical, the output within `BF16_OUT` of its
@@ -117,7 +124,9 @@ def test_configs_match_the_reference(name):
 
 def test_build_gives_the_serving_entry_points():
     """Both full configs build (no weights made) with the paged decode and
-    the verify step; training an MoE model is refused naming A8."""
+    the verify step; an MoE model's train step builds (one row: the
+    conventional step on the whole batch; its worlds are held in
+    tests/test_torch_train_moe.py)."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import TrainStepConfig, make_step
@@ -125,9 +134,8 @@ def test_build_gives_the_serving_entry_points():
     for name in NAMES:
         m = build(get(name), device="cpu")
         assert m.decode_step_paged is not None and m.verify_step is not None
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_step(build(get_smoke("mixtral-8x7b"), device="cpu"), Mesh(n_rows=1, device="cpu"),
-                  OptConfig(), TrainStepConfig())
+    assert callable(make_step(build(get_smoke("mixtral-8x7b"), device="cpu"),
+                              Mesh(n_rows=1, device="cpu"), OptConfig(), TrainStepConfig()))
 
 
 @pytest.mark.parametrize("group", [1, 4, 8, 31, 100, 512, 1024])
@@ -531,3 +539,179 @@ def test_moe_takes_no_environment_variable(monkeypatch):
     monkeypatch.setenv("REPRO_MOE_CAP", "0.1")
     got, _ = moe.apply_moe(p, x, tc, torch.float32)
     assert torch.equal(got, want) and moe.DEFAULT_GROUP == 1024
+
+
+# -- the gradient, and routing over the rows of a world ------------------------------
+
+
+def _skewed(jp, tc, weight: float = 0.5):
+    """The reference's params with every router pushed toward expert 0."""
+    skew = np.zeros((tc.n_layers, tc.d_model, tc.n_experts), np.float32)
+    skew[..., 0] = weight
+    jp = jax.tree_util.tree_map(lambda a: a, jp)
+    jp["layers"]["moe"]["router"]["w"] = jp["layers"]["moe"]["router"]["w"] + skew
+    return jp
+
+
+@pytest.mark.parametrize("case", ["masked-2x24", "drops-4x64", "ragged-tail-1x1100"])
+def test_loss_gradient_matches_jax(lm, case):
+    """`value_and_grad` of `model.loss` (``ce + 0.01 * aux_loss``) against
+    `jax.grad` on the reference's f32 params: every leaf within 1e-5 of
+    the largest gradient element. ``drops``: a router skewed toward
+    expert 0 overflows its capacity (the spare row's tokens get no
+    gradient through the experts); ``ragged-tail``: one group of 1,024
+    and 76 tokens through expert 0, unweighted."""
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.utils.treeutil import tree_leaves
+
+    _, jc, jp, tc, _ = lm
+    b, s = {"masked-2x24": (2, 24), "drops-4x64": (4, 64), "ragged-tail-1x1100": (1, 1100)}[case]
+    if case.startswith("drops"):
+        jp = _skewed(jp, tc)
+    toks, labels = _tokens(tc, b, s, seed=11), _tokens(tc, b, s, seed=12)
+    mask = np.ones((b, s), np.float32)
+    mask[-1, s // 2:] = 0.0
+    data = {"tokens": toks, "labels": labels, "mask": mask}
+    (jloss, jm), jgrads = jax.value_and_grad(j_build(jc).loss, has_aux=True)(
+        jp, {k: jnp.asarray(v) for k, v in data.items()})
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tc, "cpu",
+                           param_dtype=torch.float32)
+    loss, metrics, grads = value_and_grad(build(tc, device="cpu").loss, tp,
+                                          {k: torch.from_numpy(v) for k, v in data.items()})
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["aux_loss"]), float(jm["aux_loss"]), rtol=1e-5)
+    want = params_from_numpy(jax.tree_util.tree_map(np.asarray, jgrads), tc, "cpu",
+                             param_dtype=torch.float32)
+    gmax = max(float(g.abs().max()) for g in tree_leaves(want))
+    for a, g in zip(tree_leaves(want), tree_leaves(grads)):
+        np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=0, atol=1e-5 * gmax)
+    router = [lay["moe"]["router"]["w"] for lay in grads["layers"]]
+    assert all(float(g.abs().max()) > 0 for g in router)  # the router learns
+
+
+class _ThreadMesh:
+    """The collectives `moe.RouteWorld` uses, for rows that are threads of
+    one process: all-gather in row order and sum, each a barrier."""
+
+    def __init__(self, n_rows: int):
+        import threading
+
+        self.n_rows = n_rows
+        self.slots = [None] * n_rows
+        self.barrier = threading.Barrier(n_rows)
+        self.calls = [0] * n_rows
+
+    def row_view(self, row: int):
+        mesh = self
+
+        class View:
+            n_rows = mesh.n_rows
+
+            def __init__(self):
+                self.row = row
+
+            def _swap(self, t):
+                mesh.calls[row] += 1
+                mesh.barrier.wait()
+                mesh.slots[row] = t.clone()
+                mesh.barrier.wait()
+                every = list(mesh.slots)
+                mesh.barrier.wait()
+                return every
+
+            def all_gather(self, t):
+                return torch.cat(self._swap(t))
+
+            def all_reduce(self, t):
+                return torch.stack(self._swap(t)).sum(0)
+
+        return View()
+
+
+def _moe_over_rows(tc, p, x: torch.Tensor, n_rows: int, *, grad: bool = False):
+    """`apply_moe` on each of ``n_rows`` equal shards of ``x`` routed over
+    the rows (threads) -> per row (y, aux), and the collectives each row
+    ran. With ``grad``, each row also takes its gradient of its
+    ``aux_share`` (the layer under `torch.utils.checkpoint`, so the
+    backward recomputes it from the stash)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from torch.utils.checkpoint import checkpoint
+
+    mesh = _ThreadMesh(n_rows)
+    shards = x.chunk(n_rows)
+
+    def run(row):
+        torch.set_num_threads(1)
+        world = moe.RouteWorld(mesh.row_view(row))
+        world.start()
+        xs = shards[row].clone().requires_grad_(grad)
+        if grad:
+            y, aux = checkpoint(moe.apply_moe, p, xs, tc, torch.float32, world.at(0),
+                                use_reentrant=False)
+            (g,) = torch.autograd.grad(aux["aux_share"], xs)
+            return y.detach(), {k: v.detach() for k, v in aux.items()}, g
+        y, aux = moe.apply_moe(p, xs, tc, torch.float32, world=world.at(0))
+        return y, aux, None
+
+    with ThreadPoolExecutor(n_rows) as pool:
+        out = list(pool.map(run, range(n_rows)))
+    return out, mesh.calls
+
+
+@pytest.mark.parametrize("group,shape,rows", [(1024, (4, 40), 4), (48, (4, 40), 4),
+                                              (64, (8, 32), 4), (1024, (2, 1100), 2)],
+                         ids=["one-group-straddles", "groups-straddle-tail",
+                              "whole-groups", "ragged-tail"])
+def test_apply_moe_over_rows_matches_the_global_batch(lm, monkeypatch, group, shape, rows):
+    """Rows routing their shards over a world give the reference's
+    `apply_moe` on the global batch: every token's output (capacity slots
+    counted in global token order, a group straddling rows), the global
+    ``aux_loss`` and ``router_entropy`` on every row, and shares of
+    ``aux_loss`` that sum to it; the reference's group size is set with
+    its own REPRO_MOE_GROUP, the port's module constant alike. Per-row
+    routing of the same shards differs."""
+    _, jc, jp, tc, tp = lm
+    monkeypatch.setenv("REPRO_MOE_GROUP", str(group))
+    monkeypatch.setattr(moe, "DEFAULT_GROUP", group)
+    b, s = shape
+    x = np.random.default_rng(5).normal(size=(b, s, tc.d_model)).astype(np.float32)
+    jpm = jax.tree_util.tree_map(lambda a: a[1], jp["layers"]["moe"])
+    jy, jaux = jax.jit(lambda p, x: j_moe.apply_moe(p, x, jc, jnp.float32))(jpm, jnp.asarray(x))
+    jy = np.asarray(jy)
+    p = tp["layers"][1]["moe"]
+    out, calls = _moe_over_rows(tc, p, torch.from_numpy(x), rows)
+    got = torch.cat([y for y, _, _ in out]).numpy()
+    _rel_close(got, jy, OUT_REL)
+    for _, aux, _ in out:
+        for key in ("aux_loss", "router_entropy"):
+            np.testing.assert_allclose(float(aux[key]), float(jaux[key]), rtol=1e-6)
+    np.testing.assert_allclose(sum(float(aux["aux_share"]) for _, aux, _ in out),
+                               float(jaux["aux_loss"]), rtol=1e-6)
+    assert calls == [tc.experts_per_token + 1] * rows  # a count exchange a round, one sum
+    per_row = torch.cat([moe.apply_moe(p, xs, tc, torch.float32)[0]
+                         for xs in torch.from_numpy(x).chunk(rows)]).numpy()
+    err = float(np.abs(per_row - jy).max()) / float(np.abs(jy).max())
+    assert err > 100 * OUT_REL or shape == (8, 32)  # whole groups: per row is the same
+
+
+def test_route_world_recompute_runs_no_collective_again(lm):
+    """Under `torch.utils.checkpoint` the backward recomputes the layer
+    from the stashed exchanges: each row's collectives run once, and the
+    rows' gradients of their ``aux_share`` sum to the gradient of the
+    global ``aux_loss`` in one process (the reference's routing of the
+    global batch)."""
+    _, _, _, tc, tp = lm
+    p = tp["layers"][0]["moe"]
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(4, 30, tc.d_model))
+                         .astype(np.float32))
+    out, calls = _moe_over_rows(tc, p, x, 4, grad=True)
+    assert calls == [tc.experts_per_token + 1] * 4
+    xg = x.clone().requires_grad_(True)
+    _, aux = moe.apply_moe(p, xg, tc, torch.float32)
+    (want,) = torch.autograd.grad(aux["aux_loss"], xg)
+    got = torch.cat([g for _, _, g in out])
+    _rel_close(got, want.numpy(), 1e-5)
+    world = moe.RouteWorld(_ThreadMesh(1).row_view(0))
+    world.start()
+    with pytest.raises(RuntimeError, match="one forward pass"):
+        world.start()

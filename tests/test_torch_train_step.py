@@ -73,6 +73,30 @@ def test_apply_updates_matches_jax(kind, clip):
                 np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6, atol=1e-9)
 
 
+@pytest.mark.parametrize("kind", ["adamw", "sgdm"])
+def test_sliced_inplace_update_is_the_whole_update(monkeypatch, kind):
+    """An in-place update of a leaf over `UPDATE_SLICE` elements goes slice
+    by slice: bit for bit the functional update of the whole leaf, written
+    into the given tensors."""
+    monkeypatch.setattr(opt, "UPDATE_SLICE", 1000)
+    cfg = opt.OptConfig(kind=kind, lr=1e-2, warmup_steps=0, total_steps=5, grad_clip=1.0)
+    p = {"a": _opt_tree(0)["a"].repeat(200, 1).reshape(-1), "b": _opt_tree(1)["a"]}
+    g = {k: np.random.default_rng(2).normal(size=v.shape).astype(np.float32)
+         for k, v in p.items()}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    tg = {k: torch.from_numpy(v) for k, v in g.items()}
+    want_p, want_s = opt.apply_updates(cfg, tp, tg, opt.init_opt_state(cfg, tp))
+    live = {k: v.clone() for k, v in tp.items()}
+    state = opt.init_opt_state(cfg, live)
+    got_p, got_s = opt.apply_updates(cfg, live, tg, state, inplace=True)
+    assert all(got_p[k] is live[k] and got_s["m"][k] is state["m"][k] for k in p)
+    assert live["a"].numel() > 1000 >= live["b"].numel()
+    for key in [k for k in ("m", "v") if k in want_s]:
+        for k in p:
+            assert torch.equal(got_s[key][k], want_s[key][k])
+    assert all(torch.equal(got_p[k], want_p[k]) for k in p)
+
+
 def _reference(name, seed=0, batch=3):
     """The f32 smoke config's reference model, params and a masked batch."""
     jcfg = dataclasses.replace(j_get_smoke(name), dtype=jnp.float32)
@@ -122,14 +146,17 @@ def test_model_loss_without_autograd_needs_no_checkpoint():
 
 
 def test_unported_modes_and_options_are_refused():
-    """What is still unported raises naming its ROADMAP item: a model axis,
-    and training the hybrid, VLM and encoder-decoder families (A8; their
-    models build). `reshard_state` between
-    meshes of different sizes is refused by design (one gloo world has one
-    size; the serving fleet moves its global layout on the host,
-    tests/test_torch_fleet.py). Checkpoints, the conventional and overlap
-    steps over many rows and adaptive sizing are ported
-    (tests/test_torch_trainer.py)."""
+    """What is still unported raises naming its ROADMAP item: a model axis
+    (A8). Every family now trains: the MoE, hybrid, VLM and
+    encoder-decoder models build their step in each mode, and the
+    reference's ``runtime_skip`` and ``zero1`` options are fields of
+    `TrainStepConfig` (held against the reference in
+    tests/test_torch_train_moe.py and tests/test_torch_train_families.py);
+    FSDP is no field at all. `reshard_state` between meshes of different
+    sizes is refused by design (one gloo world has one size; the serving
+    fleet moves its global layout on the host, tests/test_torch_fleet.py).
+    Checkpoints, the conventional and overlap steps over many rows and
+    adaptive sizing are ported (tests/test_torch_trainer.py)."""
     from repro_torch.core.groups import GroupedMesh
     from repro_torch.launch.elastic import reshard_state
     from repro_torch.train.optimizer import OptConfig
@@ -143,10 +170,14 @@ def test_unported_modes_and_options_are_refused():
         make_host_mesh(4, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         launch_main(["--smoke", "--device", "cpu", "--model", "2"])
-    for name in ("hymba-1.5b", "whisper-small", "pixtral-12b"):
+    fields = {f.name for f in dataclasses.fields(TrainStepConfig)}
+    assert {"runtime_skip", "zero1"} <= fields and not fields & {"fsdp", "fsdp_threshold"}
+    for name in ("mixtral-8x7b", "hymba-1.5b", "whisper-small", "pixtral-12b"):
         model = build(get_smoke(name), device="cpu")
-        with pytest.raises(NotImplementedError, match="A8"):
-            make_step(model, Mesh(n_rows=1, device="cpu"), OptConfig(), TrainStepConfig())
+        for mode in ("conventional", "decoupled", "overlap"):
+            step = make_step(model, Mesh(n_rows=8, device="cpu"), OptConfig(),
+                             TrainStepConfig(mode=mode))
+            assert callable(step) and step.timings == []
 
 
 JAX_TRAIN = """

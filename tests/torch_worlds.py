@@ -435,6 +435,42 @@ def data_parallel_case(mesh) -> dict:
     return out
 
 
+
+def moe_two_row_case(mesh, seq: int = 48) -> dict:
+    """One SGD step of the f32 mixtral smoke config in a two-row world, in
+    the two layouts of the chip smoke's phase 8b (a): decoupled with one
+    compute row holding the whole global batch of 2 sequences (the other
+    row reduces), and overlap with one sequence a row, the one routing
+    group of the 2 x ``seq`` tokens straddling both rows. The step's loss,
+    aux_loss and router_entropy of each, on any device."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig, Pipeline, row_shard
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train import sharding
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainStepConfig, make_step
+    from repro_torch.utils.treeutil import tree_map
+
+    cfg = dataclasses.replace(get_smoke("mixtral-8x7b"), dtype=torch.float32)
+    params = tree_map(lambda t: t.to(mesh.device),
+                      build(cfg, device="cpu").init(0, param_dtype=torch.float32))
+    model = build(cfg, device=mesh.device)
+    sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
+                    weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=2,
+                               kind="zipf", skew=0.4))
+    out = {"device": str(mesh.device)}
+    for mode, batch in (("decoupled", pipe.padded_for_groups(0, 1, mesh.n_rows)),
+                        ("overlap", pipe.global_batch(0))):
+        opt = init_opt_state(sgd, params)
+        if mode == "overlap":
+            opt = sharding.shard_opt_state(sharding.zero1_plan(params, mesh.n_rows, mesh.row),
+                                           opt)
+        step = make_step(model, mesh, sgd, TrainStepConfig(mode=mode, reduce_alpha=0.5))
+        _, _, metrics = step(params, opt, row_shard(batch, mesh.row, mesh.n_rows, mesh.device))
+        out[mode] = {k: float(metrics[k]) for k in ("loss", "aux_loss", "router_entropy")}
+    return out
+
 # -- the dataflow runtime and the MapReduce app -----------------------------------------
 
 WC_CFG = dict(n_docs_per_row=4, words_per_doc=256, vocab=500, skew=0.7)
@@ -921,4 +957,165 @@ def disagg_cases(mesh, inputs_path: str) -> dict:
         out["reshard_other_size"] = np.asarray("")
     except ValueError as e:
         out["reshard_other_size"] = np.asarray(str(e))
+    return out
+
+
+# -- every family through the train step (tests/test_torch_train_*.py) ----------
+
+FAMILY_ALPHA = ALPHA  # 6 compute rows, 2 reduce rows
+FAMILY_STEPS = 3
+FAMILY_CRASH_AT = 2  # the crash run saves at step 2 and fails before step 3
+
+
+def family_pipeline(cfg, case: dict):
+    """The reference's data of a case: Zipf tokens, skewed document
+    lengths, the frontend's embeddings."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+
+    return Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=case["seq"],
+                               global_batch=case["batch"], seed=1, kind="zipf", skew=0.4,
+                               frontend=cfg.frontend, n_frontend_tokens=cfg.n_frontend_tokens,
+                               d_model=cfg.d_model))
+
+
+def family_batch(pipe, mode: str, step: int, n_rows: int) -> dict:
+    """The global batch of ``step`` as the mode's rows take it."""
+    if mode == "decoupled":
+        reduce_rows = max(1, int(round(FAMILY_ALPHA * n_rows)))
+        return pipe.padded_for_groups(step, n_rows - reduce_rows, n_rows)
+    return pipe.global_batch(step)
+
+
+def family_train_cases(mesh, inputs_path: str, ckpt_root: str, cases: list) -> dict:
+    """For each case (an f32 smoke config at a shape), from the reference's
+    parameters: one SGD step (lr 1) of each of its ``sgd`` modes and a
+    3-step AdamW `Trainer` run of each of its ``adamw`` modes; with
+    ``per_row``, the conventional SGD update as per-row routing would give
+    it (each row's MoE routing its own shard, its own aux_loss: what the
+    reference's global batch does not do); with ``runtime_skip``, the
+    decoupled SGD step with ``runtime_skip=False``; with ``zero1``, the
+    AdamW run in overlap mode with ``zero1=False``; with ``crash``, a
+    conventional AdamW run that saves at step 2 and fails, a fresh
+    trainer resuming it to step 3, and (row 0) the step-2 files restored
+    onto a one-row mesh and stepped once in one process. Torch on one
+    thread a rank."""
+    import os
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import row_shard
+    from repro_torch.launch.elastic import restore_for_mesh
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train import sharding
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import (
+        TrainStepConfig,
+        build_conventional_step,
+        make_step,
+        value_and_grad,
+    )
+    from repro_torch.train.trainer import SimulatedFailure, Trainer, TrainerConfig
+    from repro_torch.utils.convert import params_from_numpy
+    from repro_torch.utils.treeutil import flatten, spec_of, tree_flatten, unflatten
+
+    torch.set_num_threads(1)
+    inp = dict(np.load(inputs_path))
+    n = mesh.n_rows
+    sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
+                    weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
+    adamw = OptConfig(lr=ADAMW_LR, warmup_steps=0, total_steps=FAMILY_STEPS)
+    out = {}
+
+    def flat(tree, prefix):
+        out.update({f"{prefix}{i}": _np(v) for i, v in enumerate(tree_flatten(tree)[0])})
+
+    for case in cases:
+        label = case["label"]
+        cfg = dataclasses.replace(get_smoke(case["name"]), dtype=torch.float32)
+        model = build(cfg, device="cpu")
+        params = params_from_numpy(unflatten_params(inp, f"{label}/p0/"), cfg, "cpu",
+                                   param_dtype=torch.float32)
+        pipe = family_pipeline(cfg, case)
+
+        def sgd_step(ts):
+            opt = init_opt_state(sgd, params)
+            if ts.mode == "overlap":
+                opt = sharding.shard_opt_state(sharding.zero1_plan(params, n, mesh.row), opt)
+            batch = row_shard(family_batch(pipe, ts.mode, 0, n), mesh.row, n)
+            new, _, metrics = make_step(model, mesh, sgd, ts)(params, opt, batch)
+            return new, metrics
+
+        def trainer(ts, name, **kw):
+            return Trainer(model, mesh, pipe, adamw, ts,
+                           TrainerConfig(total_steps=FAMILY_STEPS, log_every=1,
+                                         ckpt_dir=os.path.join(ckpt_root, label, name), **kw))
+
+        def fresh():
+            return {"params": _clone(params), "opt": init_opt_state(adamw, params), "step": 0}
+
+        for mode in case["sgd"]:
+            new, metrics = sgd_step(TrainStepConfig(mode=mode, reduce_alpha=FAMILY_ALPHA))
+            flat(new, f"{label}/sgd/{mode}/new/")
+            for k in ("loss", "aux_loss", "router_entropy"):
+                if k in metrics:
+                    out[f"{label}/sgd/{mode}/{k}"] = np.float64(metrics[k])
+        for mode in case["adamw"]:
+            tr = trainer(TrainStepConfig(mode=mode, reduce_alpha=FAMILY_ALPHA), mode)
+            state = tr.run(fresh(), resume=False)
+            tr.close()
+            out[f"{label}/adamw/{mode}/loss"] = np.array([r["loss"] for r in tr.metrics_log])
+            out[f"{label}/adamw/{mode}/moment_bytes"] = np.int64(tr.moment_bytes)
+            flat(state["params"], f"{label}/adamw/{mode}/params/")
+        if case.get("per_row"):
+            # the data-parallel step as it was before the world routing: each
+            # row's own loss sum (its shard routed alone), summed and divided
+            shard = row_shard(family_batch(pipe, "conventional", 0, n), mesh.row, n)
+            _, _, grads = value_and_grad(model.loss, params, shard)
+            cnt = shard["mask"].sum()
+            total = mesh.all_reduce(cnt.reshape(1))[0]
+            g = mesh.all_reduce(flatten(grads) * cnt) / total
+            flat(unflatten(spec_of(params), flatten(params) - g), f"{label}/per_row/new/")
+        if case.get("runtime_skip"):
+            new, metrics = sgd_step(TrainStepConfig(mode="decoupled", reduce_alpha=FAMILY_ALPHA,
+                                                    runtime_skip=False))
+            flat(new, f"{label}/sgd/decoupled_noskip/new/")
+            out[f"{label}/sgd/decoupled_noskip/loss"] = np.float64(metrics["loss"])
+        if case.get("zero1"):
+            tr = trainer(TrainStepConfig(mode="overlap", zero1=False), "overlap_whole")
+            state = tr.run(fresh(), resume=False)
+            tr.close()
+            out[f"{label}/adamw/overlap_whole/loss"] = np.array([r["loss"] for r in
+                                                                 tr.metrics_log])
+            out[f"{label}/adamw/overlap_whole/moment_bytes"] = np.int64(tr.moment_bytes)
+            flat(state["params"], f"{label}/adamw/overlap_whole/params/")
+        if case.get("crash"):
+            ts = TrainStepConfig(mode="conventional")
+            tr = trainer(ts, "crash", ckpt_every=FAMILY_CRASH_AT, fail_at_step=FAMILY_CRASH_AT)
+            try:
+                tr.run(fresh(), resume=False)
+                out[f"{label}/crash/raised"] = np.bool_(False)
+            except SimulatedFailure:
+                out[f"{label}/crash/raised"] = np.bool_(True)
+            tr.close()
+            out[f"{label}/crash/loss"] = np.array([r["loss"] for r in tr.metrics_log])
+            tr = trainer(ts, "crash")  # the same directory: resumes from step 2
+            state = tr.run(fresh())
+            tr.close()
+            out[f"{label}/crash/resumed"] = np.int64(tr.resumed["step"])
+            out[f"{label}/crash/resumed_loss"] = np.array([r["loss"] for r in tr.metrics_log])
+            flat(state["params"], f"{label}/crash/params/")
+            out[f"{label}/crash/dir"] = np.asarray(os.path.join(ckpt_root, label, "crash"))
+            mesh.barrier()
+            if mesh.row == 0:  # elastic: the step-2 files onto one row, one process
+                one = Mesh(n_rows=1, device="cpu")
+                like = {"params": params, "opt": init_opt_state(adamw, params), "step": 0}
+                back = restore_for_mesh(os.path.join(ckpt_root, label, "crash"),
+                                        FAMILY_CRASH_AT, like, one)
+                new, _, metrics = build_conventional_step(model, adamw)(
+                    back["params"], back["opt"], family_batch(pipe, "conventional",
+                                                              FAMILY_CRASH_AT, n))
+                out[f"{label}/elastic/loss"] = np.float64(metrics["loss"])
+                out[f"{label}/elastic/step"] = np.int64(back["step"])
+                flat(new, f"{label}/elastic/params/")
+            mesh.barrier()
     return out
