@@ -104,7 +104,8 @@ failure exits non-zero and prints no result:
                seconds. (b) the bf16 weights through `serve_lm.serve`, the
                user's `serve_lm --scenario bursty-multitenant --adapt
                --paged --fail-at 36 --preempt-at 32` (8 rows, 2 prefill, 1
-               slot a row, the whole 56-tick scenario): every accepted
+               slot a row, the scenario's first 44 of 56 arrival ticks, cut
+               for the smoke's time since phase 8c): every accepted
                request finished, a device loss, a preemption and a regrow in
                the fault log, staged >= 1 and retried >= 1, a replan, block
                references = the live demand after every tick and none in use
@@ -242,7 +243,10 @@ failure exits non-zero and prints no result:
                time, random f32 weights from --seed, AdamW through
                `make_step` in place on the pipeline's batches (Zipf
                tokens, skewed lengths, the frontend's embeddings) laid
-               out as `Trainer` lays them out; decoupled mode with
+               out as `Trainer` lays them out, with the reference's
+               default ``fsdp="auto"``: mixtral's and pixtral's runs shard
+               (FSDP, their parts drawn unit by unit), hymba's and
+               whisper's do not, and each line says which; decoupled mode with
                reduce_alpha 1/2 (one compute row holding the whole global
                batch, one reducer folding each step's single wave of
                16 MiB chunks with chunk_accumulate). (a) mixtral-8x7b, 1
@@ -253,11 +257,12 @@ failure exits non-zero and prints no result:
                aux_loss and router_entropy within 1e-5 relative
                (`MOE_ROUTING_REL`, TF32 off), step 2's loss within
                `OVERLAP_LOSS_REL`; (b) pixtral-12b, 1 of 40 layers: 256
-               patch embeddings before 1,024 text tokens, 2 decoupled
-               steps; (c) hymba-1.5b, 8 of 32 layers: 2,048-token
-               sequences (past its 1,024 window), 2 decoupled and 2
-               conventional steps; (d) whisper-small whole: 1,500 frames
-               and 256 decoder tokens, 2 decoupled and 2 overlap steps,
+               patch embeddings before 1,024 text tokens, 1 decoupled
+               step; (c) hymba-1.5b, 8 of 32 layers: 2,048-token
+               sequences (past its 1,024 window), 1 decoupled and 1
+               conventional step; (d) whisper-small whole: 1,500 frames
+               and 256 decoder tokens, 1 decoupled and 1 overlap step
+               (arms (b)-(d) took 2 steps a run until phase 8c came),
                then one step with runtime_skip=False against the default
                decoupled step (bit for bit on every row) and one with
                zero1=False against the ZeRO-1 step (`ZERO1_ATOL`), from the
@@ -265,8 +270,29 @@ failure exits non-zero and prints no result:
                chunk_accumulate launched once a decoupled step on the
                reducer and never elsewhere, per step the slowest rank's
                phases, per rank the wire and staging bytes and seconds,
+               the FSDP gathers' and reduce-scatters' bytes and seconds,
                peak device memory (allocated and reserved), the host's
                peak and the moment bytes held.
+8c. train_fsdp — qwen2.5-3b at full width and all 36 layers, f32 weights
+               and compute, TF32 off. First, in this process alone, one
+               conventional SGD step (lr 1) on the global batch (2
+               sequences of 512 tokens) from the per-unit draw of --seed,
+               its new parameters written to a temporary .npy, the card
+               freed. Then a two-row gloo world on this card with the
+               reference's default ``fsdp="auto"`` (it must resolve on):
+               each row draws its parts unit by unit, takes the FSDP
+               conventional step on its sequence, and compares every
+               element of its parts with a memory map of the file (within
+               `TRAIN_PARITY_REL` of the largest gradient element). The
+               step's phases, the FSDP gathers' and reduce-scatters'
+               bytes and seconds, and each rank's device peak (allocated
+               and reserved); the two ranks' reserved peaks must sum to
+               under the card's 80 GB, printed beside the replicated
+               two-row figure (16 bytes a parameter a row: parameters,
+               momentum, gradient and its flat copy for the all-reduce,
+               98.7 GB). No kernel is on this path (the loss's
+               attention is the reference's plain route, conventional
+               mode folds nothing): its counts are read and reported.
 9. mapreduce — the paper's word-count MapReduce (Sec. IV-B) in an
                eight-row gloo world on this card (`launch.mesh.spawn`;
                the wire is host loopback): 16,384 documents of 4,096 word
@@ -340,8 +366,9 @@ failure exits non-zero and prints no result:
                under faults; ``launches_moe`` from phase 7b's arm (b);
                ``launches_families`` from phase 7c's arms (a)-(c); the histogram's ``launches_adaptive`` from phase 9's
                adaptive run, and chunk_accumulate's
-               ``launches_train_by_run`` with phase 8's adaptive run, and
-               ``launches_train_families`` from phase 8b's runs), then
+               ``launches_train_by_run`` with phase 8's adaptive run,
+               ``launches_train_families`` from phase 8b's runs, and
+               ``launches_train_fsdp`` from phase 8c's world), then
                the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, the script
@@ -1857,14 +1884,14 @@ SCENARIO_HORIZON = 40
 FIFO_SCENARIO = "single-fifo"
 
 
-def cut_scenario(horizon: int) -> str:
-    """Register `SCENARIO` cut to its first ``horizon`` arrival ticks in the
-    port's scenario table, under its own name, and return the name."""
+def cut_scenario(horizon: int, base: str = SCENARIO) -> str:
+    """Register scenario ``base`` cut to its first ``horizon`` arrival ticks
+    in the port's scenario table, under its own name, and return the name."""
     from repro_torch.serve import traffic
 
-    name = f"{SCENARIO}-{horizon}"
+    name = f"{base}-{horizon}"
     traffic.SCENARIOS[name] = lambda: dataclasses.replace(
-        traffic.scenario(SCENARIO), name=name, horizon=horizon)
+        traffic.scenario(base), name=name, horizon=horizon)
     return name
 
 
@@ -2682,10 +2709,14 @@ def spec_phase(torch, np, model, params, smi: str, seed: int) -> dict:
 # (a) the aligned handoff against the colocated engine, qwen2.5-3b in f32
 DISAGG_PARITY = dict(n_req=4, lo=64, hi=512, new_tokens=16, max_len=1024)
 # (b) the serving example's adaptive fleet under faults: `bursty-multitenant`
-# whole (56 ticks), the rag surge at tick 28; the ticks are picked from the
-# scenario's load (the CPU dry run keeps every decode slot live from tick 23
-# on, whatever walls the planner sees, with a queue of 9-21 requests at 32-36)
-FLEET_SCENARIO = "bursty-multitenant"
+# cut to its first 44 of 56 arrival ticks (for the smoke's time since phase
+# 8c: 75 requests drained in 123 ticks on the CPU dry run, against 145 in
+# 257 whole, the same faults, recoveries, regrow and replans), the rag surge
+# at tick 28; the ticks are picked from the scenario's load (the CPU dry run
+# keeps every decode slot live from tick 23 on, whatever walls the planner
+# sees, with a queue of 9-21 requests at 32-36)
+FLEET_BASE = "bursty-multitenant"
+FLEET_HORIZON = 44
 FLEET_PREEMPT_AT = 32
 FLEET_FAIL_AT = 36
 # (c) checkpoint recovery: phase 6c's 12 requests through a 4-row fleet
@@ -2801,9 +2832,10 @@ def check_fleet_blocks(fe) -> int:
 
 def fleet_fault_run(torch, np, model, params, *, fail_at: int = FLEET_FAIL_AT,
                     preempt_at: int = FLEET_PREEMPT_AT) -> dict:
-    """(b): `serve_lm.serve(scenario_name=FLEET_SCENARIO, adapt=True,
-    paged=True, fail_at=, preempt_at=)`, the user's ``serve_lm --scenario
-    bursty-multitenant --adapt --paged --fail-at --preempt-at``, with every
+    """(b): `serve_lm.serve(scenario_name=, adapt=True, paged=True,
+    fail_at=, preempt_at=)` over `FLEET_BASE` cut to `FLEET_HORIZON`
+    arrival ticks, the user's ``serve_lm --scenario bursty-multitenant
+    --adapt --paged --fail-at --preempt-at`` on fewer arrivals, with every
     kernel count set to 0 just before and read just after. Checks: every
     accepted request finishes; the fault log holds a device loss, a
     preemption and a regrow; staged >= 1 and retried >= 1; at least one
@@ -2813,6 +2845,7 @@ def fleet_fault_run(torch, np, model, params, *, fail_at: int = FLEET_FAIL_AT,
     argmax = first tokens sampled (``prefills``) + decode ticks."""
     from repro_torch.examples import serve_lm
 
+    scenario = cut_scenario(FLEET_HORIZON, FLEET_BASE)
     calls = []
 
     def counted_prefill(*a, **kw):
@@ -2837,7 +2870,7 @@ def fleet_fault_run(torch, np, model, params, *, fail_at: int = FLEET_FAIL_AT,
     for k in counters.values():
         k.launches = 0
     out = serve_lm.serve(dataclasses.replace(model, prefill=counted_prefill), params,
-                         scenario_name=FLEET_SCENARIO, adapt=True, paged=True, fail_at=fail_at,
+                         scenario_name=scenario, adapt=True, paged=True, fail_at=fail_at,
                          preempt_at=preempt_at, on_tick=on_tick)
     # the planner's serving instance: the measured tick before and after
     # each regroup (the policy's window of ticks on each side) beside the
@@ -2860,7 +2893,7 @@ def fleet_fault_run(torch, np, model, params, *, fail_at: int = FLEET_FAIL_AT,
     kv = fe.eng.kv.stats
     leaked = kv["blocks_in_use"] - kv["evictable_blocks"]
     snap = fe.ledger.snapshot()
-    res = {"scenario": FLEET_SCENARIO, "fail_at": fail_at, "preempt_at": preempt_at,
+    res = {"scenario": scenario, "fail_at": fail_at, "preempt_at": preempt_at,
            "requests": out["requests"], "accepted": accepted, "finished": len(finished),
            "ticks": fe.eng.tick, "decode_ticks": st["steps"], "prefills": st["prefills"],
            "prefill_calls": len(calls), "handoffs": st["handoffs"],
@@ -4517,15 +4550,22 @@ FAMILY_TRAIN_ROWS = 2
 # mixtral's overlap run goes first: a rank's first f32 forward and backward
 # pays ~10 s of one-time set-up on the card (the overlap run's step 1
 # against its step 2), which the overlap run's two ranks pay at once
+# Since phase 8c came, one step a run but mixtral's (its step 2 is checked):
+# a second step repeated the first's shapes and checks
 FAMILY_TRAIN = [
     ("a", "mixtral-8x7b", 1, 1536, 2, [("overlap", "overlap", 2),
                                        ("decoupled", "decoupled", 2)], "f32"),
-    ("b", "pixtral-12b", 1, 1024, 2, [("decoupled", "decoupled", 2)], None),
-    ("c", "hymba-1.5b", 8, 2048, 2, [("decoupled", "decoupled", 2),
-                                     ("conventional", "conventional", 2)], None),
-    ("d", "whisper-small", None, 256, 2, [("decoupled", "decoupled", 2),
-                                          ("overlap", "overlap", 2)], None),
+    ("b", "pixtral-12b", 1, 1024, 2, [("decoupled", "decoupled", 1)], None),
+    ("c", "hymba-1.5b", 8, 2048, 2, [("decoupled", "decoupled", 1),
+                                     ("conventional", "conventional", 1)], None),
+    ("d", "whisper-small", None, 256, 2, [("decoupled", "decoupled", 1),
+                                          ("overlap", "overlap", 1)], None),
 ]
+# whether the reference's default rule (fsdp "auto", 6e9 f32 bytes) shards
+# each arm: mixtral's one layer (1,713,418,240 parameters, 6.85 GB) and
+# pixtral's (1,614,822,400, 6.46 GB) pass the threshold; hymba's 8 layers
+# and whisper-small (1.11 GB) do not
+FAMILY_FSDP = {"a": True, "b": True, "c": False, "d": False}
 # (a): mixtral's decoupled step (one compute row holding the whole global
 # batch) against its overlap step (one sequence a row, the second routing
 # group of 1,024 tokens straddling the rows), f32 with TF32 off: step 1's
@@ -4575,7 +4615,14 @@ def family_train_rank(mesh, seed: int) -> dict:
             pipe.global_batch(index)
         return row_shard(b, mesh.row, mesh.n_rows, mesh.device)
 
-    def fresh(model, ts):
+    def fresh(model, ts, plan):
+        """The arm's parameters and zero moments: under FSDP (``plan``)
+        this row's parts, each unit drawn alone from ``seed``
+        (`Model.init_unit`); else the whole tree drawn from ``seed``."""
+        if plan is not None:
+            parts = plan.shard_units(
+                lambda u: model.init_unit(seed, u, param_dtype=torch.float32))
+            return parts, init_opt_state(adamw, parts)
         params = model.init(seed, param_dtype=torch.float32)
         opt = init_opt_state(adamw, params)
         if ts.mode == "overlap" and ts.zero1:
@@ -4587,11 +4634,13 @@ def family_train_rank(mesh, seed: int) -> dict:
         """``steps`` steps of ``ts`` from the arm's parameters: (this rank's
         record of the run, a copy of the parameters after step 1 with
         ``keep_first``, else None)."""
-        params, opt = fresh(model, ts)
-        n_params = sum(p.numel() for p in tree_leaves(params))
+        step = make_step(model, mesh, adamw, ts, inplace=True)
+        plan = step.fsdp
+        params, opt = fresh(model, ts, plan)
+        n_params = sum(u.spec.total for u in plan.units) if plan is not None else \
+            sum(p.numel() for p in tree_leaves(params))
         moment_bytes = sum(t.numel() * t.element_size() for k in sharding.MOMENTS
                            if k in opt for t in tree_leaves(opt[k]))
-        step = make_step(model, mesh, adamw, ts, inplace=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
@@ -4610,7 +4659,8 @@ def family_train_rank(mesh, seed: int) -> dict:
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
                "host_peak_gib": _host_peak_gib(), "moment_bytes": moment_bytes,
-               "params": n_params,
+               "params": n_params, "fsdp": plan is not None,
+               "fsdp_stats": {k: sum(t.get(k, 0) for t in step.timings) for k in FSDP_KEYS},
                "finite": all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))}
         del params, opt, step
         gc.collect()
@@ -4621,10 +4671,11 @@ def family_train_rank(mesh, seed: int) -> dict:
     def one_step(model, pipe, ts):
         """One step of ``ts`` from the arm's parameters (new tensors):
         (the new parameters, the launches)."""
-        params, opt = fresh(model, ts)
+        step = make_step(model, mesh, adamw, ts)
+        params, opt = fresh(model, ts, step.fsdp)
         for fn in counters.values():
             fn.launches = 0
-        new, _, _ = make_step(model, mesh, adamw, ts)(params, opt, batch_of(pipe, ts.mode, 0))
+        new, _, _ = step(params, opt, batch_of(pipe, ts.mode, 0))
         torch.cuda.synchronize()
         del params, opt
         return new, counters["chunk_accumulate"].launches
@@ -4666,9 +4717,16 @@ def family_train_rank(mesh, seed: int) -> dict:
     return out
 
 
-FAMILY_PHASES = {"decoupled": PHASES_BY_MODE["decoupled"],
-                 "conventional": PHASES_BY_MODE["conventional"],
-                 "overlap": PHASES_BY_MODE["overlap"]}
+FSDP_KEYS = ("fsdp_gathers", "fsdp_gather_bytes", "fsdp_gather_s", "fsdp_reduce_scatters",
+             "fsdp_reduce_scatter_bytes", "fsdp_reduce_scatter_s")
+
+
+def step_phases(timing: dict) -> list:
+    """A step's phase keys (its laps): the step's seconds are their sum.
+    An FSDP step's laps differ from its mode's without FSDP (a gather
+    first in decoupled mode; forward and backward with the gathers and
+    reduce-scatters in the others), so they are read from the step."""
+    return [k for k in timing if k.endswith("_s") and not k.startswith(("wire_", "fsdp_"))]
 
 
 def family_run_line(arm: str, name: str, layers, seq: int, batch: int, run: str, mode: str,
@@ -4676,9 +4734,11 @@ def family_run_line(arm: str, name: str, layers, seq: int, batch: int, run: str,
     """One JSON line of a phase-8b run and its checks: finite losses the
     rows agree on; chunk_accumulate launched waves x f32 groups x steps
     on the reducer in decoupled mode (one compute row: one wave; every
-    gradient leaf f32: one group), 0 in the others."""
+    gradient leaf f32: one group), 0 in the others. The line says whether
+    FSDP resolved on (the reference's ``"auto"``), and per rank the FSDP
+    gathers' and reduce-scatters' bytes and seconds over the run."""
     runs = [r["arms"][arm]["runs"][run] for r in ranks]
-    keys = FAMILY_PHASES[mode]
+    keys = step_phases(runs[0]["timings"][0])
     steps = [{"step": i + 1, **runs[0]["metrics"][i],
               "wall_s": max(sum(r["timings"][i][k] for k in keys) for r in runs),
               "phases_s": {k: max(r["timings"][i][k] for r in runs) for k in keys}}
@@ -4687,12 +4747,13 @@ def family_run_line(arm: str, name: str, layers, seq: int, batch: int, run: str,
     expected = [0, len(steps)] if mode == "decoupled" else [0, 0]
     line = {"phase": "train_families", "arm": arm, "model": name, "layers": layers,
             "run": run, "mode": mode, "rows": FAMILY_TRAIN_ROWS, "seq_len": seq,
-            "global_batch": batch, "params": runs[0]["params"], "steps": steps,
+            "global_batch": batch, "params": runs[0]["params"], "fsdp": runs[0]["fsdp"],
+            "steps": steps,
             "chunk_accumulate_by_row": launches, "chunk_accumulate_expected_by_row": expected,
             "per_rank": [{"row": r["row"], "wall_s": run_["wall_s"], "peak_gib": run_["peak_gib"],
                           "peak_reserved_gib": run_["peak_reserved_gib"],
                           "host_peak_gib": run_["host_peak_gib"],
-                          "moment_bytes": run_["moment_bytes"],
+                          "moment_bytes": run_["moment_bytes"], "fsdp": run_["fsdp_stats"],
                           "wire": {k: sum(t[k] for t in run_["timings"]) for k in WIRE_KEYS}}
                          for r, run_ in zip(ranks, runs)],
             "wire_chunk_bytes": TRAIN_CHUNK_BYTES, "nvidia_smi": smi}
@@ -4728,6 +4789,10 @@ def family_train_phase(torch, np, seed: int, smi: str) -> dict:
             line = family_run_line(arm, name, layers, seq, batch, run, mode, ranks, smi)
             lines[(arm, run)] = line
             total["chunk_accumulate"] += sum(line["chunk_accumulate_by_row"])
+            if line["fsdp"] != FAMILY_FSDP[arm]:
+                raise AssertionError(f"train_families {name} {run}: FSDP resolved "
+                                     f"{line['fsdp']}, the reference's rule says "
+                                     f"{FAMILY_FSDP[arm]}")
     dec, over = lines[("a", "decoupled")]["steps"], lines[("a", "overlap")]["steps"]
     routing = {k: abs(over[0][k] - dec[0][k]) / abs(dec[0][k])
                for k in ("loss", "aux_loss", "router_entropy")}
@@ -4763,6 +4828,231 @@ def family_train_phase(torch, np, seed: int, smi: str) -> dict:
     launches = dict.fromkeys(kernel_counters(), 0)
     launches.update(total)
     return {"launches": launches, "seconds": world_s}
+
+
+# -- phase 8c: FSDP training, qwen2.5-3b at full width and depth ------------------
+
+FSDP_ARCH = "qwen2.5-3b"
+FSDP_ROWS = 2
+FSDP_SEQ = 512
+FSDP_BATCH = 2  # one sequence a row
+# the card's memory: the two rows' peaks (reserved, so the allocator's
+# slack counts) must stay below it
+CARD_BYTES = 80e9
+# what a row of the data-parallel step without FSDP holds at its peak: f32
+# parameters, momentum, the gradient and its flat copy for the all-reduce
+# (`train_step.build_data_parallel_step`); AdamW at rest holds as much
+REPLICATED_BYTES_PER_PARAM = 16
+
+
+def fsdp_config():
+    """qwen2.5-3b whole, computing in f32 (the parity step's dtype, as
+    phase 8's)."""
+    import torch
+
+    from repro_torch.configs import get
+
+    return dataclasses.replace(get(FSDP_ARCH), dtype=torch.float32)
+
+
+def fsdp_pipeline(cfg, seed: int):
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+
+    return Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=FSDP_SEQ,
+                               global_batch=FSDP_BATCH, seed=seed, kind="zipf", skew=0.4))
+
+
+def fsdp_reference_step(torch, np, seed: int, path: str) -> dict:
+    """Phase 8c's one-process step, in the parent alone: qwen2.5-3b whole
+    from the per-unit draw (`Model.init_unit`), one conventional SGD step
+    (lr 1, no momentum: the moment it leaves is the gradient) on the
+    global batch, in place. The new parameters go to ``path`` as one flat
+    f32 ``.npy`` in unit order (each unit's leaves flattened in tree
+    order), the order in which a row's parts cut them. The card is freed
+    before it returns."""
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train import sharding
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import build_conventional_step
+    from repro_torch.utils.treeutil import tree_leaves
+
+    cfg = fsdp_config()
+    model = build(cfg)
+    sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
+                    weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
+    t0 = time.perf_counter()
+    params = sharding.join_units(
+        (u, model.init_unit(seed, u, param_dtype=torch.float32)) for u in model.units)
+    opt = init_opt_state(sgd, params)
+    batch = {k: v.to(model.device) for k, v in fsdp_pipeline(cfg, seed).global_batch(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params, opt, metrics = build_conventional_step(model, sgd, inplace=True)(params, opt, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    gmax = max(float(m.abs().max()) for m in tree_leaves(opt["m"]))
+    peak = torch.cuda.max_memory_allocated()
+    del opt
+    total = sum(p.numel() for p in tree_leaves(params))
+    t1 = time.perf_counter()
+    with open(path, "wb") as f:  # written in order, leaf by leaf: no whole copy on the host
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": np.lib.format.dtype_to_descr(np.dtype(np.float32)),
+                "fortran_order": False, "shape": (total,)})
+        for _, unit in sharding.units_of(params):
+            for leaf in tree_leaves(unit):
+                leaf.detach().reshape(-1).cpu().numpy().tofile(f)
+    write_s = time.perf_counter() - t1
+    del params, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": float(metrics["loss"]), "max_abs_grad": gmax, "params": total,
+            "step_s": step_s, "write_s": write_s, "seconds": time.perf_counter() - t0,
+            "peak_gib": peak / 2 ** 30}
+
+
+def fsdp_train_rank(mesh, seed: int, ref_path: str) -> dict:
+    """One rank of phase 8c's two-row world (run by `spawn`): qwen2.5-3b
+    whole through `make_step` with the reference's default ``fsdp``
+    ("auto", which must resolve on), this row's parts drawn unit by unit;
+    one conventional SGD step (lr 1) on this row's sequence, with the
+    kernel counts set to 0 just before and read just after; its phases,
+    the FSDP gathers' and reduce-scatters' bytes and seconds, this rank's
+    device peak (allocated and reserved), and every element of this row's
+    parts against the one-process step's file, on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import row_shard
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainStepConfig, make_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    cfg = fsdp_config()
+    model = build(cfg)
+    sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
+                    weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
+    # the reference's default: fsdp "auto", 6e9 bytes
+    step = make_step(model, mesh, sgd, TrainStepConfig(), inplace=True)
+    plan = step.fsdp
+    out = {"row": mesh.row, "fsdp": plan is not None}
+    if plan is None:
+        return out
+    parts = plan.shard_units(lambda u: model.init_unit(seed, u, param_dtype=torch.float32))
+    opt = init_opt_state(sgd, parts)
+    batch = row_shard(fsdp_pipeline(cfg, seed).global_batch(0), mesh.row, mesh.n_rows,
+                      model.device)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    parts, opt, metrics = step(parts, opt, batch)
+    torch.cuda.synchronize()
+    out.update(wall_s=time.perf_counter() - t0, loss=float(metrics["loss"]),
+               launches={k: fn.launches for k, fn in counters.items()},
+               timing=step.timings[-1], units=len(plan.units),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+               elements=[[u.spec.total, p.numel()] for p, u in zip(parts, plan.units)])
+    del opt, batch
+    # every element of this row's parts against the one-process step, on
+    # the card (the file's slices read from its memory map)
+    ref = np.load(ref_path, mmap_mode="r")
+    t0 = time.perf_counter()
+    diff, off = 0.0, 0
+    for part, unit in zip(parts, plan.units):
+        lo = mesh.row * unit.part
+        n = max(0, min(unit.part, unit.spec.total - lo))
+        if n:
+            want = torch.from_numpy(np.array(ref[off + lo:off + lo + n]))
+            diff = max(diff, float((part[:n] - want.to(part.device)).abs().max()))
+        off += unit.spec.total
+    out.update(compare_s=time.perf_counter() - t0, max_abs_diff=diff,
+               host_peak_gib=_host_peak_gib())
+    del ref, parts
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    return out
+
+
+def fsdp_phase(torch, np, seed: int, smi: str) -> dict:
+    """Phase 8c: the one-process step in the parent, then the two-row
+    world on the card; its line and checks: FSDP on by the default rule,
+    the rows' losses equal and within 1e-5 relative of the one-process
+    loss, every element of the world's step within `TRAIN_PARITY_REL` x
+    max |gradient| of the one-process step, and the two ranks' peaks
+    (reserved) below the card's 80 GB, printed beside the replicated
+    two-row figure: the data-parallel step without FSDP holds the
+    parameters, the momentum, the gradient and the gradient's flat copy
+    for the all-reduce, 16 bytes a parameter a row."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    try:
+        ref_path = os.path.join(tmp, "sgd_step.npy")
+        ref = fsdp_reference_step(torch, np, seed, ref_path)
+        emit({"phase": "train_fsdp", "run": "one-process step", "model": FSDP_ARCH,
+              "dtype": "f32", "seq_len": FSDP_SEQ, "global_batch": FSDP_BATCH, **ref,
+              "parent_reserved_gib_after": torch.cuda.memory_reserved() / 2 ** 30,
+              "nvidia_smi": smi})
+        t0 = time.perf_counter()
+        ranks = spawn(fsdp_train_rank, FSDP_ROWS, device="cuda", args=(seed, ref_path),
+                      timeout_s=900)
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(r["fsdp"] for r in ranks):
+        raise AssertionError(f"train_fsdp: fsdp 'auto' did not resolve on for {FSDP_ARCH}")
+    peaks = [r["peak_reserved_gib"] * 2 ** 30 for r in ranks]
+    diff = max(r["max_abs_diff"] for r in ranks)
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    line = {"phase": "train_fsdp", "run": "sgd", "model": FSDP_ARCH, "rows": FSDP_ROWS,
+            "mode": "conventional", "fsdp": True, "params": ref["params"],
+            "units": ranks[0]["units"], "seq_len": FSDP_SEQ, "global_batch": FSDP_BATCH,
+            "loss": ranks[0]["loss"], "one_process_loss": ref["loss"],
+            "step_wall_s": max(r["wall_s"] for r in ranks),
+            "per_rank": [{"row": r["row"], "wall_s": r["wall_s"], "peak_gib": r["peak_gib"],
+                          "peak_reserved_gib": r["peak_reserved_gib"],
+                          "phases_s": {k: r["timing"][k] for k in step_phases(r["timing"])},
+                          "fsdp": {k: r["timing"][k] for k in FSDP_KEYS},
+                          "wire": {k: r["timing"][k] for k in WIRE_KEYS},
+                          "compare_s": r["compare_s"], "host_peak_gib": r["host_peak_gib"]}
+                         for r in ranks],
+            "max_abs_diff": diff, "max_abs_grad": ref["max_abs_grad"],
+            "rel": diff / ref["max_abs_grad"], "budget": TRAIN_PARITY_REL,
+            "peak_reserved_sum_gb": sum(peaks) / 1e9, "card_gb": CARD_BYTES / 1e9,
+            "replicated_gb": REPLICATED_BYTES_PER_PARAM * ref["params"] * FSDP_ROWS / 1e9,
+            "world_s": world_s, "launches": dict(launches), "nvidia_smi": smi}
+    emit(line)
+    if any(r["loss"] != ranks[0]["loss"] for r in ranks):
+        raise AssertionError("train_fsdp: the rows disagree on the loss")
+    if not abs(line["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]):
+        raise AssertionError(f"train_fsdp: the world's loss {line['loss']} is off the "
+                             f"one-process loss {ref['loss']}")
+    if not line["rel"] <= TRAIN_PARITY_REL:
+        raise AssertionError(f"train_fsdp: the world's step is off the one-process step by "
+                             f"{line['rel']} of max |gradient|, budget {TRAIN_PARITY_REL}")
+    if not sum(peaks) < CARD_BYTES:
+        raise AssertionError(f"train_fsdp: the two rows' peaks sum to {sum(peaks) / 1e9} GB, "
+                             f"the card has {CARD_BYTES / 1e9}")
+    out = dict.fromkeys(kernel_counters(), 0)
+    out.update(launches)
+    return {"launches": out, "seconds": world_s}
 
 
 # -- phase 9: the paper's decoupled MapReduce --------------------------------------
@@ -5693,6 +5983,11 @@ def main(argv=None) -> int:
     CLOCK.start("train_families")
     train_families = family_train_phase(torch, np, args.seed, smi)
 
+    # phase 8c: FSDP training, qwen2.5-3b at full width and depth in a two-row
+    # world on this card, against one process
+    CLOCK.start("train_fsdp")
+    train_fsdp = fsdp_phase(torch, np, args.seed, smi)
+
     # phase 9: the paper's decoupled MapReduce in an eight-row world on this card
     CLOCK.start("mapreduce")
     mapreduce = mapreduce_phase(torch, np, args.seed, smi)
@@ -5755,6 +6050,7 @@ def main(argv=None) -> int:
         kern["launches_train_by_run"] = {run: counts[name]
                                          for run, counts in train["launches_by_run"].items()}
         kern["launches_train_families"] = train_families["launches"][name]
+        kern["launches_train_fsdp"] = train_fsdp["launches"][name]
         kern["launches_mapreduce"] = mapreduce["launches"][name]
         kern["launches_cg"] = cg["launches"][name]
         kern["launches_pic"] = pic["launches"][name]
@@ -5766,7 +6062,8 @@ def main(argv=None) -> int:
             "launches_scenario", "launches_spec", "launches_disagg", "launches_mamba_arm",
             "launches_moe", "launches_moe_by_arm", "launches_families",
             "launches_families_by_arm", "launches_train", "launches_train_by_run",
-            "launches_train_families", "launches_mapreduce", "launches_cg", "launches_pic")
+            "launches_train_families", "launches_train_fsdp", "launches_mapreduce",
+            "launches_cg", "launches_pic")
     emit({"phase": "timing", "seconds_by_phase": CLOCK.totals,
           "total_s": time.perf_counter() - t_main})
     emit({"kernels": [{k: kern[k] for k in keys + ("isolated_2p26", "launches_adaptive")

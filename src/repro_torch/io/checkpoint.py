@@ -59,12 +59,17 @@ def _leaf_paths(tree: Any, prefix: str = "") -> list[str]:
 
 def _to_numpy(leaf: Any) -> np.ndarray:
     """A leaf's values as a host numpy array that shares no memory with a
-    tensor (so an in-place update after the call cannot change it)."""
+    tensor (so an in-place update after the call cannot change it). A
+    read-only numpy array is taken as it is: nothing writes to it (an FSDP
+    writer's gathered units, `train.sharding.gather_to_host`, which would
+    otherwise be held twice on the host)."""
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise ValueError("checkpoint leaves need a numpy dtype; cast bf16 tensors to "
                              "f32 before saving")
         return leaf.detach().to("cpu", copy=True).numpy()
+    if isinstance(leaf, np.ndarray) and not leaf.flags.writeable:
+        return leaf
     return np.array(leaf)
 
 
@@ -150,22 +155,29 @@ def _committed_dir(directory: str, step: int) -> str:
     return d
 
 
-def restore(directory: str, step: int, like: Any, device=None) -> Any:
+def restore(directory: str, step: int, like: Any, device=None, *, mmap: bool = False) -> Any:
     """Load a checkpoint into the structure of ``like``. A tensor leaf of
     ``like`` comes back as a tensor of its dtype on ``device`` (by default
     its own; only its shape and dtype are read, so with ``device`` given a
     ``meta`` tensor will do); a numpy leaf as a numpy array of its dtype;
-    a Python scalar as a scalar of its type. Raises if a stored shape
-    differs from ``like``'s."""
+    a Python scalar as a scalar of its type. With ``mmap``, every tensor
+    and numpy leaf comes back as a read-only numpy memory map of its file
+    instead, so that a caller can take one part at a time to the device
+    (`launch.elastic.restore_for_mesh` under FSDP). Raises if a stored
+    shape differs from ``like``'s."""
     d = _committed_dir(directory, step)
     leaves_like, treedef = tree_flatten(like)
     out = []
     for i, ref in enumerate(leaves_like):
-        arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
+        tensor_like = isinstance(ref, (torch.Tensor, np.ndarray))
+        arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"),
+                      mmap_mode="r" if mmap and tensor_like else None)
         want = tuple(ref.shape) if isinstance(ref, torch.Tensor) else np.shape(ref)
         if arr.shape != want:
             raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != expected {want}")
-        if isinstance(ref, torch.Tensor):
+        if mmap and tensor_like:
+            out.append(arr)
+        elif isinstance(ref, torch.Tensor):
             dev = ref.device if device is None else torch.device(device)
             out.append(torch.from_numpy(arr).to(device=dev, dtype=ref.dtype))
         elif isinstance(ref, np.ndarray):

@@ -7,7 +7,8 @@ Two paths:
     so the same files resume on any row count and in any step mode:
     `restore_for_mesh` loads them onto the target mesh's device, and the
     step's rows take their shards from there (`row_shard`,
-    `train.sharding`). `healthy_mesh` picks the largest row count the
+    `train.sharding`); under FSDP each row takes its own parts of them,
+    a unit at a time. `healthy_mesh` picks the largest row count the
     healthy devices allow, halving the rows as the reference halves its
     data axis; `healthy_mesh_with_backoff` probes a few times before it
     shrinks.
@@ -29,12 +30,29 @@ import torch
 
 from repro_torch.io import checkpoint as ckpt
 from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.train.sharding import MOMENTS, FsdpPlan, host_unit
 from repro_torch.utils.treeutil import tree_flatten, tree_unflatten
 
 
-def restore_for_mesh(ckpt_dir: str, step: int, like_state: dict, mesh: Mesh) -> dict:
-    """Load ``step`` in the structure of ``like_state`` onto ``mesh``'s device."""
-    restored = ckpt.restore(ckpt_dir, step, like_state, device=mesh.device)
+def restore_for_mesh(ckpt_dir: str, step: int, like_state: dict, mesh: Mesh,
+                     fsdp: FsdpPlan | None = None) -> dict:
+    """Load ``step`` in the structure of ``like_state`` (``{"params",
+    "opt", "step"}``, whole trees) onto ``mesh``'s device. ``fsdp``: this
+    row's parts of the parameters and moments instead (`FsdpPlan` of the
+    mesh's row count, which need not be the writer's): the files are
+    memory-mapped and each unit goes to the device and into its part on
+    its own, so no row holds the whole tree, on the device or the host."""
+    if fsdp is None:
+        restored = ckpt.restore(ckpt_dir, step, like_state, device=mesh.device)
+    else:
+        host = ckpt.restore(ckpt_dir, step, like_state, mmap=True)
+
+        def parts(tree):
+            return fsdp.shard_units(lambda name: host_unit(tree, name, mesh.device))
+
+        restored = {"params": parts(host["params"]),
+                    "opt": {k: parts(v) if k in MOMENTS else v for k, v in host["opt"].items()},
+                    "step": host["step"]}
     restored["step"] = int(restored["step"])
     return restored
 

@@ -253,8 +253,9 @@ def make_host_mesh(data: int = 4, model: int = 1, device=None) -> Mesh:
     The reference's ``model`` axis is GSPMD tensor parallelism, which the
     port does not have: ``model`` must be 1."""
     if model != 1:
-        raise NotImplementedError(f"a model axis of {model}: model-parallel training "
-                                  f"(GSPMD over the model axis) is not ported; see ROADMAP A8")
+        raise NotImplementedError(f"a model axis of {model}: the model axis (tensor "
+                                  f"parallelism over it, the reference's param_specs) is not "
+                                  f"ported; see ROADMAP A8")
     return Mesh(n_rows=data, device=device)
 
 

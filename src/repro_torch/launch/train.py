@@ -12,8 +12,12 @@ settings. ``--arch`` takes every architecture of the registry: dense,
 MoE, SSM, hybrid, VLM and encoder-decoder. ``--smoke`` picks the
 architecture's reduced config and leaves the device as it is. The
 trainer saves a checkpoint halfway and at the end into ``--ckpt-dir``,
-and resumes from the newest one there. ``--model`` must be 1:
-model-parallel training is not ported (ROADMAP A8).
+and resumes from the newest one there. The step config is the
+reference's default apart from the mode, the alpha and the codec, so
+FSDP is ``"auto"``: on where the f32 parameters pass 6e9 bytes (``--arch
+qwen2.5-3b --data 2`` trains so), as in the reference, which has no flag
+for it either. ``--model`` must be 1: the model axis is not ported
+(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--compress", default="none", choices=["none", "int8"])
     ap.add_argument("--ckpt-dir", default="/tmp/repro_launch_train")
     ap.add_argument("--data", type=int, default=4, help="rows of the world")
-    ap.add_argument("--model", type=int, default=1, help="must be 1 (ROADMAP A8)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="must be 1: the model axis is not ported (ROADMAP A8)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 

@@ -48,27 +48,52 @@ def init_encdec(cfg, gen: torch.Generator, device=None, *, param_dtype=None) -> 
     and scales, stored as `transformer.init_lm` stores an LM's."""
     device = resolve_device(device)
     kw = dict(dtype=cfg.dtype if param_dtype is None else param_dtype, device=device)
-    d = cfg.d_model
+    enc = [_init_enc_layer(cfg, gen, kw) for _ in range(cfg.encoder_layers)]
+    dec = [_init_dec_layer(cfg, gen, kw) for _ in range(cfg.n_layers)]
+    return {"embed": layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, **kw),
+            "enc_layers": enc, "dec_layers": dec, **_init_rest(cfg, gen, kw)}
 
-    def norm():
-        return layers.init_norm(d, cfg.norm_kind, device=device)
 
-    def mlp():
-        return layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, cfg.mlp_bias, **kw)
+def _norm(cfg, kw) -> Params:
+    return layers.init_norm(cfg.d_model, cfg.norm_kind, device=kw["device"])
 
-    enc = [{"norm1": norm(), "attn": init_attn(cfg, gen, **kw), "norm2": norm(), "mlp": mlp()}
-           for _ in range(cfg.encoder_layers)]
-    dec = [{"norm1": norm(), "attn": init_attn(cfg, gen, **kw), "norm_x": norm(),
-            "xattn": init_attn(cfg, gen, **kw), "norm2": norm(), "mlp": mlp()}
-           for _ in range(cfg.n_layers)]
-    return {
-        "embed": layers.init_embedding(gen, cfg.vocab_size, d, **kw),
-        "enc_layers": enc,
-        "dec_layers": dec,
-        "enc_norm": norm(),
-        "final_norm": norm(),
-        "lm_head": layers.init_embedding(gen, cfg.vocab_size, d, **kw),
-    }
+
+def _init_enc_layer(cfg, gen, kw) -> Params:
+    return {"norm1": _norm(cfg, kw), "attn": init_attn(cfg, gen, **kw), "norm2": _norm(cfg, kw),
+            "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, cfg.mlp_bias, **kw)}
+
+
+def _init_dec_layer(cfg, gen, kw) -> Params:
+    return {"norm1": _norm(cfg, kw), "attn": init_attn(cfg, gen, **kw),
+            "norm_x": _norm(cfg, kw), "xattn": init_attn(cfg, gen, **kw),
+            "norm2": _norm(cfg, kw),
+            "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, cfg.mlp_bias, **kw)}
+
+
+def _init_rest(cfg, gen, kw) -> Params:
+    return {"enc_norm": _norm(cfg, kw), "final_norm": _norm(cfg, kw),
+            "lm_head": layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, **kw)}
+
+
+def encdec_units(cfg) -> tuple[str, ...]:
+    """The units of the parameters, in order (`train.sharding.units_of`
+    names them so): ``embed``, ``enc_layers.i``, ``dec_layers.i``, ``rest``
+    (the two final norms and ``lm_head``)."""
+    return (("embed",) + tuple(f"enc_layers.{i}" for i in range(cfg.encoder_layers))
+            + tuple(f"dec_layers.{i}" for i in range(cfg.n_layers)) + ("rest",))
+
+
+def init_encdec_unit(cfg, name: str, gen: torch.Generator, device=None, *,
+                     param_dtype=None) -> Params:
+    """One unit of `encdec_units` drawn alone from ``gen``, as
+    `init_encdec` makes it."""
+    device = resolve_device(device)
+    kw = dict(dtype=cfg.dtype if param_dtype is None else param_dtype, device=device)
+    if name == "embed":
+        return layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, **kw)
+    if name == "rest":
+        return _init_rest(cfg, gen, kw)
+    return (_init_enc_layer if name.startswith("enc_") else _init_dec_layer)(cfg, gen, kw)
 
 
 def _check_impl(impl) -> None:
@@ -106,6 +131,7 @@ def _mha(cfg, p, hq, hkv, dtype, impl=None):
 
 
 def _enc_layer(cfg, p, x, dtype, impl):
+    p = layers.unit_params(p)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     x = x + _mha(cfg, p["attn"], h, h, dtype, impl)
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
@@ -151,6 +177,7 @@ def _causal_self_attn(cfg, p, h, pos, dtype, impl=None):
 
 
 def _dec_layer(cfg, p, x, memory, pos, dtype, impl):
+    p = layers.unit_params(p)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     attn, kf, vf = _causal_self_attn(cfg, p["attn"], h, pos, dtype, impl)
     x = x + attn

@@ -293,6 +293,15 @@ def apply_mlp(p: Params, x: torch.Tensor, kind: str, dtype=torch.bfloat16) -> to
 
 # -- embeddings -----------------------------------------------------------------------
 
+def unit_params(p) -> Params:
+    """A layer's parameters: ``p`` itself, or, where ``p`` is a unit that
+    a row holds as its part (`train.sharding.LazyUnit`, under FSDP), the
+    whole unit, gathered now. The layer functions call it inside the
+    function that `torch.utils.checkpoint` wraps, so the recompute in the
+    backward pass gathers the unit again rather than keeping it."""
+    return p() if callable(p) else p
+
+
 def embed(p: Params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return p["table"].to(dtype)[tokens]
 

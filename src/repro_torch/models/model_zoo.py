@@ -2,6 +2,7 @@
 
     model = build(cfg)                        # device: cuda unless device="cpu"
     params = model.init(seed)                 # or a torch.Generator
+    unit = model.init_unit(seed, "layers.0")  # one unit of model.units, drawn alone
     loss, metrics = model.loss(params, batch)  # training (params from
                                               # model.init(seed, param_dtype=torch.float32))
     logits, cache = model.prefill(params, tokens, length=...)   # impl="ref": plain route
@@ -66,6 +67,12 @@ class Model:
     # those that `loss(..., route_world=)` computes for the world's global
     # batch; empty where the loss has nothing to route over a world
     world_metrics: tuple[str, ...] = ()
+    # the units of the parameters, in order (`train.sharding.units_of`)
+    units: tuple[str, ...] = ()
+    # (seed, unit, *, param_dtype=None, device=None) -> the unit's parameters,
+    # drawn from the unit's own generator (`_unit_seed`): one process and every
+    # row of a world draw the same values, a unit at a time
+    init_unit: Callable[..., Params] | None = None
 
 
 def frontend_key(cfg) -> str | None:
@@ -92,6 +99,23 @@ def _seeded_init(fn, cfg, dev):
         return fn(cfg, gen, dev, param_dtype=param_dtype)
 
     return init
+
+
+def _unit_seed(seed: int, index: int) -> int:
+    """The seed of the generator that draws unit ``index`` of a model
+    initialised from ``seed`` unit by unit."""
+    return int(seed) * 1_000_003 + index
+
+
+def _unit_init(fn, cfg, dev, units: tuple[str, ...]):
+    def init_unit(seed: int, unit: str, *, param_dtype=None, device=None) -> Params:
+        d = dev if device is None else torch.device(device)
+        # a meta tree (shapes alone) draws nothing, from a CPU generator
+        gen = torch.Generator(device="cpu" if d.type == "meta" else d)
+        gen.manual_seed(_unit_seed(seed, units.index(unit)))
+        return fn(cfg, unit, gen, d, param_dtype=param_dtype)
+
+    return init_unit
 
 
 def build(cfg, device=None) -> Model:
@@ -140,9 +164,11 @@ def _build_lm(cfg, dev) -> Model:
             return transformer.verify_step_lm(cfg, params, cache, tokens, n_new)
 
     world_metrics = moe.AUX_METRICS if cfg.n_experts else ()
+    units = transformer.lm_units(cfg)
     return Model(cfg, dev, _seeded_init(transformer.init_lm, cfg, dev), prefill, init_cache,
                  decode_step, decode_step_paged, loss, verify_step,
-                 metrics=tuple(sorted(("ce",) + world_metrics)), world_metrics=world_metrics)
+                 metrics=tuple(sorted(("ce",) + world_metrics)), world_metrics=world_metrics,
+                 units=units, init_unit=_unit_init(transformer.init_lm_unit, cfg, dev, units))
 
 
 def _build_encdec(cfg, dev) -> Model:
@@ -177,8 +203,10 @@ def _build_encdec(cfg, dev) -> Model:
     def decode_step(params, cache, token):
         return encdec.decode_step_encdec(cfg, params, cache, token)
 
+    units = encdec.encdec_units(cfg)
     return Model(cfg, dev, _seeded_init(encdec.init_encdec, cfg, dev), prefill, init_cache,
-                 decode_step, None, loss)
+                 decode_step, None, loss, units=units,
+                 init_unit=_unit_init(encdec.init_encdec_unit, cfg, dev, units))
 
 
 def synthetic_batch(cfg, batch: int, seq: int, seed: int = 0, device=None) -> dict:

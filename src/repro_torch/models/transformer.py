@@ -93,17 +93,42 @@ def init_lm(cfg, gen: torch.Generator, device=None, *, param_dtype=None) -> Para
     (`resolve_device`); ``gen`` must live there."""
     device = resolve_device(device)
     dtype = cfg.dtype if param_dtype is None else param_dtype
-    d = cfg.d_model
     out_layers = [_init_layer(cfg, gen, device, dtype) for _ in range(cfg.n_layers)]
-    p = {
-        "embed": layers.init_embedding(gen, cfg.vocab_size, d, dtype=dtype, device=device),
-        "layers": out_layers,
-        "final_norm": layers.init_norm(d, cfg.norm_kind, device=device),
-    }
-    if not cfg.tie_embeddings:
-        p["lm_head"] = layers.init_embedding(gen, cfg.vocab_size, d, dtype=dtype,
-                                             device=device)
+    p = {"embed": _init_embed(cfg, gen, device, dtype), "layers": out_layers}
+    p.update(_init_rest(cfg, gen, device, dtype))
     return p
+
+
+def _init_embed(cfg, gen, device, dtype) -> Params:
+    return layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype=dtype, device=device)
+
+
+def _init_rest(cfg, gen, device, dtype) -> Params:
+    p = {"final_norm": layers.init_norm(cfg.d_model, cfg.norm_kind, device=device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _init_embed(cfg, gen, device, dtype)
+    return p
+
+
+def lm_units(cfg) -> tuple[str, ...]:
+    """The units of an LM's parameters, in order (`train.sharding.units_of`
+    names them so): ``embed``, ``layers.0`` ... ``layers.{L-1}``, ``rest``
+    (the final norm and an untied ``lm_head``)."""
+    return ("embed",) + tuple(f"layers.{i}" for i in range(cfg.n_layers)) + ("rest",)
+
+
+def init_lm_unit(cfg, name: str, gen: torch.Generator, device=None, *,
+                 param_dtype=None) -> Params:
+    """One unit of `lm_units` drawn alone from ``gen``: the tree
+    `init_lm` makes for it, with the same shapes, scales and dtypes (the
+    draws differ, as ``gen`` is the unit's own)."""
+    device = resolve_device(device)
+    dtype = cfg.dtype if param_dtype is None else param_dtype
+    if name == "embed":
+        return _init_embed(cfg, gen, device, dtype)
+    if name == "rest":
+        return _init_rest(cfg, gen, device, dtype)
+    return _init_layer(cfg, gen, device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +179,7 @@ def _mamba(cfg, p, h, dtype, want_kv: bool, impl):
 
 def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl, world=None):
     """One layer -> (x, aux, (k, v) or None, SSM decode state or None)."""
+    p = layers.unit_params(p)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     if cfg.family == "ssm":
         y, sstate = _mamba(cfg, p, h, dtype, want_kv, impl)

@@ -1,5 +1,6 @@
-"""ZeRO-1 over the rank world (the port's counterpart of the reference's
-`train/sharding.zero1_specs` in ``overlap`` mode).
+"""ZeRO-1 and FSDP over the rank world (the port's counterpart of the
+reference's `train/sharding.zero1_specs`, which its ``overlap`` mode puts
+on the moments and its FSDP on the parameters and moments too).
 
 The reference shards each moment leaf's largest free dimension over the
 data axes and lets GSPMD turn the gradient all-reduce into a
@@ -14,15 +15,30 @@ numbers; only clipping needs the whole gradient's norm, which an
 all-reduce of each part's sum of squares gives. A padded element has a
 zero parameter and a zero gradient, and stays zero.
 
-The reference's other helpers (`param_specs`, `batch_specs`,
-`cache_specs`, `named`, `validate_divisibility`) place arrays on a GSPMD
-mesh; the rank world has no such placement (ROADMAP A13).
+FSDP (`FsdpPlan`) applies the same partition to each unit of gathering
+(`units_of`: the embedding, each layer, the rest) and keeps the
+parameters in parts too: a row holds ``ceil(unit / n_rows)`` elements of
+each unit's parameters and moments between steps. In the forward pass a
+`LazyUnit` gathers a layer whole inside the function that
+`torch.utils.checkpoint` wraps (`models.layers.unit_params`), so the
+recompute gathers it again and no layer stays whole between its forward
+and its backward; the backward reduce-scatters the unit's gradient into
+this row's part (`_GatherUnit`). The layout is internal: checkpoints hold
+whole trees (`gather_to_host`).
+
+The reference's other helpers place arrays on a GSPMD mesh:
+`param_specs` shards over the model axis, which the rank world does not
+have (ROADMAP A8), and `batch_specs`, `cache_specs`, `named` and
+`validate_divisibility` have nothing to place here: each rank holds its
+own row's batch and caches.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import time
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.utils.treeutil import (
@@ -31,10 +47,15 @@ from repro_torch.utils.treeutil import (
     pad_to_multiple,
     spec_of,
     tree_leaves,
+    tree_map,
+    tree_unflatten,
     unflatten,
 )
 
 MOMENTS = ("m", "v")
+EMBED, REST = "embed", "rest"
+# the parameter lists whose entries are units of their own
+LAYER_LISTS = ("layers", "enc_layers", "dec_layers")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,5 +118,197 @@ def gather_opt_state(plan: Zero1Plan, mesh, state: dict) -> dict:
     return {k: gather(plan, mesh, v) if k in MOMENTS else v for k, v in state.items()}
 
 
-__all__ = ["MOMENTS", "Zero1Plan", "flat_padded", "gather", "gather_opt_state",
-           "shard_of", "shard_opt_state", "zero1_plan"]
+# -- FSDP ---------------------------------------------------------------------------
+
+def units_of(params: dict) -> list[tuple[str, Any]]:
+    """The units of gathering of a parameter tree, in order: ``embed``,
+    each entry of its layer lists (``layers.i``; an encoder-decoder's
+    ``enc_layers.i``, then ``dec_layers.i``), and ``rest``, the other
+    top-level entries (final norms, ``lm_head``). ``Model.units`` names
+    the same units."""
+    units = [(EMBED, params[EMBED])]
+    for key in LAYER_LISTS:
+        units += [(f"{key}.{i}", p) for i, p in enumerate(params.get(key, ()))]
+    rest = {k: v for k, v in params.items() if k != EMBED and k not in LAYER_LISTS}
+    return units + ([(REST, rest)] if rest else [])
+
+
+def join_units(units) -> dict:
+    """The parameter tree of ``(name, unit)`` pairs in `units_of`'s order."""
+    params: dict = {}
+    for name, tree in units:
+        if name == REST:
+            params.update(tree)
+        elif name == EMBED:
+            params[EMBED] = tree
+        else:
+            params.setdefault(name.rsplit(".", 1)[0], []).append(tree)
+    return params
+
+
+@dataclasses.dataclass(frozen=True)
+class FsdpPlan:
+    """A row's part of each unit: one `Zero1Plan` a unit, in `units_of`'s
+    order, each naming the row."""
+
+    names: tuple[str, ...]
+    units: tuple[Zero1Plan, ...]
+
+    @property
+    def n_rows(self) -> int:
+        return self.units[0].n_rows
+
+    def shard(self, params: dict) -> list[torch.Tensor]:
+        """This row's parts of a whole parameter tree (or of a tree of its
+        structure: a gradient, a moment), one f32 tensor a unit."""
+        return [shard_of(plan, tree) for plan, (_, tree) in zip(self.units, units_of(params))]
+
+    def shard_units(self, unit: Callable[[str], Any]) -> list[torch.Tensor]:
+        """This row's parts, taking each unit whole from ``unit(name)`` one
+        at a time (a draw, a conversion, a read from the host): no more
+        than one unit is whole at once."""
+        return [shard_of(plan, unit(name)) for name, plan in zip(self.names, self.units)]
+
+    def shard_opt_state(self, state: dict) -> dict:
+        """An optimizer state of whole moment trees -> this row's parts."""
+        return {k: self.shard(v) if k in MOMENTS else v for k, v in state.items()}
+
+
+def fsdp_plan(params_like: dict, n_rows: int, row: int) -> FsdpPlan:
+    """The plan of ``params_like``'s units (shapes and dtypes alone are
+    read: a tree of ``meta`` tensors will do)."""
+    named = units_of(params_like)
+    return FsdpPlan(tuple(n for n, _ in named),
+                    tuple(zero1_plan(tree, n_rows, row) for _, tree in named))
+
+
+@dataclasses.dataclass
+class FsdpStats:
+    """Bytes and seconds of this rank's FSDP collectives: the all-gathers
+    (their whole units) and the reduce-scatters (their padded gradients)."""
+
+    gathers: int = 0
+    gather_bytes: int = 0
+    gather_s: float = 0.0
+    reduce_scatters: int = 0
+    reduce_scatter_bytes: int = 0
+    reduce_scatter_s: float = 0.0
+
+    def as_dict(self) -> dict:
+        return {"fsdp_" + k: v for k, v in dataclasses.asdict(self).items()}
+
+
+class FsdpWorld:
+    """An `FsdpPlan` on this rank's `launch.mesh.Mesh`: the gathers and
+    reduce-scatters of a step, counted in ``stats``."""
+
+    def __init__(self, plan: FsdpPlan, mesh):
+        self.plan, self.mesh, self.stats = plan, mesh, FsdpStats()
+
+    def gather(self, i: int, part: torch.Tensor) -> Any:
+        """Unit ``i`` whole (collective: every row calls it, in one order)."""
+        t0 = time.perf_counter()
+        plan = self.plan.units[i]
+        tree = gather(plan, self.mesh, part)
+        self.mesh.sync()
+        self.stats.gathers += 1
+        self.stats.gather_bytes += plan.spec.total * 4
+        self.stats.gather_s += time.perf_counter() - t0
+        return tree
+
+    def reduce_scatter(self, i: int, grads: list) -> torch.Tensor:
+        """This row's part of the world's sum of unit ``i``'s gradient
+        leaves (collective)."""
+        t0 = time.perf_counter()
+        flat = flat_padded(self.plan.units[i], grads)
+        out = self.mesh.reduce_scatter(flat)
+        self.mesh.sync()
+        self.stats.reduce_scatters += 1
+        self.stats.reduce_scatter_bytes += flat.numel() * flat.element_size()
+        self.stats.reduce_scatter_s += time.perf_counter() - t0
+        return out
+
+    def gather_all(self, parts: list) -> dict:
+        """The whole parameter tree (collective), unit by unit, without autograd."""
+        return join_units((name, self.gather(i, part))
+                          for i, (name, part) in enumerate(zip(self.plan.names, parts)))
+
+    def tree(self, parts: list) -> dict:
+        """The tree ``model.loss`` takes for these parts (collective): the
+        embedding and the rest gathered now, each layer a `LazyUnit`. The
+        embedding is gathered once for both of its ends (a tied table is
+        the input embedding and the output projection): autograd sums the
+        two uses' gradients before its one reduce-scatter."""
+        units = []
+        for i, (name, part) in enumerate(zip(self.plan.names, parts)):
+            lazy = LazyUnit(self, i, part)
+            units.append((name, lazy() if name in (EMBED, REST) else lazy))
+        return join_units(units)
+
+
+class _GatherUnit(torch.autograd.Function):
+    """Forward: unit ``i``'s part -> its whole leaves (an all-gather).
+    Backward: the leaves' gradients -> this row's part of their world sum
+    (a reduce-scatter). Nothing is saved for the backward pass."""
+
+    @staticmethod
+    def forward(ctx, part, world, i):
+        ctx.world, ctx.i = world, i
+        return tuple(tree_leaves(world.gather(i, part.detach())))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        spec = ctx.world.plan.units[ctx.i].spec
+        grads = [torch.zeros(shape, dtype=torch.float32, device=ctx.world.mesh.device)
+                 if g is None else g for g, shape in zip(grads, spec.shapes)]
+        return ctx.world.reduce_scatter(ctx.i, grads), None, None
+
+
+class LazyUnit:
+    """A unit held as this row's ``part``; calling it gathers the whole
+    unit through `_GatherUnit` (collective). The layer functions call it
+    where the layer begins (`models.layers.unit_params`)."""
+
+    def __init__(self, world: FsdpWorld, i: int, part: torch.Tensor):
+        self.world, self.i, self.part = world, i, part
+
+    @property
+    def requires_grad(self) -> bool:
+        return self.part.requires_grad
+
+    def __call__(self) -> Any:
+        leaves = _GatherUnit.apply(self.part, self.world, self.i)
+        return tree_unflatten(self.world.plan.units[self.i].spec.treedef, list(leaves))
+
+
+def gather_to_host(plan: FsdpPlan, mesh, parts: list, keep: bool) -> dict | None:
+    """The whole tree of these parts as read-only host numpy arrays where
+    ``keep`` (row 0 writing a checkpoint), else None. Collective: each unit is
+    gathered on every row, one at a time, and copied to the host where
+    ``keep``; no row holds the whole tree on the device."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        a = t.detach().to("cpu", copy=True).numpy()
+        a.setflags(write=False)  # the checkpoint writer keeps it without a copy
+        return a
+
+    units = []
+    for i, (name, part) in enumerate(zip(plan.names, parts)):
+        tree = gather(plan.units[i], mesh, part)
+        if keep:
+            units.append((name, tree_map(host, tree)))
+        del tree
+    return join_units(units) if keep else None
+
+
+def host_unit(host: dict, name: str, device) -> Any:
+    """Unit ``name`` of a whole host tree (numpy leaves, memory maps
+    included, in the port's structure) as tensors on ``device``: one
+    unit's copy is made, not the tree's."""
+    tree = dict(units_of(host))[name]
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+__all__ = ["EMBED", "LAYER_LISTS", "MOMENTS", "REST", "FsdpPlan", "FsdpStats", "FsdpWorld",
+           "LazyUnit", "Zero1Plan", "flat_padded", "fsdp_plan", "gather", "gather_opt_state",
+           "gather_to_host", "host_unit", "join_units", "shard_of", "shard_opt_state",
+           "units_of", "zero1_plan"]

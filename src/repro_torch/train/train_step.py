@@ -31,6 +31,15 @@ port of the reference's `train/train_step.py`).
                 arithmetic. The reference gets the same collectives from
                 GSPMD sharding constraints.
 
+FSDP (``fsdp``, by default ``"auto"``: on where the f32 parameters pass
+``fsdp_threshold`` bytes, `use_fsdp`) keeps each row's part of every
+unit's parameters and moments (`train.sharding.FsdpPlan`) in every mode.
+In the conventional and overlap steps each layer is gathered just before
+it runs and reduce-scattered in its backward (`build_fsdp_step`); in the
+decoupled step every row gathers the whole parameters at the start, as
+the reference's ``shard_map`` takes them whole, and updates its parts
+from its slice of the broadcast gradient.
+
 Each rank runs the step on its own row's shard of the batch
 (`data.pipeline.row_shard`). Every mode sums the rows' local loss sums
 and token counts and divides once by the global count, so a row whose
@@ -45,7 +54,7 @@ N``, N the global token count, so that the rows' gradients sum to the
 reference's; ``aux_loss`` and ``router_entropy`` are reported as the
 world computed them. The decoupled step is per row in the reference too
 (``shard_map``): each compute row routes its own shard. Not ported:
-FSDP and the model axis (ROADMAP A8).
+the model axis, and FSDP and expert parallelism over it (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -58,9 +67,9 @@ from repro_torch.core.adapt import StageTrait
 from repro_torch.core.dataflow import COMPUTE, ServiceGraph, work_vector
 from repro_torch.core.decouple import group_psum
 from repro_torch.core.wire import WireSpec
-from repro_torch.models import moe
+from repro_torch.models import model_zoo, moe
 from repro_torch.train import sharding
-from repro_torch.train.optimizer import OptConfig, apply_updates
+from repro_torch.train.optimizer import OptConfig, apply_updates, global_norm
 from repro_torch.utils.treeutil import (
     flatten,
     spec_of,
@@ -87,14 +96,57 @@ class TrainStepConfig:
     wire_chunk_bytes: int | None = None
     zero1: bool = True  # overlap mode: moments in parts (False: whole on every row)
     runtime_skip: bool = True  # decoupled mode: service rows skip forward and backward
+    # FSDP: shard params over the data axes too (all-gathered per layer
+    # inside the scan). "auto" switches on when fp32 params exceed
+    # fsdp_threshold bytes per device under model-parallel sharding only.
+    fsdp: bool | str = "auto"
+    fsdp_threshold: float = 6e9
 
 
-def value_and_grad(loss_fn, params, batch):
+def param_shapes(model) -> dict:
+    """The model's parameters as a training step holds them (f32), as
+    ``meta`` tensors: shapes and dtypes, no storage."""
+    return sharding.join_units(
+        (u, model.init_unit(0, u, param_dtype=torch.float32, device="meta"))
+        for u in model.units)
+
+
+def use_fsdp(params_or_cfg, ts_cfg: TrainStepConfig, model_size: int = 1) -> bool:
+    """The reference's rule (`make_jitted_step`): ``ts_cfg.fsdp`` itself
+    unless it is ``"auto"``; then whether the parameters at 4 bytes an
+    element, whatever their dtype, over ``model_size`` (1: the port has
+    no model axis) pass ``fsdp_threshold``. ``params_or_cfg``: a
+    parameter tree (of any tensors, ``meta`` included) or a config."""
+    if ts_cfg.fsdp != "auto":
+        return bool(ts_cfg.fsdp)
+    params = params_or_cfg
+    if not isinstance(params, dict):
+        params = param_shapes(model_zoo.build(params_or_cfg, device="meta"))
+    param_bytes = sum(leaf.numel() * 4 for leaf in tree_leaves(params))
+    return param_bytes / model_size > ts_cfg.fsdp_threshold
+
+
+def fsdp_plan_for(model, mesh, ts_cfg: TrainStepConfig) -> sharding.FsdpPlan | None:
+    """This row's `FsdpPlan` where `use_fsdp` says so and the world has
+    more than one row (on one row the parts are the whole, as the
+    reference's one-way shard is), else None."""
+    if mesh.n_rows < 2:
+        return None
+    params = param_shapes(model)
+    return sharding.fsdp_plan(params, mesh.n_rows, mesh.row) if use_fsdp(params, ts_cfg) \
+        else None
+
+
+def value_and_grad(loss_fn, params, batch, view=None):
     """(loss, metrics, grads) of ``loss_fn(params, batch) -> (loss,
-    metrics)``; grads have the params' structure (zeros where unused)."""
+    metrics)``; grads have the params' structure (zeros where unused).
+    ``view``: ``loss_fn`` takes ``view(params)`` (an FSDP step's tree of
+    its parts, `sharding.FsdpWorld.tree`), and the gradient is still that
+    of ``params``."""
     leaves, treedef = tree_flatten(params)
     tracked = [p.detach().requires_grad_(True) for p in leaves]
-    loss, metrics = loss_fn(tree_unflatten(treedef, tracked), batch)
+    tree = tree_unflatten(treedef, tracked)
+    loss, metrics = loss_fn(tree if view is None else view(tree), batch)
     grads = torch.autograd.grad(loss, tracked, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(tracked, grads)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
@@ -133,11 +185,13 @@ def _loss_sum(model, world=None, mask_total: float = 0.0):
 
 class _Laps:
     """One step call's phase times, each phase ended by a device
-    synchronise, and the call's `WireStats` deltas (``wire_*``)."""
+    synchronise, and the call's `WireStats` deltas (``wire_*``) and, under
+    FSDP, its `sharding.FsdpStats` deltas (``fsdp_*``)."""
 
-    def __init__(self, mesh):
-        self.mesh, self.t = mesh, {}
+    def __init__(self, mesh, world=None):
+        self.mesh, self.world, self.t = mesh, world, {}
         self.stats0 = mesh.stats.as_dict()
+        self.fsdp0 = None if world is None else world.stats.as_dict()
         self.clock = time.perf_counter()
 
     def __call__(self, name: str) -> None:
@@ -149,21 +203,25 @@ class _Laps:
     def done(self) -> dict:
         stats1 = self.mesh.stats.as_dict()
         self.t.update({"wire_" + k: stats1[k] - self.stats0[k] for k in stats1})
+        if self.world is not None:
+            fsdp1 = self.world.stats.as_dict()
+            self.t.update({k: fsdp1[k] - self.fsdp0[k] for k in fsdp1})
         return self.t
 
 
-def _row_gradient(model, params, batch, mesh):
+def _row_gradient(model, params, batch, mesh, view=None):
     """This row's gradient of its local loss sum, the row's [loss sum,
     token count, token-weighted metrics] for one world sum
     (`_world_means`), and the metrics the world already computed (a model
     with `world_metrics` routes over ``mesh``: `_loss_sum`), each row
-    holding the same value, reported as it is."""
+    holding the same value, reported as it is. ``view`` as in
+    `value_and_grad`."""
     world, mask_total = None, 0.0
     if model.world_metrics:
         world = moe.RouteWorld(mesh)
         mask_total = float(mesh.all_reduce(batch["mask"].sum().reshape(1).float())[0])
     loss_tot, metrics, grads = value_and_grad(_loss_sum(model, world, mask_total), params,
-                                              batch)
+                                              batch, view)
     cnt = batch["mask"].sum().float()
     fixed = {k: float(metrics.pop(k)) for k in model.world_metrics}
     names = sorted(metrics)
@@ -270,6 +328,60 @@ def build_overlap_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool = False
     return step
 
 
+def build_fsdp_step(model, opt_cfg: OptConfig, mesh, plan: sharding.FsdpPlan, *,
+                    inplace: bool = False):
+    """FSDP over the rows of a world: the step takes and returns this row's
+    parts of the parameters and of the moments, one f32 tensor a unit
+    (`sharding.FsdpPlan`). The forward runs on `sharding.FsdpWorld.tree`:
+    the embedding and the rest are gathered at the start and kept, each
+    layer is gathered where it begins, inside its checkpoint, and gathered
+    again by its recompute; each unit's backward reduce-scatters its
+    gradient, so the backward pass leaves this row's part of the rows'
+    summed gradient. The clip takes the global norm from an all-reduce of
+    the parts' sums of squares, and each row updates its parts. The
+    reference's conventional and overlap steps are this one step under
+    FSDP (its overlap mode's moment specs are the FSDP specs there; only
+    its constraints' names differ), so ``zero1`` has no effect here.
+
+    Every rank issues the same collectives in the same order: gloo blocks
+    in each call until every rank has made it, so a rank whose order
+    differed would hang the world until its timeout. The order is fixed by
+    the model's structure alone: the same units in the same forward, the
+    same recomputes and the same backward graph on every row; a row whose
+    shard is wholly masked runs them all too (its loss is 0 times its
+    tokens, with the whole graph). An MoE layer's routing exchanges
+    (`moe.RouteWorld`) are stashed by the forward and replayed by the
+    recompute; the unit gathers are not, which is what frees a layer
+    between its forward and its backward. ``step.timings`` gets seconds in
+    forward and backward (the gathers and reduce-scatters included; their
+    own bytes and seconds are the ``fsdp_*`` keys), in the scalars'
+    all-reduce and in the update, and the call's `WireStats` deltas."""
+    world = sharding.FsdpWorld(plan, mesh)
+    timings: list[dict] = []
+
+    def step(parts, opt_state, batch):
+        laps = _Laps(mesh, world)
+        grads, keys, vec = _row_gradient(model, parts, batch, mesh, view=world.tree)
+        laps("fwd_bwd")
+        total, out = _world_means(mesh, keys, vec)
+        for g in grads:
+            g.div_(total)
+        laps("all_reduce")
+        norm = None
+        if opt_cfg.grad_clip > 0:
+            sq = torch.stack([torch.sum(g * g) for g in grads]).sum()
+            norm = torch.sqrt(mesh.all_reduce(sq.reshape(1))[0])
+        new_parts, new_state = apply_updates(opt_cfg, parts, grads, opt_state,
+                                             inplace=inplace, grad_norm=norm)
+        del grads
+        laps("update")
+        timings.append(laps.done())
+        return new_parts, new_state, out
+
+    step.timings = timings
+    return step
+
+
 def train_service_graph(mesh, ts_cfg: TrainStepConfig, axis: str = "data") -> ServiceGraph:
     """compute -> reduce, chained on to analytics when ``analytics_alpha
     > 0``; the gradient stream's wire is declared on compute -> reduce."""
@@ -295,14 +407,24 @@ def train_stage_traits(ts_cfg: TrainStepConfig):
 
 
 def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
-                         ts_cfg: TrainStepConfig, *, inplace: bool = False):
+                         ts_cfg: TrainStepConfig, *, inplace: bool = False,
+                         fsdp: sharding.FsdpPlan | None = None):
     """This rank's decoupled step ``(params, opt_state, row_batch) ->
     (new_params, new_state, metrics)``. Every rank of the world calls it
     once per step. ``step.timings`` gets one dict per call: seconds in
     forward and backward, in the gradient stream (the consumer's folds
     included), in the analytics chain, in the broadcast back and in the
     update, each phase ended by a device synchronise, plus this call's
-    `WireStats` deltas."""
+    `WireStats` deltas.
+
+    ``fsdp``: the step takes and returns this row's parts of the
+    parameters and moments. At the start every row, service rows included,
+    gathers the whole parameters unit by unit (``gather_s``; the
+    reference's ``shard_map`` takes them whole); the step runs as without
+    FSDP and drops the whole parameters after its forward and backward;
+    then each row updates its parts from its slice of the broadcast
+    gradient, clipped by the whole gradient's norm (AdamW is elementwise,
+    so the parts get the same numbers as the whole update)."""
     gmesh = graph.gmesh
     mesh = gmesh.mesh
     channel = graph.channel(COMPUTE, REDUCE)
@@ -311,9 +433,14 @@ def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
     n_compute = gmesh.compute.size
     timings: list[dict] = []
     loss_sum = _loss_sum(model)
+    world = None if fsdp is None else sharding.FsdpWorld(fsdp, mesh)
 
     def step(params, opt_state, batch):
-        lap = _Laps(mesh)
+        lap = _Laps(mesh, world)
+        parts = None
+        if world is not None:
+            parts, params = params, world.gather_all(params)
+            lap("gather")
         cnt = float(batch["mask"].sum())
         if is_compute:
             loss_tot, metrics, grads = value_and_grad(loss_sum, params, batch)
@@ -330,6 +457,8 @@ def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
             loss_tot, _, grads = value_and_grad(loss_sum, params, batch)
             loss_tot, metrics = float(loss_tot), dict.fromkeys(model.metrics, 0.0)
             grads = tree_meta(params)  # this row sends nothing
+        if parts is not None:
+            params = None  # the rows drop the whole parameters
         lap("fwd_bwd")
 
         # the decoupled reduce: raw gradients in, the folded sum out on the
@@ -372,9 +501,17 @@ def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
             x.div_(total_cnt)
         lap("broadcast")
 
-        new_params, new_state = apply_updates(opt_cfg, params, reduced, opt_state,
-                                              inplace=inplace)
-        del reduced
+        if parts is None:
+            new_params, new_state = apply_updates(opt_cfg, params, reduced, opt_state,
+                                                  inplace=inplace)
+            del reduced
+        else:
+            norm = global_norm(reduced) if opt_cfg.grad_clip > 0 else None
+            grads = fsdp.shard(reduced)
+            del reduced
+            new_params, new_state = apply_updates(opt_cfg, parts, grads, opt_state,
+                                                  inplace=inplace, grad_norm=norm)
+            del grads
         lap("update")
 
         out = {"loss": float(sums[0]) / total_cnt, "work_rows": work_rows}
@@ -395,21 +532,32 @@ def make_step(model, mesh, opt_cfg: OptConfig, ts_cfg: TrainStepConfig, *,
     """The step of ``ts_cfg.mode`` for this rank of ``mesh`` (the
     counterpart of the reference's `make_jitted_step`). ``inplace``: the
     update writes into the given params and moments. Every mode but a
-    one-row conventional step runs in a world (`launch.mesh.spawn`); in
-    overlap mode with ``zero1`` (the default) the optimizer state holds
-    this row's parts of the moments (`train.sharding.shard_opt_state`)."""
-    if ts_cfg.mode == "conventional":
-        if mesh.n_rows == 1:
-            return build_conventional_step(model, opt_cfg, inplace=inplace)
-        return build_data_parallel_step(model, opt_cfg, mesh, inplace=inplace)
-    if ts_cfg.mode == "overlap":
-        return build_overlap_step(model, opt_cfg, mesh, inplace=inplace, zero1=ts_cfg.zero1)
+    one-row conventional step runs in a world (`launch.mesh.spawn`).
+    ``step.fsdp`` is this row's `sharding.FsdpPlan` where FSDP is on
+    (`fsdp_plan_for`), else None: the step then takes and returns this
+    row's parts of the parameters and moments (`FsdpPlan.shard`,
+    `FsdpPlan.shard_opt_state`). Without FSDP, in overlap mode with
+    ``zero1`` (the default) the optimizer state holds this row's parts of
+    the moments (`train.sharding.shard_opt_state`)."""
+    if ts_cfg.mode not in ("conventional", "overlap", "decoupled"):
+        raise ValueError(ts_cfg.mode)
+    plan = fsdp_plan_for(model, mesh, ts_cfg)
     if ts_cfg.mode == "decoupled":
-        return build_decoupled_step(model, opt_cfg, train_service_graph(mesh, ts_cfg),
-                                    ts_cfg, inplace=inplace)
-    raise ValueError(ts_cfg.mode)
+        step = build_decoupled_step(model, opt_cfg, train_service_graph(mesh, ts_cfg), ts_cfg,
+                                    inplace=inplace, fsdp=plan)
+    elif plan is not None:
+        step = build_fsdp_step(model, opt_cfg, mesh, plan, inplace=inplace)
+    elif ts_cfg.mode == "overlap":
+        step = build_overlap_step(model, opt_cfg, mesh, inplace=inplace, zero1=ts_cfg.zero1)
+    elif mesh.n_rows == 1:
+        step = build_conventional_step(model, opt_cfg, inplace=inplace)
+    else:
+        step = build_data_parallel_step(model, opt_cfg, mesh, inplace=inplace)
+    step.fsdp = plan
+    return step
 
 
 __all__ = ["ANALYTICS", "REDUCE", "TrainStepConfig", "build_conventional_step",
-           "build_data_parallel_step", "build_decoupled_step", "build_overlap_step",
-           "make_step", "train_service_graph", "train_stage_traits", "value_and_grad"]
+           "build_data_parallel_step", "build_decoupled_step", "build_fsdp_step",
+           "build_overlap_step", "fsdp_plan_for", "make_step", "param_shapes",
+           "train_service_graph", "train_stage_traits", "use_fsdp", "value_and_grad"]

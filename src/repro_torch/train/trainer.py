@@ -8,14 +8,21 @@ divides evenly over every row. Each rank takes its own row's shard. The
 data is a pure function of (seed, step), so the loop keeps no pipeline
 state and a resumed run sees the batches it would have seen.
 
+Under FSDP (`train_step.fsdp_plan_for`: the config's ``fsdp``, by
+default on where the f32 parameters pass ``fsdp_threshold``) each row
+holds its parts of every unit's parameters and moments
+(`train.sharding.FsdpPlan`), drawn unit by unit (`Model.init_unit`) or
+taken from a whole state unit by unit, and `run` returns them so.
+
 Checkpoints (`io.checkpoint`): every ``ckpt_every`` steps and at the last
 step, row 0 writes ``{"params", "opt", "step"}`` asynchronously; the
-files hold whole moment trees whatever the mode (ZeRO-1 overlap gathers
-its parts first), so any mode on any row count resumes from them
-(`launch.elastic`). ``run(resume=True)`` restores the newest committed
-step, which row 0 reads and every row takes from it. ``fail_at_step``
-raises `SimulatedFailure` on every row at that step, after the last
-write has committed.
+files hold whole trees whatever the mode (ZeRO-1 overlap gathers its
+moment parts first; under FSDP the rows gather one unit at a time and
+row 0 copies each to the host), so any mode on any row count, with or
+without FSDP, resumes from them (`launch.elastic`). ``run(resume=True)``
+restores the newest committed step, which row 0 reads and every row
+takes from it. ``fail_at_step`` raises `SimulatedFailure` on every row at
+that step, after the last write has committed.
 
 Adaptive service sizing (``TrainerConfig.adapt``): in decoupled mode the
 trainer closes the measure -> plan -> regroup loop of `core.adapt` around
@@ -23,9 +30,10 @@ the reduce (and analytics) groups. Each step's wall (the slowest row's,
 agreed over the world) and the step's per-row token counts feed an
 `AdaptiveGraph`; when the planner's hysteresis clears, the step is
 rebuilt on the new partition. Parameters and moments are replicated on
-the decoupled rows, so nothing migrates: the rebuild is the regroup. The
-first sample after every (re)build is skipped (`CompileGate`): the step
-updates in place, so it cannot be warmed.
+the decoupled rows, or, under FSDP, held in parts of a plan that depends
+on the row count alone, which a regroup keeps: nothing migrates, and the
+rebuild is the regroup. The first sample after every (re)build is skipped
+(`CompileGate`): the step updates in place, so it cannot be warmed.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import torch
 from repro_torch.core.adapt import AdaptiveGraph, AdaptPolicy, CompileGate, agreed_wall
 from repro_torch.data.pipeline import Pipeline, row_shard
 from repro_torch.io import checkpoint as ckpt
+from repro_torch.launch.elastic import restore_for_mesh
 from repro_torch.train import sharding
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.train_step import (
@@ -45,7 +54,9 @@ from repro_torch.train.train_step import (
     REDUCE,
     TrainStepConfig,
     build_decoupled_step,
+    fsdp_plan_for,
     make_step,
+    param_shapes,
     train_service_graph,
     train_stage_traits,
 )
@@ -85,12 +96,19 @@ class Trainer:
         self.resumed: dict | None = None  # {"step", "restore_s"} of the last resume
         self.moment_bytes = 0  # the moments this row held while it stepped
         self.step_fn = None
+        self.fsdp = fsdp_plan_for(model, mesh, ts_cfg)  # this row's FsdpPlan, or None
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int = 0) -> dict:
-        """f32 parameters (the reference's master copies) and zero moments."""
-        params = self.model.init(seed, param_dtype=torch.float32)
-        return {"params": params, "opt": init_opt_state(self.opt_cfg, params), "step": 0}
+        """f32 parameters (the reference's master copies) and zero moments.
+        Under FSDP, this row's parts, each unit drawn from its own
+        generator (`Model.init_unit`), one at a time."""
+        if self.fsdp is None:
+            params = self.model.init(seed, param_dtype=torch.float32)
+            return {"params": params, "opt": init_opt_state(self.opt_cfg, params), "step": 0}
+        parts = self.fsdp.shard_units(
+            lambda name: self.model.init_unit(seed, name, param_dtype=torch.float32))
+        return {"params": parts, "opt": init_opt_state(self.opt_cfg, parts), "step": 0}
 
     def _service_rows(self) -> int:
         rows = self.mesh.shape["data"]
@@ -121,7 +139,8 @@ class Trainer:
         if ANALYTICS in rows:
             updates["analytics_alpha"] = rows[ANALYTICS] / n
         self.ts_cfg = dataclasses.replace(self.ts_cfg, **updates)
-        step_fn = build_decoupled_step(self.model, self.opt_cfg, graph, self.ts_cfg, inplace=True)
+        step_fn = build_decoupled_step(self.model, self.opt_cfg, graph, self.ts_cfg, inplace=True,
+                                       fsdp=self.fsdp)
         step_fn.timings[:0] = self.step_fn.timings
         return step_fn
 
@@ -129,7 +148,9 @@ class Trainer:
     def run(self, state: dict | None = None, resume: bool = True) -> dict:
         """Steps from ``state["step"]`` (or from the newest committed
         checkpoint, with ``resume``) to ``total_steps``. Updates the state
-        in place and returns it, with whole moments in every mode. Logs
+        in place and returns it, with whole moments in every mode but
+        FSDP, which returns this row's parts of the parameters and moments
+        (a whole ``state`` given is split into them, unit by unit). Logs
         loss and wall time every ``log_every`` steps and at the last (row
         0 prints them)."""
         state = self.init_state() if state is None else state
@@ -148,7 +169,7 @@ class Trainer:
                                                      traits=train_stage_traits(self.ts_cfg),
                                                      policy=self.cfg.adapt)
             self.step_fn = build_decoupled_step(self.model, self.opt_cfg, ag.graph, self.ts_cfg,
-                                                inplace=True)
+                                                inplace=True, fsdp=self.fsdp)
         else:
             self.step_fn = make_step(self.model, self.mesh, self.opt_cfg, self.ts_cfg,
                                      inplace=True)
@@ -156,15 +177,39 @@ class Trainer:
         # updates in place, so it cannot be warmed: the gate skips its sample
         gate = CompileGate()
         params, opt, step = state["params"], state["opt"], state["step"]
-        plan = None
-        if self.ts_cfg.mode == "overlap" and self.ts_cfg.zero1:  # only this row's moment parts
+        fsdp, plan = self.fsdp, None
+        if fsdp is not None and isinstance(params, dict):  # a whole state: into parts
+            params = state["params"] = fsdp.shard(params)
+            opt = state["opt"] = fsdp.shard_opt_state(opt)
+        elif fsdp is None and self.ts_cfg.mode == "overlap" and self.ts_cfg.zero1:
             plan = sharding.zero1_plan(params, self.mesh.n_rows, self.mesh.row)
-            opt = state["opt"] = sharding.shard_opt_state(plan, opt)
+            opt = state["opt"] = sharding.shard_opt_state(plan, opt)  # this row's moment parts
         self.moment_bytes = sum(t.numel() * t.element_size() for k in sharding.MOMENTS
                                 if k in opt for t in tree_leaves(opt[k]))
 
         def whole(opt):
             return opt if plan is None else sharding.gather_opt_state(plan, self.mesh, opt)
+
+        def save(step: int, params, opt) -> dict | None:
+            """Row 0 writes the whole state (collective where it gathers);
+            the whole moments, without FSDP."""
+            if fsdp is None:
+                whole_opt = whole(opt)
+                if self.mesh.row == 0:
+                    self.checkpointer.save(step, {"params": params, "opt": whole_opt,
+                                                  "step": step})
+                return whole_opt
+            keep = self.mesh.row == 0
+
+            def host(parts):
+                return sharding.gather_to_host(fsdp, self.mesh, parts, keep)
+
+            tree = {"params": host(params),
+                    "opt": {k: host(v) if k in sharding.MOMENTS else v for k, v in opt.items()},
+                    "step": step}
+            if keep:
+                self.checkpointer.save(step, tree)
+            return None
 
         final_opt = None  # the last step's whole moments, when its save gathered them
         t0 = time.time()
@@ -201,24 +246,28 @@ class Trainer:
                     if self.mesh.row == 0:
                         print(f"[trainer] {json.dumps(row)}", flush=True)
                 if step % self.cfg.ckpt_every == 0 or step == self.cfg.total_steps:
-                    whole_opt = whole(opt)  # collective: every row gathers
-                    if self.mesh.row == 0:
-                        self.checkpointer.save(step, {"params": params, "opt": whole_opt,
-                                                      "step": step})
+                    whole_opt = save(step, params, opt)  # collective: every row gathers
                     if step == self.cfg.total_steps:
                         final_opt = whole_opt
                     del whole_opt
         finally:
             self.checkpointer.wait()
         self.mesh.barrier()  # every row returns after the last write committed
-        state.update(params=params, opt=whole(opt) if final_opt is None else final_opt,
-                     step=step)
+        if fsdp is None and final_opt is None:
+            final_opt = whole(opt)
+        state.update(params=params, opt=opt if fsdp is not None else final_opt, step=step)
         return state
 
     # -- checkpoint plumbing ---------------------------------------------------
     def restore(self, step: int, like_state: dict) -> dict:
         """The committed checkpoint of ``step`` on this model's device, in
-        the structure of ``like_state``'s parameters with whole moments."""
+        the structure of ``like_state``'s parameters with whole moments;
+        under FSDP, this row's parts of them (`launch.elastic.restore_for_mesh`),
+        whatever row count wrote the files."""
+        if self.fsdp is not None:
+            params = param_shapes(self.model)
+            like = {"params": params, "opt": init_opt_state(self.opt_cfg, params), "step": 0}
+            return restore_for_mesh(self.cfg.ckpt_dir, step, like, self.mesh, self.fsdp)
         params = tree_meta(like_state["params"])
         like = {"params": params, "opt": init_opt_state(self.opt_cfg, params), "step": 0}
         return ckpt.restore(self.cfg.ckpt_dir, step, like, device=self.model.device)

@@ -11,7 +11,10 @@ tables in ``cfg.dtype``; norm scales and biases, and the SSM's own
 parameters (`F32_LEAVES`), in f32 as the reference stores and uses
 them; all bit for bit from the reference's f32 leaves, on the device
 the caller names (`resolve_device`: no device is an error without a
-GPU, never a quiet CPU fallback). This module imports no JAX.
+GPU, never a quiet CPU fallback). `unit_from_numpy` converts one unit
+of the port's tree at a time (`Model.units`), so that an FSDP row takes
+its parts without the whole tree on its device. This module imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -66,6 +69,23 @@ def params_from_numpy(tree: dict, cfg, device, *, param_dtype=None) -> dict:
     for key, depth in stacks.items():
         out[key] = [_convert(_index(tree[key], i), dtype, device) for i in range(depth)]
     return out
+
+
+def unit_from_numpy(tree: dict, cfg, unit: str, device, *, param_dtype=None):
+    """Unit ``unit`` of the port's tree (``embed``, ``layers.i``,
+    ``enc_layers.i``, ``dec_layers.i`` or ``rest``, the other top-level
+    entries) from the reference's tree, as `params_from_numpy` converts
+    it."""
+    device = resolve_device(device)
+    dtype = cfg.dtype if param_dtype is None else param_dtype
+    stacks = _stacked(cfg)
+    if unit == "embed":
+        return _convert(tree["embed"], dtype, device)
+    if unit == "rest":
+        return {k: _convert(v, dtype, device, "norm" in k)
+                for k, v in tree.items() if k not in stacks and k != "embed"}
+    key, i = unit.rsplit(".", 1)
+    return _convert(_index(tree[key], int(i)), dtype, device)
 
 
 def _index(tree, i: int):

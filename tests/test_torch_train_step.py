@@ -149,10 +149,11 @@ def test_unported_modes_and_options_are_refused():
     """What is still unported raises naming its ROADMAP item: a model axis
     (A8). Every family now trains: the MoE, hybrid, VLM and
     encoder-decoder models build their step in each mode, and the
-    reference's ``runtime_skip`` and ``zero1`` options are fields of
-    `TrainStepConfig` (held against the reference in
-    tests/test_torch_train_moe.py and tests/test_torch_train_families.py);
-    FSDP is no field at all. `reshard_state` between meshes of different
+    reference's ``runtime_skip``, ``zero1``, ``fsdp`` and
+    ``fsdp_threshold`` options are fields of `TrainStepConfig`, FSDP's
+    with the reference's defaults (held against the reference in
+    tests/test_torch_train_moe.py, tests/test_torch_train_families.py and
+    tests/test_torch_fsdp.py). `reshard_state` between meshes of different
     sizes is refused by design (one gloo world has one size; the serving
     fleet moves its global layout on the host, tests/test_torch_fleet.py).
     Checkpoints, the conventional and overlap steps over many rows and
@@ -171,7 +172,8 @@ def test_unported_modes_and_options_are_refused():
     with pytest.raises(NotImplementedError, match="A8"):
         launch_main(["--smoke", "--device", "cpu", "--model", "2"])
     fields = {f.name for f in dataclasses.fields(TrainStepConfig)}
-    assert {"runtime_skip", "zero1"} <= fields and not fields & {"fsdp", "fsdp_threshold"}
+    assert {"runtime_skip", "zero1", "fsdp", "fsdp_threshold"} <= fields
+    assert (TrainStepConfig().fsdp, TrainStepConfig().fsdp_threshold) == ("auto", 6e9)
     for name in ("mixtral-8x7b", "hymba-1.5b", "whisper-small", "pixtral-12b"):
         model = build(get_smoke(name), device="cpu")
         for mode in ("conventional", "decoupled", "overlap"):
