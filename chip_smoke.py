@@ -179,7 +179,7 @@ failure exits non-zero and prints no result:
    The kernels phase also holds chunk_accumulate against its plain
    version (bit for bit at the train phases' f32 folds, summed into the
    accumulator's row as the stream channel calls it: phase 8's (2,
-   310,378,496) and phase 8b's mixtral (2, 1,715,470,336); and at a ragged
+   184,549,376) and phase 8b's mixtral (2, 1,715,470,336); and at a ragged
    S; 1e-6 at n = 7 and at 16 rows of bf16); the argmax
    at each serve arm's decode shape ((8, 32,000), (2, 151,936), (8,
    50,280)), at the spec path's verify targets and draft step ((20,
@@ -201,10 +201,12 @@ failure exits non-zero and prints no result:
    bins permuted, 2^26 uniform keys with f32 and bf16 counts, 4,096 bins,
    and 2^24 keys at 58,112 / 58,113 bins, the plan's path boundary),
    exact at counts of 1.
-8. train    — qwen1.5-0.5b at full width, 12 of its 24 layers (cut for
-               the smoke's time since phase 8b), random f32 weights
+8. train    — qwen1.5-0.5b at full width, 2 of its 24 layers (cut for
+               the smoke's time: 12 since phase 8b, 6, then 2 since phase
+               8d),
+               random f32 weights
                from --seed, through `Trainer` in a four-row gloo world on
-               this card (`launch.mesh.spawn`; the wire is host loopback),
+               this card (`RankPool`; the wire is host loopback),
                AdamW steps of 2,048-token sequences:
                3 in decoupled mode (three compute rows and one reducer, 6
                sequences, the reducer folding each wave of 16 MiB gradient
@@ -239,7 +241,7 @@ failure exits non-zero and prints no result:
                of the largest gradient).
 8b. train_families — the MoE, VLM, hybrid and encoder-decoder families
                training at full width and cut depth in a two-row gloo
-               world on this card (`launch.mesh.spawn`), one model at a
+               world on this card (`RankPool`), one model at a
                time, random f32 weights from --seed, AdamW through
                `make_step` in place on the pipeline's batches (Zipf
                tokens, skewed lengths, the frontend's embeddings) laid
@@ -293,8 +295,29 @@ failure exits non-zero and prints no result:
                98.7 GB). No kernel is on this path (the loss's
                attention is the reference's plain route, conventional
                mode folds nothing): its counts are read and reported.
+8d. train_model — the model axis (tensor parallelism by hand, the
+               reference's ``param_specs``) on a (data 2, model 2) gloo
+               world of four ranks on this card, f32, TF32 off. (a)
+               qwen2.5-3b whole, built for each rank's column
+               (``build(tp=mesh)``), the reference's default step config,
+               whose FSDP must resolve on at a model axis of 2 (12.34e9 B
+               / 2 > 6e9): each rank draws each unit whole, keeps its
+               column slice and its row's part of that, takes the
+               conventional SGD step (lr 1) on its row's sequence, and
+               compares every element with the slice of phase 8c's file
+               that its spec and part name (`TRAIN_PARITY_REL`); the loss
+               within 1e-5 of 8c's one process and equal on every rank;
+               the four ranks' reserved peaks under 80 GB, printed beside
+               8c's; per rank the data axis's gathers and reduce-scatters
+               and the model axis's all-reduces (count, bytes, seconds).
+               (b) qwen1.5-0.5b at phase 8's 2 layers, FSDP off: one SGD
+               step each of the decoupled (one reducer row a column), the
+               conventional and the overlap step on 2 sequences of 2,048,
+               each against one process on rank 0 (`TRAIN_PARITY_REL`);
+               chunk_accumulate once on each column's reducer in the
+               decoupled step (waves x columns) and never elsewhere.
 9. mapreduce — the paper's word-count MapReduce (Sec. IV-B) in an
-               eight-row gloo world on this card (`launch.mesh.spawn`;
+               eight-row gloo world on this card (`RankPool`;
                the wire is host loopback): 16,384 documents of 4,096 word
                slots (Zipf ids, skewed lengths, from --seed) over qwen's
                151,936-word vocabulary, 8,192-word (64 KiB) elements, run
@@ -367,9 +390,17 @@ failure exits non-zero and prints no result:
                ``launches_families`` from phase 7c's arms (a)-(c); the histogram's ``launches_adaptive`` from phase 9's
                adaptive run, and chunk_accumulate's
                ``launches_train_by_run`` with phase 8's adaptive run,
-               ``launches_train_families`` from phase 8b's runs, and
-               ``launches_train_fsdp`` from phase 8c's world), then
+               ``launches_train_families`` from phase 8b's runs,
+               ``launches_train_fsdp`` from phase 8c's world and
+               ``launches_train_model`` from phase 8d's), then
                the last line ``{"ok": true, "device": {...}}``.
+
+The worlds of phases 8-11 run on eight rank processes started once, in
+the background, before phase 7b (`RankPool`: each world a fresh gloo
+process group through the port's rank entry, `launch.mesh._rank_main`,
+with no new process, torch import or CUDA context); phase 6d's world
+goes through `launch.mesh.spawn` itself. The MapReduce corpora are made
+in worker processes started at the same time (`start_corpora`).
 
 Without a CUDA device, or without the repository beside it, the script
 exits non-zero before printing any result. It imports nothing of JAX.
@@ -377,6 +408,7 @@ exits non-zero before printing any result. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import concurrent.futures
 import dataclasses
@@ -385,6 +417,8 @@ import json
 import math
 import multiprocessing
 import os
+import queue
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1371,13 +1405,13 @@ def check_ssd(torch, np, seed: int) -> dict:
 
 
 # the stream channel's call at the train phases' widths: the reducer folds
-# phase 8's qwen1.5-0.5b (12 layers) 309,785,600 f32 gradients, packed into
-# 74 wire chunks of 16 MiB (310,378,496 values), and phase 8b's mixtral-8x7b
+# phase 8's qwen1.5-0.5b (2 layers) 181,283,840 f32 gradients, packed into
+# 44 wire chunks of 16 MiB (184,549,376 values), and phase 8b's mixtral-8x7b
 # (1 layer) 1,713,418,240 into 409 (1,715,470,336), each wave staged below
 # its accumulator and summed back into the accumulator's row (``out=``);
 # then a ragged S, and n > 2 in f32 and bf16. (case, n, S, dtype, timing
 # iterations, into the first row)
-ACC_CASES = [("train fold: accumulator + one wave, in place", 2, 310_378_496, "f32", 10, True),
+ACC_CASES = [("train fold: accumulator + one wave, in place", 2, 184_549_376, "f32", 10, True),
              ("phase 8b mixtral-8x7b fold, in place", 2, 1_715_470_336, "f32", 3, True),
              ("ragged S", 2, 1_000_003, "f32", 20, False),
              ("7 rows", 7, 2_500_000, "f32", 20, False),
@@ -4013,13 +4047,117 @@ def families_phase(torch, np, seed: int, smi: str) -> dict:
             "launches": {k: sum(arm[k] for arm in launches.values()) for k in launches["a"]}}
 
 
+# -- the rank processes of phases 8-11 ---------------------------------------------
+
+POOL_SIZE = 8  # the largest world of phases 8-11: MapReduce's, CG's and PIC's eight rows
+
+
+def _pool_worker(tasks, results, parent: int, device: str) -> None:
+    """One rank process of `RankPool`: torch imported, its CUDA context
+    made and the training modules imported once; then each task is one
+    rank of one world, run as `launch.mesh.spawn` runs it (a fresh gloo
+    process group, `fn(mesh, *args)`, the result or the traceback on
+    ``results``), with this process's peak memory statistics reset before
+    and its cached device memory returned after. Exits on None, or when
+    the parent is gone."""
+    import torch
+
+    import repro_torch.train.trainer  # noqa: F401  (the ranks' imports, paid before a world)
+    from repro_torch.launch.mesh import _rank_main
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.zeros(1, device=device)
+    while True:
+        try:
+            task = tasks.get(timeout=5.0)
+        except queue.Empty:
+            if os.getppid() != parent:
+                return
+            continue
+        if task is None:
+            return
+        fn, rank, n_rows, model, init_method, args, timeout_s = task
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _rank_main(fn, rank, n_rows, model, device, init_method, args, results, timeout_s)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+class RankPool:
+    """``size`` rank processes started once, in the background (the
+    ``spawn`` start method, as `launch.mesh.spawn` starts its own), and
+    reused by every world of phases 8-11: a world of n ranks runs on the
+    first n, each a fresh gloo process group through the port's own rank
+    entry (`launch.mesh._rank_main`), so a world costs no new process,
+    torch import or CUDA context. `run` returns what `spawn` returns and
+    fails as it fails (a rank's traceback, a dead rank, `TimeoutError`)."""
+
+    def __init__(self, size: int, device: str = "cuda"):
+        ctx = multiprocessing.get_context("spawn")
+        self.tasks = [ctx.Queue() for _ in range(size)]
+        self.results = ctx.Queue()
+        self.procs = [ctx.Process(target=_pool_worker, daemon=True,
+                                  args=(self.tasks[slot], self.results, os.getpid(), device))
+                      for slot in range(size)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, n_rows: int, *, model: int = 1, args: tuple = (),
+            timeout_s: float = 120.0) -> list:
+        import tempfile
+
+        n_ranks = n_rows * model
+        out = {}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:
+            init_method = "file://" + os.path.join(tmp, "rendezvous")
+            for rank in range(n_ranks):
+                self.tasks[rank].put((fn, rank, n_rows, model, init_method, args, timeout_s))
+            deadline = time.monotonic() + timeout_s
+            while len(out) < n_ranks:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(f"the {n_rows}x{model} world did not finish in "
+                                       f"{timeout_s} s; ranks done: {sorted(out)}")
+                try:
+                    rank, ok, payload = self.results.get(timeout=min(left, 1.0))
+                except queue.Empty:
+                    dead = [r for r in range(n_ranks)
+                            if r not in out and self.procs[r].exitcode is not None]
+                    if dead:
+                        raise RuntimeError(f"rank {dead[0]} died with exit code "
+                                           f"{self.procs[dead[0]].exitcode}") from None
+                    continue
+                if not ok:
+                    raise RuntimeError(f"rank {rank} failed:\n{payload}")
+                out[rank] = payload
+        return [out[r] for r in range(n_ranks)]
+
+    def close(self) -> None:
+        if not any(p.is_alive() for p in self.procs):
+            return
+        for q in self.tasks:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=10)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+WORLDS: RankPool | None = None  # started by `main` before phase 7b
+
+
 # -- phase 8: training, in every step mode, with checkpoints ------------------------
 
 TRAIN_ROWS = 4
-# qwen1.5-0.5b at full width, 12 of its 24 layers (cut from its full depth
-# for the smoke's time when phase 8b came: every run's wire, checkpoint and
-# forward scale with it)
-TRAIN_LAYERS = 12
+# qwen1.5-0.5b at full width, 2 of its 24 layers (cut from its full depth
+# for the smoke's time: to 12 when phase 8b came, to 6 and then 2 when
+# phase 8d came; every run's wire, checkpoint and forward scale with it)
+TRAIN_LAYERS = 2
 TRAIN_STEPS = 3
 TRAIN_CHUNK_BYTES = 16 << 20
 TRAIN_SEQ = 2048
@@ -4061,7 +4199,7 @@ def _host_peak_gib() -> float:
 
 
 def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
-    """One rank of the train phase's four-row world (run by `spawn`), at
+    """One rank of the train phase's four-row world (run by `WORLDS`), at
     qwen1.5-0.5b's full width: 3 AdamW steps through `Trainer` in
     decoupled mode, saving at steps 2 and 3; a fresh overlap `Trainer`
     resuming from step 2 (step 3's commit marker removed, as a crash
@@ -4071,7 +4209,6 @@ def train_rank(mesh, seed: int, ckpt_root: str) -> dict:
     0 reading the files of its last step back against the live state, so
     every checkpoint written is read. Then one SGD step of each mode
     against the conventional step in one process, in f32."""
-    import shutil
 
     import torch
 
@@ -4464,21 +4601,14 @@ def train_phase(torch, np, seed: int, smi: str) -> dict:
     """The four-row world on the card (every kernel already built by the
     parent), its train lines, and the checks. Checkpoints go to a fresh
     temporary directory, removed at the end."""
-    import shutil
     import tempfile
 
-    from repro_torch.launch.mesh import spawn
-
-    # the ranks' allocators map memory in growable segments, so the large,
-    # differently sized buffers of the fold and the parity step reuse it
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     parent_gib = torch.cuda.memory_reserved() / 2 ** 30
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         free_gib = shutil.disk_usage(ckpt_root).free / 2 ** 30
         t0 = time.perf_counter()
-        ranks = spawn(train_rank, TRAIN_ROWS, device="cuda", args=(seed, ckpt_root),
-                      timeout_s=1000)
+        ranks = WORLDS.run(train_rank, TRAIN_ROWS, args=(seed, ckpt_root), timeout_s=1000)
         world_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -4579,7 +4709,7 @@ ZERO1_ATOL = 1e-7
 
 
 def family_train_rank(mesh, seed: int) -> dict:
-    """One rank of phase 8b's two-row world (run by `spawn`): each arm of
+    """One rank of phase 8b's two-row world (run by `WORLDS`): each arm of
     `FAMILY_TRAIN` one after another, each run from the arm's parameters
     drawn from ``seed`` (f32) through `make_step` in place, the batches of
     the reference's pipeline (Zipf tokens, skewed lengths, the frontend's
@@ -4773,15 +4903,11 @@ def family_run_line(arm: str, name: str, layers, seq: int, batch: int, run: str,
 def family_train_phase(torch, np, seed: int, smi: str) -> dict:
     """Phase 8b: the two-row world on the card (every kernel already built
     by the parent), one line per arm and run, and the checks."""
-    from repro_torch.launch.mesh import spawn
-
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     gc.collect()
     torch.cuda.empty_cache()
     parent_gib = torch.cuda.memory_reserved() / 2 ** 30
     t0 = time.perf_counter()
-    ranks = spawn(family_train_rank, FAMILY_TRAIN_ROWS, device="cuda", args=(seed,),
-                  timeout_s=900)
+    ranks = WORLDS.run(family_train_rank, FAMILY_TRAIN_ROWS, args=(seed,), timeout_s=900)
     world_s = time.perf_counter() - t0
     lines, total = {}, collections.Counter()
     for arm, name, layers, seq, batch, runs, _ in FAMILY_TRAIN:
@@ -4913,7 +5039,7 @@ def fsdp_reference_step(torch, np, seed: int, path: str) -> dict:
 
 
 def fsdp_train_rank(mesh, seed: int, ref_path: str) -> dict:
-    """One rank of phase 8c's two-row world (run by `spawn`): qwen2.5-3b
+    """One rank of phase 8c's two-row world (run by `WORLDS`): qwen2.5-3b
     whole through `make_step` with the reference's default ``fsdp``
     ("auto", which must resolve on), this row's parts drawn unit by unit;
     one conventional SGD step (lr 1) on this row's sequence, with the
@@ -4982,8 +5108,9 @@ def fsdp_train_rank(mesh, seed: int, ref_path: str) -> dict:
     return out
 
 
-def fsdp_phase(torch, np, seed: int, smi: str) -> dict:
-    """Phase 8c: the one-process step in the parent, then the two-row
+def fsdp_phase(torch, np, seed: int, smi: str, tmp: str) -> dict:
+    """Phase 8c: the one-process step in the parent (its file in ``tmp``,
+    which phase 8d reads too), then the two-row
     world on the card; its line and checks: FSDP on by the default rule,
     the rows' losses equal and within 1e-5 relative of the one-process
     loss, every element of the world's step within `TRAIN_PARITY_REL` x
@@ -4992,28 +5119,17 @@ def fsdp_phase(torch, np, seed: int, smi: str) -> dict:
     two-row figure: the data-parallel step without FSDP holds the
     parameters, the momentum, the gradient and the gradient's flat copy
     for the all-reduce, 16 bytes a parameter a row."""
-    import shutil
-    import tempfile
-
-    from repro_torch.launch.mesh import spawn
-
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     gc.collect()
     torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
-    try:
-        ref_path = os.path.join(tmp, "sgd_step.npy")
-        ref = fsdp_reference_step(torch, np, seed, ref_path)
-        emit({"phase": "train_fsdp", "run": "one-process step", "model": FSDP_ARCH,
-              "dtype": "f32", "seq_len": FSDP_SEQ, "global_batch": FSDP_BATCH, **ref,
-              "parent_reserved_gib_after": torch.cuda.memory_reserved() / 2 ** 30,
-              "nvidia_smi": smi})
-        t0 = time.perf_counter()
-        ranks = spawn(fsdp_train_rank, FSDP_ROWS, device="cuda", args=(seed, ref_path),
-                      timeout_s=900)
-        world_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    ref_path = os.path.join(tmp, "sgd_step.npy")
+    ref = fsdp_reference_step(torch, np, seed, ref_path)
+    emit({"phase": "train_fsdp", "run": "one-process step", "model": FSDP_ARCH,
+          "dtype": "f32", "seq_len": FSDP_SEQ, "global_batch": FSDP_BATCH, **ref,
+          "parent_reserved_gib_after": torch.cuda.memory_reserved() / 2 ** 30,
+          "nvidia_smi": smi})
+    t0 = time.perf_counter()
+    ranks = WORLDS.run(fsdp_train_rank, FSDP_ROWS, args=(seed, ref_path), timeout_s=900)
+    world_s = time.perf_counter() - t0
     if not all(r["fsdp"] for r in ranks):
         raise AssertionError(f"train_fsdp: fsdp 'auto' did not resolve on for {FSDP_ARCH}")
     peaks = [r["peak_reserved_gib"] * 2 ** 30 for r in ranks]
@@ -5052,7 +5168,303 @@ def fsdp_phase(torch, np, seed: int, smi: str) -> dict:
                              f"the card has {CARD_BYTES / 1e9}")
     out = dict.fromkeys(kernel_counters(), 0)
     out.update(launches)
-    return {"launches": out, "seconds": world_s}
+    return {"launches": out, "seconds": world_s, "ref": ref, "ref_path": ref_path,
+            "peak_reserved_sum_gb": line["peak_reserved_sum_gb"]}
+
+
+# -- phase 8d: the model axis (tensor parallelism), on a (data, model) world --------
+
+MODEL_WORLD = (2, 2)  # (data rows, model columns): four ranks on the card
+MODEL_BATCH = 2  # (b): two sequences, both on the decoupled step's compute row
+MODEL_KEYS = ("wire_model_collectives", "wire_model_collective_bytes",
+              "wire_model_collective_s")
+
+
+def model_fsdp_rank(mesh, seed: int, ref_path: str) -> dict:
+    """One rank of phase 8d (a): qwen2.5-3b whole on the (2, 2) world,
+    built for this rank's column (`build(tp=mesh)`), through `make_step`
+    with the reference's default ``TrainStepConfig()``, whose FSDP
+    ("auto", over the column's slices) must resolve on: 12.34e9 B / 2
+    columns > 6e9. This rank's parts drawn unit by unit (each unit whole
+    from the seed, its column slice kept, its row's part of that); one
+    conventional SGD step (lr 1) on its row's sequence, with the kernel
+    counts at 0 just before and read just after; its phases, the data
+    axis's gathers and reduce-scatters and the model axis's collectives,
+    its device peaks, and every element of its parts against the slice
+    of phase 8c's one-process file that its spec and FSDP part name."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import row_shard
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train import sharding
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainStepConfig, make_step, param_shapes
+    from repro_torch.utils.treeutil import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    cfg = fsdp_config()
+    model = build(cfg, tp=mesh)
+    sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
+                    weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
+    step = make_step(model, mesh, sgd, TrainStepConfig(), inplace=True)
+    plan = step.fsdp
+    out = {"rank": mesh.rank, "row": mesh.row, "col": mesh.col, "fsdp": plan is not None}
+    if plan is None:
+        return out
+    parts = plan.shard_units(lambda u: model.init_unit(seed, u, param_dtype=torch.float32))
+    opt = init_opt_state(sgd, parts)
+    batch = row_shard(fsdp_pipeline(cfg, seed).global_batch(0), mesh.row, mesh.n_rows,
+                      model.device)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    parts, opt, metrics = step(parts, opt, batch)
+    torch.cuda.synchronize()
+    out.update(wall_s=time.perf_counter() - t0, loss=float(metrics["loss"]),
+               launches={k: fn.launches for k, fn in counters.items()},
+               timing=step.timings[-1], units=len(plan.units),
+               column_elements=sum(u.spec.total for u in plan.units),
+               part_elements=sum(p.numel() for p in parts),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30)
+    del opt, batch
+    # every element of this rank's parts against the one-process file: each
+    # whole leaf's column slice (its spec), cut to this row's part of the
+    # column's flat unit (`FsdpPlan`), compared on the card
+    ref = np.load(ref_path, mmap_mode="r")
+    t0 = time.perf_counter()
+    diff, off = 0.0, 0
+    for (name, tree), part, unit in zip(sharding.units_of(param_shapes(model, whole=True)),
+                                        parts, plan.units):
+        specs = sharding.unit_specs(name, tree, mesh.model_size)
+        span, loc = unit.span, 0
+        for leaf, spec in zip(tree_leaves(tree), specs):
+            whole = ref[off:off + leaf.numel()].reshape(tuple(leaf.shape))
+            local = sharding.model_shard(whole, spec, mesh.model_size, mesh.col).reshape(-1)
+            lo, hi = max(loc, span.start), min(loc + local.size, span.stop)
+            if lo < hi:
+                want = torch.from_numpy(np.array(local[lo - loc:hi - loc])).to(part.device)
+                got = part[lo - span.start:hi - span.start]
+                diff = max(diff, float((got - want).abs().max()))
+            loc += local.size
+            off += leaf.numel()
+    out.update(compare_s=time.perf_counter() - t0, max_abs_diff=diff,
+               host_peak_gib=_host_peak_gib())
+    del ref, parts
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    return out
+
+
+def model_modes_rank(mesh, seed: int) -> dict:
+    """One rank of phase 8d (b): qwen1.5-0.5b at full width and phase 8's
+    depth on the (2, 2) world, FSDP off by the default rule; one SGD step
+    (lr 1, f32) of the decoupled (one reducer row a column: ``reduce_alpha``
+    0.5), the conventional and the overlap step on the decoupled layout's
+    batch, each with the kernel counts at 0 just before and read just
+    after; row 0 gathers each step's parameters whole over the model axis,
+    and rank 0 holds them against the conventional step of one process on
+    the same global batch, as phase 8 does."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import DataConfig, Pipeline, row_shard
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train import sharding
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import (
+        TrainStepConfig,
+        build_conventional_step,
+        make_step,
+        param_shapes,
+    )
+    from repro_torch.utils.treeutil import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    cfg = dataclasses.replace(get("qwen1.5-0.5b"), n_layers=TRAIN_LAYERS, dtype=torch.float32)
+    model = build(cfg, tp=mesh)
+    specs = sharding.spec_list(param_shapes(model, whole=True), mesh.model_size)
+    sgd = OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=0.0,
+                    weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=MODEL_BATCH, seed=seed, kind="zipf", skew=0.4))
+    n = mesh.n_rows
+    batch = row_shard(pipe.padded_for_groups(0, n - 1, n), mesh.row, n, model.device)
+    params = model.init(seed, param_dtype=torch.float32)
+    out = {"rank": mesh.rank, "row": mesh.row, "col": mesh.col, "runs": {},
+           "params": sum(p.numel() for p in tree_leaves(params))}
+    news = {}
+    for mode, ts in (("decoupled", TrainStepConfig(mode="decoupled", reduce_alpha=0.5,
+                                                   wire_chunk_bytes=TRAIN_CHUNK_BYTES)),
+                     ("conventional", TrainStepConfig()),
+                     ("overlap", TrainStepConfig(mode="overlap"))):
+        step = make_step(model, mesh, sgd, ts)
+        opt = init_opt_state(sgd, params)
+        if mode == "overlap":
+            opt = sharding.shard_opt_state(sharding.zero1_plan(params, n, mesh.row), opt)
+        torch.cuda.synchronize()
+        mesh.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        new, _, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        out["runs"][mode] = {"wall_s": time.perf_counter() - t0, "loss": float(metrics["loss"]),
+                             "fsdp": step.fsdp is not None,
+                             "launches": {k: fn.launches for k, fn in counters.items()},
+                             "timing": step.timings[-1],
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del opt
+        if mesh.row == 0:  # row 0's columns gather; rank 0 keeps the whole tree
+            whole = sharding.gather_model(new, specs, mesh)
+            if mesh.col == 0:
+                news[mode] = whole
+            del whole
+        del new
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    if mesh.rank == 0:  # the others leave the card to the one-process step
+        pmodel = build(cfg)
+        whole = pmodel.init(seed, param_dtype=torch.float32)
+        t0 = time.perf_counter()
+        conv, _, cmetrics = build_conventional_step(pmodel, sgd)(
+            whole, init_opt_state(sgd, whole),
+            {k: v.to(pmodel.device) for k, v in pipe.global_batch(0).items()})
+        torch.cuda.synchronize()
+        out["one_process_s"] = time.perf_counter() - t0
+        gmax = max((a - b).abs().max().item()
+                   for a, b in zip(tree_leaves(whole), tree_leaves(conv)))
+        for mode, new in news.items():
+            diff = max((a - b).abs().max().item()
+                       for a, b in zip(tree_leaves(new), tree_leaves(conv)))
+            out["runs"][mode].update(max_abs_diff=diff, max_abs_grad=gmax, rel=diff / gmax,
+                                     one_process_loss=float(cmetrics["loss"]))
+        del whole, conv, news, pmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    return out
+
+
+def model_axis_phase(torch, np, seed: int, smi: str, fsdp: dict) -> dict:
+    """Phase 8d: (a) qwen2.5-3b whole under FSDP over a model axis of 2,
+    held to phase 8c's one-process step (``fsdp``: 8c's result, its file
+    and loss): FSDP on by the default rule, every rank's loss equal and
+    within 1e-5 relative of the one-process loss, every element within
+    `TRAIN_PARITY_REL` x max |gradient|, the four ranks' reserved peaks
+    under the card's 80 GB; (b) the paper's decoupled step, the
+    conventional and the overlap step of qwen1.5-0.5b on the model axis,
+    each within `TRAIN_PARITY_REL` x max |gradient| of one process, with
+    ``chunk_accumulate`` launched once a wave on each column's reducer
+    (waves x columns) and never in the other modes."""
+
+    data, cols = MODEL_WORLD
+    ref = fsdp["ref"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = WORLDS.run(model_fsdp_rank, data, model=cols, args=(seed, fsdp["ref_path"]),
+                       timeout_s=900)
+    fsdp_s = time.perf_counter() - t0
+    if not all(r["fsdp"] for r in ranks):
+        raise AssertionError(f"train_model: fsdp 'auto' did not resolve on for {FSDP_ARCH} "
+                             f"on a model axis of {cols}")
+    peaks = [r["peak_reserved_gib"] * 2 ** 30 for r in ranks]
+    diff = max(r["max_abs_diff"] for r in ranks)
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    line = {"phase": "train_model", "run": "fsdp sgd", "model": FSDP_ARCH,
+            "world": {"data": data, "model": cols}, "mode": "conventional", "fsdp": True,
+            "params": ref["params"], "units": ranks[0]["units"], "seq_len": FSDP_SEQ,
+            "global_batch": FSDP_BATCH, "loss": ranks[0]["loss"],
+            "one_process_loss": ref["loss"], "step_wall_s": max(r["wall_s"] for r in ranks),
+            "per_rank": [{k: r[k] for k in ("rank", "row", "col", "wall_s", "peak_gib",
+                                            "peak_reserved_gib", "column_elements",
+                                            "part_elements", "compare_s", "host_peak_gib")}
+                         | {"phases_s": {k: r["timing"][k] for k in step_phases(r["timing"])},
+                            "fsdp": {k: r["timing"][k] for k in FSDP_KEYS},
+                            "model_axis": {k: r["timing"][k] for k in MODEL_KEYS},
+                            "wire": {k: r["timing"][k] for k in WIRE_KEYS}}
+                         for r in ranks],
+            "max_abs_diff": diff, "max_abs_grad": ref["max_abs_grad"],
+            "rel": diff / ref["max_abs_grad"], "budget": TRAIN_PARITY_REL,
+            "peak_reserved_sum_gb": sum(peaks) / 1e9,
+            "phase_8c_peak_reserved_sum_gb": fsdp["peak_reserved_sum_gb"],
+            "card_gb": CARD_BYTES / 1e9, "world_s": fsdp_s, "launches": dict(launches),
+            "nvidia_smi": smi}
+    emit(line)
+    if any(r["loss"] != ranks[0]["loss"] for r in ranks):
+        raise AssertionError("train_model: the ranks disagree on the loss")
+    if not abs(line["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]):
+        raise AssertionError(f"train_model: the world's loss {line['loss']} is off the "
+                             f"one-process loss {ref['loss']}")
+    if not line["rel"] <= TRAIN_PARITY_REL:
+        raise AssertionError(f"train_model: the world's step is off the one-process step by "
+                             f"{line['rel']} of max |gradient|, budget {TRAIN_PARITY_REL}")
+    if not sum(peaks) < CARD_BYTES:
+        raise AssertionError(f"train_model: the four ranks' peaks sum to {sum(peaks) / 1e9} "
+                             f"GB, the card has {CARD_BYTES / 1e9}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    modes = WORLDS.run(model_modes_rank, data, model=cols, args=(seed + 8,), timeout_s=900)
+    modes_s = time.perf_counter() - t0
+    counts = dict.fromkeys(kernel_counters(), 0)
+    reducers = [r["rank"] for r in modes if r["row"] == data - 1]
+    for mode, run0 in modes[0]["runs"].items():
+        by_rank = {r["rank"]: r["runs"][mode]["launches"]["chunk_accumulate"] for r in modes}
+        for r in modes:
+            for k, v in r["runs"][mode]["launches"].items():
+                counts[k] += v
+        line = {"phase": "train_model", "run": "sgd", "mode": mode, "model": "qwen1.5-0.5b",
+                "layers": TRAIN_LAYERS, "params": modes[0]["params"],
+                "world": {"data": data, "model": cols}, "fsdp": run0["fsdp"],
+                "seq_len": TRAIN_SEQ, "global_batch": MODEL_BATCH, "loss": run0["loss"],
+                "step_wall_s": max(r["runs"][mode]["wall_s"] for r in modes),
+                "per_rank": [{"rank": r["rank"], "wall_s": r["runs"][mode]["wall_s"],
+                              "peak_gib": r["runs"][mode]["peak_gib"],
+                              "phases_s": {k: r["runs"][mode]["timing"][k]
+                                           for k in step_phases(r["runs"][mode]["timing"])},
+                              "model_axis": {k: r["runs"][mode]["timing"][k]
+                                             for k in MODEL_KEYS},
+                              "wire": {k: r["runs"][mode]["timing"][k] for k in WIRE_KEYS}}
+                             for r in modes],
+                "chunk_accumulate_by_rank": by_rank,
+                **{k: run0[k] for k in ("max_abs_diff", "max_abs_grad", "rel",
+                                        "one_process_loss")},
+                "budget": TRAIN_PARITY_REL, "one_process_s": modes[0]["one_process_s"],
+                "world_s": modes_s, "nvidia_smi": smi}
+        emit(line)
+        if run0["fsdp"]:
+            raise AssertionError("train_model: fsdp 'auto' resolved on for qwen1.5-0.5b")
+        if any(r["runs"][mode]["loss"] != run0["loss"] for r in modes):
+            raise AssertionError(f"train_model {mode}: the ranks disagree on the loss")
+        if not line["rel"] <= TRAIN_PARITY_REL:
+            raise AssertionError(f"train_model {mode}: off the one-process step by "
+                                 f"{line['rel']} of max |gradient|, budget {TRAIN_PARITY_REL}")
+        # the decoupled step folds one wave (its one compute row's gradient)
+        # on each column's reducer row
+        want = {rank: int(mode == "decoupled" and rank in reducers) for rank in by_rank}
+        if by_rank != want:
+            raise AssertionError(f"train_model {mode}: chunk_accumulate launches {by_rank}, "
+                                 f"expected {want} (waves x columns on the reducers)")
+    return {"launches": counts, "seconds": fsdp_s + modes_s}
 
 
 # -- phase 9: the paper's decoupled MapReduce --------------------------------------
@@ -5164,7 +5576,7 @@ def fold_case(torch, device, corpus, vocab: int, work_rows: int) -> dict:
 
 
 def mapreduce_rank(mesh, seed: int, paths: dict) -> dict:
-    """One rank of the MapReduce phase's eight-row world (run by `spawn`):
+    """One rank of the MapReduce phase's eight-row world (run by `WORLDS`):
     each run of `MR_RUNS` through `run_wordcount`, its kernel counts set to
     0 just before and read just after, its phases, wire bytes and peak
     memory; the measured variant's counters; the fold timed on the first
@@ -5265,47 +5677,61 @@ def corpus_job(cfg, total_docs: int, directory: str) -> tuple:
             np.asarray(mask).sum(1))
 
 
-def mapreduce_phase(torch, np, seed: int, smi: str) -> dict:
-    """The MapReduce phase: the corpora made once here and shared with the
+def start_corpora(seed: int) -> dict:
+    """Every corpus of the MapReduce phase started at once, one worker
+    process each (the static runs' two and the adaptive run's balanced
+    ones), under a fresh temporary directory: `main` starts them before
+    phase 7b, so that they are made while the single-process phases hold
+    the card and the phase waits only for what is left. `mapreduce_phase`
+    takes the result; `close_corpora` removes the directory."""
+    import tempfile
+
+    from repro_torch.apps.mapreduce import CorpusCfg
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    total_docs = MR_CFG["n_docs_per_row"] * MR_ROWS
+    jobs = {vocab: (CorpusCfg(**MR_CFG, vocab=vocab, seed=seed), total_docs)
+            for vocab in MR_VOCABS}
+    jobs.update({f"adaptive_{t}": (CorpusCfg(**MR_ADAPT_CFG, vocab=MR_VOCABS[0], seed=seed + t),
+                                   MR_ADAPT_CFG["n_docs_per_row"] * MR_ROWS)
+                 for t in range(MR_ADAPT_STEPS)})
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(jobs), mp_context=multiprocessing.get_context("spawn"))
+    futures = {key: pool.submit(corpus_job, cfg, docs, os.path.join(tmp, str(key)))
+               for key, (cfg, docs) in jobs.items()}
+    return {"dir": tmp, "pool": pool, "futures": futures, "t0": time.perf_counter()}
+
+
+def close_corpora(corpora: dict) -> None:
+    corpora["pool"].shutdown(wait=True, cancel_futures=True)
+    shutil.rmtree(corpora["dir"], ignore_errors=True)
+
+
+def mapreduce_phase(torch, np, seed: int, smi: str, corpora: dict) -> dict:
+    """The MapReduce phase: the corpora (`start_corpora`) shared with the
     eight ranks through files, every run's histogram held against
     `np.bincount` of the valid words bit for bit, the modes against each
     other, the histogram kernel's launches against the schedule, the
     measured counters against the host's per-row counts, and the
     quickstart's statistics against the rows' figures."""
-    import tempfile
-
-    from repro_torch.apps.mapreduce import CorpusCfg, histogram_launches, save_corpus
-    from repro_torch.launch.mesh import spawn
+    from repro_torch.apps.mapreduce import CorpusCfg, histogram_launches
 
     total_docs = MR_CFG["n_docs_per_row"] * MR_ROWS
     t0 = time.perf_counter()
     host, paths, stats = {}, {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
-        # every corpus at once, one process each: the static runs' two and
-        # the adaptive run's balanced ones
-        jobs = {vocab: (CorpusCfg(**MR_CFG, vocab=vocab, seed=seed), total_docs)
-                for vocab in MR_VOCABS}
-        jobs.update({f"adaptive_{t}": (CorpusCfg(**MR_ADAPT_CFG, vocab=MR_VOCABS[0],
-                                                 seed=seed + t),
-                                       MR_ADAPT_CFG["n_docs_per_row"] * MR_ROWS)
-                     for t in range(MR_ADAPT_STEPS)})
-        ctx = multiprocessing.get_context("spawn")
-        with concurrent.futures.ProcessPoolExecutor(len(jobs), mp_context=ctx) as pool:
-            done = {key: pool.submit(corpus_job, cfg, docs, os.path.join(tmp, str(key)))
-                    for key, (cfg, docs) in jobs.items()}
-            done = {key: f.result() for key, f in done.items()}
-        for vocab in MR_VOCABS:
-            paths[vocab], host[vocab], valid_words, doc_words = done[vocab]
-            stats[vocab] = {"valid_words": valid_words, "hottest_bin": int(host[vocab].max()),
-                            "doc_words": doc_words}
-        paths["adaptive"] = [done[f"adaptive_{t}"][0] for t in range(MR_ADAPT_STEPS)]
-        adaptive_host = [done[f"adaptive_{t}"][1] for t in range(MR_ADAPT_STEPS)]
-        del done
-        corpus_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ranks = spawn(mapreduce_rank, MR_ROWS, device="cuda", args=(seed, paths),
-                      timeout_s=900)
-        world_s = time.perf_counter() - t0
+    done = {key: f.result() for key, f in corpora["futures"].items()}
+    corpus_wait_s = time.perf_counter() - t0
+    corpus_s = time.perf_counter() - corpora["t0"]
+    for vocab in MR_VOCABS:
+        paths[vocab], host[vocab], valid_words, doc_words = done[vocab]
+        stats[vocab] = {"valid_words": valid_words, "hottest_bin": int(host[vocab].max()),
+                        "doc_words": doc_words}
+    paths["adaptive"] = [done[f"adaptive_{t}"][0] for t in range(MR_ADAPT_STEPS)]
+    adaptive_host = [done[f"adaptive_{t}"][1] for t in range(MR_ADAPT_STEPS)]
+    del done
+    t0 = time.perf_counter()
+    ranks = WORLDS.run(mapreduce_rank, MR_ROWS, args=(seed, paths), timeout_s=900)
+    world_s = time.perf_counter() - t0
     for vocab in MR_VOCABS:
         if stats[vocab]["hottest_bin"] >= 2 ** 24:
             raise AssertionError(f"mapreduce: a bin ({stats[vocab]['hottest_bin']}) is past "
@@ -5379,7 +5805,8 @@ def mapreduce_phase(torch, np, seed: int, smi: str) -> dict:
     quick_ok = (abs(qstats["min"] - compute[0]) <= 1e-3 and abs(qstats["max"] - compute[-1])
                 <= 1e-3 and abs(qstats["median"] - float(np.median(compute))) <= 1e-3
                 and qstats["count"] == MR_ROWS - 1)
-    summary = {"phase": "mapreduce_summary", "corpus_s": corpus_s, "world_s": world_s,
+    summary = {"phase": "mapreduce_summary", "corpus_s": corpus_s,
+               "corpus_wait_s": corpus_wait_s, "world_s": world_s,
                "numpy": np.__version__,
                "measured_counters_match_host": measured_ok, "host_work": want_work.tolist(),
                "valid_words": valid, "stage_budget": stage_budget, "measured": measured,
@@ -5467,7 +5894,7 @@ CG_TRUE_REL = 1e-4
 
 
 def cg_rank(mesh) -> dict:
-    """One rank of the CG phase's eight-row world (run by `spawn`): each
+    """One rank of the CG phase's eight-row world (run by `WORLDS`): each
     mode of `CG_MODES` as `apps.cg.run_cg` runs it: `cg_setup` (the
     grouped mesh, the right-hand side on the card) before the clock starts
     and `cg_solve` inside it, so that the wall time and wire statistics
@@ -5519,10 +5946,9 @@ def cg_phase(torch, np, smi: str) -> dict:
     """The CG phase: one line per mode, then the checks, with the
     tolerances stated beside `CG_CFG`."""
     from repro_torch.apps.cg import CGCfg, cg_rhs, residual_norm
-    from repro_torch.launch.mesh import spawn
 
     t0 = time.perf_counter()
-    ranks = spawn(cg_rank, CG_ROWS, device="cuda", timeout_s=600)
+    ranks = WORLDS.run(cg_rank, CG_ROWS, timeout_s=600)
     world_s = time.perf_counter() - t0
     cfg = CGCfg(**CG_CFG)
     b = cg_rhs(cfg, CG_ROWS, CG_ROWS).reshape(-1, cfg.ny, cfg.nz)
@@ -5601,7 +6027,7 @@ PIC_ADAPT_STEPS = 4
 
 
 def pic_rank(mesh, seed: int, sink_dir: str) -> dict:
-    """One rank of the PIC phase's eight-row world (run by `spawn`): each
+    """One rank of the PIC phase's eight-row world (run by `WORLDS`): each
     run of `apps.pic.RUNS` through `apps.pic.run_pic`, its kernel counts set to
     0 just before and read just after, with its phase times, movers, wire
     statistics and peak memory; after the io run, its final state streamed
@@ -5736,12 +6162,11 @@ def pic_phase(torch, np, seed: int, smi: str) -> dict:
     import tempfile
 
     from repro_torch.apps.pic import RUNS, PICCfg, init_particles
-    from repro_torch.launch.mesh import spawn
 
     cfg = PICCfg(**PIC_CFG, seed=3 + seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sink_") as sink_dir:
         t0 = time.perf_counter()
-        ranks = spawn(pic_rank, PIC_ROWS, device="cuda", args=(seed, sink_dir), timeout_s=600)
+        ranks = WORLDS.run(pic_rank, PIC_ROWS, args=(seed, sink_dir), timeout_s=600)
         world_s = time.perf_counter() - t0
         files = sorted(os.listdir(sink_dir))
         drained = np.load(os.path.join(sink_dir, files[0])) if files else None
@@ -5960,6 +6385,18 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the rank processes of phases 8-11 and the MapReduce corpora, started
+    # now so that they are ready by then: the single-process phases 7b and
+    # 7c leave the host's other cores idle. The ranks' allocators map
+    # memory in growable segments, so the large, differently sized buffers
+    # of the folds, the parity steps and one world after another reuse it
+    global WORLDS
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    WORLDS = RankPool(POOL_SIZE)
+    atexit.register(WORLDS.close)
+    corpora = start_corpora(args.seed)
+    atexit.register(close_corpora, corpora)
+
     # phase 7b: the MoE family at full width and cut depth, continuous mode
     CLOCK.start("moe")
     moe_lines = moe_phase(torch, np, args.seed, smi)
@@ -5984,13 +6421,24 @@ def main(argv=None) -> int:
     train_families = family_train_phase(torch, np, args.seed, smi)
 
     # phase 8c: FSDP training, qwen2.5-3b at full width and depth in a two-row
-    # world on this card, against one process
+    # world on this card, against one process; phase 8d: the model axis, the
+    # same step on a (2, 2) world against the same one-process file, and the
+    # three step modes of qwen1.5-0.5b on it
+    import tempfile
+
     CLOCK.start("train_fsdp")
-    train_fsdp = fsdp_phase(torch, np, args.seed, smi)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    try:
+        train_fsdp = fsdp_phase(torch, np, args.seed, smi, tmp)
+        CLOCK.start("train_model")
+        train_model = model_axis_phase(torch, np, args.seed, smi, train_fsdp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # phase 9: the paper's decoupled MapReduce in an eight-row world on this card
     CLOCK.start("mapreduce")
-    mapreduce = mapreduce_phase(torch, np, args.seed, smi)
+    mapreduce = mapreduce_phase(torch, np, args.seed, smi, corpora)
+    close_corpora(corpora)
 
     # phases 10 and 11: the paper's halo-exchange CG, and its particle
     # communication and decoupled I/O, in eight-row worlds on this card
@@ -5999,6 +6447,7 @@ def main(argv=None) -> int:
     CLOCK.start("pic")
     pic = pic_phase(torch, np, args.seed, smi)
     CLOCK.stop()
+    WORLDS.close()
 
     # phase 12: summary; "launches" is the count from the run of the path
     # each kernel belongs to (the bf16 tinyllama arm for paged decode,
@@ -6051,6 +6500,7 @@ def main(argv=None) -> int:
                                          for run, counts in train["launches_by_run"].items()}
         kern["launches_train_families"] = train_families["launches"][name]
         kern["launches_train_fsdp"] = train_fsdp["launches"][name]
+        kern["launches_train_model"] = train_model["launches"][name]
         kern["launches_mapreduce"] = mapreduce["launches"][name]
         kern["launches_cg"] = cg["launches"][name]
         kern["launches_pic"] = pic["launches"][name]
@@ -6062,7 +6512,8 @@ def main(argv=None) -> int:
             "launches_scenario", "launches_spec", "launches_disagg", "launches_mamba_arm",
             "launches_moe", "launches_moe_by_arm", "launches_families",
             "launches_families_by_arm", "launches_train", "launches_train_by_run",
-            "launches_train_families", "launches_train_fsdp", "launches_mapreduce",
+            "launches_train_families", "launches_train_fsdp", "launches_train_model",
+            "launches_mapreduce",
             "launches_cg", "launches_pic")
     emit({"phase": "timing", "seconds_by_phase": CLOCK.totals,
           "total_s": time.perf_counter() - t_main})

@@ -92,7 +92,7 @@ def select_by_role(gmesh: GroupedMesh, branches: dict[str, Callable[[], Any]]) -
     out = branches.get(gmesh.groups[role_index(gmesh)].name, default)()
     if gmesh.mesh.in_world:
         seen = [None] * gmesh.axis_size
-        dist.all_gather_object(seen, _structure(out))
+        dist.all_gather_object(seen, _structure(out), group=gmesh.mesh.data_group)
         if any(s != seen[0] for s in seen):
             raise ValueError(f"select_by_role: the branches return different structures: "
                              f"{sorted(set(map(repr, seen)))}")

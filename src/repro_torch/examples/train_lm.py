@@ -5,9 +5,12 @@ reference's `examples/train_lm.py`.
 
     python -m repro_torch.examples.train_lm [--device cpu] [--mode conventional]
 
-Defaults are small (a ~10M-parameter llama-style model, 120 steps) in a
-world of 4 rows on the card unless ``--device`` names another device.
-The reference's ~100M run:
+Defaults are small (a ~10M-parameter llama-style model, 120 steps) in the
+reference's (4, 2) world: 4 data rows by 2 model-axis columns (tensor
+parallelism), eight ranks on the card unless ``--device`` names another
+device; ``--data`` and ``--model`` change it. One 80 GB card holds the
+default and the ~100M run on any of these worlds. The reference's ~100M
+run:
 
     python -m repro_torch.examples.train_lm --d-model 512 --layers 12 \\
         --seq 1024 --steps 300 --vocab 32000
@@ -19,9 +22,6 @@ import shutil
 
 from repro_torch.launch.mesh import spawn
 from repro_torch.launch.train import WORLD_TIMEOUT_S
-
-N_ROWS = 4
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -38,6 +38,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--compress", default="none", choices=["none", "int8"])
     ap.add_argument("--ckpt-dir", default="/tmp/repro_train_lm")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--data", type=int, default=4, help="data rows of the world")
+    ap.add_argument("--model", type=int, default=2, help="model-axis columns of the world")
     return ap.parse_args(argv)
 
 
@@ -50,14 +52,14 @@ def arch(args: argparse.Namespace):
 
 
 def train_rank(mesh, args: argparse.Namespace) -> list[dict]:
-    """One row: the trainer's metrics log."""
+    """One rank: the trainer's metrics log."""
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.models.model_zoo import build
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import TrainStepConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    model = build(arch(args), device=mesh.device)
+    model = build(arch(args), device=mesh.device, tp=mesh)
     pipe = Pipeline(DataConfig(vocab_size=args.vocab, seq_len=args.seq,
                                global_batch=args.batch, kind="zipf",
                                skew=0.4))  # imbalanced documents: what decoupling absorbs
@@ -76,9 +78,10 @@ def train_rank(mesh, args: argparse.Namespace) -> list[dict]:
 
 def main(argv=None) -> list[dict]:
     args = parse_args(argv)
-    print(f"model: {arch(args).param_count() / 1e6:.1f}M params, mode={args.mode}")
+    print(f"model: {arch(args).param_count() / 1e6:.1f}M params, mode={args.mode}, "
+          f"world (data {args.data}, model {args.model})")
     shutil.rmtree(args.ckpt_dir, ignore_errors=True)
-    log = spawn(train_rank, N_ROWS, device=args.device, args=(args,),
+    log = spawn(train_rank, args.data, model=args.model, device=args.device, args=(args,),
                 timeout_s=WORLD_TIMEOUT_S)[0]
     first, last = log[0]["loss"], log[-1]["loss"]
     print(f"loss {first:.3f} -> {last:.3f} over {log[-1]['step']} steps "

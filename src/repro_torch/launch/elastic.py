@@ -7,11 +7,12 @@ Two paths:
     so the same files resume on any row count and in any step mode:
     `restore_for_mesh` loads them onto the target mesh's device, and the
     step's rows take their shards from there (`row_shard`,
-    `train.sharding`); under FSDP each row takes its own parts of them,
-    a unit at a time. `healthy_mesh` picks the largest row count the
-    healthy devices allow, halving the rows as the reference halves its
-    data axis; `healthy_mesh_with_backoff` probes a few times before it
-    shrinks.
+    `train.sharding`); on a model axis each rank takes its column's
+    slices by the new world's `param_specs`, and under FSDP each row its
+    own parts of them, a unit at a time. `healthy_mesh` picks the largest
+    mesh the healthy devices allow, halving the data axis as the
+    reference does and never the model axis; `healthy_mesh_with_backoff`
+    probes a few times before it shrinks.
   * the IN-MEMORY path (`reshard_state`): live row-partitioned state moves
     between two row partitions of the same world with no checkpoint round
     trip, the regroup leg of the adaptive loop (`core.adapt`).
@@ -30,28 +31,35 @@ import torch
 
 from repro_torch.io import checkpoint as ckpt
 from repro_torch.launch.mesh import Mesh, make_host_mesh
-from repro_torch.train.sharding import MOMENTS, FsdpPlan, host_unit
-from repro_torch.utils.treeutil import tree_flatten, tree_unflatten
+from repro_torch.train.sharding import MOMENTS, FsdpPlan, host_unit, shard_model, spec_list
+from repro_torch.utils.treeutil import tree_flatten, tree_map, tree_unflatten
 
 
 def restore_for_mesh(ckpt_dir: str, step: int, like_state: dict, mesh: Mesh,
                      fsdp: FsdpPlan | None = None) -> dict:
     """Load ``step`` in the structure of ``like_state`` (``{"params",
-    "opt", "step"}``, whole trees) onto ``mesh``'s device. ``fsdp``: this
-    row's parts of the parameters and moments instead (`FsdpPlan` of the
-    mesh's row count, which need not be the writer's): the files are
-    memory-mapped and each unit goes to the device and into its part on
-    its own, so no row holds the whole tree, on the device or the host."""
-    if fsdp is None:
+    "opt", "step"}``, whole trees) onto ``mesh``'s device. On a model axis,
+    this rank's column slices of the parameters and moments (the mesh's
+    `param_specs`, whatever world wrote the files). ``fsdp``: this row's
+    parts of them instead (`FsdpPlan` of the mesh's row count, which need
+    not be the writer's). Either way the files are memory-mapped and each
+    leaf's (under FSDP, each unit's) slice goes to the device on its own,
+    so no rank holds the whole tree, on the device or the host."""
+    size, col = mesh.shape["model"], mesh.col
+    if fsdp is None and size == 1:
         restored = ckpt.restore(ckpt_dir, step, like_state, device=mesh.device)
     else:
         host = ckpt.restore(ckpt_dir, step, like_state, mmap=True)
 
-        def parts(tree):
-            return fsdp.shard_units(lambda name: host_unit(tree, name, mesh.device))
+        def local(tree):
+            if fsdp is not None:
+                return fsdp.shard_units(lambda name: host_unit(tree, name, mesh.device,
+                                                               size, col))
+            column = shard_model(tree, spec_list(tree, size), size, col)
+            return tree_map(lambda a: torch.from_numpy(np.array(a)).to(mesh.device), column)
 
-        restored = {"params": parts(host["params"]),
-                    "opt": {k: parts(v) if k in MOMENTS else v for k, v in host["opt"].items()},
+        restored = {"params": local(host["params"]),
+                    "opt": {k: local(v) if k in MOMENTS else v for k, v in host["opt"].items()},
                     "step": host["step"]}
     restored["step"] = int(restored["step"])
     return restored
@@ -65,8 +73,9 @@ def healthy_mesh(preferred_shape: tuple[int, ...], axis_names: tuple[str, ...] =
                  n_devices: int | None = None, *, device=None) -> Mesh:
     """A planning mesh of the most rows the healthy devices allow: the
     ``data`` axis (axis 0) of ``preferred_shape`` halves until the shape
-    fits ``n_devices`` (by default the cards present); the other axes,
-    which must be 1, never shrink."""
+    fits ``n_devices`` (by default the cards present); the model axis (the
+    product of the other axes) never shrinks, as in the reference (model
+    parallelism is bound to the topology)."""
     n = _device_count() if n_devices is None else int(n_devices)
     shape = list(preferred_shape)
     total = math.prod(shape)
@@ -149,6 +158,9 @@ def reshard_state(state: Any, old_gmesh, new_gmesh,
             f"size; a shrink onto fewer rows moves the global serving layout "
             f"(serve.fleet.reshard_serving_state) instead")
     mesh = new_gmesh.mesh
+    if mesh.shape["model"] > 1:
+        raise ValueError(f"reshard_state on a model axis of {mesh.shape['model']} is not "
+                         f"ported (ROADMAP A8: the adaptive regroup on a (data, model) world)")
     old_rows = old_gmesh.compute.size
     new_rows = new_gmesh.compute.size
 

@@ -3,9 +3,9 @@
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --data 4 --mode decoupled
     python -m repro_torch.launch.train --smoke --device cpu --data 4 --steps 4 --ckpt-dir DIR
 
-Spawns a world of ``--data`` rows (`launch.mesh.spawn`: one process per
-row, every row on the one device ``--device`` names, the card by
-default), and each row runs a `Trainer` in the chosen step mode over the
+Spawns a (``--data``, ``--model``) world (`launch.mesh.spawn`: one process
+per rank, every rank on the one device ``--device`` names, the card by
+default), and each rank runs a `Trainer` in the chosen step mode over the
 reference's data (Zipf tokens, skewed document lengths; the frontend
 embeddings of an audio or vision architecture) with its optimizer
 settings. ``--arch`` takes every architecture of the registry: dense,
@@ -14,10 +14,18 @@ architecture's reduced config and leaves the device as it is. The
 trainer saves a checkpoint halfway and at the end into ``--ckpt-dir``,
 and resumes from the newest one there. The step config is the
 reference's default apart from the mode, the alpha and the codec, so
-FSDP is ``"auto"``: on where the f32 parameters pass 6e9 bytes (``--arch
-qwen2.5-3b --data 2`` trains so), as in the reference, which has no flag
-for it either. ``--model`` must be 1: the model axis is not ported
-(ROADMAP A8).
+FSDP is ``"auto"``: on where the f32 parameters over ``--model`` pass
+6e9 bytes (``--arch qwen2.5-3b --data 2 --model 1`` and ``--data 2
+--model 2`` train so), as in the reference, which has no flag for it
+either.
+
+``--model`` defaults to 2, as the reference's does: tensor parallelism
+over a model axis of that many columns, for the dense family
+(tinyllama-1.1b, qwen1.5-0.5b, qwen2.5-3b, starcoder2-15b); every other
+family needs ``--model 1`` (ROADMAP A8). One 80 GB card holds, at 16
+bytes a parameter for f32 weights and AdamW moments (less under FSDP):
+tinyllama-1.1b and qwen1.5-0.5b on (4, 2); qwen2.5-3b on (2, 2) under
+FSDP; starcoder2-15b on none (242 GB of state).
 """
 from __future__ import annotations
 
@@ -42,25 +50,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--alpha", type=float, default=1 / 16)
     ap.add_argument("--compress", default="none", choices=["none", "int8"])
     ap.add_argument("--ckpt-dir", default="/tmp/repro_launch_train")
-    ap.add_argument("--data", type=int, default=4, help="rows of the world")
-    ap.add_argument("--model", type=int, default=1,
-                    help="must be 1: the model axis is not ported (ROADMAP A8)")
+    ap.add_argument("--data", type=int, default=4, help="data rows of the world")
+    ap.add_argument("--model", type=int, default=2,
+                    help="model-axis columns of the world (tensor parallelism; dense family)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
 
-def train_rank(mesh, args: argparse.Namespace) -> dict:
-    """One row of the launcher's world: the step reached and the row's
-    metrics log."""
+def config(args: argparse.Namespace):
     from repro_torch.configs import get, get_smoke
+
+    return get_smoke(args.arch) if args.smoke else get(args.arch)
+
+
+def train_rank(mesh, args: argparse.Namespace) -> dict:
+    """One rank of the launcher's world: the step reached and the rank's
+    metrics log."""
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.models.model_zoo import build
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import TrainStepConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
-    model = build(cfg, device=mesh.device)
+    cfg = config(args)
+    model = build(cfg, device=mesh.device, tp=mesh)
     mode = args.mode or ("decoupled" if args.decouple == "reduce" else "conventional")
     pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch, kind="zipf", skew=0.4,
@@ -81,10 +94,13 @@ def train_rank(mesh, args: argparse.Namespace) -> dict:
 
 
 def main(argv=None) -> list[dict]:
-    """Run the launcher's world; returns row 0's metrics log."""
+    """Run the launcher's world; returns rank 0's metrics log."""
+    from repro_torch.models.model_zoo import model_axis
+
     args = parse_args(argv)
-    make_host_mesh(args.data, args.model, device="cpu")  # refuses a model axis
-    ranks = spawn(train_rank, args.data, device=args.device, args=(args,),
+    # refuses a model axis for a family that has none, before the world starts
+    model_axis(config(args), make_host_mesh(args.data, args.model, device="cpu"))
+    ranks = spawn(train_rank, args.data, model=args.model, device=args.device, args=(args,),
                   timeout_s=WORLD_TIMEOUT_S)
     print(f"done at step {ranks[0]['step']}", flush=True)
     return ranks[0]["log"]

@@ -10,6 +10,18 @@ Parameters are nested dicts of tensors. Matmul weights, biases and
 embedding tables are stored once in the compute dtype (the reference
 keeps f32 masters and casts them on every call, which gives the same
 bits); norm scales and biases stay f32.
+
+Tensor parallelism over the model axis (``tp``: the rank's
+`launch.mesh.Mesh` of a (data, model) world, whose `model_all_reduce` and
+`model_all_gather` go over the row's columns; the reference's GSPMD
+placement, done by hand): `copy_to_model` (identity forward,
+all-reduce backward) goes before a column-sharded product,
+`reduce_from_model` (all-reduce forward, identity backward) after a
+row-sharded one, `gather_from_model` / `split_to_model` move an
+activation between a column's slice and the whole, and
+`vocab_embed` looks tokens up in a vocabulary-sharded table (rows outside
+this column's range give zeros, then an all-reduce). Each is an explicit
+`torch.autograd.Function`.
 """
 from __future__ import annotations
 
@@ -289,6 +301,146 @@ def apply_mlp(p: Params, x: torch.Tensor, kind: str, dtype=torch.bfloat16) -> to
     else:
         raise ValueError(kind)
     return linear(p["w_down"], h, dtype)
+
+
+# -- the model axis (tensor parallelism) -----------------------------------------------
+
+def _split(t: torch.Tensor, tp) -> torch.Tensor:
+    """This column's slice of ``t``'s last dimension."""
+    n = t.shape[-1] // tp.model_size
+    return t.narrow(t.dim() - 1, tp.col * n, n)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; backward all-reduces the columns' partial
+    gradients (the input of a column-sharded product)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.model_all_reduce(g.contiguous()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce forward (the columns' partial sums of a row-sharded
+    product); identity backward: every column's gradient of the sum is
+    the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.model_all_reduce(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The columns' slices concatenated along the last dimension forward;
+    backward takes this column's slice of the whole gradient, which every
+    column holds alike."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.model_all_gather(x.contiguous(), x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _split(g, ctx.tp).contiguous(), None
+
+
+class _SplitToModel(torch.autograd.Function):
+    """This column's slice of the last dimension forward; backward gathers
+    the columns' gradients of their slices into the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _split(x, tp).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.model_all_gather(g.contiguous(), g.dim() - 1), None
+
+
+class _VocabEmbed(torch.autograd.Function):
+    """Forward: this column's rows of a vocabulary-sharded table for the
+    tokens in its range, zeros for the others, all-reduced over the
+    columns. Backward: the (whole) gradient of each in-range token's row
+    added into this column's rows, in the gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, tp):
+        rows = table.shape[0]
+        local = tokens.long() - tp.col * rows
+        ok = (local >= 0) & (local < rows)
+        idx = torch.where(ok, local, 0)
+        out = torch.where(ok[..., None], table[idx], 0)
+        ctx.save_for_backward(idx, ok)
+        ctx.shape, ctx.tp = table.shape, tp
+        return tp.model_all_reduce(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, ok = ctx.saved_tensors
+        grad = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        grad.index_put_((idx[ok],), g[ok], accumulate=True)
+        return grad, None, None
+
+
+def copy_to_model(x: torch.Tensor, tp) -> torch.Tensor:
+    return _CopyToModel.apply(x, tp)
+
+
+def reduce_from_model(x: torch.Tensor, tp) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, tp)
+
+
+def gather_from_model(x: torch.Tensor, tp) -> torch.Tensor:
+    return _GatherFromModel.apply(x, tp)
+
+
+def split_to_model(x: torch.Tensor, tp) -> torch.Tensor:
+    return _SplitToModel.apply(x, tp)
+
+
+def vocab_embed(p: Params, tokens: torch.Tensor, tp, dtype=torch.bfloat16) -> torch.Tensor:
+    """`embed` over a table whose vocabulary is sharded over the model
+    axis (each column holding ``V / model_size`` consecutive rows)."""
+    return _VocabEmbed.apply(p["table"].to(dtype), tokens, tp)
+
+
+def row_parallel(p: Params, x: torch.Tensor, tp, dtype=torch.bfloat16) -> torch.Tensor:
+    """`linear` of a projection whose input rows are sharded over the model
+    axis (``x`` holds this column's slice of the features): the columns'
+    partial products all-reduced, then a whole bias added once."""
+    y = reduce_from_model(torch.matmul(x.to(dtype), p["w"].to(dtype)), tp)
+    if "b" in p:
+        y = y + p["b"].to(dtype)
+    return y
+
+
+def apply_mlp_tp(p: Params, x: torch.Tensor, kind: str, d_ff: int, tp,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """`apply_mlp` under the model axis: where ``d_ff`` divides it, the
+    gate and up projections are column-sharded and the down projection
+    row-sharded (one all-reduce); otherwise every leaf is whole and the
+    MLP runs whole on every column."""
+    if p["w_up"]["w"].shape[-1] == d_ff:
+        return apply_mlp(p, x, kind, dtype)
+    x = copy_to_model(x, tp)
+    if kind == "swiglu":
+        h = F.silu(linear(p["w_gate"], x, dtype)) * linear(p["w_up"], x, dtype)
+    elif kind == "gelu":
+        h = F.gelu(linear(p["w_up"], x, dtype), approximate="tanh")
+    else:
+        raise ValueError(kind)
+    return row_parallel(p["w_down"], h, tp, dtype)
 
 
 # -- embeddings -----------------------------------------------------------------------

@@ -25,6 +25,14 @@ aux_loss``; a VLM's loss drops the frontend positions before the
 cross-entropy. Every family trains on the rank world
 (`train.train_step.make_step`); an MoE model's data-parallel steps pass
 ``route_world`` so that its shard routes as part of the global batch.
+
+The model axis: ``build(cfg, tp=mesh)`` on a rank of a (data, model)
+world with more than one column gives the model of this rank's column
+(``model.tp``, that mesh): ``init`` and ``init_unit`` draw the
+whole parameters (or unit) from the seed, as one process does, and keep
+this column's slices (`train.sharding.param_specs`), and ``loss`` runs the
+tensor-parallel forward on them. Only the dense family has it; any other
+family on a model axis raises ValueError (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch
 
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import encdec, moe, transformer
+from repro_torch.train import sharding
 
 Params = dict
 
@@ -73,6 +82,9 @@ class Model:
     # drawn from the unit's own generator (`_unit_seed`): one process and every
     # row of a world draw the same values, a unit at a time
     init_unit: Callable[..., Params] | None = None
+    # the rank's `launch.mesh.Mesh` whose column of the model this is, on a
+    # model axis of more than one column; None without one
+    tp: Any = None
 
 
 def frontend_key(cfg) -> str | None:
@@ -91,12 +103,16 @@ def _frontend_input(cfg, inputs: dict):
     return inputs.get(key)
 
 
-def _seeded_init(fn, cfg, dev):
+def _seeded_init(fn, cfg, dev, tp=None):
     def init(seed: int | torch.Generator = 0, *, param_dtype=None) -> Params:
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return fn(cfg, gen, dev, param_dtype=param_dtype)
+        whole = fn(cfg, gen, dev, param_dtype=param_dtype)
+        if tp is None:
+            return whole
+        specs = sharding.spec_list(whole, tp.model_size)
+        return sharding.shard_model(whole, specs, tp.model_size, tp.col)
 
     return init
 
@@ -107,36 +123,57 @@ def _unit_seed(seed: int, index: int) -> int:
     return int(seed) * 1_000_003 + index
 
 
-def _unit_init(fn, cfg, dev, units: tuple[str, ...]):
+def _unit_init(fn, cfg, dev, units: tuple[str, ...], tp=None):
     def init_unit(seed: int, unit: str, *, param_dtype=None, device=None) -> Params:
         d = dev if device is None else torch.device(device)
         # a meta tree (shapes alone) draws nothing, from a CPU generator
         gen = torch.Generator(device="cpu" if d.type == "meta" else d)
         gen.manual_seed(_unit_seed(seed, units.index(unit)))
-        return fn(cfg, unit, gen, d, param_dtype=param_dtype)
+        whole = fn(cfg, unit, gen, d, param_dtype=param_dtype)
+        if tp is None:
+            return whole
+        specs = sharding.unit_specs(unit, whole, tp.model_size)
+        return sharding.shard_model(whole, specs, tp.model_size, tp.col)
 
     return init_unit
 
 
-def build(cfg, device=None) -> Model:
+def model_axis(cfg, tp):
+    """``tp`` (a rank's `launch.mesh.Mesh`, or None) where its model axis
+    has more than one column, else None. A model axis of more than one
+    column is ported for the dense family alone."""
+    if tp is None or tp.model_size == 1:
+        return None
+    if cfg.family != "dense" or cfg.n_experts or cfg.hybrid or cfg.frontend:
+        raise ValueError(f"{cfg.name}: a model axis of {tp.model_size} for the {cfg.family} "
+                         f"family is not ported (ROADMAP A8: the model axis is ported for "
+                         f"the dense family only); use a model axis of 1")
+    return tp
+
+
+def build(cfg, device=None, *, tp=None) -> Model:
+    """The model of ``cfg`` on ``device``; ``tp``: the rank's
+    `launch.mesh.Mesh`, for a dense model on a world of more than one
+    column (this rank's column of the model)."""
     dev = resolve_device(device)
+    axis = model_axis(cfg, tp)
     if cfg.family == "encdec":
         return _build_encdec(cfg, dev)
-    return _build_lm(cfg, dev)
+    return _build_lm(cfg, dev, axis)
 
 
-def _build_lm(cfg, dev) -> Model:
+def _build_lm(cfg, dev, tp=None) -> Model:
     def loss(params, batch, *, route_world=None):
         # the reference's own attention route: the flash kernel has no
         # backward in either package
         extra = batch.get(frontend_key(cfg))
         hidden, aux, _, _ = transformer.forward_lm(cfg, params, batch["tokens"],
                                                    extra_embeds=extra, impl="ref",
-                                                   route_world=route_world)
+                                                   route_world=route_world, tp=tp)
         if extra is not None:  # frontend positions carry no next-token loss
             hidden = hidden[:, extra.shape[1]:]
         ce = transformer.chunked_softmax_xent(cfg, params, hidden, batch["labels"],
-                                              batch["mask"])
+                                              batch["mask"], tp=tp)
         if aux:
             return ce + 0.01 * aux["aux_loss"], {"ce": ce, **aux}
         return ce, {"ce": ce}
@@ -165,10 +202,11 @@ def _build_lm(cfg, dev) -> Model:
 
     world_metrics = moe.AUX_METRICS if cfg.n_experts else ()
     units = transformer.lm_units(cfg)
-    return Model(cfg, dev, _seeded_init(transformer.init_lm, cfg, dev), prefill, init_cache,
-                 decode_step, decode_step_paged, loss, verify_step,
+    return Model(cfg, dev, _seeded_init(transformer.init_lm, cfg, dev, tp), prefill,
+                 init_cache, decode_step, decode_step_paged, loss, verify_step,
                  metrics=tuple(sorted(("ce",) + world_metrics)), world_metrics=world_metrics,
-                 units=units, init_unit=_unit_init(transformer.init_lm_unit, cfg, dev, units))
+                 units=units, tp=tp,
+                 init_unit=_unit_init(transformer.init_lm_unit, cfg, dev, units, tp))
 
 
 def _build_encdec(cfg, dev) -> Model:

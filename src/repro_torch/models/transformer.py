@@ -30,6 +30,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -135,15 +136,52 @@ def init_lm_unit(cfg, name: str, gen: torch.Generator, device=None, *,
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _attention_full(cfg, p, h, positions, window, dtype, impl=None):
-    """Returns (attn_out, k_flat, v_flat). ``impl``: None launches the
-    flash kernel on a CUDA tensor; "ref" (or a CPU tensor) takes the
-    reference's plain/blockwise route."""
+def _projections_tp(cfg, p, h, dtype, tp):
+    """q, k, v as (B, S, heads, hd) under the model axis, and whether they
+    hold this column's heads. Where both head counts divide the axis, each
+    column computes its heads from its column slices of wq/wk/wv (the
+    reference pins attention's heads to ``model``); otherwise the
+    reference's sharding constraint gives up, and each projection whose
+    weight is sharded is computed on the column's slice and gathered, a
+    whole weight on the whole input, so every column holds every head."""
     b, s, _ = h.shape
     hd = cfg.resolved_head_dim
-    q = layers.linear(p["wq"], h, dtype).reshape(b, s, cfg.n_heads, hd)
-    k = layers.linear(p["wk"], h, dtype).reshape(b, s, cfg.n_kv_heads, hd)
-    v = layers.linear(p["wv"], h, dtype).reshape(b, s, cfg.n_kv_heads, hd)
+    ht = layers.copy_to_model(h, tp)
+    m = tp.model_size
+    if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+        heads = (cfg.n_heads // m, cfg.n_kv_heads // m, cfg.n_kv_heads // m)
+        out = [layers.linear(p[k], ht, dtype).reshape(b, s, n, hd)
+               for k, n in zip(("wq", "wk", "wv"), heads)]
+        return (*out, True)
+    out = []
+    for k, width, n in (("wq", cfg.d_q, cfg.n_heads), ("wk", cfg.d_kv, cfg.n_kv_heads),
+                        ("wv", cfg.d_kv, cfg.n_kv_heads)):
+        if p[k]["w"].shape[-1] == width:
+            y = layers.linear(p[k], h, dtype)
+        else:
+            y = layers.gather_from_model(layers.linear(p[k], ht, dtype), tp)
+        out.append(y.reshape(b, s, n, hd))
+    return (*out, False)
+
+
+def _attention_full(cfg, p, h, positions, window, dtype, impl=None, tp=None):
+    """Returns (attn_out, k_flat, v_flat). ``impl``: None launches the
+    flash kernel on a CUDA tensor; "ref" (or a CPU tensor) takes the
+    reference's plain/blockwise route. ``tp`` (the rank's
+    `launch.mesh.Mesh`, the training forward on a model axis): `_projections_tp`'s heads; the
+    output projection's rows are sharded where ``d_q`` divides the axis
+    (this column's heads, or its slice of every head's output, into its
+    rows of wo, then one all-reduce), else whole; k/v are then this
+    column's or every head's."""
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    local = False
+    if tp is not None:
+        q, k, v, local = _projections_tp(cfg, p, h, dtype, tp)
+    else:
+        q = layers.linear(p["wq"], h, dtype).reshape(b, s, cfg.n_heads, hd)
+        k = layers.linear(p["wk"], h, dtype).reshape(b, s, cfg.n_kv_heads, hd)
+        v = layers.linear(p["wv"], h, dtype).reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.pos_kind == "rope":
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
@@ -156,16 +194,24 @@ def _attention_full(cfg, p, h, positions, window, dtype, impl=None):
     else:
         mask = layers.causal_window_mask(positions, positions, window)
         out = layers.attention_plain(q, k, v, mask, scale)
-    out = layers.linear(p["wo"], out.reshape(b, s, cfg.d_q), dtype)
-    return out, k.reshape(b, s, cfg.d_kv), v.reshape(b, s, cfg.d_kv)
+    out = out.reshape(b, s, -1)
+    kf, vf = k.reshape(b, s, -1), v.reshape(b, s, -1)
+    if tp is None or p["wo"]["w"].shape[0] == cfg.d_q:
+        return layers.linear(p["wo"], out, dtype), kf, vf
+    if not local:
+        out = layers.split_to_model(out, tp)
+    return layers.row_parallel(p["wo"], out, tp, dtype), kf, vf
 
 
-def _ffn(cfg, p, h, dtype, world=None):
+def _ffn(cfg, p, h, dtype, world=None, tp=None):
     """A layer's feed-forward on its normed input -> (out, aux): the MoE
     layer with its aux metrics (routed over ``world``, a
-    `moe.LayerWorld`, when given), or the MLP with none."""
+    `moe.LayerWorld`, when given), or the MLP with none (tensor-parallel
+    over ``tp``, `layers.apply_mlp_tp`)."""
     if cfg.n_experts:
         return moe.apply_moe(p["moe"], h, cfg, dtype, world=world)
+    if tp is not None:
+        return layers.apply_mlp_tp(p["mlp"], h, cfg.mlp_kind, cfg.d_ff, tp, dtype), {}
     return layers.apply_mlp(p["mlp"], h, cfg.mlp_kind, dtype), {}
 
 
@@ -177,26 +223,27 @@ def _mamba(cfg, p, h, dtype, want_kv: bool, impl):
     return ssm.mamba_block(p["mamba"], h, cfg, dtype, impl=impl), None
 
 
-def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl, world=None):
+def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl, world=None,
+                   tp=None):
     """One layer -> (x, aux, (k, v) or None, SSM decode state or None)."""
     p = layers.unit_params(p)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     if cfg.family == "ssm":
         y, sstate = _mamba(cfg, p, h, dtype, want_kv, impl)
         return x + y, {}, None, sstate
-    attn_out, kf, vf = _attention_full(cfg, p["attn"], h, positions, window, dtype, impl)
+    attn_out, kf, vf = _attention_full(cfg, p["attn"], h, positions, window, dtype, impl, tp)
     sstate = None
     if cfg.hybrid:  # both paths read the same h; averaged as they come
         ssm_out, sstate = _mamba(cfg, p, h, dtype, want_kv, impl)
         attn_out = (attn_out + ssm_out) * 0.5
     x = x + attn_out
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-    out, aux = _ffn(cfg, p, h2, dtype, world)
+    out, aux = _ffn(cfg, p, h2, dtype, world, tp)
     return x + out, aux, ((kf, vf) if want_kv else None), sstate
 
 
 def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, extra_embeds=None,
-               want_kv: bool = False, impl: str | None = None, route_world=None):
+               want_kv: bool = False, impl: str | None = None, route_world=None, tp=None):
     """Returns (hidden (B,S,d) post-final-norm, aux, per-layer [(k, v)]
     or None, per-layer [{state, conv}] or None): aux is the mean over
     layers of each MoE aux metric (``aux_loss``, ``router_entropy``; empty
@@ -214,13 +261,22 @@ def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, extra_embeds=None,
     (`moe.RouteWorld`): ``tokens`` is this row's shard of a world's global
     batch, and every MoE layer routes over the world (aux then also holds
     ``aux_share``, `moe.apply_moe`); the recompute reads the exchanges the
-    forward stashed."""
+    forward stashed. ``tp`` (the rank's `launch.mesh.Mesh` of a world of
+    more than one column): ``params`` are this
+    column's slices (`train.sharding.param_specs`) of a dense model, and
+    the forward is the reference's under GSPMD on a model axis, by hand:
+    the embedding looked up in a vocabulary-sharded table, each layer's
+    attention and MLP tensor-parallel; the residual stream is whole on
+    every column."""
     if cfg.family == "encdec":
         raise ValueError("an encoder-decoder model runs models.encdec, not forward_lm")
     if impl not in (None, "ref"):
         raise ValueError(f"unknown impl {impl!r} (use 'ref' or None)")
     dtype = cfg.dtype
-    x = layers.embed(params["embed"], tokens, dtype)
+    if tp is not None and params["embed"]["table"].shape[0] != cfg.vocab_size:
+        x = layers.vocab_embed(params["embed"], tokens, tp, dtype)
+    else:
+        x = layers.embed(params["embed"], tokens, dtype)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(dtype), x], dim=1)
     s = x.shape[1]
@@ -236,10 +292,11 @@ def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, extra_embeds=None,
         world = None if route_world is None else route_world.at(li)
         if recompute:
             x, aux, kvl, sstate = checkpoint(_layer_forward, cfg, p, x, positions, window,
-                                             dtype, want_kv, impl, world, use_reentrant=False)
+                                             dtype, want_kv, impl, world, tp,
+                                             use_reentrant=False)
         else:
             x, aux, kvl, sstate = _layer_forward(cfg, p, x, positions, window, dtype,
-                                                 want_kv, impl, world)
+                                                 want_kv, impl, world, tp)
         auxes.append(aux)
         if kvl is not None:
             kv.append(kvl)
@@ -267,27 +324,50 @@ def _xent_chunk(h, labels, mask, table):
     return ((lse - gold) * mask).sum(), mask.sum()
 
 
+def _xent_chunk_tp(h, labels, mask, table, tp):
+    """`_xent_chunk` over a vocabulary-sharded table: this column's logits,
+    their max over the columns (a MAX all-reduce, outside the gradient),
+    the sum of exponentials and the gold logit, each all-reduced from the
+    columns' parts (the gold logit's from its owner). No column holds a
+    chunk's whole (B, T, V) logits."""
+    logits = torch.einsum("btd,vd->btv", layers.copy_to_model(h, tp), table).float()
+    rows = table.shape[0]
+    m = tp.model_all_reduce(logits.detach().amax(dim=-1), dist.ReduceOp.MAX)
+    sumexp = layers.reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1), tp)
+    local = labels.long() - tp.col * rows
+    ok = (local >= 0) & (local < rows)
+    gold = torch.gather(logits, -1, torch.where(ok, local, 0)[..., None])[..., 0]
+    gold = layers.reduce_from_model(torch.where(ok, gold, 0.0), tp)
+    return ((m + torch.log(sumexp) - gold) * mask).sum(), mask.sum()
+
+
 def chunked_softmax_xent(cfg, params: Params, hidden: torch.Tensor, labels: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
+                         mask: torch.Tensor, tp=None) -> torch.Tensor:
     """Mean cross-entropy over ``mask`` without the whole (B, S, V)
     logits: positions go in chunks of `XENT_CHUNK`, each under one
     `torch.utils.checkpoint` while autograd records (the reference's
     ``jax.checkpoint`` scan body), so only one chunk's logits are alive
     at a time, in the backward pass too. The table is cast to
-    ``cfg.dtype`` once rather than once per chunk (the same values)."""
+    ``cfg.dtype`` once rather than once per chunk (the same values).
+    ``tp`` (as in `forward_lm`): a vocabulary-sharded table takes the
+    vocabulary-parallel chunk (`_xent_chunk_tp`); a whole one, the plain
+    chunk on every column."""
     table = unembed_table(cfg, params).to(cfg.dtype)
     b, s, _ = hidden.shape
     h = hidden.to(cfg.dtype)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     recompute = torch.is_grad_enabled() and (h.requires_grad or table.requires_grad)
+    chunk, extra = _xent_chunk, ()
+    if tp is not None and table.shape[0] != cfg.vocab_size:
+        chunk, extra = _xent_chunk_tp, (tp,)
     for start in range(0, s, XENT_CHUNK):
         end = start + XENT_CHUNK
-        part = (h[:, start:end], labels[:, start:end], mask[:, start:end], table)
+        part = (h[:, start:end], labels[:, start:end], mask[:, start:end], table) + extra
         if recompute:
-            nll, m = checkpoint(_xent_chunk, *part, use_reentrant=False)
+            nll, m = checkpoint(chunk, *part, use_reentrant=False)
         else:
-            nll, m = _xent_chunk(*part)
+            nll, m = chunk(*part)
         tot, cnt = tot + nll, cnt + m
     return tot / torch.clamp_min(cnt, 1.0)
 

@@ -72,8 +72,26 @@ def init_opt_state(cfg: OptConfig, params: Any) -> dict:
     return state
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
+def global_norm(tree: Any, *, tp=None, sharded=None) -> torch.Tensor:
+    """The norm of a gradient tree. On a model axis (``tp``, the rank's
+    `launch.mesh.Mesh`; ``sharded``: which leaves it shards, in
+    tree order) the tree is this column's slices, and every element of the
+    whole gradient counts once (`model_axis_norm`)."""
+    if tp is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
+    sums = torch.zeros(2, dtype=torch.float32, device=tree_leaves(tree)[0].device)
+    for g, sh in zip(tree_leaves(tree), sharded):
+        sums[0 if sh else 1] += torch.sum(torch.square(g.float()))
+    return model_axis_norm(tp, sums)
+
+
+def model_axis_norm(tp, sums: torch.Tensor) -> torch.Tensor:
+    """The gradient's norm on a model axis from this column's [sum of
+    squares over the sharded leaves' elements, over the whole leaves'],
+    each summed over the column's data rows: the first summed over the
+    columns too, the second counted once (each column holds the same
+    whole leaves)."""
+    return torch.sqrt(tp.model_all_reduce(sums[:1])[0] + sums[1])
 
 
 def clip_scale(grads: Any, max_norm: float,
@@ -168,4 +186,5 @@ def apply_updates(cfg: OptConfig, params: Any, grads: Any, state: dict, *,
 
 
 __all__ = ["OptConfig", "apply_updates", "clip_scale", "global_norm", "init_opt_state",
+           "model_axis_norm",
            "schedule_lr"]

@@ -26,17 +26,28 @@ and its backward; the backward reduce-scatters the unit's gradient into
 this row's part (`_GatherUnit`). The layout is internal: checkpoints hold
 whole trees (`gather_to_host`).
 
+The model axis (`param_specs`, the reference's rule whole, every family):
+each leaf's spec is a tuple of ``"model"`` / None a dimension, and a rank
+of a (data, model) world holds its column's slice of every leaf whose
+spec names ``"model"`` (`shard_model`; whole where the spec is all None).
+The reference evaluates its rule on the stacked ``(L, ...)`` layer leaves
+of its scanned tree, and the rule reads the dimension count, so the port,
+which keeps layers as lists (`LAYER_LISTS`), evaluates it on the stacked
+name and shape and drops the leading ``L``. ZeRO-1's and FSDP's plans
+then partition the column's slices among the column's data rows, and
+every data-axis collective of a step runs over the column. The
+reference's ``REPRO_REPLICATE_SSM`` variable is the ``replicate_ssm``
+keyword here (off by default, as with the variable unset).
+
 The reference's other helpers place arrays on a GSPMD mesh:
-`param_specs` shards over the model axis, which the rank world does not
-have (ROADMAP A8), and `batch_specs`, `cache_specs`, `named` and
-`validate_divisibility` have nothing to place here: each rank holds its
-own row's batch and caches.
+`batch_specs`, `cache_specs`, `named` and `validate_divisibility` have
+nothing to place here: each rank holds its own row's batch and caches.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +57,7 @@ from repro_torch.utils.treeutil import (
     flatten,
     pad_to_multiple,
     spec_of,
+    tree_flatten,
     tree_leaves,
     tree_map,
     tree_unflatten,
@@ -54,8 +66,165 @@ from repro_torch.utils.treeutil import (
 
 MOMENTS = ("m", "v")
 EMBED, REST = "embed", "rest"
-# the parameter lists whose entries are units of their own
+# the parameter lists whose entries are units of their own (and, in the
+# reference, one scanned leaf a parameter, stacked on a leading L)
 LAYER_LISTS = ("layers", "enc_layers", "dec_layers")
+MODEL = "model"
+
+
+# -- the model axis -------------------------------------------------------------------
+
+def spec_for_leaf(names: Sequence[str], shape: tuple[int, ...], model_size: int, *,
+                  replicate_ssm: bool = False) -> tuple:
+    """The spec over the model axis of one parameter leaf of the
+    reference's tree (its path names, its shape): the reference's
+    `_spec_for_leaf`, as a tuple of ``"model"`` / None a dimension."""
+    joined = ".".join(names)
+    nd = len(shape)
+    spec: list = [None] * nd
+    if replicate_ssm and "mamba" in joined and any(
+            k in joined for k in ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias")):
+        return tuple(spec)
+
+    def ok(dim: int) -> bool:
+        return shape[dim] % model_size == 0 and shape[dim] >= model_size
+
+    def at(dim: int) -> tuple:
+        spec[dim] = MODEL
+        return tuple(spec)
+
+    # row-sharded projections (output side contracts into the residual)
+    if any(k in joined for k in ("wo.w", "w_down.w", "out_proj.w")) and nd >= 2:
+        dim = nd - 2
+        if "w_down" in joined and "experts" not in joined and nd == 3:
+            dim = 1  # stacked (L, ff, d)
+        if ok(dim):
+            return at(dim)
+    # expert tensors (possibly stacked: (L, E, d, ff))
+    if any(k in joined for k in ("w_gate", "w_up", "w_down")) and "moe" in joined and nd >= 3:
+        if ok(nd - 3):
+            return at(nd - 3)  # expert parallelism
+        # tensor parallelism inside the experts: gate/up shard ff (last), down ff (-2)
+        dim = nd - 2 if "w_down" in joined else nd - 1
+        if ok(dim):
+            return at(dim)
+    # embedding / unembedding tables: shard the vocabulary
+    if "table" in joined and nd == 2:
+        return at(0) if ok(0) else tuple(spec)
+    # biases: the last dim where it matches a column-sharded projection
+    if names[-1] == "b" and nd >= 1:
+        if any(k in joined for k in ("wq", "wk", "wv", "w_gate", "w_up")) and ok(nd - 1):
+            return at(nd - 1)
+        return tuple(spec)
+    # default: column-shard the last dim of >= 2-D weights
+    if names[-1] in ("w", "conv_w") or (nd >= 2 and names[-1] not in ("scale", "bias")):
+        if nd >= 2 and ok(nd - 1):
+            return at(nd - 1)
+    return tuple(spec)
+
+
+def _leaf_paths(tree: Any, names: tuple = (), depth: int | None = None) -> list:
+    """(path names, stack depth or None) of every leaf, in `tree_flatten`'s
+    order; an entry of a `LAYER_LISTS` list takes the list's name and its
+    length as the depth of the reference's stacked leaf."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], names + (str(k),), depth)]
+    if isinstance(tree, (list, tuple)):
+        if depth is None and names and names[-1] in LAYER_LISTS:
+            return [p for x in tree for p in _leaf_paths(x, names, len(tree))]
+        return [p for i, x in enumerate(tree)
+                for p in _leaf_paths(x, names + (str(i),), depth)]
+    return [(names, depth)]
+
+
+def spec_list(params: Any, model_size: int, *, replicate_ssm: bool = False) -> list[tuple]:
+    """`param_specs` as a list in the leaves' `tree_flatten` order. A
+    layer leaf's spec drops the stacked leaf's leading ``L`` entry, which
+    names the model axis for one kind of leaf only: a stacked MoE weight
+    of three dimensions whose ``L`` divides the axis (llama4's shared
+    expert, ``(L, d, ff)``, whose expert dimension the rule takes to be
+    ``L``); such a layer would live on one column, which a per-layer spec
+    cannot say (ROADMAP A8: the model axis for the MoE family)."""
+    out = []
+    for (names, depth), leaf in zip(_leaf_paths(params), tree_leaves(params)):
+        shape = tuple(leaf.shape)
+        if depth is None:
+            out.append(spec_for_leaf(names, shape, model_size, replicate_ssm=replicate_ssm))
+        else:
+            out.append(spec_for_leaf(names, (depth,) + shape, model_size,
+                                     replicate_ssm=replicate_ssm)[1:])
+    return out
+
+
+def param_specs(params: Any, model_size: int, *, replicate_ssm: bool = False) -> Any:
+    """The tree of specs matching ``params`` (the port's tree of any
+    tensors, ``meta`` included: shapes alone are read), each leaf's as the
+    reference's `param_specs` gives it for the stacked leaf, without the
+    stack's dimension."""
+    return tree_unflatten(tree_flatten(params)[1],
+                          spec_list(params, model_size, replicate_ssm=replicate_ssm))
+
+
+def unit_specs(name: str, unit: Any, model_size: int) -> list[tuple]:
+    """The specs of one unit's leaves (`units_of`), in its own flattening
+    order."""
+    return spec_list(join_units([(name, unit)]), model_size)
+
+
+def model_dim(spec: tuple) -> int | None:
+    """The dimension a spec shards over the model axis, or None (whole)."""
+    return spec.index(MODEL) if MODEL in spec else None
+
+
+def model_shard(leaf, spec: tuple, model_size: int, col: int):
+    """Column ``col``'s slice of a whole leaf (a tensor, ``meta`` included,
+    or a numpy array, a memory map included), a copy of its own; the leaf
+    itself where the spec keeps it whole."""
+    d = model_dim(spec)
+    if d is None or model_size == 1:
+        return leaf
+    n = leaf.shape[d] // model_size
+    if isinstance(leaf, np.ndarray):
+        index = [slice(None)] * leaf.ndim
+        index[d] = slice(col * n, (col + 1) * n)
+        return np.ascontiguousarray(leaf[tuple(index)])
+    return leaf.narrow(d, col * n, n).clone(memory_format=torch.contiguous_format)
+
+
+def shard_model(tree: Any, specs: list, model_size: int, col: int) -> Any:
+    """Column ``col``'s slices of a whole tree (``specs``: `spec_list`)."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [model_shard(x, s, model_size, col)
+                                    for x, s in zip(leaves, specs)])
+
+
+def gather_model(tree: Any, specs: list, mesh) -> Any:
+    """The whole leaves of this row's columns' slices (collective over
+    the row's columns, one all-gather a sharded leaf)."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [x if model_dim(s) is None
+                                    else mesh.model_all_gather(x, model_dim(s))
+                                    for x, s in zip(leaves, specs)])
+
+
+def square_sums(plan: "Zero1Plan", part: torch.Tensor,
+                sharded: Sequence[bool]) -> torch.Tensor:
+    """[sum of squares over the elements of model-sharded leaves, over
+    those of whole ones] of this row's part of a flat buffer in ``plan``'s
+    layout (a whole tree is the part of a one-row plan). On a model axis
+    the first sums over every rank and the second over one column, so
+    that every element of the gradient counts once in its norm."""
+    out = torch.zeros(2, dtype=torch.float32, device=part.device)
+    span, off = plan.span, 0
+    for size, sh in zip(plan.spec.sizes, sharded):
+        lo, hi = max(off, span.start), min(off + size, span.stop)
+        if lo < hi:
+            seg = part[lo - span.start:hi - span.start].float()
+            out[0 if sh else 1] += torch.sum(seg * seg)
+        off += size
+    return out
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,34 +450,59 @@ class LazyUnit:
         return tree_unflatten(self.world.plan.units[self.i].spec.treedef, list(leaves))
 
 
-def gather_to_host(plan: FsdpPlan, mesh, parts: list, keep: bool) -> dict | None:
-    """The whole tree of these parts as read-only host numpy arrays where
-    ``keep`` (row 0 writing a checkpoint), else None. Collective: each unit is
-    gathered on every row, one at a time, and copied to the host where
-    ``keep``; no row holds the whole tree on the device."""
-    def host(t: torch.Tensor) -> np.ndarray:
-        a = t.detach().to("cpu", copy=True).numpy()
-        a.setflags(write=False)  # the checkpoint writer keeps it without a copy
-        return a
+def _host(t: torch.Tensor) -> np.ndarray:
+    a = t.detach().to("cpu", copy=True).numpy()
+    a.setflags(write=False)  # the checkpoint writer keeps it without a copy
+    return a
 
+
+def gather_to_host(plan: FsdpPlan, mesh, parts: list, keep: bool,
+                   specs: list | None = None) -> dict | None:
+    """The whole tree of these parts as read-only host numpy arrays where
+    ``keep`` (the rank writing a checkpoint), else None. Collective: each unit is
+    gathered on every row, one at a time, and copied to the host where
+    ``keep``; no row holds the whole tree on the device. ``specs`` (each
+    unit's `unit_specs`, on a model axis): row 0's columns also gather each
+    unit's sharded leaves over the model axis (collective over row 0), so
+    that the copy is the whole unit."""
     units = []
     for i, (name, part) in enumerate(zip(plan.names, parts)):
         tree = gather(plan.units[i], mesh, part)
+        if specs is not None and mesh.row == 0:
+            tree = gather_model(tree, specs[i], mesh)
         if keep:
-            units.append((name, tree_map(host, tree)))
+            units.append((name, tree_map(_host, tree)))
         del tree
     return join_units(units) if keep else None
 
 
-def host_unit(host: dict, name: str, device) -> Any:
+def model_to_host(tree: Any, specs: list, mesh, keep: bool) -> Any:
+    """The whole leaves of a column-sliced tree as read-only host numpy
+    arrays where ``keep``, else None: one leaf at a time is gathered over
+    this row's columns (collective over the row) and copied."""
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    for x, s in zip(leaves, specs):
+        whole = x if model_dim(s) is None else mesh.model_all_gather(x, model_dim(s))
+        out.append(_host(whole) if keep else None)
+        del whole
+    return tree_unflatten(treedef, out) if keep else None
+
+
+def host_unit(host: dict, name: str, device, model_size: int = 1, col: int = 0) -> Any:
     """Unit ``name`` of a whole host tree (numpy leaves, memory maps
-    included, in the port's structure) as tensors on ``device``: one
-    unit's copy is made, not the tree's."""
+    included, in the port's structure) as tensors on ``device``, column
+    ``col``'s slices of it on a model axis of ``model_size``: one unit's
+    copy is made, not the tree's."""
     tree = dict(units_of(host))[name]
+    if model_size > 1:
+        tree = shard_model(tree, unit_specs(name, tree, model_size), model_size, col)
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
 
 
-__all__ = ["EMBED", "LAYER_LISTS", "MOMENTS", "REST", "FsdpPlan", "FsdpStats", "FsdpWorld",
-           "LazyUnit", "Zero1Plan", "flat_padded", "fsdp_plan", "gather", "gather_opt_state",
-           "gather_to_host", "host_unit", "join_units", "shard_of", "shard_opt_state",
+__all__ = ["EMBED", "LAYER_LISTS", "MODEL", "MOMENTS", "REST", "FsdpPlan", "FsdpStats",
+           "FsdpWorld", "LazyUnit", "Zero1Plan", "flat_padded", "fsdp_plan", "gather",
+           "gather_model", "gather_opt_state", "gather_to_host", "host_unit", "join_units",
+           "model_dim", "model_shard", "model_to_host", "param_specs", "shard_model", "shard_of",
+           "shard_opt_state", "spec_for_leaf", "spec_list", "square_sums", "unit_specs",
            "units_of", "zero1_plan"]

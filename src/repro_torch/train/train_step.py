@@ -53,8 +53,22 @@ and its loss sum is its cross-entropy sum plus ``0.01 * aux_share *
 N``, N the global token count, so that the rows' gradients sum to the
 reference's; ``aux_loss`` and ``router_entropy`` are reported as the
 world computed them. The decoupled step is per row in the reference too
-(``shard_map``): each compute row routes its own shard. Not ported:
-the model axis, and FSDP and expert parallelism over it (ROADMAP A8).
+(``shard_map``): each compute row routes its own shard.
+
+The model axis (a world of more than one column, a dense model built
+with ``tp=mesh``): each rank holds its column's slices of the parameters
+(`train.sharding.param_specs`) and computes the tensor-parallel forward
+and backward (`models.transformer.forward_lm`'s ``tp``). Every mode runs
+as above in each column over the column's data rows (`launch.mesh.Mesh`
+takes data rows in the caller's column): the all-reduce, the
+reduce-scatter and the gathers, ZeRO-1's and FSDP's parts of the
+column's slices, and the decoupled step's stream, which carries each
+column's gradient slices to that column's reducer row. Clipping and the
+analytics statistics count every element of the gradient once: the
+squares of sharded leaves are summed over the model axis too, those of
+whole leaves over one column (`optimizer.model_axis_norm`). Not ported:
+the model axis for the other families, and expert parallelism over it
+(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -62,6 +76,7 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.adapt import StageTrait
 from repro_torch.core.dataflow import COMPUTE, ServiceGraph, work_vector
@@ -69,7 +84,7 @@ from repro_torch.core.decouple import group_psum
 from repro_torch.core.wire import WireSpec
 from repro_torch.models import model_zoo, moe
 from repro_torch.train import sharding
-from repro_torch.train.optimizer import OptConfig, apply_updates, global_norm
+from repro_torch.train.optimizer import OptConfig, apply_updates, global_norm, model_axis_norm
 from repro_torch.utils.treeutil import (
     flatten,
     spec_of,
@@ -103,9 +118,12 @@ class TrainStepConfig:
     fsdp_threshold: float = 6e9
 
 
-def param_shapes(model) -> dict:
+def param_shapes(model, *, whole: bool = False) -> dict:
     """The model's parameters as a training step holds them (f32), as
-    ``meta`` tensors: shapes and dtypes, no storage."""
+    ``meta`` tensors: shapes and dtypes, no storage. On a model axis,
+    this column's slices, or with ``whole`` the whole parameters."""
+    if whole and model.tp is not None:
+        model = model_zoo.build(model.cfg, device="meta")
     return sharding.join_units(
         (u, model.init_unit(0, u, param_dtype=torch.float32, device="meta"))
         for u in model.units)
@@ -113,9 +131,9 @@ def param_shapes(model) -> dict:
 
 def use_fsdp(params_or_cfg, ts_cfg: TrainStepConfig, model_size: int = 1) -> bool:
     """The reference's rule (`make_jitted_step`): ``ts_cfg.fsdp`` itself
-    unless it is ``"auto"``; then whether the parameters at 4 bytes an
-    element, whatever their dtype, over ``model_size`` (1: the port has
-    no model axis) pass ``fsdp_threshold``. ``params_or_cfg``: a
+    unless it is ``"auto"``; then whether the whole parameters at 4 bytes
+    an element, whatever their dtype, over ``model_size`` (the model
+    axis's columns) pass ``fsdp_threshold``. ``params_or_cfg``: a whole
     parameter tree (of any tensors, ``meta`` included) or a config."""
     if ts_cfg.fsdp != "auto":
         return bool(ts_cfg.fsdp)
@@ -127,14 +145,39 @@ def use_fsdp(params_or_cfg, ts_cfg: TrainStepConfig, model_size: int = 1) -> boo
 
 
 def fsdp_plan_for(model, mesh, ts_cfg: TrainStepConfig) -> sharding.FsdpPlan | None:
-    """This row's `FsdpPlan` where `use_fsdp` says so and the world has
-    more than one row (on one row the parts are the whole, as the
+    """This row's `FsdpPlan` (of this column's slices, on a model axis)
+    where `use_fsdp` says so at the mesh's model axis and the world has
+    more than one data row (on one row the parts are the whole, as the
     reference's one-way shard is), else None."""
     if mesh.n_rows < 2:
         return None
-    params = param_shapes(model)
-    return sharding.fsdp_plan(params, mesh.n_rows, mesh.row) if use_fsdp(params, ts_cfg) \
-        else None
+    if not use_fsdp(param_shapes(model, whole=True), ts_cfg, mesh.shape["model"]):
+        return None
+    return sharding.fsdp_plan(param_shapes(model), mesh.n_rows, mesh.row)
+
+
+def sharded_leaves(model) -> list[bool] | None:
+    """Which leaves of the parameters (in tree order) a model axis shards,
+    or None without one."""
+    if model.tp is None:
+        return None
+    specs = sharding.spec_list(param_shapes(model, whole=True), model.tp.model_size)
+    return [sharding.model_dim(spec) is not None for spec in specs]
+
+
+def _unit_flags(model) -> list[list[bool]]:
+    """`sharded_leaves` unit by unit (`sharding.units_of`'s order)."""
+    return [[sharding.model_dim(spec) is not None
+             for spec in sharding.unit_specs(name, tree, model.tp.model_size)]
+            for name, tree in sharding.units_of(param_shapes(model, whole=True))]
+
+
+def check_model_axis(model, mesh) -> None:
+    """Raise unless ``model`` was built for ``mesh``'s model axis."""
+    size = 1 if model.tp is None else model.tp.model_size
+    if size != mesh.shape["model"]:
+        raise ValueError(f"a model axis of {mesh.shape['model']} with a model built for "
+                         f"{size} column(s): build it with tp=mesh")
 
 
 def value_and_grad(loss_fn, params, batch, view=None):
@@ -154,12 +197,17 @@ def value_and_grad(loss_fn, params, batch, view=None):
 
 
 def build_conventional_step(model, opt_cfg: OptConfig, *, inplace: bool = False):
-    """The step of one process on the whole global batch."""
+    """The step of one process on the whole global batch (of one data row's
+    columns, on a model axis)."""
+    flags = sharded_leaves(model)
 
     def step(params, opt_state, batch):
         loss, metrics, grads = value_and_grad(model.loss, params, batch)
+        norm = None
+        if opt_cfg.grad_clip > 0:
+            norm = global_norm(grads, tp=model.tp, sharded=flags)
         new_params, new_state = apply_updates(opt_cfg, params, grads, opt_state,
-                                              inplace=inplace)
+                                              inplace=inplace, grad_norm=norm)
         return new_params, new_state, {**metrics, "loss": loss}
 
     return step
@@ -248,6 +296,7 @@ def build_data_parallel_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool =
     and backward, in the all-reduces (the gradient's and the scalars') and
     in the update, and the call's `WireStats` deltas."""
     timings: list[dict] = []
+    flags = sharded_leaves(model)
 
     def step(params, opt_state, batch):
         laps = _Laps(mesh)
@@ -259,8 +308,13 @@ def build_data_parallel_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool =
         total, out = _world_means(mesh, keys, vec)
         flat = mesh.all_reduce(flat).div_(total)
         laps("all_reduce")
-        new_params, new_state = apply_updates(opt_cfg, params, unflatten(spec, flat),
-                                              opt_state, inplace=inplace)
+        grads = unflatten(spec, flat)
+        norm = None
+        if opt_cfg.grad_clip > 0:
+            norm = global_norm(grads, tp=model.tp, sharded=flags)
+        new_params, new_state = apply_updates(opt_cfg, params, grads, opt_state,
+                                              inplace=inplace, grad_norm=norm)
+        del grads
         del flat
         laps("update")
         timings.append(laps.done())
@@ -286,6 +340,7 @@ def build_overlap_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool = False
     all-reduce), the update (the norm's all-reduce included) and the
     all-gather, and the call's `WireStats` deltas."""
     timings: list[dict] = []
+    flags = sharded_leaves(model)
 
     def step(params, opt_state, batch):
         laps = _Laps(mesh)
@@ -299,8 +354,11 @@ def build_overlap_step(model, opt_cfg: OptConfig, mesh, *, inplace: bool = False
         del flat
         laps("reduce_scatter")
         norm = None
-        if opt_cfg.grad_clip > 0:
+        if opt_cfg.grad_clip > 0 and flags is None:
             norm = torch.sqrt(mesh.all_reduce(torch.sum(g * g).reshape(1))[0])
+        elif opt_cfg.grad_clip > 0:
+            norm = model_axis_norm(model.tp,
+                                   mesh.all_reduce(sharding.square_sums(plan, g, flags)))
         if not zero1:
             whole = sharding.gather(plan, mesh, g)
             del g
@@ -358,6 +416,8 @@ def build_fsdp_step(model, opt_cfg: OptConfig, mesh, plan: sharding.FsdpPlan, *,
     all-reduce and in the update, and the call's `WireStats` deltas."""
     world = sharding.FsdpWorld(plan, mesh)
     timings: list[dict] = []
+    flags = sharded_leaves(model)
+    unit_flags = None if flags is None else _unit_flags(model)
 
     def step(parts, opt_state, batch):
         laps = _Laps(mesh, world)
@@ -368,9 +428,13 @@ def build_fsdp_step(model, opt_cfg: OptConfig, mesh, plan: sharding.FsdpPlan, *,
             g.div_(total)
         laps("all_reduce")
         norm = None
-        if opt_cfg.grad_clip > 0:
+        if opt_cfg.grad_clip > 0 and flags is None:
             sq = torch.stack([torch.sum(g * g) for g in grads]).sum()
             norm = torch.sqrt(mesh.all_reduce(sq.reshape(1))[0])
+        elif opt_cfg.grad_clip > 0:
+            sums = sum(sharding.square_sums(u, g, f)
+                       for u, g, f in zip(plan.units, grads, unit_flags))
+            norm = model_axis_norm(model.tp, mesh.all_reduce(sums))
         new_parts, new_state = apply_updates(opt_cfg, parts, grads, opt_state,
                                              inplace=inplace, grad_norm=norm)
         del grads
@@ -434,6 +498,7 @@ def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
     timings: list[dict] = []
     loss_sum = _loss_sum(model)
     world = None if fsdp is None else sharding.FsdpWorld(fsdp, mesh)
+    flags = sharded_leaves(model)
 
     def step(params, opt_state, batch):
         lap = _Laps(mesh, world)
@@ -478,10 +543,11 @@ def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
                 acc, combine=lambda a, new, ok: new if ok else a)
             stats = torch.zeros(2, dtype=torch.float32, device=mesh.device)
             if gmesh.is_member(ANALYTICS):
-                leaves = tree_leaves(arrived)
-                gn2 = sum(torch.sum(torch.square(x.float())) for x in leaves)
-                gmax = torch.stack([x.abs().max() for x in leaves]).max().float()
-                stats = torch.stack([torch.sqrt(gn2), gmax])
+                gmax = torch.stack([x.abs().max() for x in tree_leaves(arrived)]).max().float()
+                if flags is not None:
+                    gmax = model.tp.model_all_reduce(gmax.reshape(1), dist.ReduceOp.MAX)[0]
+                norm = global_norm(arrived, tp=model.tp, sharded=flags)
+                stats = torch.stack([norm, gmax])
             del arrived
             grad_stats = graph.broadcast_from(ANALYTICS, stats)
         lap("analytics")
@@ -501,12 +567,14 @@ def build_decoupled_step(model, opt_cfg: OptConfig, graph: ServiceGraph,
             x.div_(total_cnt)
         lap("broadcast")
 
+        norm = None
+        if opt_cfg.grad_clip > 0:
+            norm = global_norm(reduced, tp=model.tp, sharded=flags)
         if parts is None:
             new_params, new_state = apply_updates(opt_cfg, params, reduced, opt_state,
-                                                  inplace=inplace)
+                                                  inplace=inplace, grad_norm=norm)
             del reduced
         else:
-            norm = global_norm(reduced) if opt_cfg.grad_clip > 0 else None
             grads = fsdp.shard(reduced)
             del reduced
             new_params, new_state = apply_updates(opt_cfg, parts, grads, opt_state,
@@ -541,6 +609,7 @@ def make_step(model, mesh, opt_cfg: OptConfig, ts_cfg: TrainStepConfig, *,
     the moments (`train.sharding.shard_opt_state`)."""
     if ts_cfg.mode not in ("conventional", "overlap", "decoupled"):
         raise ValueError(ts_cfg.mode)
+    check_model_axis(model, mesh)
     plan = fsdp_plan_for(model, mesh, ts_cfg)
     if ts_cfg.mode == "decoupled":
         step = build_decoupled_step(model, opt_cfg, train_service_graph(mesh, ts_cfg), ts_cfg,
@@ -559,5 +628,6 @@ def make_step(model, mesh, opt_cfg: OptConfig, ts_cfg: TrainStepConfig, *,
 
 __all__ = ["ANALYTICS", "REDUCE", "TrainStepConfig", "build_conventional_step",
            "build_data_parallel_step", "build_decoupled_step", "build_fsdp_step",
-           "build_overlap_step", "fsdp_plan_for", "make_step", "param_shapes",
+           "build_overlap_step", "check_model_axis", "fsdp_plan_for", "make_step",
+           "param_shapes", "sharded_leaves",
            "train_service_graph", "train_stage_traits", "use_fsdp", "value_and_grad"]

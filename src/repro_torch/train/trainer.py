@@ -14,12 +14,19 @@ holds its parts of every unit's parameters and moments
 (`train.sharding.FsdpPlan`), drawn unit by unit (`Model.init_unit`) or
 taken from a whole state unit by unit, and `run` returns them so.
 
+On a model axis (a world of more than one column; the model built with
+``tp=mesh``) each rank holds its column's slices of the parameters and
+moments (`train.sharding.param_specs`), drawn whole from the seed and
+sliced, a unit at a time under FSDP.
+
 Checkpoints (`io.checkpoint`): every ``ckpt_every`` steps and at the last
-step, row 0 writes ``{"params", "opt", "step"}`` asynchronously; the
-files hold whole trees whatever the mode (ZeRO-1 overlap gathers its
-moment parts first; under FSDP the rows gather one unit at a time and
-row 0 copies each to the host), so any mode on any row count, with or
-without FSDP, resumes from them (`launch.elastic`). ``run(resume=True)``
+step, rank (0, 0) writes ``{"params", "opt", "step"}`` asynchronously; the
+files hold whole trees, in the reference's names and shapes, whatever
+the mode (ZeRO-1 overlap gathers its moment parts first; under FSDP the
+rows gather one unit at a time and row 0 copies each to the host; on a
+model axis row 0's columns gather each leaf, or unit, over it first), so
+any mode on any (data, model) world, with or without FSDP, resumes from
+them (`launch.elastic`). ``run(resume=True)``
 restores the newest committed step, which row 0 reads and every row
 takes from it. ``fail_at_step`` raises `SimulatedFailure` on every row at
 that step, after the last write has committed.
@@ -33,7 +40,8 @@ rebuilt on the new partition. Parameters and moments are replicated on
 the decoupled rows, or, under FSDP, held in parts of a plan that depends
 on the row count alone, which a regroup keeps: nothing migrates, and the
 rebuild is the regroup. The first sample after every (re)build is skipped
-(`CompileGate`): the step updates in place, so it cannot be warmed.
+(`CompileGate`): the step updates in place, so it cannot be warmed. The
+adaptive trainer on a model axis is not ported (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from repro_torch.train.train_step import (
     ANALYTICS,
     REDUCE,
     TrainStepConfig,
+    check_model_axis,
     build_decoupled_step,
     fsdp_plan_for,
     make_step,
@@ -96,7 +105,18 @@ class Trainer:
         self.resumed: dict | None = None  # {"step", "restore_s"} of the last resume
         self.moment_bytes = 0  # the moments this row held while it stepped
         self.step_fn = None
+        check_model_axis(model, mesh)
+        if tr_cfg.adapt is not None and mesh.shape["model"] > 1:
+            raise ValueError(f"the adaptive trainer on a model axis of {mesh.shape['model']} "
+                             f"is not ported (ROADMAP A8)")
         self.fsdp = fsdp_plan_for(model, mesh, ts_cfg)  # this row's FsdpPlan, or None
+        # the leaves' specs on a model axis (unit by unit under FSDP), else None
+        self.specs = None
+        if model.tp is not None:
+            whole = param_shapes(model, whole=True)
+            m = model.tp.model_size
+            self.specs = sharding.spec_list(whole, m) if self.fsdp is None else [
+                sharding.unit_specs(n, u, m) for n, u in sharding.units_of(whole)]
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int = 0) -> dict:
@@ -161,7 +181,7 @@ class Trainer:
                 t0 = time.perf_counter()
                 state.update(self.restore(last, state))
                 self.resumed = {"step": last, "restore_s": time.perf_counter() - t0}
-                if self.mesh.row == 0:
+                if self.mesh.rank == 0:
                     print(f"[trainer] resumed from step {last}", flush=True)
         adaptive = self.cfg.adapt is not None and self.ts_cfg.mode == "decoupled"
         if adaptive:
@@ -190,26 +210,30 @@ class Trainer:
         def whole(opt):
             return opt if plan is None else sharding.gather_opt_state(plan, self.mesh, opt)
 
+        specs, keep = self.specs, self.mesh.row == 0 and self.mesh.col == 0
+
+        def to_host(tree):
+            """The whole tree of this rank's parts or column slices, on rank
+            (0, 0) (collective: over the column's rows under FSDP, then over
+            row 0's columns on a model axis)."""
+            if fsdp is not None:
+                return sharding.gather_to_host(fsdp, self.mesh, tree, keep, specs)
+            if specs is not None:
+                return sharding.model_to_host(tree, specs, self.mesh, keep)
+            return tree
+
         def save(step: int, params, opt) -> dict | None:
-            """Row 0 writes the whole state (collective where it gathers);
-            the whole moments, without FSDP."""
-            if fsdp is None:
-                whole_opt = whole(opt)
-                if self.mesh.row == 0:
-                    self.checkpointer.save(step, {"params": params, "opt": whole_opt,
-                                                  "step": step})
-                return whole_opt
-            keep = self.mesh.row == 0
-
-            def host(parts):
-                return sharding.gather_to_host(fsdp, self.mesh, parts, keep)
-
-            tree = {"params": host(params),
-                    "opt": {k: host(v) if k in sharding.MOMENTS else v for k, v in opt.items()},
-                    "step": step}
-            if keep:
-                self.checkpointer.save(step, tree)
-            return None
+            """Rank (0, 0) writes the whole state (collective where it
+            gathers); the moments whole over the data rows, without FSDP."""
+            whole_opt = opt if fsdp is not None else whole(opt)
+            if fsdp is not None or self.mesh.row == 0:
+                tree = {"params": to_host(params),
+                        "opt": {k: to_host(v) if k in sharding.MOMENTS else v
+                                for k, v in whole_opt.items()},
+                        "step": step}
+                if keep:
+                    self.checkpointer.save(step, tree)
+            return None if fsdp is not None else whole_opt
 
         final_opt = None  # the last step's whole moments, when its save gathered them
         t0 = time.time()
@@ -237,13 +261,13 @@ class Trainer:
                             event = {"step": step, "regroup": dict(decision.rows),
                                      "predicted_speedup": decision.predicted_speedup}
                             self.adapt_log.append(event)
-                            if self.mesh.row == 0:
+                            if self.mesh.rank == 0:
                                 print(f"[trainer] {json.dumps(event)}", flush=True)
                 if step % self.cfg.log_every == 0 or step == self.cfg.total_steps:
                     row = {"step": step, "loss": float(metrics["loss"]),
                            "wall_s": time.time() - t0}
                     self.metrics_log.append(row)
-                    if self.mesh.row == 0:
+                    if self.mesh.rank == 0:
                         print(f"[trainer] {json.dumps(row)}", flush=True)
                 if step % self.cfg.ckpt_every == 0 or step == self.cfg.total_steps:
                     whole_opt = save(step, params, opt)  # collective: every row gathers
@@ -262,10 +286,11 @@ class Trainer:
     def restore(self, step: int, like_state: dict) -> dict:
         """The committed checkpoint of ``step`` on this model's device, in
         the structure of ``like_state``'s parameters with whole moments;
-        under FSDP, this row's parts of them (`launch.elastic.restore_for_mesh`),
-        whatever row count wrote the files."""
-        if self.fsdp is not None:
-            params = param_shapes(self.model)
+        on a model axis this column's slices of them, and under FSDP this
+        row's parts (`launch.elastic.restore_for_mesh`), whatever world
+        wrote the files."""
+        if self.fsdp is not None or self.specs is not None:
+            params = param_shapes(self.model, whole=True)
             like = {"params": params, "opt": init_opt_state(self.opt_cfg, params), "step": 0}
             return restore_for_mesh(self.cfg.ckpt_dir, step, like, self.mesh, self.fsdp)
         params = tree_meta(like_state["params"])

@@ -13,8 +13,11 @@ them; all bit for bit from the reference's f32 leaves, on the device
 the caller names (`resolve_device`: no device is an error without a
 GPU, never a quiet CPU fallback). `unit_from_numpy` converts one unit
 of the port's tree at a time (`Model.units`), so that an FSDP row takes
-its parts without the whole tree on its device. This module imports no
-JAX.
+its parts without the whole tree on its device. On a model axis
+(``tp``: a rank's `launch.mesh.Mesh`) both
+keep this rank's column slices of what they convert
+(`train.sharding.param_specs`), one unit whole at a time. This module
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.train import sharding
 
 
 def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
@@ -55,12 +59,12 @@ def _stacked(cfg) -> dict[str, int]:
     return {"layers": cfg.n_layers}
 
 
-def params_from_numpy(tree: dict, cfg, device, *, param_dtype=None) -> dict:
+def params_from_numpy(tree: dict, cfg, device, *, param_dtype=None, tp=None) -> dict:
     """The reference's parameter tree (numpy leaves, layers stacked on a
     leading L axis) -> the port's parameters on ``device``. Matmul
     leaves are stored in ``param_dtype``, by default ``cfg.dtype`` (the
     serving path); training passes ``torch.float32`` to keep the
-    reference's f32 leaves as they are."""
+    reference's f32 leaves as they are. ``tp``: this rank's column slices."""
     device = resolve_device(device)
     dtype = cfg.dtype if param_dtype is None else param_dtype
     stacks = _stacked(cfg)
@@ -68,24 +72,32 @@ def params_from_numpy(tree: dict, cfg, device, *, param_dtype=None) -> dict:
            for k, v in tree.items() if k not in stacks}
     for key, depth in stacks.items():
         out[key] = [_convert(_index(tree[key], i), dtype, device) for i in range(depth)]
+    if tp is not None and tp.model_size > 1:
+        out = sharding.shard_model(out, sharding.spec_list(out, tp.model_size),
+                                   tp.model_size, tp.col)
     return out
 
 
-def unit_from_numpy(tree: dict, cfg, unit: str, device, *, param_dtype=None):
+def unit_from_numpy(tree: dict, cfg, unit: str, device, *, param_dtype=None, tp=None):
     """Unit ``unit`` of the port's tree (``embed``, ``layers.i``,
     ``enc_layers.i``, ``dec_layers.i`` or ``rest``, the other top-level
     entries) from the reference's tree, as `params_from_numpy` converts
-    it."""
+    it; ``tp``: this rank's column slices of it."""
     device = resolve_device(device)
     dtype = cfg.dtype if param_dtype is None else param_dtype
     stacks = _stacked(cfg)
     if unit == "embed":
-        return _convert(tree["embed"], dtype, device)
-    if unit == "rest":
-        return {k: _convert(v, dtype, device, "norm" in k)
-                for k, v in tree.items() if k not in stacks and k != "embed"}
-    key, i = unit.rsplit(".", 1)
-    return _convert(_index(tree[key], int(i)), dtype, device)
+        out = _convert(tree["embed"], dtype, device)
+    elif unit == "rest":
+        out = {k: _convert(v, dtype, device, "norm" in k)
+               for k, v in tree.items() if k not in stacks and k != "embed"}
+    else:
+        key, i = unit.rsplit(".", 1)
+        out = _convert(_index(tree[key], int(i)), dtype, device)
+    if tp is not None and tp.model_size > 1:
+        out = sharding.shard_model(out, sharding.unit_specs(unit, out, tp.model_size),
+                                   tp.model_size, tp.col)
+    return out
 
 
 def _index(tree, i: int):

@@ -1,0 +1,218 @@
+"""World functions of tests/test_torch_model_axis.py: each runs in every rank
+of a `repro_torch.launch.mesh.spawn` world of (data, model) ranks on the
+CPU and returns numpy results. This module imports no JAX (the ranks load
+only the port); the test file holds the results against the JAX package.
+
+Every case starts from the reference's initial parameters, which each rank
+takes as its column's slices (`utils.convert.params_from_numpy(tp=mesh)`,
+or unit by unit into its FSDP parts). Per step mode: one SGD step (lr 1)
+through `make_step`, its new parameters gathered whole over both axes,
+and a 3-step AdamW `Trainer` run's losses (the run checkpoints at steps 2
+and 3). The clip cases take the SGD step with ``grad_clip`` small enough
+to bind. A second function restores a (2, 2) run's step-2 files onto
+another world and resumes it.
+"""
+import dataclasses
+import os
+import shutil
+
+import numpy as np
+import torch
+
+from torch_worlds import ADAMW_LR, FAMILY_ALPHA, FAMILY_STEPS, _np, family_batch, \
+    family_pipeline, unflatten_params
+
+DATA, MODEL = 2, 2
+MODES = ("conventional", "decoupled", "overlap")
+CKPT_EVERY = 2  # every AdamW run saves at step 2 and at its last, step 3
+CLIP = 0.05  # the clip cases' max norm: far under the smoke gradients' norms
+
+
+def case_config(case: dict):
+    from repro_torch.configs import get_smoke
+
+    cfg = dataclasses.replace(get_smoke(case["name"]), dtype=torch.float32)
+    if case.get("n_kv_heads"):
+        cfg = dataclasses.replace(cfg, n_kv_heads=case["n_kv_heads"])
+    return cfg
+
+
+def sgd_config(clip: float = 0.0):
+    from repro_torch.train.optimizer import OptConfig
+
+    return OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=clip,
+                     weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
+
+
+def adamw_config():
+    from repro_torch.train.optimizer import OptConfig
+
+    return OptConfig(lr=ADAMW_LR, warmup_steps=0, total_steps=FAMILY_STEPS)
+
+
+def run_tag(case: dict, fsdp: bool, mode: str) -> str:
+    return f"{case['label']}/{'fsdp' if fsdp else 'whole'}/{mode}"
+
+
+def _whole(mesh, model, params, plan) -> list:
+    """The whole parameters of this rank's state as numpy leaves
+    (collective): FSDP parts gathered over the column, slices over the row."""
+    from repro_torch.train import sharding
+    from repro_torch.train.train_step import param_shapes
+    from repro_torch.utils.treeutil import tree_flatten
+
+    if plan is not None:
+        params = sharding.FsdpWorld(plan, mesh).gather_all(params)
+    if model.tp is not None:
+        specs = sharding.spec_list(param_shapes(model, whole=True), model.tp.model_size)
+        params = sharding.gather_model(params, specs, mesh)
+    return [_np(x) for x in tree_flatten(params)[0]]
+
+
+def _start(mesh, model, tree, cfg, plan, opt_cfg):
+    """This rank's parameters and optimizer state from the reference's
+    tree: its column's slices, or its FSDP parts of them unit by unit; in
+    overlap mode without FSDP, ZeRO-1's moment parts."""
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.utils.convert import params_from_numpy, unit_from_numpy
+
+    if plan is not None:
+        params = plan.shard_units(lambda u: unit_from_numpy(
+            tree, cfg, u, "cpu", param_dtype=torch.float32, tp=mesh))
+    else:
+        params = params_from_numpy(tree, cfg, "cpu", param_dtype=torch.float32, tp=mesh)
+    return params, init_opt_state(opt_cfg, params)
+
+
+def model_axis_cases(mesh, inputs_path: str, ckpt_root: str, cases: list) -> dict:
+    """For each case, its ``modes`` with FSDP off and, with ``fsdp``, on:
+    the SGD step (``clip``: with ``grad_clip`` `CLIP`), the AdamW trainer
+    (``adamw``) and this rank's stored leaves at step 0. Torch on one
+    thread a rank."""
+    from repro_torch.data.pipeline import row_shard
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train import sharding
+    from repro_torch.train.train_step import TrainStepConfig, make_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.utils.treeutil import tree_flatten
+
+    torch.set_num_threads(1)
+    inp = dict(np.load(inputs_path))
+    n = mesh.n_rows
+    out = {"rank": np.int64(mesh.rank), "row": np.int64(mesh.row), "col": np.int64(mesh.col)}
+    for case in cases:
+        label = case["label"]
+        cfg = case_config(case)
+        model = build(cfg, device="cpu", tp=mesh)
+        tree = unflatten_params(inp, f"{label}/p0/")
+        # the stored leaves at step 0: converted, and drawn by the trainer
+        stored = _start(mesh, model, tree, cfg, None, sgd_config())[0]
+        out.update({f"{label}/stored/{i}": _np(x)
+                    for i, x in enumerate(tree_flatten(stored)[0])})
+        for fsdp in (False, True) if case.get("fsdp") else (False,):
+            for mode in case["modes"]:
+                tag = run_tag(case, fsdp, mode)
+                pipe = family_pipeline(cfg, case)
+                ts = TrainStepConfig(mode=mode, reduce_alpha=FAMILY_ALPHA, fsdp=fsdp)
+                runs = [("sgd", sgd_config())]
+                if case.get("clip"):
+                    runs.append(("clip", sgd_config(CLIP)))
+                for name, opt_cfg in runs:
+                    step = make_step(model, mesh, opt_cfg, ts)
+                    params, opt = _start(mesh, model, tree, cfg, step.fsdp, opt_cfg)
+                    if mode == "overlap" and step.fsdp is None:
+                        opt = sharding.shard_opt_state(
+                            sharding.zero1_plan(params, n, mesh.row), opt)
+                    if fsdp and name == "sgd":
+                        out[f"{tag}/parts"] = np.concatenate([_np(p) for p in params])
+                    batch = row_shard(family_batch(pipe, mode, 0, n), mesh.row, n)
+                    new, _, metrics = step(params, opt, batch)
+                    out[f"{tag}/{name}/fsdp_on"] = np.bool_(step.fsdp is not None)
+                    out[f"{tag}/{name}/loss"] = np.float64(metrics["loss"])
+                    out.update({f"{tag}/{name}/new/{i}": x
+                                for i, x in enumerate(_whole(mesh, model, new, step.fsdp))})
+                    out[f"{tag}/{name}/model_collectives"] = np.int64(
+                        mesh.stats.model_collectives)
+                if not case.get("adamw"):
+                    continue
+                tr = Trainer(model, mesh, pipe, adamw_config(), ts,
+                             TrainerConfig(total_steps=FAMILY_STEPS, log_every=1,
+                                           ckpt_every=CKPT_EVERY, keep=FAMILY_STEPS,
+                                           ckpt_dir=os.path.join(ckpt_root, tag)))
+                if not fsdp and mode == MODES[0]:  # the trainer's own draw from seed 0
+                    out.update({f"{label}/init/{i}": _np(x) for i, x in
+                                enumerate(tree_flatten(tr.init_state(0)["params"])[0])})
+                params, opt = _start(mesh, model, tree, cfg, tr.fsdp, adamw_config())
+                state = tr.run({"params": params, "opt": opt, "step": 0}, resume=False)
+                tr.close()
+                out[f"{tag}/adamw/loss"] = np.array([r["loss"] for r in tr.metrics_log])
+                out.update({f"{tag}/adamw/params/{i}": x for i, x in
+                            enumerate(_whole(mesh, model, state["params"], tr.fsdp))})
+    return out
+
+
+def restore_case(mesh, inputs_path: str, ckpt_root: str, case: dict, src_tag: str,
+                 sgd_cases: list) -> dict:
+    """On this world: the SGD steps of ``sgd_cases`` (for the (2, 2) steps
+    to be held against), then the (2, 2) run ``src_tag``'s step-2 files
+    restored (gathered whole, against the files) and resumed to step 3 in
+    conventional mode."""
+    from repro_torch.data.pipeline import row_shard
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import TrainStepConfig, make_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.utils.convert import params_from_numpy
+
+    torch.set_num_threads(1)
+    inp = dict(np.load(inputs_path))
+    n = mesh.n_rows
+    out = {}
+    for c in sgd_cases:
+        cfg = case_config(c)
+        model = build(cfg, device="cpu", tp=mesh)
+        tree = unflatten_params(inp, f"{c['label']}/p0/")
+        for mode in c["modes"]:
+            pipe = family_pipeline(cfg, c)
+            ts = TrainStepConfig(mode=mode, reduce_alpha=FAMILY_ALPHA, fsdp=False)
+            step = make_step(model, mesh, sgd_config(), ts)
+            params = params_from_numpy(tree, cfg, "cpu", param_dtype=torch.float32, tp=mesh)
+            opt = init_opt_state(sgd_config(), params)
+            if mode == "overlap":
+                from repro_torch.train import sharding
+
+                opt = sharding.shard_opt_state(sharding.zero1_plan(params, n, mesh.row), opt)
+            batch = row_shard(family_batch(pipe, mode, 0, n), mesh.row, n)
+            new, _, _ = step(params, opt, batch)
+            out.update({f"{run_tag(c, False, mode)}/sgd/new/{i}": x
+                        for i, x in enumerate(_whole(mesh, model, new, None))})
+
+    cfg = case_config(case)
+    model = build(cfg, device="cpu", tp=mesh)
+    pipe = family_pipeline(cfg, case)
+    src = os.path.join(ckpt_root, src_tag)
+    dst = os.path.join(ckpt_root, f"restored_{n}x{mesh.model_size}")
+    if mesh.rank == 0:
+        os.makedirs(dst, exist_ok=True)
+        shutil.copytree(os.path.join(src, f"step_{CKPT_EVERY:08d}"),
+                        os.path.join(dst, f"step_{CKPT_EVERY:08d}"), dirs_exist_ok=True)
+    mesh.barrier()
+    tr = Trainer(model, mesh, pipe, adamw_config(),
+                 TrainStepConfig(mode="conventional", reduce_alpha=FAMILY_ALPHA),
+                 TrainerConfig(total_steps=FAMILY_STEPS, log_every=1, ckpt_dir=dst))
+    params = params_from_numpy(unflatten_params(inp, f"{case['label']}/p0/"), cfg, "cpu",
+                               param_dtype=torch.float32, tp=mesh)
+    back = tr.restore(CKPT_EVERY, {"params": params})
+    out["restored_step"] = np.int64(back["step"])
+    for k, tree in (("params", back["params"]), ("m", back["opt"]["m"]),
+                    ("v", back["opt"]["v"])):
+        out.update({f"restored/{k}/{i}": x
+                    for i, x in enumerate(_whole(mesh, model, tree, tr.fsdp))})
+    del back
+    state = tr.run({"params": params, "opt": init_opt_state(adamw_config(), params),
+                    "step": 0})
+    tr.close()
+    out["resumed"] = np.int64(tr.resumed["step"])
+    out["loss"] = np.array([r["loss"] for r in tr.metrics_log])
+    out["step"] = np.int64(state["step"])
+    return out

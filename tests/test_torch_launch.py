@@ -128,23 +128,27 @@ def _env():
 
 def test_launcher_and_example_run_end_to_end(tmp_path):
     """`python -m repro_torch.launch.train --smoke --device cpu` in each
-    step mode (4 rows, 4 steps, all at once), once more for the MoE
-    family (``--arch mixtral-8x7b``, conventional: its shards route as one
-    global batch), and the training example, each in a subprocess: exit
-    0, the launcher's last word, the committed checkpoint of the last
-    step; a second launch resumes from it."""
+    step mode (4 rows, one column, 4 steps, all at once), once more for
+    the MoE family (``--arch mixtral-8x7b``, conventional: its shards
+    route as one global batch), and the training example on a (2, 2)
+    world, each in a subprocess: exit 0, the launcher's last word, the
+    committed checkpoint of the last step; a second launch, on the
+    launcher's default model axis of 2 over 2 rows, resumes from the
+    conventional run's files."""
     procs = {}
     runs = [(mode, "tinyllama-1.1b", mode) for mode in MODES] + [
         ("mixtral", "mixtral-8x7b", "conventional")]
     for name, arch, mode in runs:
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
-               "--device", "cpu", "--data", "4", "--steps", str(LAUNCH_STEPS), "--seq", "32",
-               "--batch", "8", "--mode", mode, "--ckpt-dir", str(tmp_path / name)]
+               "--device", "cpu", "--data", "4", "--model", "1", "--steps", str(LAUNCH_STEPS),
+               "--seq", "32", "--batch", "8", "--mode", mode,
+               "--ckpt-dir", str(tmp_path / name)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                        text=True, env=_env(), cwd=REPO)
     procs["example"] = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.examples.train_lm", "--device", "cpu",
-         "--steps", "3", "--layers", "2", "--d-model", "64", "--heads", "4", "--kv-heads", "2",
+         "--data", "2", "--model", "2", "--steps", "3", "--layers", "2", "--d-model", "64",
+         "--heads", "4", "--kv-heads", "2",
          "--seq", "32", "--batch", "8", "--vocab", "256", "--ckpt-dir", str(tmp_path / "example")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=_env(), cwd=REPO)
     outs = {k: p.communicate(timeout=240) for k, p in procs.items()}

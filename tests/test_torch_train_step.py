@@ -32,6 +32,7 @@ from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import value_and_grad
 from repro_torch.launch.mesh import Mesh, make_host_mesh, spawn
 from repro_torch.launch.train import main as launch_main
+from repro_torch.launch.train import parse_args
 from repro_torch.utils.convert import params_from_numpy
 from repro_torch.utils.treeutil import tree_flatten, tree_leaves
 from torch_worlds import ALPHA, N_ROWS, train_cases, unflatten_params
@@ -147,7 +148,9 @@ def test_model_loss_without_autograd_needs_no_checkpoint():
 
 def test_unported_modes_and_options_are_refused():
     """What is still unported raises naming its ROADMAP item: a model axis
-    (A8). Every family now trains: the MoE, hybrid, VLM and
+    for any family but the dense one (A8; the dense family's, the
+    launcher's default ``--model 2``, is held against the reference in
+    tests/test_torch_model_axis.py). Every family now trains: the MoE, hybrid, VLM and
     encoder-decoder models build their step in each mode, and the
     reference's ``runtime_skip``, ``zero1``, ``fsdp`` and
     ``fsdp_threshold`` options are fields of `TrainStepConfig`, FSDP's
@@ -167,10 +170,13 @@ def test_unported_modes_and_options_are_refused():
         reshard_state({"x": torch.zeros(4)},
                       GroupedMesh.build_rows(Mesh(n_rows=8, device="cpu"), rows={"reduce": 2}),
                       GroupedMesh.build_rows(Mesh(n_rows=4, device="cpu"), rows={"reduce": 1}))
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_host_mesh(4, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        launch_main(["--smoke", "--device", "cpu", "--model", "2"])
+    assert make_host_mesh(4, 2, device="cpu").shape == {"data": 4, "model": 2}
+    assert parse_args(["--smoke", "--device", "cpu"]).model == 2
+    for name in ("mixtral-8x7b", "hymba-1.5b", "whisper-small", "pixtral-12b", "mamba2-130m"):
+        with pytest.raises(ValueError, match="ROADMAP A8"):
+            build(get_smoke(name), device="cpu", tp=make_host_mesh(4, 2, device="cpu"))
+        with pytest.raises(ValueError, match="ROADMAP A8"):
+            launch_main(["--arch", name, "--smoke", "--device", "cpu", "--model", "2"])
     fields = {f.name for f in dataclasses.fields(TrainStepConfig)}
     assert {"runtime_skip", "zero1", "fsdp", "fsdp_threshold"} <= fields
     assert (TrainStepConfig().fsdp, TrainStepConfig().fsdp_threshold) == ("auto", 6e9)
