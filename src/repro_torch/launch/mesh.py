@@ -335,9 +335,9 @@ class Mesh:
         phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
 
 
-def make_host_mesh(data: int = 4, model: int = 1, device=None) -> Mesh:
+def make_host_mesh(data: int = 4, model: int = 2, device=None) -> Mesh:
     """A planning mesh of ``data`` rows by ``model`` columns, rank 0 (no
-    world: its transfers raise)."""
+    world: its transfers raise); (4, 2) by default, as the reference's."""
     return Mesh(n_rows=data, device=device, model_size=model)
 
 

@@ -21,11 +21,16 @@ either.
 
 ``--model`` defaults to 2, as the reference's does: tensor parallelism
 over a model axis of that many columns, for the dense family
-(tinyllama-1.1b, qwen1.5-0.5b, qwen2.5-3b, starcoder2-15b); every other
-family needs ``--model 1`` (ROADMAP A8). One 80 GB card holds, at 16
-bytes a parameter for f32 weights and AdamW moments (less under FSDP):
-tinyllama-1.1b and qwen1.5-0.5b on (4, 2); qwen2.5-3b on (2, 2) under
-FSDP; starcoder2-15b on none (242 GB of state).
+(tinyllama-1.1b, qwen1.5-0.5b, qwen2.5-3b, starcoder2-15b) and the MoE
+family (mixtral-8x7b, llama4-scout-17b-a16e: expert parallelism where the
+experts divide the axis, else each expert's ff split); the SSM, hybrid,
+VLM and encoder-decoder families need ``--model 1`` (ROADMAP A8). One 80
+GB card holds, at 16 bytes a parameter for f32 weights and AdamW moments
+(less under FSDP): tinyllama-1.1b and qwen1.5-0.5b on (4, 2); qwen2.5-3b
+on (2, 2) under FSDP; mixtral-8x7b at cut depth (one layer, 1.71e9
+parameters, on (2, 2) under FSDP); llama4-scout-17b-a16e at no depth
+(one layer at full width is ~4.3e9 parameters, 68.3 GB with its
+moments); starcoder2-15b on none (242 GB of state).
 """
 from __future__ import annotations
 
@@ -52,7 +57,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default="/tmp/repro_launch_train")
     ap.add_argument("--data", type=int, default=4, help="data rows of the world")
     ap.add_argument("--model", type=int, default=2,
-                    help="model-axis columns of the world (tensor parallelism; dense family)")
+                    help="model-axis columns of the world (tensor parallelism; the dense and MoE "
+                         "families)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 

@@ -31,8 +31,10 @@ world with more than one column gives the model of this rank's column
 (``model.tp``, that mesh): ``init`` and ``init_unit`` draw the
 whole parameters (or unit) from the seed, as one process does, and keep
 this column's slices (`train.sharding.param_specs`), and ``loss`` runs the
-tensor-parallel forward on them. Only the dense family has it; any other
-family on a model axis raises ValueError (ROADMAP A8).
+tensor-parallel forward on them. The dense and MoE families have it (an
+MoE layer's experts split over E, or over each expert's ``ff``); the SSM,
+hybrid, VLM and encoder-decoder families on a model axis raise ValueError
+(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -141,20 +143,21 @@ def _unit_init(fn, cfg, dev, units: tuple[str, ...], tp=None):
 def model_axis(cfg, tp):
     """``tp`` (a rank's `launch.mesh.Mesh`, or None) where its model axis
     has more than one column, else None. A model axis of more than one
-    column is ported for the dense family alone."""
+    column is ported for the dense and MoE families."""
     if tp is None or tp.model_size == 1:
         return None
-    if cfg.family != "dense" or cfg.n_experts or cfg.hybrid or cfg.frontend:
+    if cfg.family not in ("dense", "moe") or cfg.hybrid or cfg.frontend:
         raise ValueError(f"{cfg.name}: a model axis of {tp.model_size} for the {cfg.family} "
                          f"family is not ported (ROADMAP A8: the model axis is ported for "
-                         f"the dense family only); use a model axis of 1")
+                         f"the dense and MoE families; the SSM, hybrid, VLM and "
+                         f"encoder-decoder families are left); use a model axis of 1")
     return tp
 
 
 def build(cfg, device=None, *, tp=None) -> Model:
     """The model of ``cfg`` on ``device``; ``tp``: the rank's
-    `launch.mesh.Mesh`, for a dense model on a world of more than one
-    column (this rank's column of the model)."""
+    `launch.mesh.Mesh`, for a dense or MoE model on a world of more than
+    one column (this rank's column of the model)."""
     dev = resolve_device(device)
     axis = model_axis(cfg, tp)
     if cfg.family == "encdec":

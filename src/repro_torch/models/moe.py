@@ -36,6 +36,13 @@ stream: per top-k round one all-gather of every row's per-(group,
 expert) choice counts gives each row its slot offsets, and one
 all-reduce of the routed tokens' probability sums, routed counts and
 entropies gives the global ``me``, ``ce`` and ``router_entropy``.
+
+On a model axis (`apply_moe`'s ``tp``) the layer is the reference's
+under GSPMD, by hand: its experts shard over E where E divides the axis
+(each column computing its experts' rows; the router's column slices
+gathered whole, so every column routes alike), else over each expert's
+``ff``; one all-reduce of the combined f32 output a layer; each column
+routes over its own column's rows.
 """
 from __future__ import annotations
 
@@ -221,8 +228,24 @@ def _count_exchange(world: LayerWorld, g0: int, g1: int, g_glob: int):
     return exchange
 
 
+def expert_split(p: Params, cfg, tp) -> str | None:
+    """How a model axis splits a layer's experts, read from their shapes
+    (`train.sharding.param_specs`): ``"experts"`` where each column holds
+    E / M of them and the router's columns for them (expert parallelism),
+    ``"ff"`` where each column holds every expert's slice of ``ff`` and
+    the router whole (tensor parallelism inside the experts), None
+    without a model axis or where the experts are whole on every column."""
+    if tp is None:
+        return None
+    if p["w_gate"].shape[0] != cfg.n_experts:
+        return "experts"
+    if p["w_gate"].shape[-1] != cfg.d_ff:
+        return "ff"
+    return None
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg, dtype=torch.bfloat16,
-              world: LayerWorld | None = None):
+              world: LayerWorld | None = None, tp=None):
     """x: (B, S, d) -> (out (B, S, d) in ``dtype``, {aux_loss, router_entropy}),
     the reference's Switch-style load-balancing loss and routing entropy
     (f32 scalars). With ``world`` (`RouteWorld.at`), ``x`` is this row's
@@ -230,57 +253,113 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, dtype=torch.bfloat16,
     stream, ``aux_loss`` and ``router_entropy`` are the global batch's
     (no gradient), and ``aux_share`` is this row's differentiable share
     of ``aux_loss``, ``E * sum(probsum_row / N * ce_global)`` over the N
-    routed tokens of the world, so that the rows' shares sum to it."""
+    routed tokens of the world, so that the rows' shares sum to it.
+
+    ``tp`` (a rank's `launch.mesh.Mesh` on a model axis; ``p`` this
+    column's slices, `expert_split`): under the ``"experts"`` split the
+    router's column slices are gathered whole (``d x E`` elements, a
+    layer), so every column computes the whole logits, their input
+    gradient and the router's gradient as one process does (and takes its
+    slice of that gradient), rather than partial input gradients that an
+    all-reduce would add in another order. Every column builds the same
+    `Route` (and, with ``world``, the same exchanges over its column's
+    rows) and dispatches the (round, token) pairs that its experts take,
+    the others to the spare row; under the ``"ff"`` split every pair, its
+    experts' outputs partial sums. The combine sums the column's weighted
+    rows in f32, the ragged tail joins them (expert 0's: column 0's alone
+    under the ``"experts"`` split, zeros elsewhere; each column's ``ff``
+    slice of it under ``"ff"``), and one all-reduce of that f32 sum
+    precedes the one cast to ``dtype``. The tokens the columns' partial
+    products read go through `layers.copy_to_model`, and so do the
+    combine weights, whose gradient each column holds for its own rows
+    alone, so that every column back-propagates the whole gradient of the
+    router's probabilities. The aux metrics come from the whole
+    probabilities, alike on every column."""
     bsz, s, d = x.shape
     e = cfg.n_experts
+    split = expert_split(p, cfg, tp)
     tokens = x.reshape(-1, d)
+    # the input of the column's partial products, the experts' and the
+    # ragged tail's: copied once whole, so that every column all-reduces
+    # one input gradient in its backward, the tail's too, which under the
+    # "experts" split column 0 alone computes
+    tokens_tp = tokens if split is None else layers.copy_to_model(tokens, tp)
     n_tok = tokens.shape[0]
     if world is None:
         t = min(DEFAULT_GROUP, n_tok)
         g, lead, present, exchange = n_tok // t, 0, None, None
         n_routed = g * t
-        xg = tokens[:n_routed].reshape(g, t, d)
+
+        def grouped(tok):
+            return tok[:n_routed].reshape(g, t, d)
     else:
         t, g_glob, g0, lead, n_routed = _world_layout(world, n_tok)
         g = -(-(lead + n_routed) // t)  # the groups this row's routed tokens touch
-        # this row's routed tokens at their places in those groups, the
-        # other rows' places empty
-        xg = F.pad(tokens[:n_routed], (0, 0, lead, g * t - lead - n_routed)).reshape(g, t, d)
+
+        def grouped(tok):
+            # this row's routed tokens at their places in those groups, the
+            # other rows' places empty
+            return F.pad(tok[:n_routed], (0, 0, lead, g * t - lead - n_routed)).reshape(g, t, d)
+
         present = torch.zeros(g * t, dtype=torch.bool, device=x.device)
         present[lead:lead + n_routed] = True
         present = present.reshape(g, t)
         exchange = _count_exchange(world, g0, g0 + g, g_glob)
-    r = route(p, xg, cfg, dtype, present=present, exchange=exchange)
+    xg = grouped(tokens)
+    xg_tp = xg if split is None else grouped(tokens_tp)
+    router = p
+    if split == "experts":  # the router whole (its gradient: this column's slice)
+        router = {"router": {k: layers.gather_from_model(v, tp)
+                             for k, v in p["router"].items()}}
+    r = route(router, xg, cfg, dtype, present=present, exchange=exchange)
     k, cap = r.choice.shape[0], r.capacity
 
-    # dispatch: each kept (round, group, token) to its (group, expert, slot)
-    # row of ``xe``; a dropped one to a spare last row that no expert reads
-    # (static shapes: no host synchronisation)
-    n_rows = g * e * cap
+    # dispatch: each kept (round, group, token) that this column's experts
+    # take to its (group, expert, slot) row of ``xe``; the others to a
+    # spare last row that no expert reads (static shapes: no host
+    # synchronisation)
+    e_loc = p["w_gate"].shape[0]
+    first = tp.col * e_loc if split == "experts" else 0
+    take = r.keep
+    if split == "experts":
+        take = take & (r.choice >= first) & (r.choice < first + e_loc)
+    n_rows = g * e_loc * cap
     grp = torch.arange(g, device=x.device)[None, :, None]
-    rows = torch.where(r.keep, (grp * e + r.choice) * cap + r.slot, n_rows).reshape(k, g * t)
+    rows = torch.where(take, (grp * e_loc + r.choice - first) * cap + r.slot,
+                       n_rows).reshape(k, g * t)
     xe = torch.zeros((n_rows + 1, d), dtype=dtype, device=x.device)
-    xe[rows.reshape(-1)] = xg.reshape(g * t, d).to(dtype).repeat(k, 1)
-    xe = xe[:n_rows].reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
-    ye = _experts(p, xe, dtype).reshape(e, g, cap, d).transpose(0, 1).reshape(n_rows, d)
+    xe[rows.reshape(-1)] = xg_tp.reshape(g * t, d).to(dtype).repeat(k, 1)
+    xe = xe[:n_rows].reshape(g, e_loc, cap, d).transpose(0, 1).reshape(e_loc, g * cap, d)
+    ye = _experts(p, xe, dtype).reshape(e_loc, g, cap, d).transpose(0, 1).reshape(n_rows, d)
     ye = torch.cat([ye, ye.new_zeros((1, d))])
 
     # combine: each round's row weighted by the chosen expert's probability
     # cast to ``dtype`` (as the reference casts its combine tensor), summed
-    # in f32 and rounded once; a dropped round reads the zero row
+    # in f32 and rounded once; a dropped round (or another column's) reads
+    # the zero row
     w = torch.gather(r.probs, -1, r.choice.permute(1, 2, 0)).permute(2, 0, 1)  # (k, g, t)
     w = w.reshape(k, g * t, 1).to(dtype).float()
+    if split is not None:
+        w = layers.copy_to_model(w, tp)
     out = w[0] * ye[rows[0]].float()
     for i in range(1, k):
         out = out + w[i] * ye[rows[i]].float()
-    out = out.to(dtype)[lead:lead + n_routed]
+    out = out[lead:lead + n_routed]
     if n_routed < n_tok:  # the ragged tail: expert 0, densely, unweighted
-        tail = _experts({k_: p[k_][:1] for k_ in ("w_gate", "w_up", "w_down")},
-                        tokens[n_routed:].to(dtype)[None], dtype)[0]
+        if split == "experts" and tp.col != 0:  # expert 0 lives on column 0
+            tail = out.new_zeros((n_tok - n_routed, d))
+        else:
+            tail = _experts({k_: p[k_][:1] for k_ in ("w_gate", "w_up", "w_down")},
+                            tokens_tp[n_routed:].to(dtype)[None], dtype)[0].float()
         out = torch.cat([out, tail])
-    y = out.reshape(bsz, s, d)
+    if split is not None:
+        out = layers.reduce_from_model(out, tp)
+    y = out.to(dtype).reshape(bsz, s, d)
     if cfg.shared_expert:
-        y = y + layers.apply_mlp(p["shared"], x, "swiglu", dtype)
+        if tp is None:
+            y = y + layers.apply_mlp(p["shared"], x, "swiglu", dtype)
+        else:
+            y = y + layers.apply_mlp_tp(p["shared"], x, "swiglu", cfg.d_ff, tp, dtype)
 
     routed = (F.one_hot(r.choice, e) * r.keep[..., None]).amax(0)  # (g, t, E)
     entropy = -torch.sum(r.probs * torch.log(r.probs + 1e-9), dim=-1)  # (g, t)

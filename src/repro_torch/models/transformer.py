@@ -206,10 +206,10 @@ def _attention_full(cfg, p, h, positions, window, dtype, impl=None, tp=None):
 def _ffn(cfg, p, h, dtype, world=None, tp=None):
     """A layer's feed-forward on its normed input -> (out, aux): the MoE
     layer with its aux metrics (routed over ``world``, a
-    `moe.LayerWorld`, when given), or the MLP with none (tensor-parallel
-    over ``tp``, `layers.apply_mlp_tp`)."""
+    `moe.LayerWorld`, when given), or the MLP with none; both
+    tensor-parallel over ``tp`` (`moe.apply_moe`, `layers.apply_mlp_tp`)."""
     if cfg.n_experts:
-        return moe.apply_moe(p["moe"], h, cfg, dtype, world=world)
+        return moe.apply_moe(p["moe"], h, cfg, dtype, world=world, tp=tp)
     if tp is not None:
         return layers.apply_mlp_tp(p["mlp"], h, cfg.mlp_kind, cfg.d_ff, tp, dtype), {}
     return layers.apply_mlp(p["mlp"], h, cfg.mlp_kind, dtype), {}
@@ -263,11 +263,12 @@ def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, extra_embeds=None,
     ``aux_share``, `moe.apply_moe`); the recompute reads the exchanges the
     forward stashed. ``tp`` (the rank's `launch.mesh.Mesh` of a world of
     more than one column): ``params`` are this
-    column's slices (`train.sharding.param_specs`) of a dense model, and
-    the forward is the reference's under GSPMD on a model axis, by hand:
-    the embedding looked up in a vocabulary-sharded table, each layer's
-    attention and MLP tensor-parallel; the residual stream is whole on
-    every column."""
+    column's slices (`train.sharding.param_specs`) of a dense or MoE
+    model, and the forward is the reference's under GSPMD on a model
+    axis, by hand: the embedding looked up in a vocabulary-sharded table,
+    each layer's attention and MLP tensor-parallel, an MoE layer's experts
+    split over the columns (`moe.apply_moe`); the residual stream is whole
+    on every column."""
     if cfg.family == "encdec":
         raise ValueError("an encoder-decoder model runs models.encdec, not forward_lm")
     if impl not in (None, "ref"):

@@ -33,7 +33,11 @@ spec names ``"model"`` (`shard_model`; whole where the spec is all None).
 The reference evaluates its rule on the stacked ``(L, ...)`` layer leaves
 of its scanned tree, and the rule reads the dimension count, so the port,
 which keeps layers as lists (`LAYER_LISTS`), evaluates it on the stacked
-name and shape and drops the leading ``L``. ZeRO-1's and FSDP's plans
+name and shape and drops the leading ``L`` (where the rule names ``L``
+itself, llama4's shared expert, `spec_list`'s port rule shards its
+``ff``). An MoE layer's experts shard over E where E divides the axis
+(expert parallelism, the router's E columns with them), else over each
+expert's ``ff``. ZeRO-1's and FSDP's plans
 then partition the column's slices among the column's data rows, and
 every data-axis collective of a step runs over the column. The
 reference's ``REPRO_REPLICATE_SSM`` variable is the ``replicate_ssm``
@@ -140,20 +144,29 @@ def _leaf_paths(tree: Any, names: tuple = (), depth: int | None = None) -> list:
 
 def spec_list(params: Any, model_size: int, *, replicate_ssm: bool = False) -> list[tuple]:
     """`param_specs` as a list in the leaves' `tree_flatten` order. A
-    layer leaf's spec drops the stacked leaf's leading ``L`` entry, which
-    names the model axis for one kind of leaf only: a stacked MoE weight
-    of three dimensions whose ``L`` divides the axis (llama4's shared
-    expert, ``(L, d, ff)``, whose expert dimension the rule takes to be
-    ``L``); such a layer would live on one column, which a per-layer spec
-    cannot say (ROADMAP A8: the model axis for the MoE family)."""
+    layer leaf's spec drops the stacked leaf's leading ``L`` entry.
+
+    One port rule: the rule names ``L`` itself for one kind of stacked
+    leaf, an MoE weight of three dimensions whose ``L`` divides the axis
+    (llama4's shared expert ``w_gate``/``w_up``, ``(L, d, ff)``, whose
+    expert dimension the rule takes to be ``L``), which would put whole
+    layers on one column, and no per-layer spec can say that. Such a leaf
+    takes the spec the rule gives where ``L`` does not divide the axis:
+    its ``ff`` (last) dimension, the dense MLP's column split, beside the
+    ``w_down`` rows the rule already shards over ``ff``
+    (`models.layers.apply_mlp_tp` serves the pair). A rank holds as many
+    elements as under the reference's split, the function is the same,
+    and checkpoints hold whole trees."""
     out = []
     for (names, depth), leaf in zip(_leaf_paths(params), tree_leaves(params)):
         shape = tuple(leaf.shape)
         if depth is None:
             out.append(spec_for_leaf(names, shape, model_size, replicate_ssm=replicate_ssm))
-        else:
-            out.append(spec_for_leaf(names, (depth,) + shape, model_size,
-                                     replicate_ssm=replicate_ssm)[1:])
+            continue
+        spec = spec_for_leaf(names, (depth,) + shape, model_size, replicate_ssm=replicate_ssm)
+        if spec[0] == MODEL:  # the port rule: the spec of a stack of one layer
+            spec = spec_for_leaf(names, (1,) + shape, model_size, replicate_ssm=replicate_ssm)
+        out.append(spec[1:])
     return out
 
 

@@ -55,8 +55,8 @@ reference's; ``aux_loss`` and ``router_entropy`` are reported as the
 world computed them. The decoupled step is per row in the reference too
 (``shard_map``): each compute row routes its own shard.
 
-The model axis (a world of more than one column, a dense model built
-with ``tp=mesh``): each rank holds its column's slices of the parameters
+The model axis (a world of more than one column, a dense or MoE model
+built with ``tp=mesh``): each rank holds its column's slices of the parameters
 (`train.sharding.param_specs`) and computes the tensor-parallel forward
 and backward (`models.transformer.forward_lm`'s ``tp``). Every mode runs
 as above in each column over the column's data rows (`launch.mesh.Mesh`
@@ -66,9 +66,11 @@ column's slices, and the decoupled step's stream, which carries each
 column's gradient slices to that column's reducer row. Clipping and the
 analytics statistics count every element of the gradient once: the
 squares of sharded leaves are summed over the model axis too, those of
-whole leaves over one column (`optimizer.model_axis_norm`). Not ported:
-the model axis for the other families, and expert parallelism over it
-(ROADMAP A8).
+whole leaves over one column (`optimizer.model_axis_norm`). An MoE
+model's experts split over the columns (`models.moe.apply_moe`), and
+each column routes over its own rows (`models.moe.RouteWorld` on the
+column's data rows). Not ported: the model axis for the SSM, hybrid,
+VLM and encoder-decoder families (ROADMAP A8).
 """
 from __future__ import annotations
 

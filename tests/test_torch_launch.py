@@ -77,8 +77,8 @@ def test_build_for_arch_yields_the_reference_batches(name, shape, skew):
 
 
 def test_planning_mesh_and_production_device_count():
-    mesh = make_host_mesh(4, device="cpu")
-    assert mesh.n_rows == 4 and mesh.shape == {"data": 4, "model": 1} and not mesh.in_world
+    mesh = make_host_mesh(4, device="cpu")  # model=2 by default, as the reference's
+    assert mesh.n_rows == 4 and mesh.shape == {"data": 4, "model": 2} and not mesh.in_world
     for multi_pod in (False, True):
         assert required_devices(multi_pod=multi_pod) == jmesh.required_devices(
             multi_pod=multi_pod)

@@ -8,8 +8,10 @@ the reference's ``REPRO_REPLICATE_SSM`` branch (the port's
 (`spec_for_leaf`) equals them leaf for leaf, and its spec of a layer
 leaf is that spec
 without its leading entry, which is None for every leaf but llama4's
-stacked shared expert (its ``L`` stands where the rule looks for the
-expert dimension). Then the slicing helpers on a small tree:
+stacked shared expert ``w_gate``/``w_up`` (its ``L`` stands where the
+rule looks for the expert dimension): there the port's rule
+(`spec_list`) shards ff, the last dimension, as the rule does where ``L``
+does not divide the axis. Then the slicing helpers on a small tree:
 `shard_model` takes each column's slice, and the columns' slices
 concatenate back to the whole leaf. No world."""
 import jax
@@ -59,10 +61,15 @@ def _compare(name: str, model_size: int, replicate_ssm: bool = False) -> int:
         assert full == want, (name, model_size, names, full, want)
         if depth is not None:
             assert tuple(ref_leaf.shape) == (depth,) + tuple(leaf.shape), names
-            assert spec == full[1:]
-            # only llama4's stacked shared expert shards its L: no per-layer spec says so
-            assert full[0] is None or (name, names[:3]) == (
-                "llama4-scout-17b-a16e", ("layers", "moe", "shared")), (names, full)
+            if full[0] is None:
+                assert spec == full[1:]
+            else:
+                # only llama4's stacked shared expert w_gate/w_up shards its L, which no
+                # per-layer spec says: the port's rule shards its ff (last) dimension
+                assert (name, names[:3], names[-2]) in {
+                    ("llama4-scout-17b-a16e", ("layers", "moe", "shared"), k)
+                    for k in ("w_gate", "w_up")}, (names, full)
+                assert spec == (None,) * (len(spec) - 1) + ("model",)
         else:
             assert tuple(ref_leaf.shape) == tuple(leaf.shape), names
             assert spec == full

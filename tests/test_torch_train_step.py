@@ -148,9 +148,9 @@ def test_model_loss_without_autograd_needs_no_checkpoint():
 
 def test_unported_modes_and_options_are_refused():
     """What is still unported raises naming its ROADMAP item: a model axis
-    for any family but the dense one (A8; the dense family's, the
-    launcher's default ``--model 2``, is held against the reference in
-    tests/test_torch_model_axis.py). Every family now trains: the MoE, hybrid, VLM and
+    for any family but the dense and MoE ones (A8; theirs, at the
+    launcher's default ``--model 2``, are held against the reference in
+    tests/test_torch_model_axis.py, and the MoE family builds on one here). Every family now trains: the MoE, hybrid, VLM and
     encoder-decoder models build their step in each mode, and the
     reference's ``runtime_skip``, ``zero1``, ``fsdp`` and
     ``fsdp_threshold`` options are fields of `TrainStepConfig`, FSDP's
@@ -172,7 +172,10 @@ def test_unported_modes_and_options_are_refused():
                       GroupedMesh.build_rows(Mesh(n_rows=4, device="cpu"), rows={"reduce": 1}))
     assert make_host_mesh(4, 2, device="cpu").shape == {"data": 4, "model": 2}
     assert parse_args(["--smoke", "--device", "cpu"]).model == 2
-    for name in ("mixtral-8x7b", "hymba-1.5b", "whisper-small", "pixtral-12b", "mamba2-130m"):
+    for name in ("mixtral-8x7b", "llama4-scout-17b-a16e"):
+        mesh = make_host_mesh(4, 2, device="cpu")
+        assert build(get_smoke(name), device="cpu", tp=mesh).tp is mesh
+    for name in ("hymba-1.5b", "whisper-small", "pixtral-12b", "mamba2-130m"):
         with pytest.raises(ValueError, match="ROADMAP A8"):
             build(get_smoke(name), device="cpu", tp=make_host_mesh(4, 2, device="cpu"))
         with pytest.raises(ValueError, match="ROADMAP A8"):
