@@ -263,8 +263,9 @@ failure exits non-zero and prints no result:
                overlap AdamW step, to one process); (b) pixtral-12b, 1 of 40 layers: 256
                patch embeddings before 1,024 text tokens, 1 decoupled
                step; (c) hymba-1.5b, 8 of 32 layers: 2,048-token
-               sequences (past its 1,024 window), 1 decoupled and 1
-               conventional step; (d) whisper-small whole: 1,500 frames
+               sequences (past its 1,024 window), 1 decoupled step (its
+               conventional step is phase 8d (d1)'s, held to
+               one process there); (d) whisper-small whole: 1,500 frames
                and 256 decoder tokens, 1 decoupled and 1 overlap step
                (arms (b)-(d) took 2 steps a run until phase 8c came),
                then one step with runtime_skip=False against the default
@@ -342,7 +343,29 @@ failure exits non-zero and prints no result:
                never elsewhere, the four ranks' reserved peaks under 80 GB
                beside phase 8b's two-row mixtral peaks; per rank the model
                axis's collectives and the data axis's gathers and
-               reduce-scatters (count, bytes, seconds).
+               reduce-scatters (count, bytes, seconds). (d) the SSM,
+               hybrid and encoder-decoder families, each built for each
+               rank's column and held to its own one-process SGD step on
+               the same weights and global batch (a file a part, the card
+               freed after each): (d1) hymba-1.5b at full width and phase
+               8b's 8 layers, 2 x 2,048 tokens, the conventional step
+               (FSDP "auto" resolves off; 25 / 5 heads take the gathered
+               projections, a Mamba block's in_proj weight is gathered
+               and its out_proj row-parallel, the 32,001-row tables
+               whole); (d2) mamba2-130m whole, 2 x 1,024, the decoupled
+               step (one reducer row a column) with fsdp=True, each
+               column's reducer folding its 16 MiB chunks with
+               chunk_accumulate once and receiving `SSM_AXIS_FOLD` values;
+               (d3) whisper-small whole, 1,500 frames before 448 decoder
+               tokens, the overlap (ZeRO-1) step: every element within
+               `TRAIN_PARITY_REL` x max |gradient| of the file, the loss
+               within 1e-5 relative of the one process's and equal on
+               every rank, finite parameters, chunk_accumulate once on
+               each reducer in (d2) and never elsewhere, the four ranks'
+               reserved peaks under 80 GB. pixtral-12b's model-axis step
+               is held on the CPU only (tests/test_torch_model_axis_
+               families.py): its forward is the dense family's after
+               prepended patch embeddings, which (a) and (b) run here.
 9. mapreduce — the paper's word-count MapReduce (Sec. IV-B) in an
                eight-row gloo world on this card (`RankPool`;
                the wire is host loopback): 16,384 documents of 4,096 word
@@ -1436,13 +1459,19 @@ def check_ssd(torch, np, seed: int) -> dict:
 # 44 wire chunks of 16 MiB (184,549,376 values), and in phase 8d (c) each
 # column's reducer folds its column of mixtral-8x7b (1 layer), packed into
 # 205 chunks (`MOE_AXIS_FOLD`, which 8d (c) holds its reducers' received
-# bytes to), each wave staged below its accumulator and summed back into
+# bytes to), and in phase 8d (d2) its column of mamba2-130m, packed into 16
+# chunks (`SSM_AXIS_FOLD`), each wave staged below its accumulator and summed back into
 # the accumulator's row (``out=``); then a ragged S, and n > 2 in f32 and
 # bf16. (case, n, S, dtype, timing iterations, into the first row)
 MOE_AXIS_FOLD = 859_832_320
+# the f32 values each column's reducer receives in phase 8d (d2): a column
+# of mamba2-130m (64,519,776 elements) packed into 16 wire chunks of 16 MiB
+SSM_AXIS_FOLD = 67_108_864
 ACC_CASES = [("train fold: accumulator + one wave, in place", 2, 184_549_376, "f32", 10, True),
              ("phase 8d (c) mixtral-8x7b column fold, in place", 2, MOE_AXIS_FOLD, "f32", 3,
               True),
+             ("phase 8d (d2) mamba2-130m column fold, in place", 2, SSM_AXIS_FOLD,
+              "f32", 10, True),
              ("ragged S", 2, 1_000_003, "f32", 20, False),
              ("7 rows", 7, 2_500_000, "f32", 20, False),
              ("16 rows, bf16 input", 16, 4_194_304, "bf16", 20, False)]
@@ -1545,33 +1574,46 @@ def histogram_case(torch, ops, name: str, keys, counts, bins: int, *, exact: boo
     return case
 
 
-def histogram_inputs(torch, np, seed: int, edges=None):
+def zipf_bins(torch, n: int, bins: int, s: float, gen):
+    """``n`` Zipf(``s``) word ids folded into ``bins`` (id mod bins), drawn
+    on the card by inverse CDF: bin b holds the ids b, b + bins, b +
+    2 bins, ..., so its mass is bins^-s times the Hurwitz zeta(s, b / bins)
+    (bin 0 holds the multiples of bins: zeta(s, 1)), as numpy's
+    ``zipf(s) % bins`` draws them on the host."""
+    q = torch.arange(bins, dtype=torch.float64, device="cuda") / bins
+    q[0] = 1.0
+    cdf = torch.cumsum(torch.special.zeta(torch.full_like(q, s), q), 0)
+    cdf /= cdf[-1].item()
+    u = torch.rand(n, generator=gen, device="cuda", dtype=torch.float64)
+    return torch.searchsorted(cdf, u).clamp_(max=bins - 1).to(torch.int32)
+
+
+def histogram_inputs(torch, seed: int, edges=None):
     """The histogram cases, one at a time, as (name, keys, counts, bins,
     exact, timing iterations) on the card: 2^26 keys into qwen's 151,936
-    bins, Zipf(1.3) word ids (5 % padding) with counts of 1, the same keys
-    through a seeded permutation of the bins (hot keys no longer small
-    ids), uniform keys with counts of 1 and with bf16 counts; 4,096 bins;
-    then 2^24 uniform keys (some past the last bin) at each of ``edges``
-    bins (default: one on each side of the plan's path boundary, what one
-    block's shared memory holds). Each case's tensors are freed once the
-    next is asked for."""
+    bins, Zipf(1.3) word ids (5 % padding, `zipf_bins`) with counts of 1,
+    the same keys through a seeded permutation of the bins (hot keys no
+    longer small ids), uniform keys with counts of 1 and with bf16 counts;
+    4,096 bins; then 2^24 uniform keys (some past the last bin) at each of
+    ``edges`` bins (default: one on each side of the plan's path boundary,
+    what one block's shared memory holds). Each case's tensors are freed
+    once the next is asked for."""
     from repro_torch.kernels.stream_reduce.stream_reduce import CTA_BINS
 
     n, bins = 1 << 26, 151_936
-    rng = np.random.default_rng(seed + 7)
-    zipf = (rng.zipf(1.3, n) % bins).astype(np.int32)
-    pad = rng.random(n) < 0.05
+    zgen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    zipf = zipf_bins(torch, n, bins, 1.3, zgen)
+    pad = torch.rand(n, generator=zgen, device="cuda") < 0.05
     zipf[pad] = -1
-    perm = rng.permutation(bins).astype(np.int32)
-    permuted = np.where(pad, -1, perm[np.maximum(zipf, 0)]).astype(np.int32)
-    del pad
+    perm = torch.randperm(bins, generator=zgen, device="cuda").to(torch.int32)
+    permuted = torch.where(pad, -1, perm[zipf.clamp(min=0).long()])
+    del pad, perm
     ones = torch.ones(n, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
     uniform = torch.randint(-1, bins, (n,), generator=gen, device="cuda", dtype=torch.int32)
-    yield "2^26 zipf keys", torch.from_numpy(zipf).to("cuda"), ones, bins, True, 10
+    yield "2^26 zipf keys", zipf, ones, bins, True, 10
     del zipf
-    yield ("2^26 zipf keys, permuted bins", torch.from_numpy(permuted).to("cuda"), ones, bins,
-           True, 10)
+    yield "2^26 zipf keys, permuted bins", permuted, ones, bins, True, 10
     del permuted
     yield "2^26 uniform keys", uniform, ones, bins, True, 10
     bf16 = torch.rand(n, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1590,7 +1632,7 @@ def histogram_inputs(torch, np, seed: int, edges=None):
                torch.rand(m, generator=gen, device="cuda"), e, False, 20)
 
 
-def check_histogram(torch, np, seed: int) -> dict:
+def check_histogram(torch, seed: int) -> dict:
     """Every case of `histogram_inputs` through `histogram_case`."""
     from repro_torch.kernels.stream_reduce import ops
     from repro_torch.kernels.stream_reduce.stream_reduce import CTA_BINS, histogram_plan
@@ -1598,7 +1640,7 @@ def check_histogram(torch, np, seed: int) -> dict:
     if histogram_plan(CTA_BINS)[0] == histogram_plan(CTA_BINS + 1)[0]:
         raise AssertionError(f"the plan's path boundary moved from {CTA_BINS} bins")
     cases = [histogram_case(torch, ops, name, keys, counts, bins, exact=exact, iters=iters)
-             for name, keys, counts, bins, exact, iters in histogram_inputs(torch, np, seed)]
+             for name, keys, counts, bins, exact, iters in histogram_inputs(torch, seed)]
     main = cases[0]
     return {"name": "histogram", "route": "cuda", "source": REDUCE_SRC, "replaces": HIST_TPU,
             "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": main["kernel_ms"],
@@ -4123,10 +4165,18 @@ class RankPool:
     first n, each a fresh gloo process group through the port's own rank
     entry (`launch.mesh._rank_main`), so a world costs no new process,
     torch import or CUDA context. `run` returns what `spawn` returns and
-    fails as it fails (a rank's traceback, a dead rank, `TimeoutError`)."""
+    fails as it fails (a rank's traceback, a dead rank, `TimeoutError`).
+    Each world meets at a file of its own in a directory that lives as
+    long as the pool: a rank sends its result before it destroys its
+    process group, whose file store still reads the file then, so a
+    world's file must outlive the world's return."""
 
     def __init__(self, size: int, device: str = "cuda"):
+        import tempfile
+
         ctx = multiprocessing.get_context("spawn")
+        self.rendezvous = tempfile.mkdtemp(prefix="chip_smoke_worlds_")
+        self.worlds = 0
         self.tasks = [ctx.Queue() for _ in range(size)]
         self.results = ctx.Queue()
         self.procs = [ctx.Process(target=_pool_worker, daemon=True,
@@ -4137,45 +4187,55 @@ class RankPool:
 
     def run(self, fn, n_rows: int, *, model: int = 1, args: tuple = (),
             timeout_s: float = 120.0) -> list:
-        import tempfile
+        return self.wait(self.start(fn, n_rows, model=model, args=args, timeout_s=timeout_s))
 
+    def start(self, fn, n_rows: int, *, model: int = 1, args: tuple = (),
+              timeout_s: float = 120.0) -> tuple:
+        """Hand every rank of the world its task and return at once, so
+        that the parent works on the card beside the world; `wait` takes
+        its results. One world at a time: the ranks share one result
+        queue."""
+        n_ranks = n_rows * model
+        self.worlds += 1
+        init_method = "file://" + os.path.join(self.rendezvous, f"world_{self.worlds}")
+        for rank in range(n_ranks):
+            self.tasks[rank].put((fn, rank, n_rows, model, init_method, args, timeout_s))
+        return n_rows, model, timeout_s, time.monotonic() + timeout_s
+
+    def wait(self, world: tuple) -> list:
+        n_rows, model, timeout_s, deadline = world
         n_ranks = n_rows * model
         out = {}
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:
-            init_method = "file://" + os.path.join(tmp, "rendezvous")
-            for rank in range(n_ranks):
-                self.tasks[rank].put((fn, rank, n_rows, model, init_method, args, timeout_s))
-            deadline = time.monotonic() + timeout_s
-            while len(out) < n_ranks:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    raise TimeoutError(f"the {n_rows}x{model} world did not finish in "
-                                       f"{timeout_s} s; ranks done: {sorted(out)}")
-                try:
-                    rank, ok, payload = self.results.get(timeout=min(left, 1.0))
-                except queue.Empty:
-                    dead = [r for r in range(n_ranks)
-                            if r not in out and self.procs[r].exitcode is not None]
-                    if dead:
-                        raise RuntimeError(f"rank {dead[0]} died with exit code "
-                                           f"{self.procs[dead[0]].exitcode}") from None
-                    continue
-                if not ok:
-                    raise RuntimeError(f"rank {rank} failed:\n{payload}")
-                out[rank] = payload
+        while len(out) < n_ranks:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"the {n_rows}x{model} world did not finish in "
+                                   f"{timeout_s} s; ranks done: {sorted(out)}")
+            try:
+                rank, ok, payload = self.results.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [r for r in range(n_ranks)
+                        if r not in out and self.procs[r].exitcode is not None]
+                if dead:
+                    raise RuntimeError(f"rank {dead[0]} died with exit code "
+                                       f"{self.procs[dead[0]].exitcode}") from None
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{payload}")
+            out[rank] = payload
         return [out[r] for r in range(n_ranks)]
 
     def close(self) -> None:
-        if not any(p.is_alive() for p in self.procs):
-            return
-        for q in self.tasks:
-            q.put(None)
-        for p in self.procs:
-            p.join(timeout=10)
-        for p in self.procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
+        if any(p.is_alive() for p in self.procs):
+            for q in self.tasks:
+                q.put(None)
+            for p in self.procs:
+                p.join(timeout=10)
+            for p in self.procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        shutil.rmtree(self.rendezvous, ignore_errors=True)
 
 
 WORLDS: RankPool | None = None  # started by `main` before phase 7b
@@ -4713,12 +4773,13 @@ FAMILY_TRAIN_ROWS = 2
 # first's shapes and checks. Mixtral runs no decoupled step here: phase
 # 8d (c)'s one process on the same weights and batch is the reference of
 # the overlap step's routing, and 8d (c)'s steps on two columns (the
-# decoupled one under FSDP, an AdamW update) are held to that one process
+# decoupled one under FSDP, an AdamW update) are held to that one process.
+# Hymba runs no conventional step here: phase 8d (d1) takes it at the same
+# width, depth and batch on two columns, held to one process
 FAMILY_TRAIN = [
     ("a", "mixtral-8x7b", 1, 1536, 2, [("overlap", "overlap", 1)], "f32"),
     ("b", "pixtral-12b", 1, 1024, 2, [("decoupled", "decoupled", 1)], None),
-    ("c", "hymba-1.5b", 8, 2048, 2, [("decoupled", "decoupled", 1),
-                                     ("conventional", "conventional", 1)], None),
+    ("c", "hymba-1.5b", 8, 2048, 2, [("decoupled", "decoupled", 1)], None),
     ("d", "whisper-small", None, 256, 2, [("decoupled", "decoupled", 1),
                                           ("overlap", "overlap", 1)], None),
 ]
@@ -5013,14 +5074,12 @@ def fsdp_pipeline(cfg, seed: int):
                                global_batch=FSDP_BATCH, seed=seed, kind="zipf", skew=0.4))
 
 
-def reference_sgd_step(torch, np, cfg, pipe, seed: int, path: str) -> dict:
+def one_process_sgd_step(torch, cfg, pipe, seed: int) -> tuple:
     """A one-process step, in the parent alone: ``cfg`` whole from the
     per-unit draw (`Model.init_unit`), one conventional SGD step (lr 1, no
     momentum: the moment it leaves is the gradient) on ``pipe``'s global
-    batch 0, in place. The new parameters go to ``path`` as one flat f32
-    ``.npy`` in unit order (each unit's leaves flattened in tree order),
-    the order in which a row's parts cut them. The card is freed before it
-    returns."""
+    batch 0, in place: (the new parameters on the card, the step's record).
+    Everything else it put on the card is freed before it returns."""
     from repro_torch.models.model_zoo import build
     from repro_torch.train import sharding
     from repro_torch.train.optimizer import OptConfig, init_opt_state
@@ -5043,30 +5102,59 @@ def reference_sgd_step(torch, np, cfg, pipe, seed: int, path: str) -> dict:
     step_s = time.perf_counter() - t1
     gmax = max(float(m.abs().max()) for m in tree_leaves(opt["m"]))
     peak = torch.cuda.max_memory_allocated()
-    del opt
+    del opt, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params, {"loss": float(metrics["loss"]), "max_abs_grad": gmax,
+                    "params": sum(p.numel() for p in tree_leaves(params)), "step_s": step_s,
+                    "seconds": time.perf_counter() - t0, "peak_gib": peak / 2 ** 30,
+                    **{k: float(metrics[k]) for k in ("aux_loss", "router_entropy")
+                       if k in metrics}}
+
+
+def write_units(np, params, path: str) -> float:
+    """``params`` to ``path`` as one flat f32 ``.npy`` in unit order (each
+    unit's leaves flattened in tree order), the order in which a row's
+    parts cut them, leaf by leaf (no whole copy on the host); written
+    beside the path and moved onto it whole, so that a rank that waits for
+    it (`wait_for_file`) reads it complete. Its seconds."""
+    from repro_torch.train import sharding
+    from repro_torch.utils.treeutil import tree_leaves
+
+    t0 = time.perf_counter()
     total = sum(p.numel() for p in tree_leaves(params))
-    t1 = time.perf_counter()
-    with open(path, "wb") as f:  # written in order, leaf by leaf: no whole copy on the host
+    with open(path + ".part", "wb") as f:
         np.lib.format.write_array_header_1_0(
             f, {"descr": np.lib.format.dtype_to_descr(np.dtype(np.float32)),
                 "fortran_order": False, "shape": (total,)})
         for _, unit in sharding.units_of(params):
             for leaf in tree_leaves(unit):
                 leaf.detach().reshape(-1).cpu().numpy().tofile(f)
-    write_s = time.perf_counter() - t1
-    del params, batch, model
+    os.replace(path + ".part", path)
+    return time.perf_counter() - t0
+
+
+def wait_for_file(path: str, timeout_s: float = 600.0) -> float:
+    """Block until ``path`` exists (a one-process file that the parent
+    writes while the world runs); the seconds waited."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout_s:
+            raise TimeoutError(f"{path} did not appear in {timeout_s} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def reference_sgd_step(torch, np, cfg, pipe, seed: int, path: str) -> dict:
+    """`one_process_sgd_step`, its new parameters to ``path``
+    (`write_units`), the card freed: the step's record."""
+    params, ref = one_process_sgd_step(torch, cfg, pipe, seed)
+    ref["write_s"] = write_units(np, params, path)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"loss": float(metrics["loss"]), "max_abs_grad": gmax, "params": total,
-            "step_s": step_s, "write_s": write_s, "seconds": time.perf_counter() - t0,
-            "peak_gib": peak / 2 ** 30,
-            **{k: float(metrics[k]) for k in ("aux_loss", "router_entropy") if k in metrics}}
-
-
-def fsdp_reference_step(torch, np, seed: int, path: str) -> dict:
-    """Phase 8c's one-process step: qwen2.5-3b whole (`reference_sgd_step`)."""
-    cfg = fsdp_config()
-    return reference_sgd_step(torch, np, cfg, fsdp_pipeline(cfg, seed), seed, path)
+    ref["seconds"] += ref["write_s"]
+    return ref
 
 
 def fsdp_train_rank(mesh, seed: int, ref_path: str) -> dict:
@@ -5119,7 +5207,9 @@ def fsdp_train_rank(mesh, seed: int, ref_path: str) -> dict:
                elements=[[u.spec.total, p.numel()] for p, u in zip(parts, plan.units)])
     del opt, batch
     # every element of this row's parts against the one-process step, on
-    # the card (the file's slices read from its memory map)
+    # the card (the file's slices read from its memory map, once the
+    # parent has written it)
+    out["ref_wait_s"] = wait_for_file(ref_path)
     ref = np.load(ref_path, mmap_mode="r")
     t0 = time.perf_counter()
     diff, off = 0.0, 0
@@ -5140,11 +5230,11 @@ def fsdp_train_rank(mesh, seed: int, ref_path: str) -> dict:
 
 
 def fsdp_phase(torch, np, seed: int, smi: str, tmp: str) -> dict:
-    """Phase 8c: the one-process step in the parent (its file in ``tmp``,
-    which phase 8d reads too), then the two-row
-    world on the card; its line and checks: FSDP on by the default rule,
-    the rows' losses equal and within 1e-5 relative of the one-process
-    loss, every element of the world's step within `TRAIN_PARITY_REL` x
+    """Phase 8c: the one-process step in the parent, then the two-row
+    world on the card, started while the parent writes the step's file (in
+    ``tmp``; phase 8d reads it too); its line and checks: FSDP on by the
+    default rule, the rows' losses equal and within 1e-5 relative of the
+    one-process loss, every element of the world's step within `TRAIN_PARITY_REL` x
     max |gradient| of the one-process step, and the two ranks' peaks
     (reserved) below the card's 80 GB, printed beside the replicated
     two-row figure: the data-parallel step without FSDP holds the
@@ -5153,13 +5243,23 @@ def fsdp_phase(torch, np, seed: int, smi: str, tmp: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     ref_path = os.path.join(tmp, "sgd_step.npy")
-    ref = fsdp_reference_step(torch, np, seed, ref_path)
+    cfg = fsdp_config()
+    params, ref = one_process_sgd_step(torch, cfg, fsdp_pipeline(cfg, seed), seed)
+    # the world starts on its parts while the parent writes the file,
+    # which the ranks read only after their step (`wait_for_file`)
+    t0 = time.perf_counter()
+    world = WORLDS.start(fsdp_train_rank, FSDP_ROWS, args=(seed, ref_path), timeout_s=900)
+    ref["write_s"] = write_units(np, params, ref_path)
+    ref["seconds"] += ref["write_s"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     emit({"phase": "train_fsdp", "run": "one-process step", "model": FSDP_ARCH,
           "dtype": "f32", "seq_len": FSDP_SEQ, "global_batch": FSDP_BATCH, **ref,
+          "written_beside_the_world": True,
           "parent_reserved_gib_after": torch.cuda.memory_reserved() / 2 ** 30,
           "nvidia_smi": smi})
-    t0 = time.perf_counter()
-    ranks = WORLDS.run(fsdp_train_rank, FSDP_ROWS, args=(seed, ref_path), timeout_s=900)
+    ranks = WORLDS.wait(world)
     world_s = time.perf_counter() - t0
     if not all(r["fsdp"] for r in ranks):
         raise AssertionError(f"train_fsdp: fsdp 'auto' did not resolve on for {FSDP_ARCH}")
@@ -5178,7 +5278,8 @@ def fsdp_phase(torch, np, seed: int, smi: str, tmp: str) -> dict:
                           "phases_s": {k: r["timing"][k] for k in step_phases(r["timing"])},
                           "fsdp": {k: r["timing"][k] for k in FSDP_KEYS},
                           "wire": {k: r["timing"][k] for k in WIRE_KEYS},
-                          "compare_s": r["compare_s"], "host_peak_gib": r["host_peak_gib"]}
+                          "compare_s": r["compare_s"], "ref_wait_s": r["ref_wait_s"],
+                          "host_peak_gib": r["host_peak_gib"]}
                          for r in ranks],
             "max_abs_diff": diff, "max_abs_grad": ref["max_abs_grad"],
             "rel": diff / ref["max_abs_grad"], "budget": TRAIN_PARITY_REL,
@@ -5226,7 +5327,7 @@ def column_diff(np, torch, ref_path: str, model, mesh, params, plan) -> float:
     held = params if plan is not None else [tree_leaves(u) for _, u in sharding.units_of(params)]
     diff, off = 0.0, 0
     for i, ((name, tree), part) in enumerate(zip(units, held)):
-        specs = sharding.unit_specs(name, tree, mesh.model_size)
+        specs = model.unit_specs(name, tree)
         span = plan.units[i].span if plan is not None else None
         loc = 0
         for j, (leaf, spec) in enumerate(zip(tree_leaves(tree), specs)):
@@ -5624,24 +5725,12 @@ def check_model_run(what: str, line: dict, recs: list, *, want_fsdp: bool,
                              f"the card has {CARD_BYTES / 1e9}")
 
 
-def moe_axis_part(torch, np, seed: int, smi: str, tmp: str, mixtral_overlap: dict) -> dict:
-    """Phase 8d (c): one process in the parent (mixtral's one layer: an SGD
-    step to a file in ``tmp``, and an AdamW step with the loss of the next
-    batch after it; the card freed after each), then the (2, 2) world
-    (`model_moe_rank`); a line a run and its checks (`check_model_run`):
-    FSDP off by "auto" in the conventional and overlap steps and on as
-    asked in the decoupled one; every element of the SGD steps within
-    `TRAIN_PARITY_REL` x max |gradient| of the one process; the loss,
-    aux_loss and router_entropy equal on every rank and within
-    `MOE_ROUTING_REL` of the one process's, the next batch's loss after
-    the overlap AdamW step (an update on ZeRO-1's parts) within
-    `OVERLAP_LOSS_REL` of the one process's; finite parameters;
-    `chunk_accumulate` once on each column's reducer in the decoupled
-    step, which receives `MOE_AXIS_FOLD` f32 values, and never elsewhere;
-    the four ranks' reserved peaks under 80 GB, printed beside phase 8b's
-    two-row mixtral peaks. ``mixtral_overlap``: phase 8b's overlap step on
-    the same weights and batch (its peaks, loss, aux_loss and
-    router_entropy), whose metrics are held to the one process's here
+def moe_axis_refs(torch, np, seed: int, smi: str, tmp: str, mixtral_overlap: dict) -> dict:
+    """Phase 8d (c)'s one process, in the parent: mixtral's one layer, an
+    SGD step to a file in ``tmp`` and an AdamW step with the loss of the
+    next batch after it, the card freed after each; its line, and phase
+    8b's two-row overlap step (``mixtral_overlap``: its peaks, loss,
+    aux_loss and router_entropy on the same weights and batch) held to it
     (`MOE_ROUTING_REL`)."""
     cfg = moe_axis_config()
     pipe = moe_axis_pipeline(cfg, seed)
@@ -5660,6 +5749,29 @@ def moe_axis_part(torch, np, seed: int, smi: str, tmp: str, mixtral_overlap: dic
     if not all(v <= MOE_ROUTING_REL for v in routing.values()):
         raise AssertionError(f"train_families: mixtral's overlap step 1 (phase 8b) is off the "
                              f"one-process step: {routing}, budget {MOE_ROUTING_REL}")
+    return {"ref": ref, "adamw": adamw, "path": ref_path,
+            "seconds": ref["seconds"] + adamw["seconds"]}
+
+
+def moe_axis_part(torch, np, seed: int, smi: str, one: dict, mixtral_overlap: dict) -> dict:
+    """Phase 8d (c): the (2, 2) world (`model_moe_rank`) against the one
+    process (``one``, `moe_axis_refs`); a line a run and its checks
+    (`check_model_run`):
+    FSDP off by "auto" in the conventional and overlap steps and on as
+    asked in the decoupled one; every element of the SGD steps within
+    `TRAIN_PARITY_REL` x max |gradient| of the one process; the loss,
+    aux_loss and router_entropy equal on every rank and within
+    `MOE_ROUTING_REL` of the one process's, the next batch's loss after
+    the overlap AdamW step (an update on ZeRO-1's parts) within
+    `OVERLAP_LOSS_REL` of the one process's; finite parameters;
+    `chunk_accumulate` once on each column's reducer in the decoupled
+    step, which receives `MOE_AXIS_FOLD` f32 values, and never elsewhere;
+    the four ranks' reserved peaks under 80 GB, printed beside phase 8b's
+    two-row mixtral peaks. ``mixtral_overlap``: phase 8b's overlap step on
+    the same weights and batch (its peaks, loss, aux_loss and
+    router_entropy), whose metrics `moe_axis_refs` held to the one
+    process's."""
+    ref, adamw, ref_path = one["ref"], one["adamw"], one["path"]
     data, cols = MODEL_WORLD
     t0 = time.perf_counter()
     ranks = WORLDS.run(model_moe_rank, data, model=cols, args=(seed, ref_path), timeout_s=900)
@@ -5732,7 +5844,212 @@ def moe_axis_part(torch, np, seed: int, smi: str, tmp: str, mixtral_overlap: dic
                 raise AssertionError(f"{what}: the reducers folded {got} f32 values, the "
                                      f"kernels phase times chunk_accumulate at "
                                      f"{MOE_AXIS_FOLD} (MOE_AXIS_FOLD)")
-    return {"launches": counts, "seconds": world_s + ref["seconds"] + adamw["seconds"]}
+    return {"launches": counts, "seconds": world_s}
+
+
+# phase 8d (d): the model axis for the SSM, hybrid and encoder-decoder
+# families, f32, TF32 off, each part one step on the (2, 2) world held to
+# its own one-process step on the same weights and global batch. (part,
+# architecture, layers (None: whole), text tokens a sequence, step config,
+# optimizer). (d1) hymba-1.5b at full width and phase 8b's depth (global
+# layer 0, then sliding-window layers; 25 / 5 heads take the gathered
+# projections, the odd vocabulary of 32,001 keeps both tables whole), FSDP
+# "auto" (off: 0.49e9 parameters); (d2) mamba2-130m whole, the decoupled
+# step under FSDP over each column's slices, its stream folded with
+# chunk_accumulate once on each column's reducer; (d3) whisper-small whole,
+# 1,500 frames before 448 decoder tokens, the overlap step (ZeRO-1)
+AXIS_FAMILY_PARTS = (
+    ("d1", "hymba-1.5b", 8, 2048, dict(), "sgd"),
+    ("d2", "mamba2-130m", None, 1024,
+     dict(mode="decoupled", reduce_alpha=0.5, wire_chunk_bytes=TRAIN_CHUNK_BYTES, fsdp=True),
+     "sgd"),
+    ("d3", "whisper-small", None, 448, dict(mode="overlap"), "sgd"),
+)
+AXIS_FAMILY_BATCH = 2
+
+
+def axis_family_config(arch: str, layers):
+    import torch
+
+    from repro_torch.configs import get
+
+    cfg = get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, dtype=torch.float32)
+
+
+def axis_family_pipeline(cfg, seq: int, seed: int):
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+
+    return Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                               global_batch=AXIS_FAMILY_BATCH, seed=seed, kind="zipf",
+                               skew=0.4, frontend=cfg.frontend,
+                               n_frontend_tokens=cfg.n_frontend_tokens, d_model=cfg.d_model))
+
+
+def model_family_rank(mesh, seed: int, ref_paths: dict) -> dict:
+    """One rank of phase 8d (d): each part of `AXIS_FAMILY_PARTS` on the
+    (2, 2) world, built for this rank's column (`build(tp=mesh)`), from
+    this rank's column slices (or FSDP parts) drawn unit by unit from
+    ``seed``, one SGD step (lr 1) on its row's part of global batch 0 (the
+    decoupled step's one compute row holding both sequences), with the
+    kernel counts at 0 just before and read just after: its loss, phases,
+    the data axis's gathers and reduce-scatters, the model axis's
+    collectives, its device peaks, and every element against the column
+    slice (and FSDP part) of the part's one-process file in ``ref_paths``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import row_shard
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train import sharding
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import TrainStepConfig, make_step
+    from repro_torch.utils.treeutil import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    n = mesh.n_rows
+    out = {"rank": mesh.rank, "row": mesh.row, "col": mesh.col, "parts": {}}
+    for part, arch, layers, seq, ts_kw, opt_name in AXIS_FAMILY_PARTS:
+        cfg = axis_family_config(arch, layers)
+        model = build(cfg, tp=mesh)
+        ts, opt_cfg = TrainStepConfig(**ts_kw), moe_axis_opt(opt_name)
+        step = make_step(model, mesh, opt_cfg, ts, inplace=True)
+        plan = step.fsdp
+        if plan is not None:
+            params = plan.shard_units(
+                lambda u: model.init_unit(seed, u, param_dtype=torch.float32))
+        else:
+            params = sharding.join_units(
+                (u, model.init_unit(seed, u, param_dtype=torch.float32)) for u in model.units)
+        opt = init_opt_state(opt_cfg, params)
+        if ts.mode == "overlap" and plan is None:
+            opt = sharding.shard_opt_state(sharding.zero1_plan(params, n, mesh.row), opt)
+        pipe = axis_family_pipeline(cfg, seq, seed)
+        batch = row_shard(pipe.padded_for_groups(0, 1, n) if ts.mode == "decoupled" else
+                          pipe.global_batch(0), mesh.row, n, model.device)
+        gc.collect()  # the whole units drawn for the slices go back to the card
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        mesh.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        held = params if plan is not None else tree_leaves(params)
+        rec = {"wall_s": time.perf_counter() - t0, "fsdp": plan is not None,
+               "loss": float(metrics["loss"]),
+               "launches": {k: fn.launches for k, fn in counters.items()},
+               "timing": step.timings[-1],
+               "elements": sum(p.numel() for p in held),
+               "finite": all(bool(torch.isfinite(p).all()) for p in held),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+        del opt, batch, held
+        t0 = time.perf_counter()
+        rec["max_abs_diff"] = column_diff(np, torch, ref_paths[part], model, mesh, params, plan)
+        rec["compare_s"] = time.perf_counter() - t0
+        rec["host_peak_gib"] = _host_peak_gib()
+        out["parts"][part] = rec
+        del params, step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    return out
+
+
+def family_axis_refs(torch, np, seed: int, tmp: str) -> dict:
+    """Phase 8d (d)'s one processes, in the parent: each part's SGD step to
+    a file in ``tmp``, the card freed after each (`reference_sgd_step`);
+    their records, their files and their seconds."""
+    refs, paths = {}, {}
+    t_ref = 0.0
+    for part, arch, layers, seq, _, _ in AXIS_FAMILY_PARTS:
+        cfg = axis_family_config(arch, layers)
+        paths[part] = os.path.join(tmp, f"family_{part}_sgd_step.npy")
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs[part] = reference_sgd_step(torch, np, cfg, axis_family_pipeline(cfg, seq, seed),
+                                        seed, paths[part])
+        t_ref += refs[part]["seconds"]
+    return {"refs": refs, "paths": paths, "seconds": t_ref}
+
+
+def family_axis_part(torch, np, seed: int, smi: str, one: dict) -> dict:
+    """Phase 8d (d): the (2, 2) world (`model_family_rank`) takes every
+    part, each held to its one process (``one``, `family_axis_refs`); a
+    line a part and its checks (`check_model_run`): FSDP off by "auto" in (d1) and (d3) and on as
+    asked in (d2); every element within `TRAIN_PARITY_REL` x max |gradient|
+    of the one process; the loss equal on every rank and within 1e-5
+    relative of the one process's; finite parameters; `chunk_accumulate`
+    once on each column's reducer in (d2), which receives `SSM_AXIS_FOLD`
+    f32 values, and never elsewhere; the four ranks' reserved peaks under
+    80 GB."""
+    refs, paths = one["refs"], one["paths"]
+    data, cols = MODEL_WORLD
+    t0 = time.perf_counter()
+    ranks = WORLDS.run(model_family_rank, data, model=cols, args=(seed, paths), timeout_s=900)
+    world_s = time.perf_counter() - t0
+    for path in paths.values():
+        os.remove(path)
+    counts = dict.fromkeys(kernel_counters(), 0)
+    reducers = {r["rank"] for r in ranks if r["row"] == data - 1}
+    for part, arch, layers, seq, ts_kw, opt_name in AXIS_FAMILY_PARTS:
+        what = f"train_model {part} {arch}"
+        ref = refs[part]
+        recs = [r["parts"][part] for r in ranks]
+        for rec in recs:
+            for k, v in rec["launches"].items():
+                counts[k] += v
+        peaks = [rec["peak_reserved_gib"] * 2 ** 30 for rec in recs]
+        mode = ts_kw.get("mode", "conventional")
+        diff = max(rec["max_abs_diff"] for rec in recs)
+        line = {"phase": "train_model", "run": f"{part} {mode} {opt_name}", "model": arch,
+                "layers": layers or axis_family_config(arch, None).n_layers,
+                "world": {"data": data, "model": cols}, "mode": mode, "optimizer": opt_name,
+                "fsdp": recs[0]["fsdp"], "params": ref["params"], "seq_len": seq,
+                "global_batch": AXIS_FAMILY_BATCH, "loss": recs[0]["loss"],
+                "one_process_loss": ref["loss"],
+                "loss_rel": abs(recs[0]["loss"] - ref["loss"]) / abs(ref["loss"]),
+                "one_process_s": ref["seconds"], "one_process_step_s": ref["step_s"],
+                "one_process_peak_gib": ref["peak_gib"],
+                "step_wall_s": max(rec["wall_s"] for rec in recs),
+                "per_rank": [{"rank": r["rank"], "row": r["row"], "col": r["col"],
+                              **{k: rec[k] for k in ("wall_s", "elements", "peak_gib",
+                                                     "peak_reserved_gib", "compare_s",
+                                                     "host_peak_gib")},
+                              **rank_timing([rec["timing"]])}
+                             for r, rec in zip(ranks, recs)],
+                "chunk_accumulate_by_rank": {r["rank"]: rec["launches"]["chunk_accumulate"]
+                                             for r, rec in zip(ranks, recs)},
+                "max_abs_diff": diff, "max_abs_grad": ref["max_abs_grad"],
+                "rel": diff / ref["max_abs_grad"], "budget": TRAIN_PARITY_REL,
+                "peak_reserved_sum_gb": sum(peaks) / 1e9, "card_gb": CARD_BYTES / 1e9,
+                "world_s": world_s, "nvidia_smi": smi}
+        if mode == "decoupled":
+            line["fold_values_by_rank"] = {r["rank"]: rec["timing"]["wire_recv_bytes"] // 4
+                                           for r, rec in zip(ranks, recs)}
+            line["fold_values_expected"] = SSM_AXIS_FOLD
+        emit(line)
+        check_model_run(what, line, recs, want_fsdp=bool(ts_kw.get("fsdp")),
+                        reducers=reducers if mode == "decoupled" else set(), peaks=peaks)
+        if not line["loss_rel"] <= 1e-5:
+            raise AssertionError(f"{what}: the world's loss {line['loss']} is off the "
+                                 f"one-process loss {ref['loss']}")
+        if not all(rec["finite"] for rec in recs):
+            raise AssertionError(f"{what}: non-finite parameters")
+        if mode == "decoupled":
+            got = {rank: v for rank, v in line["fold_values_by_rank"].items() if rank in reducers}
+            if any(v != SSM_AXIS_FOLD for v in got.values()):
+                raise AssertionError(f"{what}: the reducers folded {got} f32 values, the "
+                                     f"kernels phase times chunk_accumulate at "
+                                     f"{SSM_AXIS_FOLD} (SSM_AXIS_FOLD)")
+    return {"launches": counts, "seconds": world_s}
 
 
 def model_axis_phase(torch, np, seed: int, smi: str, fsdp: dict, tmp: str,
@@ -5749,15 +6066,20 @@ def model_axis_phase(torch, np, seed: int, smi: str, fsdp: dict, tmp: str,
     (waves x columns) and never in the other modes; (c) the MoE family's
     model axis, mixtral-8x7b's experts over the columns (`moe_axis_part`;
     ``tmp`` holds its one-process file, ``mixtral_overlap`` is phase 8b's
-    two-row mixtral step)."""
+    two-row mixtral step); (d) the SSM, hybrid and encoder-decoder
+    families' (`family_axis_part`). The parent takes (d)'s one-process
+    steps while (a)'s world runs, and (c)'s while (b)'s runs: (a) and (b)
+    leave most of the card free, (c)'s world does not."""
 
     data, cols = MODEL_WORLD
     ref = fsdp["ref"]
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = WORLDS.run(model_fsdp_rank, data, model=cols, args=(seed, fsdp["ref_path"]),
-                       timeout_s=900)
+    world = WORLDS.start(model_fsdp_rank, data, model=cols, args=(seed, fsdp["ref_path"]),
+                         timeout_s=900)
+    fam_one = family_axis_refs(torch, np, seed, tmp)
+    ranks = WORLDS.wait(world)
     fsdp_s = time.perf_counter() - t0
     peaks = [r["peak_reserved_gib"] * 2 ** 30 for r in ranks]
     diff = max(r["max_abs_diff"] for r in ranks)
@@ -5780,7 +6102,7 @@ def model_axis_phase(torch, np, seed: int, smi: str, fsdp: dict, tmp: str,
             "peak_reserved_sum_gb": sum(peaks) / 1e9,
             "phase_8c_peak_reserved_sum_gb": fsdp["peak_reserved_sum_gb"],
             "card_gb": CARD_BYTES / 1e9, "world_s": fsdp_s, "launches": dict(launches),
-            "nvidia_smi": smi}
+            "parent_one_process_s_beside": fam_one["seconds"], "nvidia_smi": smi}
     emit(line)
     check_model_run("train_model fsdp sgd", line, ranks, want_fsdp=True, reducers=set(),
                     peaks=peaks)
@@ -5792,7 +6114,9 @@ def model_axis_phase(torch, np, seed: int, smi: str, fsdp: dict, tmp: str,
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    modes = WORLDS.run(model_modes_rank, data, model=cols, args=(seed + 8,), timeout_s=900)
+    world = WORLDS.start(model_modes_rank, data, model=cols, args=(seed + 8,), timeout_s=900)
+    moe_one = moe_axis_refs(torch, np, seed, smi, tmp, mixtral_overlap)
+    modes = WORLDS.wait(world)
     modes_s = time.perf_counter() - t0
     counts = dict.fromkeys(kernel_counters(), 0)
     reducers = {r["rank"] for r in modes if r["row"] == data - 1}
@@ -5814,16 +6138,19 @@ def model_axis_phase(torch, np, seed: int, smi: str, fsdp: dict, tmp: str,
                 **{k: run0[k] for k in ("max_abs_diff", "max_abs_grad", "rel",
                                         "one_process_loss")},
                 "budget": TRAIN_PARITY_REL, "one_process_s": modes[0]["one_process_s"],
-                "world_s": modes_s, "nvidia_smi": smi}
+                "world_s": modes_s, "parent_one_process_s_beside": moe_one["seconds"],
+                "nvidia_smi": smi}
         emit(line)
         # the decoupled step folds one wave (its one compute row's gradient)
         # on each column's reducer row
         check_model_run(f"train_model {mode}", line, recs, want_fsdp=False,
                         reducers=reducers if mode == "decoupled" else set())
-    moe = moe_axis_part(torch, np, seed, smi, tmp, mixtral_overlap)
-    for k, v in moe["launches"].items():
-        counts[k] += v
-    return {"launches": counts, "seconds": fsdp_s + modes_s + moe["seconds"]}
+    moe = moe_axis_part(torch, np, seed, smi, moe_one, mixtral_overlap)
+    fam = family_axis_part(torch, np, seed, smi, fam_one)
+    for k in counts:
+        counts[k] += moe["launches"][k] + fam["launches"][k]
+    return {"launches": counts,
+            "seconds": fsdp_s + modes_s + moe["seconds"] + fam["seconds"]}
 
 
 # -- phase 9: the paper's decoupled MapReduce --------------------------------------
@@ -6659,7 +6986,7 @@ def main(argv=None) -> int:
     CLOCK.start("kernels")
     kernels = [check_paged(torch, np, args.seed), check_argmax(torch, np, args.seed),
                check_flash(torch, np, args.seed), check_ssd(torch, np, args.seed),
-               check_accumulate(torch, np, args.seed), check_histogram(torch, np, args.seed)]
+               check_accumulate(torch, np, args.seed), check_histogram(torch, args.seed)]
     gc.collect()
     torch.cuda.empty_cache()
 

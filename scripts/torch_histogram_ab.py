@@ -60,7 +60,6 @@ def main() -> int:
     ap.add_argument("--json", type=Path, default=None, help="also write the lines here")
     args = ap.parse_args()
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -78,8 +77,8 @@ def main() -> int:
               "other": str(args.other), "rounds": args.rounds}]
     print(json.dumps(lines[0]), flush=True)
     edges = (CTA_BINS, CTA_BINS + 1, 464_896)
-    for name, keys, counts, bins, exact, iters in cs.histogram_inputs(torch, np, args.seed,
-                                                                        edges=edges):
+    for name, keys, counts, bins, exact, iters in cs.histogram_inputs(torch, args.seed,
+                                                                    edges=edges):
         ref = keyed_histogram(keys, counts, bins, impl="ref")
         top = ref.max().item()
         for which, fn in (("this", histogram_kernel), ("other", other)):

@@ -36,11 +36,12 @@ from repro_torch.utils.treeutil import tree_flatten, tree_map, tree_unflatten
 
 
 def restore_for_mesh(ckpt_dir: str, step: int, like_state: dict, mesh: Mesh,
-                     fsdp: FsdpPlan | None = None) -> dict:
+                     fsdp: FsdpPlan | None = None, *, replicate_ssm: bool = False) -> dict:
     """Load ``step`` in the structure of ``like_state`` (``{"params",
     "opt", "step"}``, whole trees) onto ``mesh``'s device. On a model axis,
     this rank's column slices of the parameters and moments (the mesh's
-    `param_specs`, whatever world wrote the files). ``fsdp``: this row's
+    `param_specs`, with ``replicate_ssm`` as the model's, whatever world
+    wrote the files). ``fsdp``: this row's
     parts of them instead (`FsdpPlan` of the mesh's row count, which need
     not be the writer's). Either way the files are memory-mapped and each
     leaf's (under FSDP, each unit's) slice goes to the device on its own,
@@ -53,9 +54,10 @@ def restore_for_mesh(ckpt_dir: str, step: int, like_state: dict, mesh: Mesh,
 
         def local(tree):
             if fsdp is not None:
-                return fsdp.shard_units(lambda name: host_unit(tree, name, mesh.device,
-                                                               size, col))
-            column = shard_model(tree, spec_list(tree, size), size, col)
+                return fsdp.shard_units(lambda name: host_unit(
+                    tree, name, mesh.device, size, col, replicate_ssm=replicate_ssm))
+            specs = spec_list(tree, size, replicate_ssm=replicate_ssm)
+            column = shard_model(tree, specs, size, col)
             return tree_map(lambda a: torch.from_numpy(np.array(a)).to(mesh.device), column)
 
         restored = {"params": local(host["params"]),

@@ -20,23 +20,28 @@ FSDP is ``"auto"``: on where the f32 parameters over ``--model`` pass
 either.
 
 ``--model`` defaults to 2, as the reference's does: tensor parallelism
-over a model axis of that many columns, for the dense family
-(tinyllama-1.1b, qwen1.5-0.5b, qwen2.5-3b, starcoder2-15b) and the MoE
-family (mixtral-8x7b, llama4-scout-17b-a16e: expert parallelism where the
-experts divide the axis, else each expert's ff split); the SSM, hybrid,
-VLM and encoder-decoder families need ``--model 1`` (ROADMAP A8). One 80
-GB card holds, at 16 bytes a parameter for f32 weights and AdamW moments
-(less under FSDP): tinyllama-1.1b and qwen1.5-0.5b on (4, 2); qwen2.5-3b
-on (2, 2) under FSDP; mixtral-8x7b at cut depth (one layer, 1.71e9
-parameters, on (2, 2) under FSDP); llama4-scout-17b-a16e at no depth
-(one layer at full width is ~4.3e9 parameters, 68.3 GB with its
-moments); starcoder2-15b on none (242 GB of state).
+over a model axis of that many columns, for every family: dense
+(tinyllama-1.1b, qwen1.5-0.5b, qwen2.5-3b, starcoder2-15b), MoE
+(mixtral-8x7b, llama4-scout-17b-a16e: expert parallelism where the
+experts divide the axis, else each expert's ff split), SSM (mamba2-130m)
+and hybrid (hymba-1.5b: a Mamba block's projections split,
+`models.ssm.mamba_block`), VLM (pixtral-12b) and encoder-decoder
+(whisper-small: its three attentions split, `models.encdec`). The
+reference's ``REPRO_REPLICATE_SSM=1`` is ``build(cfg, tp=mesh,
+replicate_ssm=True)`` here, with no flag, as the reference has none. One
+80 GB card holds, at 16 bytes a parameter for f32 weights and AdamW
+moments (less under FSDP): mamba2-130m, whisper-small, tinyllama-1.1b
+and qwen1.5-0.5b on (4, 2); hymba-1.5b on (2, 2); qwen2.5-3b on (2, 2)
+under FSDP; mixtral-8x7b at cut depth (one layer, 1.71e9 parameters, on
+(2, 2) under FSDP); llama4-scout-17b-a16e at no depth (one layer at full
+width is ~4.3e9 parameters, 68.3 GB with its moments); pixtral-12b (~198
+GB of state) and starcoder2-15b (242 GB) at cut depth only.
 """
 from __future__ import annotations
 
 import argparse
 
-from repro_torch.launch.mesh import make_host_mesh, spawn
+from repro_torch.launch.mesh import spawn
 
 # seconds the world may take, and any one collective in it
 WORLD_TIMEOUT_S = 3600.0
@@ -57,8 +62,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default="/tmp/repro_launch_train")
     ap.add_argument("--data", type=int, default=4, help="data rows of the world")
     ap.add_argument("--model", type=int, default=2,
-                    help="model-axis columns of the world (tensor parallelism; the dense and MoE "
-                         "families)")
+                    help="model-axis columns of the world (tensor parallelism, every family)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -101,11 +105,7 @@ def train_rank(mesh, args: argparse.Namespace) -> dict:
 
 def main(argv=None) -> list[dict]:
     """Run the launcher's world; returns rank 0's metrics log."""
-    from repro_torch.models.model_zoo import model_axis
-
     args = parse_args(argv)
-    # refuses a model axis for a family that has none, before the world starts
-    model_axis(config(args), make_host_mesh(args.data, args.model, device="cpu"))
     ranks = spawn(train_rank, args.data, model=args.model, device=args.device, args=(args,),
                   timeout_s=WORLD_TIMEOUT_S)
     print(f"done at step {ranks[0]['step']}", flush=True)

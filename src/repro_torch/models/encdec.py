@@ -19,6 +19,19 @@ with ``impl="ref"``, it takes the reference's jnp route:
 `layers.attention_plain` (the causal self-attention above
 `transformer.BLOCKWISE_THRESHOLD` tokens `layers.attention_blockwise`).
 The decode step is plain PyTorch, as the reference's is plain jnp.
+
+On a model axis (``tp``, a rank's `launch.mesh.Mesh`: the training
+forward, `encdec_loss`) a column holds the slices
+`train.sharding.param_specs` gives it: each attention's wq / wk / wv (and
+their biases) column-sharded and wo row-sharded, the MLP's up projection
+column-sharded and its down projection row-sharded, the tables sharded
+where the vocabulary divides the axis. Attention takes the decoder LM's
+route (`transformer.projections_tp`: local heads where both head counts
+divide the axis, else gathered projections; `transformer.attn_out`),
+every row-sharded product
+ends in one all-reduce with its whole bias added once, and the encoder
+memory enters each cross-attention through one `layers.copy_to_model`.
+The residual streams and the memory are whole on every column.
 """
 from __future__ import annotations
 
@@ -33,9 +46,11 @@ from repro_torch.models import layers
 from repro_torch.models.transformer import (
     BLOCKWISE_THRESHOLD,
     KV_BLOCK,
+    attn_out,
     chunked_softmax_xent,
     init_attn,
     lm_logits,
+    projections_tp,
 )
 from repro_torch.utils.treeutil import tree_leaves
 
@@ -112,35 +127,56 @@ def _run(fn, recompute: bool, *args):
     return checkpoint(fn, *args, use_reentrant=False) if recompute else fn(*args)
 
 
-def _mha(cfg, p, hq, hkv, dtype, impl=None):
-    """Non-causal attention of ``hq`` (B, Sq, d) over ``hkv`` (B, Sk, d):
-    the encoder's self-attention and the decoder's cross-attention."""
+def _qkv(cfg, p, hq, hkv, dtype, tp):
+    """q (B, Sq, heads, hd) from ``hq``, k and v from ``hkv``, and whether
+    they hold this column's heads (`transformer.projections_tp` on a model
+    axis; ``hkv`` None: self-attention, from ``hq``)."""
+    if tp is not None:
+        return projections_tp(cfg, p, hq, dtype, tp, hkv)
+    kv_in = hq if hkv is None else hkv
     b, sq, _ = hq.shape
-    sk = hkv.shape[1]
+    sk = kv_in.shape[1]
     hd = cfg.resolved_head_dim
-    scale = 1.0 / math.sqrt(hd)
     q = layers.linear(p["wq"], hq, dtype).reshape(b, sq, cfg.n_heads, hd)
-    k = layers.linear(p["wk"], hkv, dtype).reshape(b, sk, cfg.n_kv_heads, hd)
-    v = layers.linear(p["wv"], hkv, dtype).reshape(b, sk, cfg.n_kv_heads, hd)
+    k = layers.linear(p["wk"], kv_in, dtype).reshape(b, sk, cfg.n_kv_heads, hd)
+    v = layers.linear(p["wv"], kv_in, dtype).reshape(b, sk, cfg.n_kv_heads, hd)
+    return q, k, v, False
+
+
+def _mlp(cfg, p, h, dtype, tp):
+    if tp is None:
+        return layers.apply_mlp(p, h, cfg.mlp_kind, dtype)
+    return layers.apply_mlp_tp(p, h, cfg.mlp_kind, cfg.d_ff, tp, dtype)
+
+
+def _mha(cfg, p, hq, hkv, dtype, impl=None, tp=None):
+    """Non-causal attention of ``hq`` (B, Sq, d) over ``hkv`` (B, Sk, d;
+    None: ``hq`` itself): the encoder's self-attention and the decoder's
+    cross-attention."""
+    b, sq, _ = hq.shape
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    q, k, v, local = _qkv(cfg, p, hq, hkv, dtype, tp)
     if impl is None and q.is_cuda:
         out = flash_ops.mha(q, k, v, causal=False, scale=scale)
     else:
-        zero_mask = torch.zeros((sq, sk), dtype=torch.float32, device=q.device)
+        zero_mask = torch.zeros((sq, k.shape[1]), dtype=torch.float32, device=q.device)
         out = layers.attention_plain(q, k, v, zero_mask, scale)
-    return layers.linear(p["wo"], out.reshape(b, sq, cfg.d_q), dtype)
+    return attn_out(cfg, p, out.reshape(b, sq, -1), local, dtype, tp)
 
 
-def _enc_layer(cfg, p, x, dtype, impl):
+def _enc_layer(cfg, p, x, dtype, impl, tp=None):
     p = layers.unit_params(p)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
-    x = x + _mha(cfg, p["attn"], h, h, dtype, impl)
+    x = x + _mha(cfg, p["attn"], h, None, dtype, impl, tp)
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype)
+    return x + _mlp(cfg, p["mlp"], h2, dtype, tp)
 
 
-def encode(cfg, params: Params, frames: torch.Tensor | None, *, impl: str | None = None):
+def encode(cfg, params: Params, frames: torch.Tensor | None, *, impl: str | None = None,
+           tp=None):
     """frames: (B, n_frames, d) precomputed frontend embeddings -> the
-    encoder memory (B, n_frames, d) in ``cfg.dtype``."""
+    encoder memory (B, n_frames, d) in ``cfg.dtype``; ``tp``: this
+    column's slices on a model axis (module docstring)."""
     if frames is None:
         raise ValueError(f"{cfg.name}: the encoder needs frames=(B, n_frames, d_model) "
                          "frame embeddings (the audio frontend is a stub)")
@@ -151,67 +187,72 @@ def encode(cfg, params: Params, frames: torch.Tensor | None, *, impl: str | None
     x = x + layers.sinusoidal_positions(s, cfg.d_model, x.device).to(dtype)[None]
     recompute = _recompute(params)
     for p in params["enc_layers"]:
-        x = _run(_enc_layer, recompute, cfg, p, x, dtype, impl)
+        x = _run(_enc_layer, recompute, cfg, p, x, dtype, impl, tp)
     return layers.apply_norm(params["enc_norm"], x, cfg.norm_kind, cfg.norm_eps)
 
 
-def _causal_self_attn(cfg, p, h, pos, dtype, impl=None):
+def _causal_self_attn(cfg, p, h, pos, dtype, impl=None, tp=None):
     """Causal decoder self-attention -> (out, k_flat, v_flat), so that a
     prefill can fill the cache: the flash kernel on a CUDA tensor, else
     plain attention (streaming-softmax blocks past
     `BLOCKWISE_THRESHOLD`)."""
     b, s, _ = h.shape
-    hd = cfg.resolved_head_dim
-    scale = 1.0 / math.sqrt(hd)
-    q = layers.linear(p["wq"], h, dtype).reshape(b, s, cfg.n_heads, hd)
-    k = layers.linear(p["wk"], h, dtype).reshape(b, s, cfg.n_kv_heads, hd)
-    v = layers.linear(p["wv"], h, dtype).reshape(b, s, cfg.n_kv_heads, hd)
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    q, k, v, local = _qkv(cfg, p, h, None, dtype, tp)
     if impl is None and q.is_cuda:
         out = flash_ops.mha(q, k, v, causal=True, scale=scale)
     elif s > BLOCKWISE_THRESHOLD:
         out = layers.attention_blockwise(q, k, v, pos, pos, 0, scale, kv_block=KV_BLOCK)
     else:
         out = layers.attention_plain(q, k, v, layers.causal_window_mask(pos, pos, 0), scale)
-    out = layers.linear(p["wo"], out.reshape(b, s, cfg.d_q), dtype)
-    return out, k.reshape(b, s, cfg.d_kv), v.reshape(b, s, cfg.d_kv)
+    out = attn_out(cfg, p, out.reshape(b, s, -1), local, dtype, tp)
+    return out, k.reshape(b, s, -1), v.reshape(b, s, -1)
 
 
-def _dec_layer(cfg, p, x, memory, pos, dtype, impl):
+def _dec_layer(cfg, p, x, memory, pos, dtype, impl, tp=None):
     p = layers.unit_params(p)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
-    attn, kf, vf = _causal_self_attn(cfg, p["attn"], h, pos, dtype, impl)
+    attn, kf, vf = _causal_self_attn(cfg, p["attn"], h, pos, dtype, impl, tp)
     x = x + attn
     hx = layers.apply_norm(p["norm_x"], x, cfg.norm_kind, cfg.norm_eps)
-    x = x + _mha(cfg, p["xattn"], hx, memory, dtype, impl)
+    x = x + _mha(cfg, p["xattn"], hx, memory, dtype, impl, tp)
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_kind, dtype), kf, vf
+    return x + _mlp(cfg, p["mlp"], h2, dtype, tp), kf, vf
 
 
 def decode_train(cfg, params: Params, tokens: torch.Tensor, memory: torch.Tensor,
-                 want_kv: bool = False, *, impl: str | None = None):
+                 want_kv: bool = False, *, impl: str | None = None, tp=None):
     """Teacher-forced decoder pass -> (hidden (B, S, d) post-final-norm,
     per-layer [(k, v)] in the flattened (B, S, d_kv) layout with
-    ``want_kv``, else None)."""
+    ``want_kv``, else None); ``tp`` as in `encode` (k and v are then this
+    column's heads where it holds its own)."""
     _check_impl(impl)
     dtype = cfg.dtype
-    x = layers.embed(params["embed"], tokens, dtype)
+    if tp is not None and params["embed"]["table"].shape[0] != cfg.vocab_size:
+        x = layers.vocab_embed(params["embed"], tokens, tp, dtype)
+    else:
+        x = layers.embed(params["embed"], tokens, dtype)
     s = x.shape[1]
     x = x + layers.sinusoidal_positions(s, cfg.d_model, x.device).to(dtype)[None]
     pos = torch.arange(s, device=x.device)
     recompute = _recompute(params)
     kv = []
     for p in params["dec_layers"]:
-        x, kf, vf = _run(_dec_layer, recompute, cfg, p, x, memory, pos, dtype, impl)
+        x, kf, vf = _run(_dec_layer, recompute, cfg, p, x, memory, pos, dtype, impl, tp)
         if want_kv:
             kv.append((kf, vf))
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     return x, (kv if want_kv else None)
 
 
-def encdec_loss(cfg, params, frames, tokens, labels, mask, *, impl: str | None = None):
-    memory = encode(cfg, params, frames, impl=impl)
-    hidden, _ = decode_train(cfg, params, tokens, memory, impl=impl)
-    return chunked_softmax_xent(cfg, params, hidden, labels, mask)
+def encdec_loss(cfg, params, frames, tokens, labels, mask, *, impl: str | None = None,
+                tp=None):
+    """The mean masked cross-entropy of the decoder's next-token logits;
+    ``tp`` as in `encode` (a vocabulary-sharded ``lm_head`` takes the
+    vocabulary-parallel chunk, `transformer.chunked_softmax_xent`)."""
+    memory = encode(cfg, params, frames, impl=impl, tp=tp)
+    hidden, _ = decode_train(cfg, params, tokens, memory, impl=impl, tp=tp)
+    return chunked_softmax_xent(cfg, params, hidden, labels, mask, tp=tp)
 
 
 # -- decode with caches -----------------------------------------------------------

@@ -31,10 +31,15 @@ world with more than one column gives the model of this rank's column
 (``model.tp``, that mesh): ``init`` and ``init_unit`` draw the
 whole parameters (or unit) from the seed, as one process does, and keep
 this column's slices (`train.sharding.param_specs`), and ``loss`` runs the
-tensor-parallel forward on them. The dense and MoE families have it (an
-MoE layer's experts split over E, or over each expert's ``ff``); the SSM,
-hybrid, VLM and encoder-decoder families on a model axis raise ValueError
-(ROADMAP A8).
+tensor-parallel forward on them. Every family has it: attention and MLPs
+split as the reference's rule splits them (an MoE layer's experts over E,
+or over each expert's ``ff``; a Mamba block's projections,
+`ssm.mamba_block`; an encoder-decoder's three attentions,
+`encdec.encdec_loss`). ``build(cfg, tp=mesh, replicate_ssm=True)`` keeps a
+Mamba block's ``in_proj``, ``conv_w``, ``conv_b``, ``A_log`` and
+``dt_bias`` whole (the reference's ``REPRO_REPLICATE_SSM=1``);
+``Model.specs`` and ``Model.unit_specs`` give the specs with it, for the
+step, the trainer and its checkpoints alike.
 """
 from __future__ import annotations
 
@@ -87,6 +92,19 @@ class Model:
     # the rank's `launch.mesh.Mesh` whose column of the model this is, on a
     # model axis of more than one column; None without one
     tp: Any = None
+    # the reference's REPRO_REPLICATE_SSM: a Mamba block's in_proj, conv and
+    # A_log / dt_bias whole on every column (`train.sharding.spec_for_leaf`)
+    replicate_ssm: bool = False
+
+    def specs(self, tree) -> list[tuple]:
+        """`train.sharding.spec_list` of a whole tree of this model's
+        structure over its model axis (``tp``), with its ``replicate_ssm``."""
+        return sharding.spec_list(tree, self.tp.model_size, replicate_ssm=self.replicate_ssm)
+
+    def unit_specs(self, name: str, unit) -> list[tuple]:
+        """`train.sharding.unit_specs` of one whole unit, as `specs`."""
+        return sharding.unit_specs(name, unit, self.tp.model_size,
+                                   replicate_ssm=self.replicate_ssm)
 
 
 def frontend_key(cfg) -> str | None:
@@ -105,7 +123,7 @@ def _frontend_input(cfg, inputs: dict):
     return inputs.get(key)
 
 
-def _seeded_init(fn, cfg, dev, tp=None):
+def _seeded_init(fn, cfg, dev, tp=None, replicate_ssm: bool = False):
     def init(seed: int | torch.Generator = 0, *, param_dtype=None) -> Params:
         gen = seed
         if not isinstance(seed, torch.Generator):
@@ -113,7 +131,7 @@ def _seeded_init(fn, cfg, dev, tp=None):
         whole = fn(cfg, gen, dev, param_dtype=param_dtype)
         if tp is None:
             return whole
-        specs = sharding.spec_list(whole, tp.model_size)
+        specs = sharding.spec_list(whole, tp.model_size, replicate_ssm=replicate_ssm)
         return sharding.shard_model(whole, specs, tp.model_size, tp.col)
 
     return init
@@ -125,7 +143,8 @@ def _unit_seed(seed: int, index: int) -> int:
     return int(seed) * 1_000_003 + index
 
 
-def _unit_init(fn, cfg, dev, units: tuple[str, ...], tp=None):
+def _unit_init(fn, cfg, dev, units: tuple[str, ...], tp=None,
+               replicate_ssm: bool = False):
     def init_unit(seed: int, unit: str, *, param_dtype=None, device=None) -> Params:
         d = dev if device is None else torch.device(device)
         # a meta tree (shapes alone) draws nothing, from a CPU generator
@@ -134,7 +153,7 @@ def _unit_init(fn, cfg, dev, units: tuple[str, ...], tp=None):
         whole = fn(cfg, unit, gen, d, param_dtype=param_dtype)
         if tp is None:
             return whole
-        specs = sharding.unit_specs(unit, whole, tp.model_size)
+        specs = sharding.unit_specs(unit, whole, tp.model_size, replicate_ssm=replicate_ssm)
         return sharding.shard_model(whole, specs, tp.model_size, tp.col)
 
     return init_unit
@@ -142,30 +161,25 @@ def _unit_init(fn, cfg, dev, units: tuple[str, ...], tp=None):
 
 def model_axis(cfg, tp):
     """``tp`` (a rank's `launch.mesh.Mesh`, or None) where its model axis
-    has more than one column, else None. A model axis of more than one
-    column is ported for the dense and MoE families."""
+    has more than one column, else None."""
     if tp is None or tp.model_size == 1:
         return None
-    if cfg.family not in ("dense", "moe") or cfg.hybrid or cfg.frontend:
-        raise ValueError(f"{cfg.name}: a model axis of {tp.model_size} for the {cfg.family} "
-                         f"family is not ported (ROADMAP A8: the model axis is ported for "
-                         f"the dense and MoE families; the SSM, hybrid, VLM and "
-                         f"encoder-decoder families are left); use a model axis of 1")
     return tp
 
 
-def build(cfg, device=None, *, tp=None) -> Model:
+def build(cfg, device=None, *, tp=None, replicate_ssm: bool = False) -> Model:
     """The model of ``cfg`` on ``device``; ``tp``: the rank's
-    `launch.mesh.Mesh`, for a dense or MoE model on a world of more than
-    one column (this rank's column of the model)."""
+    `launch.mesh.Mesh`, on a world of more than one column (this rank's
+    column of the model); ``replicate_ssm``: the reference's
+    ``REPRO_REPLICATE_SSM=1`` layout of a Mamba block on that axis."""
     dev = resolve_device(device)
     axis = model_axis(cfg, tp)
     if cfg.family == "encdec":
-        return _build_encdec(cfg, dev)
-    return _build_lm(cfg, dev, axis)
+        return _build_encdec(cfg, dev, axis, replicate_ssm)
+    return _build_lm(cfg, dev, axis, replicate_ssm)
 
 
-def _build_lm(cfg, dev, tp=None) -> Model:
+def _build_lm(cfg, dev, tp=None, replicate_ssm: bool = False) -> Model:
     def loss(params, batch, *, route_world=None):
         # the reference's own attention route: the flash kernel has no
         # backward in either package
@@ -205,17 +219,18 @@ def _build_lm(cfg, dev, tp=None) -> Model:
 
     world_metrics = moe.AUX_METRICS if cfg.n_experts else ()
     units = transformer.lm_units(cfg)
-    return Model(cfg, dev, _seeded_init(transformer.init_lm, cfg, dev, tp), prefill,
-                 init_cache, decode_step, decode_step_paged, loss, verify_step,
+    return Model(cfg, dev, _seeded_init(transformer.init_lm, cfg, dev, tp, replicate_ssm),
+                 prefill, init_cache, decode_step, decode_step_paged, loss, verify_step,
                  metrics=tuple(sorted(("ce",) + world_metrics)), world_metrics=world_metrics,
-                 units=units, tp=tp,
-                 init_unit=_unit_init(transformer.init_lm_unit, cfg, dev, units, tp))
+                 units=units, tp=tp, replicate_ssm=replicate_ssm,
+                 init_unit=_unit_init(transformer.init_lm_unit, cfg, dev, units, tp,
+                                      replicate_ssm))
 
 
-def _build_encdec(cfg, dev) -> Model:
+def _build_encdec(cfg, dev, tp=None, replicate_ssm: bool = False) -> Model:
     def loss(params, batch):
         ce = encdec.encdec_loss(cfg, params, batch.get("frames"), batch["tokens"],
-                                batch["labels"], batch["mask"], impl="ref")
+                                batch["labels"], batch["mask"], impl="ref", tp=tp)
         return ce, {"ce": ce}
 
     def init_cache(batch_size: int, max_len: int, n_frames: int | None = None) -> dict:
@@ -245,9 +260,11 @@ def _build_encdec(cfg, dev) -> Model:
         return encdec.decode_step_encdec(cfg, params, cache, token)
 
     units = encdec.encdec_units(cfg)
-    return Model(cfg, dev, _seeded_init(encdec.init_encdec, cfg, dev), prefill, init_cache,
-                 decode_step, None, loss, units=units,
-                 init_unit=_unit_init(encdec.init_encdec_unit, cfg, dev, units))
+    return Model(cfg, dev, _seeded_init(encdec.init_encdec, cfg, dev, tp, replicate_ssm),
+                 prefill, init_cache, decode_step, None, loss, units=units, tp=tp,
+                 replicate_ssm=replicate_ssm,
+                 init_unit=_unit_init(encdec.init_encdec_unit, cfg, dev, units, tp,
+                                      replicate_ssm))
 
 
 def synthetic_batch(cfg, batch: int, seq: int, seed: int = 0, device=None) -> dict:

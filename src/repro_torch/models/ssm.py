@@ -9,6 +9,20 @@ reference: the SSM's own parameters (``A_log``, ``D``, ``dt_bias``,
 ``conv_w``, ``conv_b``) and the recurrent state are f32, the conv cache
 keeps its own dtype (bf16 by default).
 
+On a model axis (``mamba_block``'s ``tp``, the training forward) a
+column holds the slices `train.sharding.param_specs` gives it, read from
+their shapes: ``in_proj`` column-sharded on its flat last dimension (or
+whole, ``replicate_ssm``), ``conv_w``, ``conv_b``, ``A_log``, ``D`` and
+``dt_bias`` sharded on their last (or whole), ``out_proj`` row-sharded.
+The split points z / x / B / C / dt and the heads do not line up with the
+columns, so ``in_proj``'s weight and the small leaves are gathered whole
+where they are used (a column keeps its slices between uses), the input
+projection, the conv, the scan, the norm and the gate run whole on every
+column, and the output projection is row-parallel (one all-reduce). The
+weight is gathered rather than the projection: it is the smaller of the
+two past ``d_model`` tokens a row, and the input's gradient then needs no
+all-reduce.
+
 Shapes (one B/C group, as in mamba2-130m):
   x  : (B, S, H, P)   H = d_inner / head_dim, P = head_dim
   dt : (B, S, H)      positive step sizes (softplus applied by the caller)
@@ -124,35 +138,51 @@ def _split(proj: torch.Tensor, cfg):
     return torch.split(proj, [din, din, n, n, proj.shape[-1] - 2 * din - 2 * n], dim=-1)
 
 
-def _gate_out(p: Params, y: torch.Tensor, z: torch.Tensor, cfg, dtype) -> torch.Tensor:
+def _gate_out(p: Params, y: torch.Tensor, z: torch.Tensor, cfg, dtype,
+              tp=None) -> torch.Tensor:
     """rmsnorm(y) * silu(z), then the output projection (the reference's
-    order; upstream Mamba-2 gates before the norm)."""
+    order; upstream Mamba-2 gates before the norm): row-parallel where
+    ``tp`` shards its rows."""
     y = layers.apply_norm(p["norm"], y, "rms", cfg.norm_eps)
     y = y * F.silu(z.float()).to(y.dtype)
-    return layers.linear(p["out_proj"], y, dtype)
+    if tp is None or p["out_proj"]["w"].shape[0] == cfg.d_inner:
+        return layers.linear(p["out_proj"], y, dtype)
+    return layers.row_parallel(p["out_proj"], layers.split_to_model(y, tp), tp, dtype)
+
+
+def _whole(t: torch.Tensor, n: int, tp) -> torch.Tensor:
+    """``t`` whole on every column: itself where its last dimension is
+    ``n``, else the columns' slices gathered (backward: this column's slice
+    of the whole gradient, which every column computes alike)."""
+    return t if tp is None or t.shape[-1] == n else layers.gather_from_model(t, tp)
 
 
 def mamba_block(p: Params, x: torch.Tensor, cfg, dtype=torch.bfloat16,
-                want_state: bool = False, impl: str | None = None):
-    """Full-sequence Mamba-2 block (prefill). With ``want_state`` also
-    returns the decode cache ({state, conv}) after the sequence. ``impl``
-    forwards to `kernels.ssd_scan.ops.ssd`."""
+                want_state: bool = False, impl: str | None = None, tp=None):
+    """Full-sequence Mamba-2 block (prefill, training). With ``want_state``
+    also returns the decode cache ({state, conv}) after the sequence.
+    ``impl`` forwards to `kernels.ssd_scan.ops.ssd`. ``tp``: the rank's
+    `launch.mesh.Mesh` on a model axis, ``p`` its column's slices (module
+    docstring); the output is whole on every column."""
     # imported here: the kernel family's plain version imports this module
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     bsz, s, _ = x.shape
     din, n, h, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    proj = layers.linear(p["in_proj"], x, dtype)
+    conv_ch = din + 2 * n
+    width = 2 * din + 2 * n + h
+    proj = layers.linear({**p["in_proj"], "w": _whole(p["in_proj"]["w"], width, tp)}, x, dtype)
     z, xin, Bm, Cm, dt = _split(proj, cfg)
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)
-    conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
+    conv_out = _causal_conv(conv_in, _whole(p["conv_w"], conv_ch, tp),
+                            _whole(p["conv_b"], conv_ch, tp))
     xin, Bm, Cm = torch.split(conv_out, [din, n, n], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dt = F.softplus(dt.float() + _whole(p["dt_bias"], h, tp))
+    A = -torch.exp(_whole(p["A_log"], h, tp))
     xh = xin.reshape(bsz, s, h, hd)
     y, final_state = ssd_ops.ssd(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk, impl=impl)
-    y = y + xh * p["D"][None, None, :, None].to(y.dtype)
-    out = _gate_out(p, y.reshape(bsz, s, din), z, cfg, dtype)
+    y = y + xh * _whole(p["D"], h, tp)[None, None, :, None].to(y.dtype)
+    out = _gate_out(p, y.reshape(bsz, s, din), z, cfg, dtype, tp)
     if want_state:
         k = cfg.ssm_conv
         tail = conv_in[:, -(k - 1):]

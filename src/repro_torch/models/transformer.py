@@ -136,48 +136,65 @@ def init_lm_unit(cfg, name: str, gen: torch.Generator, device=None, *,
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _projections_tp(cfg, p, h, dtype, tp):
+def projections_tp(cfg, p, h, dtype, tp, hkv=None):
     """q, k, v as (B, S, heads, hd) under the model axis, and whether they
-    hold this column's heads. Where both head counts divide the axis, each
-    column computes its heads from its column slices of wq/wk/wv (the
-    reference pins attention's heads to ``model``); otherwise the
-    reference's sharding constraint gives up, and each projection whose
-    weight is sharded is computed on the column's slice and gathered, a
-    whole weight on the whole input, so every column holds every head."""
+    hold this column's heads; k and v are projected from ``hkv`` (a
+    cross-attention's memory) where given, else from ``h``. Where both head
+    counts divide the axis, each column computes its heads from its column
+    slices of wq/wk/wv (the reference pins attention's heads to ``model``);
+    otherwise the reference's sharding constraint gives up, and each
+    projection whose weight is sharded is computed on the column's slice
+    and gathered, a whole weight on the whole input, so every column holds
+    every head. Each input enters the sharded products through one
+    `layers.copy_to_model`, so its gradient is summed over the columns once."""
+    kv_in = h if hkv is None else hkv
     b, s, _ = h.shape
+    sk = kv_in.shape[1]
     hd = cfg.resolved_head_dim
     ht = layers.copy_to_model(h, tp)
+    kvt = ht if hkv is None else layers.copy_to_model(hkv, tp)
     m = tp.model_size
-    if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
-        heads = (cfg.n_heads // m, cfg.n_kv_heads // m, cfg.n_kv_heads // m)
-        out = [layers.linear(p[k], ht, dtype).reshape(b, s, n, hd)
-               for k, n in zip(("wq", "wk", "wv"), heads)]
-        return (*out, True)
+    local = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
     out = []
-    for k, width, n in (("wq", cfg.d_q, cfg.n_heads), ("wk", cfg.d_kv, cfg.n_kv_heads),
-                        ("wv", cfg.d_kv, cfg.n_kv_heads)):
-        if p[k]["w"].shape[-1] == width:
-            y = layers.linear(p[k], h, dtype)
+    for k, width, n, x, xt, length in (
+            ("wq", cfg.d_q, cfg.n_heads, h, ht, s),
+            ("wk", cfg.d_kv, cfg.n_kv_heads, kv_in, kvt, sk),
+            ("wv", cfg.d_kv, cfg.n_kv_heads, kv_in, kvt, sk)):
+        if local:
+            y = layers.linear(p[k], xt, dtype)
+            n //= m
+        elif p[k]["w"].shape[-1] == width:
+            y = layers.linear(p[k], x, dtype)
         else:
-            y = layers.gather_from_model(layers.linear(p[k], ht, dtype), tp)
-        out.append(y.reshape(b, s, n, hd))
-    return (*out, False)
+            y = layers.gather_from_model(layers.linear(p[k], xt, dtype), tp)
+        out.append(y.reshape(b, length, n, hd))
+    return (*out, local)
+
+
+def attn_out(cfg, p, out, local: bool, dtype, tp=None):
+    """An attention block's output projection of ``out`` (B, S, heads x hd):
+    under the model axis ``tp``, where ``d_q`` divides the axis, wo's rows
+    are sharded (this column's heads, or its slice of every head's output,
+    into its rows of wo, then one all-reduce); otherwise wo is whole."""
+    if tp is None or p["wo"]["w"].shape[0] == cfg.d_q:
+        return layers.linear(p["wo"], out, dtype)
+    if not local:
+        out = layers.split_to_model(out, tp)
+    return layers.row_parallel(p["wo"], out, tp, dtype)
 
 
 def _attention_full(cfg, p, h, positions, window, dtype, impl=None, tp=None):
     """Returns (attn_out, k_flat, v_flat). ``impl``: None launches the
     flash kernel on a CUDA tensor; "ref" (or a CPU tensor) takes the
     reference's plain/blockwise route. ``tp`` (the rank's
-    `launch.mesh.Mesh`, the training forward on a model axis): `_projections_tp`'s heads; the
-    output projection's rows are sharded where ``d_q`` divides the axis
-    (this column's heads, or its slice of every head's output, into its
-    rows of wo, then one all-reduce), else whole; k/v are then this
-    column's or every head's."""
+    `launch.mesh.Mesh`, the training forward on a model axis):
+    `projections_tp`'s heads and `attn_out`'s output projection; k/v are
+    then this column's or every head's."""
     b, s, _ = h.shape
     hd = cfg.resolved_head_dim
     local = False
     if tp is not None:
-        q, k, v, local = _projections_tp(cfg, p, h, dtype, tp)
+        q, k, v, local = projections_tp(cfg, p, h, dtype, tp)
     else:
         q = layers.linear(p["wq"], h, dtype).reshape(b, s, cfg.n_heads, hd)
         k = layers.linear(p["wk"], h, dtype).reshape(b, s, cfg.n_kv_heads, hd)
@@ -195,12 +212,7 @@ def _attention_full(cfg, p, h, positions, window, dtype, impl=None, tp=None):
         mask = layers.causal_window_mask(positions, positions, window)
         out = layers.attention_plain(q, k, v, mask, scale)
     out = out.reshape(b, s, -1)
-    kf, vf = k.reshape(b, s, -1), v.reshape(b, s, -1)
-    if tp is None or p["wo"]["w"].shape[0] == cfg.d_q:
-        return layers.linear(p["wo"], out, dtype), kf, vf
-    if not local:
-        out = layers.split_to_model(out, tp)
-    return layers.row_parallel(p["wo"], out, tp, dtype), kf, vf
+    return attn_out(cfg, p, out, local, dtype, tp), k.reshape(b, s, -1), v.reshape(b, s, -1)
 
 
 def _ffn(cfg, p, h, dtype, world=None, tp=None):
@@ -215,12 +227,13 @@ def _ffn(cfg, p, h, dtype, world=None, tp=None):
     return layers.apply_mlp(p["mlp"], h, cfg.mlp_kind, dtype), {}
 
 
-def _mamba(cfg, p, h, dtype, want_kv: bool, impl):
+def _mamba(cfg, p, h, dtype, want_kv: bool, impl, tp=None):
     """A layer's Mamba-2 block on its normed input -> (out, SSM decode
-    state after the sequence or None)."""
+    state after the sequence or None); tensor-parallel over ``tp``
+    (`ssm.mamba_block`)."""
     if want_kv:
-        return ssm.mamba_block(p["mamba"], h, cfg, dtype, want_state=True, impl=impl)
-    return ssm.mamba_block(p["mamba"], h, cfg, dtype, impl=impl), None
+        return ssm.mamba_block(p["mamba"], h, cfg, dtype, want_state=True, impl=impl, tp=tp)
+    return ssm.mamba_block(p["mamba"], h, cfg, dtype, impl=impl, tp=tp), None
 
 
 def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl, world=None,
@@ -229,12 +242,12 @@ def _layer_forward(cfg, p, x, positions, window, dtype, want_kv: bool, impl, wor
     p = layers.unit_params(p)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     if cfg.family == "ssm":
-        y, sstate = _mamba(cfg, p, h, dtype, want_kv, impl)
+        y, sstate = _mamba(cfg, p, h, dtype, want_kv, impl, tp)
         return x + y, {}, None, sstate
     attn_out, kf, vf = _attention_full(cfg, p["attn"], h, positions, window, dtype, impl, tp)
     sstate = None
     if cfg.hybrid:  # both paths read the same h; averaged as they come
-        ssm_out, sstate = _mamba(cfg, p, h, dtype, want_kv, impl)
+        ssm_out, sstate = _mamba(cfg, p, h, dtype, want_kv, impl, tp)
         attn_out = (attn_out + ssm_out) * 0.5
     x = x + attn_out
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
@@ -263,12 +276,13 @@ def forward_lm(cfg, params: Params, tokens: torch.Tensor, *, extra_embeds=None,
     ``aux_share``, `moe.apply_moe`); the recompute reads the exchanges the
     forward stashed. ``tp`` (the rank's `launch.mesh.Mesh` of a world of
     more than one column): ``params`` are this
-    column's slices (`train.sharding.param_specs`) of a dense or MoE
-    model, and the forward is the reference's under GSPMD on a model
-    axis, by hand: the embedding looked up in a vocabulary-sharded table,
-    each layer's attention and MLP tensor-parallel, an MoE layer's experts
-    split over the columns (`moe.apply_moe`); the residual stream is whole
-    on every column."""
+    column's slices (`train.sharding.param_specs`), and the forward is the
+    reference's under GSPMD on a model axis, by hand: the embedding looked
+    up in a vocabulary-sharded table (a whole one where the vocabulary does
+    not divide the axis), each layer's attention and MLP tensor-parallel,
+    an MoE layer's experts split over the columns (`moe.apply_moe`), a
+    Mamba block's projections split (`ssm.mamba_block`); the residual
+    stream, and a VLM's patch embeddings, are whole on every column."""
     if cfg.family == "encdec":
         raise ValueError("an encoder-decoder model runs models.encdec, not forward_lm")
     if impl not in (None, "ref"):

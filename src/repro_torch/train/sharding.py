@@ -179,10 +179,11 @@ def param_specs(params: Any, model_size: int, *, replicate_ssm: bool = False) ->
                           spec_list(params, model_size, replicate_ssm=replicate_ssm))
 
 
-def unit_specs(name: str, unit: Any, model_size: int) -> list[tuple]:
+def unit_specs(name: str, unit: Any, model_size: int, *,
+               replicate_ssm: bool = False) -> list[tuple]:
     """The specs of one unit's leaves (`units_of`), in its own flattening
     order."""
-    return spec_list(join_units([(name, unit)]), model_size)
+    return spec_list(join_units([(name, unit)]), model_size, replicate_ssm=replicate_ssm)
 
 
 def model_dim(spec: tuple) -> int | None:
@@ -502,14 +503,17 @@ def model_to_host(tree: Any, specs: list, mesh, keep: bool) -> Any:
     return tree_unflatten(treedef, out) if keep else None
 
 
-def host_unit(host: dict, name: str, device, model_size: int = 1, col: int = 0) -> Any:
+def host_unit(host: dict, name: str, device, model_size: int = 1, col: int = 0, *,
+              replicate_ssm: bool = False) -> Any:
     """Unit ``name`` of a whole host tree (numpy leaves, memory maps
     included, in the port's structure) as tensors on ``device``, column
-    ``col``'s slices of it on a model axis of ``model_size``: one unit's
-    copy is made, not the tree's."""
+    ``col``'s slices of it on a model axis of ``model_size`` (with
+    ``replicate_ssm``, as `spec_for_leaf`): one unit's copy is made, not
+    the tree's."""
     tree = dict(units_of(host))[name]
     if model_size > 1:
-        tree = shard_model(tree, unit_specs(name, tree, model_size), model_size, col)
+        specs = unit_specs(name, tree, model_size, replicate_ssm=replicate_ssm)
+        tree = shard_model(tree, specs, model_size, col)
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
 
 

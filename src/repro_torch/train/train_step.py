@@ -55,10 +55,11 @@ reference's; ``aux_loss`` and ``router_entropy`` are reported as the
 world computed them. The decoupled step is per row in the reference too
 (``shard_map``): each compute row routes its own shard.
 
-The model axis (a world of more than one column, a dense or MoE model
-built with ``tp=mesh``): each rank holds its column's slices of the parameters
-(`train.sharding.param_specs`) and computes the tensor-parallel forward
-and backward (`models.transformer.forward_lm`'s ``tp``). Every mode runs
+The model axis (a world of more than one column, a model of any family
+built with ``tp=mesh``): each rank holds its column's slices of the
+parameters (`train.sharding.param_specs`, with the model's
+``replicate_ssm``) and computes the tensor-parallel forward and backward
+(`models.transformer.forward_lm`'s ``tp``, `models.encdec.encdec_loss`'s). Every mode runs
 as above in each column over the column's data rows (`launch.mesh.Mesh`
 takes data rows in the caller's column): the all-reduce, the
 reduce-scatter and the gathers, ZeRO-1's and FSDP's parts of the
@@ -69,8 +70,7 @@ squares of sharded leaves are summed over the model axis too, those of
 whole leaves over one column (`optimizer.model_axis_norm`). An MoE
 model's experts split over the columns (`models.moe.apply_moe`), and
 each column routes over its own rows (`models.moe.RouteWorld` on the
-column's data rows). Not ported: the model axis for the SSM, hybrid,
-VLM and encoder-decoder families (ROADMAP A8).
+column's data rows).
 """
 from __future__ import annotations
 
@@ -163,14 +163,14 @@ def sharded_leaves(model) -> list[bool] | None:
     or None without one."""
     if model.tp is None:
         return None
-    specs = sharding.spec_list(param_shapes(model, whole=True), model.tp.model_size)
-    return [sharding.model_dim(spec) is not None for spec in specs]
+    return [sharding.model_dim(spec) is not None
+            for spec in model.specs(param_shapes(model, whole=True))]
 
 
 def _unit_flags(model) -> list[list[bool]]:
     """`sharded_leaves` unit by unit (`sharding.units_of`'s order)."""
     return [[sharding.model_dim(spec) is not None
-             for spec in sharding.unit_specs(name, tree, model.tp.model_size)]
+             for spec in model.unit_specs(name, tree)]
             for name, tree in sharding.units_of(param_shapes(model, whole=True))]
 
 

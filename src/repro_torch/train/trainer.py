@@ -41,7 +41,8 @@ the decoupled rows, or, under FSDP, held in parts of a plan that depends
 on the row count alone, which a regroup keeps: nothing migrates, and the
 rebuild is the regroup. The first sample after every (re)build is skipped
 (`CompileGate`): the step updates in place, so it cannot be warmed. The
-adaptive trainer on a model axis is not ported (ROADMAP A8).
+adaptive trainer on a model axis is not ported (ROADMAP A8), for any
+family.
 """
 from __future__ import annotations
 
@@ -114,9 +115,8 @@ class Trainer:
         self.specs = None
         if model.tp is not None:
             whole = param_shapes(model, whole=True)
-            m = model.tp.model_size
-            self.specs = sharding.spec_list(whole, m) if self.fsdp is None else [
-                sharding.unit_specs(n, u, m) for n, u in sharding.units_of(whole)]
+            self.specs = model.specs(whole) if self.fsdp is None else [
+                model.unit_specs(n, u) for n, u in sharding.units_of(whole)]
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int = 0) -> dict:
@@ -292,7 +292,8 @@ class Trainer:
         if self.fsdp is not None or self.specs is not None:
             params = param_shapes(self.model, whole=True)
             like = {"params": params, "opt": init_opt_state(self.opt_cfg, params), "step": 0}
-            return restore_for_mesh(self.cfg.ckpt_dir, step, like, self.mesh, self.fsdp)
+            return restore_for_mesh(self.cfg.ckpt_dir, step, like, self.mesh, self.fsdp,
+                                    replicate_ssm=self.model.replicate_ssm)
         params = tree_meta(like_state["params"])
         like = {"params": params, "opt": init_opt_state(self.opt_cfg, params), "step": 0}
         return ckpt.restore(self.cfg.ckpt_dir, step, like, device=self.model.device)

@@ -59,12 +59,14 @@ def _stacked(cfg) -> dict[str, int]:
     return {"layers": cfg.n_layers}
 
 
-def params_from_numpy(tree: dict, cfg, device, *, param_dtype=None, tp=None) -> dict:
+def params_from_numpy(tree: dict, cfg, device, *, param_dtype=None, tp=None,
+                      replicate_ssm: bool = False) -> dict:
     """The reference's parameter tree (numpy leaves, layers stacked on a
     leading L axis) -> the port's parameters on ``device``. Matmul
     leaves are stored in ``param_dtype``, by default ``cfg.dtype`` (the
     serving path); training passes ``torch.float32`` to keep the
-    reference's f32 leaves as they are. ``tp``: this rank's column slices."""
+    reference's f32 leaves as they are. ``tp``: this rank's column slices
+    (``replicate_ssm``: in that layout of a Mamba block, as the model's)."""
     device = resolve_device(device)
     dtype = cfg.dtype if param_dtype is None else param_dtype
     stacks = _stacked(cfg)
@@ -73,12 +75,13 @@ def params_from_numpy(tree: dict, cfg, device, *, param_dtype=None, tp=None) -> 
     for key, depth in stacks.items():
         out[key] = [_convert(_index(tree[key], i), dtype, device) for i in range(depth)]
     if tp is not None and tp.model_size > 1:
-        out = sharding.shard_model(out, sharding.spec_list(out, tp.model_size),
-                                   tp.model_size, tp.col)
+        specs = sharding.spec_list(out, tp.model_size, replicate_ssm=replicate_ssm)
+        out = sharding.shard_model(out, specs, tp.model_size, tp.col)
     return out
 
 
-def unit_from_numpy(tree: dict, cfg, unit: str, device, *, param_dtype=None, tp=None):
+def unit_from_numpy(tree: dict, cfg, unit: str, device, *, param_dtype=None, tp=None,
+                    replicate_ssm: bool = False):
     """Unit ``unit`` of the port's tree (``embed``, ``layers.i``,
     ``enc_layers.i``, ``dec_layers.i`` or ``rest``, the other top-level
     entries) from the reference's tree, as `params_from_numpy` converts
@@ -95,8 +98,8 @@ def unit_from_numpy(tree: dict, cfg, unit: str, device, *, param_dtype=None, tp=
         key, i = unit.rsplit(".", 1)
         out = _convert(_index(tree[key], int(i)), dtype, device)
     if tp is not None and tp.model_size > 1:
-        out = sharding.shard_model(out, sharding.unit_specs(unit, out, tp.model_size),
-                                   tp.model_size, tp.col)
+        specs = sharding.unit_specs(unit, out, tp.model_size, replicate_ssm=replicate_ssm)
+        out = sharding.shard_model(out, specs, tp.model_size, tp.col)
     return out
 
 

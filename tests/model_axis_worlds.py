@@ -1,4 +1,5 @@
-"""World functions of tests/test_torch_model_axis.py: each runs in every rank
+"""World functions of tests/test_torch_model_axis.py and
+tests/test_torch_model_axis_families.py: each runs in every rank
 of a `repro_torch.launch.mesh.spawn` world of (data, model) ranks on the
 CPU and returns numpy results. This module imports no JAX (the ranks load
 only the port); the test file holds the results against the JAX package.
@@ -11,9 +12,10 @@ and a 3-step AdamW `Trainer` run's losses (the run checkpoints at steps 2
 and 3). The clip cases take the SGD step with ``grad_clip`` small enough
 to bind. An MoE case's decoupled step streams its gradient in
 wire chunks, and its SGD step counts the calls of `chunk_accumulate`'s
-wrapper on each rank, the fold forced to the kernel's route (the card's
+wrapper on each rank (so does a ``count_folds`` case's), the fold forced to the kernel's route (the card's
 default; the CPU's is a scan) so that the wrapper's plain version stands
-in for the kernel. After the cases, the
+in for the kernel. A ``replicate_ssm`` case builds its model so
+(`models.model_zoo.build`). After the cases, the
 ragged-tail layers (`ragged_tail`): one MoE layer's forward and backward
 over a global batch with a ragged tail, routed over the world's rows. A
 second function restores (2, 2) runs' step-2 files onto another world and
@@ -69,9 +71,19 @@ def run_tag(case: dict, fsdp: bool, mode: str) -> str:
 
 def trains_adamw(case: dict, fsdp: bool) -> bool:
     """Whether a run takes the 3-step AdamW trainer: every run of an
-    ``adamw`` case, but an MoE case's without FSDP alone (FSDP's AdamW
-    path for the MoE is held on data rows by tests/test_torch_fsdp.py)."""
-    return bool(case.get("adamw")) and not (fsdp and case.get("moe"))
+    ``adamw`` case, but an MoE or ``adamw_whole`` case's without FSDP alone
+    (FSDP's AdamW path for the MoE is held on data rows by
+    tests/test_torch_fsdp.py)."""
+    return bool(case.get("adamw")) and not (fsdp and (case.get("moe")
+                                                      or case.get("adamw_whole")))
+
+
+def case_model(case: dict, mesh):
+    """The port's model of a case on this rank's column."""
+    from repro_torch.models.model_zoo import build
+
+    return build(case_config(case), device="cpu", tp=mesh,
+                 replicate_ssm=bool(case.get("replicate_ssm")))
 
 
 # the ragged-tail layers: (label, arch, experts), a global batch of TAIL_BATCH
@@ -164,8 +176,8 @@ def _whole(mesh, model, params, plan) -> list:
     if plan is not None:
         params = sharding.FsdpWorld(plan, mesh).gather_all(params)
     if model.tp is not None:
-        specs = sharding.spec_list(param_shapes(model, whole=True), model.tp.model_size)
-        params = sharding.gather_model(params, specs, mesh)
+        params = sharding.gather_model(params, model.specs(param_shapes(model, whole=True)),
+                                       mesh)
     return [_np(x) for x in tree_flatten(params)[0]]
 
 
@@ -176,27 +188,29 @@ def _start(mesh, model, tree, cfg, plan, opt_cfg):
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.utils.convert import params_from_numpy, unit_from_numpy
 
+    kw = dict(param_dtype=torch.float32, tp=mesh, replicate_ssm=model.replicate_ssm)
     if plan is not None:
-        params = plan.shard_units(lambda u: unit_from_numpy(
-            tree, cfg, u, "cpu", param_dtype=torch.float32, tp=mesh))
+        params = plan.shard_units(lambda u: unit_from_numpy(tree, cfg, u, "cpu", **kw))
     else:
-        params = params_from_numpy(tree, cfg, "cpu", param_dtype=torch.float32, tp=mesh)
+        params = params_from_numpy(tree, cfg, "cpu", **kw)
     return params, init_opt_state(opt_cfg, params)
 
 
 @contextlib.contextmanager
-def moe_whole():
-    """Within it, the model axis keeps every MoE leaf whole on every
-    column (`train.sharding.spec_for_leaf` patched): each column then
-    computes the whole MoE layer, with no split of its own (the cases'
-    ``moe_whole``, against which the experts' split is held)."""
+def whole_leaves(key: str):
+    """Within it, the model axis keeps every leaf under ``key`` (``moe``:
+    an MoE layer's; ``mamba``: a Mamba block's) whole on every column
+    (`train.sharding.spec_for_leaf` patched): each column then computes
+    that block whole, with no split of its own (the cases' ``moe_whole``,
+    against which the experts' split is held; tests/model_axis_floor.py's
+    readings)."""
     from repro_torch.train import sharding
 
     spec_for_leaf = sharding.spec_for_leaf
 
     def whole(names, shape, model_size, **kw):
         spec = spec_for_leaf(names, shape, model_size, **kw)
-        return (None,) * len(spec) if "moe" in names else spec
+        return (None,) * len(spec) if key in names else spec
 
     sharding.spec_for_leaf = whole
     try:
@@ -208,16 +222,18 @@ def moe_whole():
 def model_axis_cases(mesh, inputs_path: str, ckpt_root: str, cases: list,
                      tails: tuple = ()) -> dict:
     """For each case, its ``modes`` with FSDP off and, with ``fsdp``, on:
-    the SGD step (``clip``: with ``grad_clip`` `CLIP`; an MoE case's
-    decoupled step with its folds counted), the AdamW trainer (``adamw``)
-    and this rank's stored leaves at step 0, within `moe_whole` where the
-    case says ``moe_whole``; then each of ``tails`` (`TAIL_LAYERS`'
+    the SGD step (``clip``: with ``grad_clip`` `CLIP`; an MoE or
+    ``count_folds`` case's decoupled step with its folds counted), the
+    AdamW trainer (``adamw``) and this rank's stored leaves at step 0,
+    within `whole_leaves` where the case says ``moe_whole`` (the MoE) or
+    names a ``whole`` block; then each of ``tails`` (`TAIL_LAYERS`'
     entries): `ragged_tail`. Torch on one thread a rank."""
     torch.set_num_threads(1)
     inp = dict(np.load(inputs_path))
     out = {"rank": np.int64(mesh.rank), "row": np.int64(mesh.row), "col": np.int64(mesh.col)}
     for case in cases:
-        with moe_whole() if case.get("moe_whole") else contextlib.nullcontext():
+        whole = "moe" if case.get("moe_whole") else case.get("whole")
+        with whole_leaves(whole) if whole else contextlib.nullcontext():
             _model_axis_case(mesh, inp, ckpt_root, case, out)
     for label, arch, n_experts in tails:
         out.update({f"tail/{label}/{k}": v
@@ -228,7 +244,6 @@ def model_axis_cases(mesh, inputs_path: str, ckpt_root: str, cases: list,
 def _model_axis_case(mesh, inp: dict, ckpt_root: str, case: dict, out: dict) -> None:
     """One case of `model_axis_cases`, its results into ``out``."""
     from repro_torch.data.pipeline import row_shard
-    from repro_torch.models.model_zoo import build
     from repro_torch.train import sharding
     from repro_torch.train.train_step import TrainStepConfig, make_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -237,7 +252,7 @@ def _model_axis_case(mesh, inp: dict, ckpt_root: str, case: dict, out: dict) -> 
     n = mesh.n_rows
     label = case["label"]
     cfg = case_config(case)
-    model = build(cfg, device="cpu", tp=mesh)
+    model = case_model(case, mesh)
     tree = unflatten_params(inp, f"{label}/p0/")
     # the stored leaves at step 0: converted, and drawn by the trainer
     stored = _start(mesh, model, tree, cfg, None, sgd_config())[0]
@@ -246,7 +261,7 @@ def _model_axis_case(mesh, inp: dict, ckpt_root: str, case: dict, out: dict) -> 
         for mode in case["modes"]:
             tag = run_tag(case, fsdp, mode)
             pipe = family_pipeline(cfg, case)
-            counted = bool(cfg.n_experts) and mode == "decoupled"
+            counted = bool(cfg.n_experts or case.get("count_folds")) and mode == "decoupled"
             ts = TrainStepConfig(mode=mode, reduce_alpha=FAMILY_ALPHA, fsdp=fsdp,
                                  wire_chunk_bytes=FOLD_CHUNK_BYTES if counted else None)
             runs = [("sgd", sgd_config())]
@@ -298,11 +313,9 @@ def restore_case(mesh, inputs_path: str, ckpt_root: str, restores: list,
     and resumed to step 3 in conventional mode, its keys under the case's
     label."""
     from repro_torch.data.pipeline import row_shard
-    from repro_torch.models.model_zoo import build
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.train_step import TrainStepConfig, make_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    from repro_torch.utils.convert import params_from_numpy
 
     torch.set_num_threads(1)
     inp = dict(np.load(inputs_path))
@@ -310,14 +323,13 @@ def restore_case(mesh, inputs_path: str, ckpt_root: str, restores: list,
     out = {}
     for c in sgd_cases:
         cfg = case_config(c)
-        model = build(cfg, device="cpu", tp=mesh)
+        model = case_model(c, mesh)
         tree = unflatten_params(inp, f"{c['label']}/p0/")
         for mode in c["modes"]:
             pipe = family_pipeline(cfg, c)
             ts = TrainStepConfig(mode=mode, reduce_alpha=FAMILY_ALPHA, fsdp=False)
             step = make_step(model, mesh, sgd_config(), ts)
-            params = params_from_numpy(tree, cfg, "cpu", param_dtype=torch.float32, tp=mesh)
-            opt = init_opt_state(sgd_config(), params)
+            params, opt = _start(mesh, model, tree, cfg, None, sgd_config())
             if mode == "overlap":
                 from repro_torch.train import sharding
 
@@ -330,7 +342,7 @@ def restore_case(mesh, inputs_path: str, ckpt_root: str, restores: list,
     for case, src_tag in restores:
         label = case["label"]
         cfg = case_config(case)
-        model = build(cfg, device="cpu", tp=mesh)
+        model = case_model(case, mesh)
         pipe = family_pipeline(cfg, case)
         src = os.path.join(ckpt_root, src_tag)
         dst = os.path.join(ckpt_root, f"restored_{label}_{n}x{mesh.model_size}")
@@ -342,8 +354,8 @@ def restore_case(mesh, inputs_path: str, ckpt_root: str, restores: list,
         tr = Trainer(model, mesh, pipe, adamw_config(),
                      TrainStepConfig(mode="conventional", reduce_alpha=FAMILY_ALPHA),
                      TrainerConfig(total_steps=FAMILY_STEPS, log_every=1, ckpt_dir=dst))
-        params = params_from_numpy(unflatten_params(inp, f"{label}/p0/"), cfg, "cpu",
-                                   param_dtype=torch.float32, tp=mesh)
+        params = _start(mesh, model, unflatten_params(inp, f"{label}/p0/"), cfg, None,
+                        adamw_config())[0]
         back = tr.restore(CKPT_EVERY, {"params": params})
         out[f"{label}/restored_step"] = np.int64(back["step"])
         for k, tree in (("params", back["params"]), ("m", back["opt"]["m"]),

@@ -990,6 +990,26 @@ def test_chunk_accumulate_kernel_sums_into_a_row_of_its_input(cuda, s):
         accumulate(pair, out=pair.view(-1)[1:s + 1])
 
 
+# the fold of the model axis's decoupled step on mamba2-130m: each column's
+# reducer folds its column of the gradient (64,519,776 f32 elements) packed
+# into 16 wire chunks of 16 MiB (chip_smoke.py's phase 8d (d2), SSM_AXIS_FOLD)
+SSM_AXIS_FOLD = 67_108_864
+
+
+def test_chunk_accumulate_kernel_at_the_ssm_column_fold(cuda):
+    """chunk_accumulate at the shape the model axis's decoupled step gives
+    it for mamba2-130m, summed into the accumulator's row as the stream
+    channel calls it: one launch, bit for bit the plain version's sum."""
+    gen = torch.Generator(device=cuda).manual_seed(SSM_AXIS_FOLD)
+    pair = torch.randn((2, SSM_AXIS_FOLD), generator=gen, device=cuda)
+    want = accumulate(pair, impl="ref")
+    before = chunk_accumulate_kernel.launches
+    got = accumulate(pair, out=pair[0])
+    torch.cuda.synchronize()
+    assert chunk_accumulate_kernel.launches == before + 1
+    assert got.data_ptr() == pair.data_ptr() and torch.equal(pair[0], want)
+
+
 def test_chunk_accumulate_kernel_takes_an_unaligned_view(cuda):
     x = torch.randn((2, 4097), device=cuda)[:, 1:]  # rows not 16-byte aligned
     got = accumulate(x)

@@ -47,10 +47,7 @@ step 0, its column's slice of the reference's tree by the reference's
 ``param_specs`` (and FSDP's part of that slice), bit for bit; the restored
 state against the files bit for bit.
 """
-import dataclasses
-import json
 import os
-import threading
 
 import jax
 import jax.numpy as jnp
@@ -59,6 +56,11 @@ import pytest
 import torch
 
 import train_family_common as common
+from model_axis_common import RESTORE_WORLDS, run_worlds
+from model_axis_common import case_leaves as _case_leaves
+from model_axis_common import leaf_names as _leaf_names
+from model_axis_common import reference_slices as _reference_slices
+from model_axis_common import unflatten_like as _unflatten_like
 from model_axis_worlds import (
     CKPT_EVERY,
     CLIP,
@@ -70,23 +72,19 @@ from model_axis_worlds import (
     TAIL_LAYERS,
     TAIL_SEQ,
     case_config,
-    model_axis_cases,
-    restore_case,
     run_tag,
     tail_layer,
     trains_adamw,
 )
 from repro.configs import get as j_get
-from repro.configs import get_smoke as j_get_smoke
 from repro.models import build as j_build
-from repro.train import sharding as j_sharding
 from repro_torch.configs import get, get_smoke
-from repro_torch.launch.mesh import Mesh, make_host_mesh, spawn
+from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.models.model_zoo import build
 from repro_torch.train import sharding
 from repro_torch.train.train_step import TrainStepConfig, param_shapes, use_fsdp
 from repro_torch.utils.treeutil import tree_flatten
-from torch_worlds import ADAMW_LR, FAMILY_ALPHA, FAMILY_STEPS
+from torch_worlds import FAMILY_STEPS
 
 SELF_REL = 1e-6
 # the same for the embedding table of the MoE smoke configs, the one leaf
@@ -123,7 +121,6 @@ MOE_WHOLE_CASE = dict(MOE_CASES[0], label="mixtral-whole-16", adamw=False, fsdp=
                       moe_whole=True)
 CKPT_CASE = CASES[2]  # qwen2.5-3b: its (2, 2) conventional AdamW run's files
 MOE_CKPT_CASE = MOE_CASES[0]  # mixtral: the same
-RESTORE_WORLDS = ((2, 1), (1, 2))
 RUNS = [(c, fsdp, m) for c in CASES for fsdp in ((False, True) if c.get("fsdp") else (False,))
         for m in c["modes"]]
 RUN_IDS = [f"{c['label']}-{'fsdp' if f else 'whole'}-{m}" for c, f, m in RUNS]
@@ -131,159 +128,14 @@ RUN_IDS = [f"{c['label']}-{'fsdp' if f else 'whole'}-{m}" for c, f, m in RUNS]
 JAX_RUNS = [(r, i) for r, i in zip(RUNS, RUN_IDS) if not (r[0].get("moe") and r[2] == "decoupled")]
 MOE_DECOUPLED = [(r, i) for r, i in zip(RUNS, RUN_IDS) if r[0].get("moe") and r[2] == "decoupled"]
 
-JAX_MODEL_AXIS = """
-import dataclasses, json, os
-import jax, jax.numpy as jnp, numpy as np
-from repro.configs import get_smoke
-from repro.data.pipeline import DataConfig, Pipeline
-from repro.launch.mesh import make_host_mesh
-from repro.models import build
-from repro.train.optimizer import OptConfig, init_opt_state
-from repro.train.train_step import TrainStepConfig, make_jitted_step
-from repro.train.trainer import Trainer, TrainerConfig
-cases = json.loads({cases!r})
-n, compute = {data}, {compute}
-mesh = make_host_mesh({data}, {model})
-def sgd(clip):
-    return OptConfig(kind="sgdm", lr=1.0, beta1=0.0, warmup_steps=0, grad_clip=clip,
-                     weight_decay=0.0, min_lr_ratio=1.0, total_steps=1)
-adamw = OptConfig(lr={lr}, warmup_steps=0, total_steps={steps})
-out = {{}}
-
-def flat(tree, prefix):
-    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        out[prefix + "/".join(k.key for k in path)] = np.asarray(leaf)
-
-def batch_of(pipe, mode, step):
-    return pipe.padded_for_groups(step, compute, n) if mode == "decoupled" else \\
-        pipe.global_batch(step)
-
-class Padded:  # the decoupled layout's batches as a conventional trainer takes them
-    def __init__(self, pipe):
-        self.pipe = pipe
-    def global_batch(self, step):
-        return self.pipe.padded_for_groups(step, compute, n)
-
-with jax.set_mesh(mesh):
-    for c in cases:
-        cfg = dataclasses.replace(get_smoke(c["name"]), dtype=jnp.float32)
-        if c.get("n_kv_heads"):
-            cfg = dataclasses.replace(cfg, n_kv_heads=c["n_kv_heads"])
-        if c.get("n_experts"):
-            cfg = dataclasses.replace(cfg, n_experts=c["n_experts"])
-        model = build(cfg)
-        params = model.init(jax.random.PRNGKey(0))
-        flat(params, c["label"] + "/p0/")
-        pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=c["seq"],
-                                   global_batch=c["batch"], seed=1, kind="zipf", skew=0.4))
-        for fsdp in ((False, True) if c.get("fsdp") else (False,)):
-            for mode in c["modes"]:
-                if c.get("moe") and mode == "decoupled":  # held to the port's own step
-                    continue
-                tag = c["label"] + "/" + ("fsdp" if fsdp else "whole") + "/" + mode
-                # the decoupled step: the conventional step on its layout's batch
-                ts = TrainStepConfig(mode="conventional" if mode == "decoupled" else mode,
-                                     reduce_alpha={alpha}, fsdp=fsdp)
-                # an MoE case's clip run is held to its own SGD run alone
-                runs = [("sgd", 0.0)] + ([("clip", {clip})]
-                                         if c.get("clip") and not c.get("moe") else [])
-                for name, clip in runs:
-                    step, sh = make_jitted_step(model, mesh, sgd(clip), ts,
-                                                jax.eval_shape(lambda: params),
-                                                batch_of(pipe, mode, 0), donate=False)
-                    p, o, m = step(jax.device_put(params, sh[0]),
-                                   jax.device_put(init_opt_state(sgd(clip), params), sh[1]),
-                                   batch_of(pipe, mode, 0))
-                    flat(p, tag + "/" + name + "/new/")
-                    out[tag + "/" + name + "/loss"] = np.asarray(m["loss"])
-                if not c.get("adamw") or (fsdp and c.get("moe")):  # trains_adamw
-                    continue
-                tr = Trainer(model, mesh, Padded(pipe) if mode == "decoupled" else pipe,
-                             adamw, ts,
-                             TrainerConfig(total_steps={steps}, ckpt_every={ckpt_every},
-                                           log_every=1,
-                                           ckpt_dir=os.path.join({tmp!r}, tag)))
-                start = jax.tree.map(jnp.copy, params)
-                tr.run({{"params": start, "opt": init_opt_state(adamw, start), "step": 0}},
-                       resume=False)
-                tr.close()
-                out[tag + "/adamw/loss"] = np.asarray([r["loss"] for r in tr.metrics_log])
-np.savez({outputs!r}, **out)
-print("OK")
-"""
-
-
-def _reference_config(case: dict):
-    """The reference's f32 smoke config of a case, with its overrides."""
-    cfg = dataclasses.replace(j_get_smoke(case["name"]), dtype=jnp.float32)
-    overrides = {k: case[k] for k in ("n_kv_heads", "n_experts") if case.get(k)}
-    return dataclasses.replace(cfg, **overrides)
-
-
-def _reference_p0(case: dict) -> dict:
-    """The reference's initial parameters of a case, as the subprocess
-    draws them, keyed as its outputs are."""
-    params = j_build(_reference_config(case)).init(jax.random.PRNGKey(0))
-    return {f"{case['label']}/p0/" + "/".join(k.key for k in path): np.asarray(leaf)
-            for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]}
-
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """The reference's runs in one JAX subprocess beside the port's (2, 2)
     world, then the (2, 1) and (1, 2) worlds restoring its checkpoint."""
-    from conftest import run_multidevice
-
-    tmp = tmp_path_factory.mktemp("model_axis")
-    inputs = str(tmp / "inputs.npz")
-    p0 = {}
-    for case in CASES + [MOE_WHOLE_CASE]:
-        p0.update(_reference_p0(case))
-    np.savez(inputs, **p0)
-    jax_path = str(tmp / "jax.npz")
-    compute = DATA - max(1, int(round(FAMILY_ALPHA * DATA)))
-    code = JAX_MODEL_AXIS.format(cases=json.dumps(CASES), data=DATA, model=MODEL,
-                                 compute=compute, lr=ADAMW_LR, steps=FAMILY_STEPS,
-                                 alpha=FAMILY_ALPHA, clip=CLIP, ckpt_every=CKPT_EVERY,
-                                 tmp=str(tmp / "jax_ckpt"), outputs=jax_path)
-    failed = []
-
-    def reference():
-        try:
-            run_multidevice(code, n_devices=DATA * MODEL, timeout=900)
-        except BaseException as exc:  # re-raised on the test's thread
-            failed.append(exc)
-
-    thread = threading.Thread(target=reference)
-    thread.start()
-    try:
-        ckpt = str(tmp / "ckpt")
-        port = spawn(model_axis_cases, DATA, model=MODEL, device="cpu",
-                     args=(inputs, ckpt, CASES + [MOE_WHOLE_CASE], TAIL_LAYERS),
-                     timeout_s=900)
-        restores = [(c, run_tag(c, False, "conventional")) for c in (CKPT_CASE, MOE_CKPT_CASE)]
-        restored = {}
-        for data, model in RESTORE_WORLDS:
-            sgd_cases = CASES if (data, model) == (DATA, 1) else []
-            restored[(data, model)] = spawn(restore_case, data, model=model, device="cpu",
-                                            args=(inputs, ckpt, restores, sgd_cases),
-                                            timeout_s=600)
-    finally:
-        thread.join()
-    if failed:
-        raise failed[0]
-    return {"jax": dict(np.load(jax_path)), "port": port, "restored": restored, "ckpt": ckpt,
-            "p0": p0}
-
-
-def _case_leaves(tree_np: dict, case: dict, prefix: str) -> list:
-    """The reference's tree under ``prefix`` as the port's whole leaves."""
-    from repro_torch.utils.convert import params_from_numpy
-    from torch_worlds import unflatten_params
-
-    tree = params_from_numpy(unflatten_params(tree_np, prefix), case_config(case), "cpu",
-                             param_dtype=torch.float32)
-    return [t.numpy() for t in tree_flatten(tree)[0]]
+    restores = tuple((c, run_tag(c, False, "conventional")) for c in (CKPT_CASE, MOE_CKPT_CASE))
+    return run_worlds(tmp_path_factory.mktemp("model_axis"), CASES,
+                      port_only=(MOE_WHOLE_CASE,), tails=TAIL_LAYERS, restores=restores)
 
 
 # -- against the reference ----------------------------------------------------------
@@ -375,11 +227,6 @@ def test_clip_counts_the_whole_router_once(world, mode):
 
 
 # -- against the port's one-column step ----------------------------------------------
-
-def _leaf_names(case: dict) -> list:
-    shapes = param_shapes(build(case_config(case), device="meta"))
-    return [".".join(n) for n, _ in sharding._leaf_paths(shapes)]
-
 
 @pytest.mark.parametrize("case,mode", [(c, m) for c in CASES for m in c["modes"]],
                          ids=[f"{c['label']}-{m}" for c in CASES for m in c["modes"]])
@@ -484,36 +331,6 @@ def test_ragged_tail_matches_one_process(world, label, arch, n_experts):
 
 # -- what each rank holds -------------------------------------------------------------
 
-def _reference_slices(case: dict, whole: list, col: int, ported: list | None = None) -> list:
-    """Column ``col``'s slices of the port's whole leaves by the reference's
-    own ``param_specs`` of its stacked tree (the port's spec code unused),
-    but for the port rule of `sharding.spec_list`: where the reference
-    shards a stacked leaf's ``L`` (llama4's shared expert ``w_gate`` and
-    ``w_up``), the port slices its last dimension, ff (the leaf's path
-    appended to ``ported``)."""
-    like = jax.eval_shape(j_build(_reference_config(case)).init, jax.random.PRNGKey(0))
-    specs = j_sharding.param_specs(like, MODEL)
-    shapes = param_shapes(build(case_config(case), device="meta"))
-    out = []
-    for (names, depth), leaf in zip(sharding._leaf_paths(shapes), whole):
-        spec = specs
-        for k in names:
-            spec = spec[k]
-        spec = tuple(spec) + (None,) * (leaf.ndim + (depth is not None) - len(tuple(spec)))
-        if depth is not None and spec[0] == "model":
-            if ported is not None:
-                ported.append(".".join(names))
-            spec = (None,) * (leaf.ndim - 1) + ("model",)
-        else:
-            spec = spec[1:] if depth is not None else spec
-        if "model" not in spec:
-            out.append(leaf)
-            continue
-        d = spec.index("model")
-        out.append(np.split(leaf, MODEL, axis=d)[col])
-    return out
-
-
 @pytest.mark.parametrize("case", CASES, ids=[c["label"] for c in CASES])
 def test_each_rank_holds_its_param_specs_slice(world, case):
     """At step 0 each rank's leaves are its column's slice of the whole
@@ -554,13 +371,6 @@ def test_each_rank_holds_its_param_specs_slice(world, case):
                 parts.append(flat[int(rank["row"]) * part:(int(rank["row"]) + 1) * part])
             assert np.concatenate(parts).tobytes() == \
                 rank[f"{run_tag(case, True, MODES[0])}/parts"].tobytes()
-
-
-def _unflatten_like(case: dict, leaves: list) -> dict:
-    shapes = param_shapes(build(case_config(case), device="meta"))
-    from repro_torch.utils.treeutil import tree_unflatten
-
-    return tree_unflatten(tree_flatten(shapes)[1], leaves)
 
 
 # -- checkpoints ------------------------------------------------------------------------
@@ -675,18 +485,29 @@ def test_moe_family_builds_on_the_model_axis(name):
 
 
 @pytest.mark.parametrize("name", ["mamba2-130m", "hymba-1.5b", "pixtral-12b", "whisper-small"])
-def test_other_families_refuse_the_model_axis(name):
-    """A model axis of 2 on any family but the dense and MoE ones raises ValueError
-    naming ROADMAP A8 and the family, at `build` and in the launcher before
-    its world starts; one column builds as before."""
-    from repro_torch.launch.train import main as launch_main
+def test_every_family_builds_on_the_model_axis(name):
+    """The SSM, hybrid, VLM and encoder-decoder families build on a model
+    axis of 2 (``model_axis`` gives the mesh, ``model.tp`` is it): every
+    rank's leaves, drawn whole and sliced, have its specs' slice shapes
+    (the default layout and ``replicate_ssm``'s); one column builds as
+    before. Their steps are held in tests/test_torch_model_axis_families.py."""
+    from repro_torch.models.model_zoo import model_axis
 
     cfg = get_smoke(name)
-    with pytest.raises(ValueError, match="ROADMAP A8") as err:
-        build(cfg, device="cpu", tp=make_host_mesh(2, 2, device="cpu"))
-    assert cfg.family in str(err.value)
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        launch_main(["--arch", name, "--smoke", "--device", "cpu", "--data", "2"])
+    mesh = make_host_mesh(2, 2, device="cpu")
+    assert model_axis(cfg, mesh) is mesh
+    whole = param_shapes(build(cfg, device="meta"))
+    leaves = tree_flatten(whole)[0]
+    for replicate_ssm in (False, True):
+        specs = sharding.spec_list(whole, MODEL, replicate_ssm=replicate_ssm)
+        assert any(sharding.model_dim(s) is not None for s in specs)
+        for col in range(MODEL):
+            rank = Mesh(n_rows=2, row=1, col=col, model_size=MODEL, device="cpu")
+            model = build(cfg, device="cpu", tp=rank, replicate_ssm=replicate_ssm)
+            assert model.tp is rank and model.replicate_ssm == replicate_ssm
+            got = tree_flatten(model.init(0, param_dtype=torch.float32))[0]
+            want = [sharding.model_shard(x, s, MODEL, col) for x, s in zip(leaves, specs)]
+            assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
     assert build(cfg, device="cpu", tp=make_host_mesh(2, 1, device="cpu")).tp is None
 
 

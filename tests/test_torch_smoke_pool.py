@@ -46,3 +46,36 @@ def test_rank_pool_runs_worlds_one_after_another_on_the_same_processes():
     finally:
         pool.close()
     assert not any(p.is_alive() for p in pool.procs)
+
+
+def read_flat_file(mesh, path: str) -> dict:
+    import numpy as np
+
+    waited = chip_smoke.wait_for_file(path, timeout_s=60)
+    return {"row": mesh.row, "waited": waited, "flat": np.load(path).tolist()}
+
+
+def test_a_world_started_before_its_file_reads_the_file_whole(tmp_path):
+    """`RankPool.start` returns while the world runs: the parent writes a
+    one-process file after the start (`write_units`, unit by unit, moved
+    into place whole), each rank waits for it (`wait_for_file`) and reads
+    every unit's leaves in order; `wait` then takes the results."""
+    import numpy as np
+    import torch
+
+    params = {"embed": {"table": torch.arange(6.0).reshape(2, 3)},
+              "layers": [{"w": torch.full((2,), 10.0)}, {"w": torch.full((2,), 20.0)}],
+              "final_norm": {"scale": torch.tensor([7.0])}}
+    path = str(tmp_path / "step.npy")
+    pool = chip_smoke.RankPool(2, device="cpu")
+    try:
+        world = pool.start(read_flat_file, 2, args=(path,), timeout_s=120)
+        assert not os.path.exists(path)
+        chip_smoke.write_units(np, params, path)
+        ranks = pool.wait(world)
+    finally:
+        pool.close()
+    want = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 10.0, 10.0, 20.0, 20.0, 7.0]
+    assert [r["row"] for r in ranks] == [0, 1]
+    assert all(r["flat"] == want for r in ranks)
+    assert not os.path.exists(path + ".part")

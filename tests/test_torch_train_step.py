@@ -31,7 +31,6 @@ from repro_torch.models.model_zoo import build, synthetic_batch
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import value_and_grad
 from repro_torch.launch.mesh import Mesh, make_host_mesh, spawn
-from repro_torch.launch.train import main as launch_main
 from repro_torch.launch.train import parse_args
 from repro_torch.utils.convert import params_from_numpy
 from repro_torch.utils.treeutil import tree_flatten, tree_leaves
@@ -147,10 +146,11 @@ def test_model_loss_without_autograd_needs_no_checkpoint():
 
 
 def test_unported_modes_and_options_are_refused():
-    """What is still unported raises naming its ROADMAP item: a model axis
-    for any family but the dense and MoE ones (A8; theirs, at the
-    launcher's default ``--model 2``, are held against the reference in
-    tests/test_torch_model_axis.py, and the MoE family builds on one here). Every family now trains: the MoE, hybrid, VLM and
+    """What is still unported raises naming its ROADMAP item: the adaptive
+    trainer and the in-memory reshard on a model axis (A8). Every family
+    builds on a model axis, at the launcher's default ``--model 2`` (held
+    against the reference in tests/test_torch_model_axis.py and
+    tests/test_torch_model_axis_families.py). Every family now trains: the MoE, hybrid, VLM and
     encoder-decoder models build their step in each mode, and the
     reference's ``runtime_skip``, ``zero1``, ``fsdp`` and
     ``fsdp_threshold`` options are fields of `TrainStepConfig`, FSDP's
@@ -161,10 +161,12 @@ def test_unported_modes_and_options_are_refused():
     fleet moves its global layout on the host, tests/test_torch_fleet.py).
     Checkpoints, the conventional and overlap steps over many rows and
     adaptive sizing are ported (tests/test_torch_trainer.py)."""
+    from repro_torch.core.adapt import AdaptPolicy
     from repro_torch.core.groups import GroupedMesh
     from repro_torch.launch.elastic import reshard_state
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import TrainStepConfig, make_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
 
     with pytest.raises(ValueError, match="one gloo world has one size"):
         reshard_state({"x": torch.zeros(4)},
@@ -172,14 +174,18 @@ def test_unported_modes_and_options_are_refused():
                       GroupedMesh.build_rows(Mesh(n_rows=4, device="cpu"), rows={"reduce": 1}))
     assert make_host_mesh(4, 2, device="cpu").shape == {"data": 4, "model": 2}
     assert parse_args(["--smoke", "--device", "cpu"]).model == 2
-    for name in ("mixtral-8x7b", "llama4-scout-17b-a16e"):
+    for name in ("mixtral-8x7b", "llama4-scout-17b-a16e", "hymba-1.5b", "whisper-small",
+                 "pixtral-12b", "mamba2-130m"):
         mesh = make_host_mesh(4, 2, device="cpu")
         assert build(get_smoke(name), device="cpu", tp=mesh).tp is mesh
-    for name in ("hymba-1.5b", "whisper-small", "pixtral-12b", "mamba2-130m"):
-        with pytest.raises(ValueError, match="ROADMAP A8"):
-            build(get_smoke(name), device="cpu", tp=make_host_mesh(4, 2, device="cpu"))
-        with pytest.raises(ValueError, match="ROADMAP A8"):
-            launch_main(["--arch", name, "--smoke", "--device", "cpu", "--model", "2"])
+    mesh = make_host_mesh(4, 2, device="cpu")
+    model = build(get_smoke("hymba-1.5b"), device="cpu", tp=mesh)
+    with pytest.raises(ValueError, match="ROADMAP A8"):
+        Trainer(model, mesh, None, OptConfig(), TrainStepConfig(mode="decoupled"),
+                TrainerConfig(adapt=AdaptPolicy()))
+    g = GroupedMesh.build_rows(mesh, rows={"reduce": 1})
+    with pytest.raises(ValueError, match="ROADMAP A8"):
+        reshard_state({"x": torch.zeros(4)}, g, g)
     fields = {f.name for f in dataclasses.fields(TrainStepConfig)}
     assert {"runtime_skip", "zero1", "fsdp", "fsdp_threshold"} <= fields
     assert (TrainStepConfig().fsdp, TrainStepConfig().fsdp_threshold) == ("auto", 6e9)
